@@ -4,18 +4,26 @@
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch/CUDA
    versions;
-2. builds every kernel of the serving path from `deepspeed_tpu_torch/csrc/`
+2. builds every kernel of the serving paths from `deepspeed_tpu_torch/csrc/`
    with `nvcc`, all at once;
 3. holds each kernel against its plain PyTorch version in bf16 at the
    serving shapes, and times the kernel, the plain version and one PyTorch
    library call for the same function with CUDA events;
-4. serves Llama-3-8B at full width and depth with random bf16 weights:
-   `forward` on 4 x 512 tokens, greedy `generate` of 64 tokens (the main
-   path, whose kernel launches are counted), a sampled `generate`, the
-   last decode step's logits against `forward` on the generated sequence,
-   and a 2-layer model of the same width against the plain versions in f32
-   on the CPU;
-5. prints one JSON line of kernels, then the result line.
+4. serves Llama-3-8B at full width and depth with random bf16 weights
+   through v1 (`init_inference`): `forward` on 4 x 512 tokens, greedy
+   `generate` of 64 tokens (the v1 main path, whose kernel launches are
+   counted), a sampled `generate`, the last decode step's logits against
+   `forward` on the generated sequence;
+5. serves the same model through v2 (`InferenceEngineV2`, the paged cache):
+   traffic A, 96 prompts of 256 tokens and 64 greedy new tokens each over a
+   96-block pool (the v2 main path, whose launches are counted), four rows'
+   last decode step against v1 `forward`, and a profile of the decode step;
+   traffic B, 16 prompts sharing a 512-token system prompt, a 900-token
+   prompt put in split-fuse chunks while rows decode, a fork with
+   copy-on-write, and a prefix-shared prompt against sharing off;
+6. holds a 2-layer model of the same width on the card in bf16 against the
+   plain versions on the CPU in f32, through v1 and through v2;
+7. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing a result. Details go to chiprun_out/chip_smoke.json.
@@ -29,6 +37,7 @@ import pathlib
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
@@ -47,6 +56,13 @@ REFERENCE_RTOL = 0.04    # bf16 on the card vs f32 on the CPU, 2 layers
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+# v2 serving: the JAX package's on-chip fastgen row (bench.py), paged cache
+# of 96 blocks x 256 tokens (3.2 GB at Llama-3-8B), 64 sequence rows
+BS, T, NB = 256, 4, 96
+V2 = dict(max_batch=64, max_seq_len=T * BS, cache_block_size=BS, num_cache_blocks=NB,
+          split_fuse_chunk=256, prefix_sharing=True)
+TRAFFIC_A = (96, 256, 64)        # prompts, prompt tokens, new tokens
+WATCH = (0, 1, 48, 95)           # traffic A rows whose last step is held against v1
 
 
 def log(*args):
@@ -127,6 +143,123 @@ def check_decode(gen):
                     qt, kt, vt, attn_mask=mask, enable_gqa=True)))
 
 
+def paged_inputs(rng, gen, blocks_per_row):
+    """bf16 pools (Hkv, NB, BS, D) and (B, T) tables: a seeded permutation
+    of the pool handed out row by row, -1 tails."""
+    perm, used = rng.permutation(NB), 0
+    tables = np.full((len(blocks_per_row), T), -1, np.int32)
+    for row, n in enumerate(blocks_per_row):
+        tables[row, :n] = perm[used:used + n]
+        used += n
+    assert used <= NB
+    return (randn((HKV, NB, BS, D), gen), randn((HKV, NB, BS, D), gen), tables,
+            torch.from_numpy(tables).cuda())
+
+
+def kv_bytes(tables, spans) -> int:
+    """Bytes of K and V that attention over `spans` ((lo, hi) logical
+    positions per row) reads, each pool row once: table entries clamp into
+    the pool, as the kernels clamp them."""
+    rows = [np.clip(tables[b, np.arange(lo, hi) // BS], 0, NB - 1) * BS
+            + np.arange(lo, hi) % BS for b, (lo, hi) in enumerate(spans) if hi > lo]
+    n = np.unique(np.concatenate(rows)).size if rows else 0
+    return n * HKV * D * 2 * 2
+
+
+def dense_view(pool, tables_t):
+    """(B, Hkv, T·BS, D) logical view through the clamped tables, for SDPA."""
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import _gather
+    return _gather(pool, tables_t).transpose(0, 1).contiguous()
+
+
+def check_paged_decode(gen, rng, staged, window=None):
+    """K3 at the serving shape: 64 rows, 32 of one block and 31 of two with
+    ragged lengths, one parked row (cursor at the capacity, table all -1)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    b = 64
+    lengths_np = np.concatenate([rng.integers(1, BS + 1, 32), rng.integers(BS + 1, 2 * BS + 1, 31),
+                                 [T * BS + 1]]).astype(np.int32)
+    k_pool, v_pool, tables, tables_t = paged_inputs(
+        rng, gen, [-(-int(n) // BS) for n in lengths_np[:-1]] + [0])
+    lengths = torch.from_numpy(lengths_np).cuda()
+    q = randn((b, 1, H, D), gen)
+    k_new, v_new = (randn((b, HKV, D), gen), randn((b, HKV, D), gen)) if staged else (None, None)
+    kw = dict(k_new=k_new, v_new=v_new, window=window)
+    out = pa.paged_decode_attention(q, k_pool, v_pool, tables_t, lengths, **kw)
+    ref = pa.paged_decode_attention_plain(q, k_pool, v_pool, tables_t, lengths, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= KERNEL_TOL, (staged, window, err)
+    qpos = lengths_np.astype(np.int64) - 1
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(b, np.int64)
+    hi = np.minimum(lengths_np - int(staged), T * BS)
+    keys = int(np.maximum(hi - lo, 0).sum()) + (b if staged else 0)
+    nbytes = (kv_bytes(tables, zip(lo, hi)) + (q.numel() + out.numel()) * 2
+              + tables.size * 4 + b * 4 + (2 * b * HKV * D * 2 if staged else 0))
+    bound_ms, bound_by = bound(nbytes, 4.0 * D * H * keys)
+    # SDPA over the gathered dense view (staged column appended), as a yardstick
+    dk, dv = dense_view(k_pool, tables_t), dense_view(v_pool, tables_t)
+    cols = torch.arange(T * BS, device="cuda")[None, :]
+    mask = (cols >= torch.from_numpy(lo).cuda()[:, None]) & (cols < torch.from_numpy(hi).cuda()[:, None])
+    if staged:
+        dk = torch.cat([dk, k_new[:, :, None]], dim=2)
+        dv = torch.cat([dv, v_new[:, :, None]], dim=2)
+        mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
+    qt = q.transpose(1, 2)
+    return dict(shape=f"B={b} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} staged={staged} "
+                      f"window={window} keys={keys}",
+                max_abs_err=err,
+                ms=cuda_ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, tables_t,
+                                                             lengths, **kw)),
+                plain_ms=cuda_ms(lambda: pa.paged_decode_attention_plain(
+                    q, k_pool, v_pool, tables_t, lengths, **kw)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, dk, dv, attn_mask=mask[:, None, None, :], enable_gqa=True)))
+
+
+def check_paged_prefill(gen, rng, window=None):
+    """K4 at the serving shape: 16 rows of S = 256 new tokens at starts 0,
+    256, 300 (unaligned), 512 and 768, and one parked row."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    b, s = 16, 256
+    starts_np = np.asarray([(0, 256, 300, 512, 768)[i % 5] for i in range(b - 1)]
+                           + [T * BS], np.int32)
+    k_pool, v_pool, tables, tables_t = paged_inputs(
+        rng, gen, [-(-(int(st) + s) // BS) for st in starts_np[:-1]] + [0])
+    starts = torch.from_numpy(starts_np).cuda()
+    q = randn((b, s, H, D), gen)
+    out = pa.paged_prefill_attention(q, k_pool, v_pool, tables_t, starts, window=window)
+    ref = pa.paged_prefill_attention_plain(q, k_pool, v_pool, tables_t, starts, window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out).all() and err <= KERNEL_TOL, (window, err)
+    qpos = starts_np.astype(np.int64)[:, None] + np.arange(s)[None, :]          # (B, S)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
+    hi = np.minimum(qpos + 1, T * BS)
+    keys = int(np.maximum(hi - lo, 0).sum())
+    nbytes = (kv_bytes(tables, zip(lo[:, 0], hi[:, -1])) + (q.numel() + out.numel()) * 2
+              + tables.size * 4 + b * 4)
+    bound_ms, bound_by = bound(nbytes, 4.0 * D * H * keys)
+    dk, dv = dense_view(k_pool, tables_t), dense_view(v_pool, tables_t)
+    cols = torch.arange(T * BS, device="cuda")[None, None, :]
+    mask = (cols >= torch.from_numpy(lo).cuda()[..., None]) & \
+        (cols < torch.from_numpy(hi).cuda()[..., None])
+    qt = q.transpose(1, 2)
+    return dict(shape=f"B={b} S={s} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} "
+                      f"starts={sorted(set(starts_np.tolist()))} window={window} keys={keys}",
+                max_abs_err=err,
+                ms=cuda_ms(lambda: pa.paged_prefill_attention(q, k_pool, v_pool, tables_t,
+                                                              starts, window=window)),
+                plain_ms=cuda_ms(lambda: pa.paged_prefill_attention_plain(
+                    q, k_pool, v_pool, tables_t, starts, window=window), iters=5),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, dk, dv, attn_mask=mask[:, None], enable_gqa=True)))
+
+
 def llama(cfg, seed):
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, init_params
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
@@ -144,13 +277,12 @@ def rel_max_err(got, ref) -> float:
     return ((got - ref).abs().max() / ref.abs().max()).item()
 
 
-def serve(report):
+def serve(report, model):
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.llama import llama_config
     from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
-    cfg = llama_config("llama3-8b")
-    engine = deepspeed_tpu_torch.init_inference(llama(cfg, SEED), dtype="bf16")
+    cfg = model.cfg
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16")
     acc = engine.accelerator
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
@@ -243,7 +375,11 @@ def profile_decode(engine, ids, steps: int = 8):
                 tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, steps, wall_us)
 
+
+def profile_summary(prof, steps, wall_us):
+    """Step time, device time and launches per step, and the top kernels."""
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0.0)
@@ -259,9 +395,215 @@ def profile_decode(engine, ids, steps: int = 8):
                           launches_per_step=e.count / steps) for e in top])
 
 
+def v2_engine(model, **overrides):
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    return InferenceEngineV2(model, **{**V2, **overrides})
+
+
+def instrument(engine, watch=()):
+    """Count the engine's decode steps and chunk (prefill) calls, and keep
+    the latest decode-step logits of the `watch` uids while they are live."""
+    calls, last = {"decode_steps": 0, "chunk_calls": 0}, {}
+    decode_step, chunk_batch = engine._decode_step, engine._chunk_batch
+    sm = engine.state_manager
+
+    def counted_decode(tokens, active):
+        logits = decode_step(tokens, active)
+        calls["decode_steps"] += 1
+        for uid in watch:
+            if sm.known_sequence(uid):
+                last[uid] = logits[sm.get_sequence(uid).slot].clone()
+        return logits
+
+    def counted_chunk(*args):
+        calls["chunk_calls"] += 1
+        return chunk_batch(*args)
+
+    engine._decode_step, engine._chunk_batch = counted_decode, counted_chunk
+    return calls, last
+
+
+def kernel_launches():
+    from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from deepspeed_tpu_torch.ops.cuda.paged_attention import (
+        paged_decode_attention, paged_prefill_attention)
+    return (flash_attention_fwd, decode_attention, paged_decode_attention,
+            paged_prefill_attention)
+
+
+def read_launches():
+    return {fn.__name__: fn.launches for fn in kernel_launches()}
+
+
+def zero_launches():
+    for fn in kernel_launches():
+        fn.launches = 0
+
+
+def serve_v2(report, model):
+    """Traffic A (the v2 main path): 96 prompts of 256 random tokens, 64
+    greedy new tokens each, after one warm-up call. The pool holds 48
+    sequences of 320 tokens, so admission waits on blocks."""
+    import deepspeed_tpu_torch
+    cfg = model.cfg
+    L, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    n, plen, new = TRAFFIC_A
+    rng = np.random.default_rng(SEED + 10)
+    engine = v2_engine(model)
+    calls, last = instrument(engine, WATCH)
+    engine.generate(rng.integers(0, vocab, (1, plen)).tolist(), max_new_tokens=4)
+    prompts = rng.integers(0, vocab, (n, plen)).tolist()
+
+    # the main path: counted launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    calls.update(decode_steps=0, chunk_calls=0)
+    last.clear()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    assert all(len(o) == plen + new and o[:plen] == p for o, p in zip(out, prompts))
+    assert launches == {"flash_attention_fwd": 0, "decode_attention": 0,
+                        "paged_decode_attention": L * calls["decode_steps"],
+                        "paged_prefill_attention": L * calls["chunk_calls"]}, (launches, calls)
+    timing = engine.last_timing
+    ttft = sorted(rec["first"] for rec in timing.values())
+    span = max(rec["done"] for rec in timing.values())
+    generated = sum(rec["new_tokens"] for rec in timing.values())
+    assert generated == n * new
+    kv_util_peak, counters = engine._kv_util_peak, dict(engine.serving_counters)
+    calls = dict(calls)       # the main path's; the profile below adds steps
+
+    # four rows' last decode step against v1 forward on the generated sequence
+    v1 = deepspeed_tpu_torch.init_inference(model, dtype="bf16")
+    full = v1.forward([out[u][:-1] for u in WATCH])[:, -1]
+    errs = [rel_err(last[u], full[i]) for i, u in enumerate(WATCH)]
+    assert all(int(last[u].float().argmax()) == out[u][-1] for u in WATCH)
+    assert max(errs) <= CONSISTENCY_RTOL, errs
+    del v1, full
+    report["v2_decode_profile"] = profile_v2_decode(engine, rng)
+    del engine
+    torch.cuda.empty_cache()
+    report["serve_v2"] = dict(
+        card=report["card"], model="llama3-8b (random bf16 weights, seed 0)",
+        engine=dict(V2), prompts=n, prompt_tokens=plen, new_tokens=new,
+        wall_s=wall_s, tok_s=generated / wall_s, decode_tok_s=generated / span,
+        ttft_min_s=ttft[0], ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+        kv_util_peak=kv_util_peak, peak_memory_bytes=peak, decode_steps=calls["decode_steps"],
+        chunk_calls=calls["chunk_calls"], serving_counters=counters, launches=launches,
+        last_step_vs_v1_forward_rel_rms_err=errs)
+    return launches, calls
+
+
+def profile_v2_decode(engine, rng, rows: int = 48, steps: int = 8):
+    """Device time by kernel over `steps` v2 decode steps with `rows` live
+    rows of 256-token prompts (traffic A's steady state), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    vocab = engine.model_cfg.vocab_size
+    uids = list(range(1000, 1000 + rows))
+    first = engine.put(uids, [rng.integers(0, vocab, 256) for _ in uids], argmax_only=True)
+    tokens = np.zeros((engine.max_batch, 1), np.int64)
+    active = np.zeros((engine.max_batch,), bool)
+    slots = []
+    for uid in uids:
+        seq = engine.state_manager.get_sequence(uid)
+        tokens[seq.slot, 0], active[seq.slot] = first[uid], True
+        slots.append(seq.slot)
+        engine._reserve(seq, seq.seen_tokens + 2 * steps)
+    engine._maybe_sync_tables()
+    with torch.inference_mode():
+        engine._decode_wave(2, tokens, active, slots, uids)       # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine._decode_wave(steps, tokens, active, slots, uids)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    for uid in uids:
+        engine.flush(uid)
+    return dict(live_rows=rows, max_batch=engine.max_batch,
+                **profile_summary(prof, steps, wall_us))
+
+
+def serve_v2_shared(report, model):
+    """Traffic B: prefix sharing, split-fuse while rows decode, fork with
+    copy-on-write, and a prefix-shared prompt against sharing off."""
+    cfg = model.cfg
+    L, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.default_rng(SEED + 20)
+    engine = v2_engine(model)
+    bm = engine.block_manager
+    system = rng.integers(0, vocab, 512).tolist()
+    # one request commits the system prompt's two full blocks
+    engine.generate([system + rng.integers(0, vocab, 64).tolist()], max_new_tokens=4)
+    hits0 = bm.prefix_hits
+    users = [system + rng.integers(0, vocab, 64).tolist() for _ in range(16)]
+    t0 = time.perf_counter()
+    out = engine.generate(users, max_new_tokens=16)
+    torch.cuda.synchronize()
+    users_s = time.perf_counter() - t0
+    assert all(len(o) == len(u) + 16 and o[:len(u)] == u for o, u in zip(out, users))
+    assert bm.prefix_hits - hits0 == len(users), bm.prefix_hits
+
+    # a 900-token prompt put while four rows decode: split-fuse chunks
+    live = [200, 201, 202, 203]
+    first = engine.put(live, [rng.integers(0, vocab, 100) for _ in live], argmax_only=True)
+    toks = {u: int(first[u]) for u in live}
+    long_prompt = rng.integers(0, vocab, 900)
+    zero_launches()
+    rounds = 0
+    while True:
+        feeds = [np.asarray([toks[u]]) for u in live]
+        outs = engine.put(live + ([300] if rounds == 0 else []),
+                          feeds + ([long_prompt] if rounds == 0 else []), argmax_only=True)
+        rounds += 1
+        toks.update({u: int(outs[u]) for u in live})
+        if 300 in outs:
+            break
+    fused = read_launches()
+    assert rounds == 4 and fused["paged_decode_attention"] == L * rounds \
+        and fused["paged_prefill_attention"] == L * rounds, (rounds, fused)
+
+    # fork a live sequence mid-block; parent and child fed the same token
+    cow0 = bm.cow_copies
+    engine.fork(200, 400)
+    both = engine.put([200, 400], [np.asarray([toks[200]])] * 2)
+    assert bm.cow_copies == cow0 + 1
+    assert np.array_equal(both[200], both[400]), "fork logits differ"
+    fork_tables = (engine.state_manager.get_sequence(200).blocks,
+                   engine.state_manager.get_sequence(400).blocks)
+
+    # a prefix-shared prompt against the same prompt with sharing off
+    query = system + rng.integers(0, vocab, 64).tolist()
+    shared = engine.put([500], [np.asarray(query)])[500]
+    assert bm.prefix_hits - hits0 == len(users) + 1
+    counters = dict(prefix_hits=bm.prefix_hits, prefix_tokens_reused=bm.prefix_tokens_reused,
+                    cow_copies=bm.cow_copies, shared_blocks=bm.shared_blocks)
+    del engine
+    torch.cuda.empty_cache()
+    plain = v2_engine(model, max_batch=4, num_cache_blocks=8, prefix_sharing=False)
+    got = plain.put([500], [np.asarray(query)])
+    while 500 not in got:
+        got = plain.put([], [])
+    shared_err = rel_err(torch.from_numpy(shared), torch.from_numpy(got[500]))
+    assert shared_err <= CONSISTENCY_RTOL, shared_err
+    del plain
+    torch.cuda.empty_cache()
+    report["serve_v2_shared"] = dict(
+        users=len(users), system_tokens=len(system), users_wall_s=users_s,
+        split_fuse_rounds=rounds, fused_round_launches=fused, fork_tables=fork_tables,
+        fork_logits_bitwise_equal=True, shared_vs_unshared_rel_rms_err=shared_err,
+        **counters)
+
+
 def reference(report):
     """Two layers at full width: the card in bf16 against the plain
-    versions on the CPU in f32, on the same weights."""
+    versions on the CPU in f32, on the same weights, through v1 and v2."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config
     cfg = llama_config("llama3-8b", num_hidden_layers=2)
@@ -286,11 +628,42 @@ def reference(report):
     err_step = rel_err(steps[-1], ref[:, -1])
     assert max(err_fwd, err_prefill, err_step) <= REFERENCE_RTOL, \
         (err_fwd, err_prefill, err_step)
-    del gpu
-    torch.cuda.empty_cache()
     report["reference"] = dict(forward_rel_rms_err=err_fwd,
                                prefill_rel_rms_err=err_prefill,
                                last_decode_step_rel_rms_err=err_step)
+    report["reference_v2"] = reference_v2(gpu.module, cpu.module, ids.numpy())
+    del gpu
+    torch.cuda.empty_cache()
+
+
+def reference_v2(gpu_model, cpu_model, ids, steps: int = 8):
+    """v2 on the card in bf16 against v2 on the CPU in f32: the prefill
+    logits of two prompts, then `steps` decode steps fed the card's greedy
+    tokens, on the same 2-layer weights."""
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    kw = dict(max_batch=4, max_seq_len=512, cache_block_size=BS, num_cache_blocks=8,
+              split_fuse_chunk=256)
+    gpu = InferenceEngineV2(gpu_model, **kw)
+    cpu = InferenceEngineV2(cpu_model, config={"dtype": "fp32"}, device="cpu", **kw)
+    uids = list(range(len(ids)))
+    g = gpu.put(uids, list(ids))
+    c = cpu.put(uids, list(ids))
+    err_prefill = max(rel_err(torch.from_numpy(g[u]), torch.from_numpy(c[u])) for u in uids)
+    for _ in range(steps):
+        feeds = [np.asarray([int(np.argmax(g[u]))]) for u in uids]
+        g, c = gpu.put(uids, feeds), cpu.put(uids, feeds)
+    err_step = max(rel_err(torch.from_numpy(g[u]), torch.from_numpy(c[u])) for u in uids)
+    assert max(err_prefill, err_step) <= REFERENCE_RTOL, (err_prefill, err_step)
+    del gpu, cpu
+    return dict(prefill_rel_rms_err=err_prefill, last_decode_step_rel_rms_err=err_step,
+                decode_steps=steps)
+
+
+def kernel_row(name, source, replaces, launches, check):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches,
+                **{k: check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")})
 
 
 def main() -> int:
@@ -305,45 +678,64 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    t_start = time.perf_counter()
 
     from deepspeed_tpu_torch.op_builder import build_all
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    libraries = [fa.LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY, pa.PREFILL_LIBRARY]
     t0 = time.perf_counter()
-    build_all([fa.LIBRARY, da.LIBRARY])
+    build_all(libraries)
     report["build_s"] = time.perf_counter() - t0
     print(f"built kernels in {report['build_s']:.1f} s", flush=True)
-    for lib in (fa.LIBRARY, da.LIBRARY):
+    for lib in libraries:
         log(lib.build_log)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
     flash = [check_flash(gen, True, PROMPT, PROMPT), check_flash(gen, True, 128, 640),
              check_flash(gen, False, PROMPT, PROMPT)]
     decode = check_decode(gen)
-    report["flash_attention_fwd"], report["decode_attention"] = flash, decode
-    for row in flash + [decode]:
+    # K3: the main path's staged call first, then unstaged and windowed
+    paged_decode = [check_paged_decode(gen, rng, staged=True),
+                    check_paged_decode(gen, rng, staged=False),
+                    check_paged_decode(gen, rng, staged=True, window=300)]
+    paged_prefill = [check_paged_prefill(gen, rng), check_paged_prefill(gen, rng, window=300)]
+    report.update(flash_attention_fwd=flash, decode_attention=decode,
+                  paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill)
+    for row in flash + [decode] + paged_decode + paged_prefill:
         print(json.dumps(row), flush=True)
 
-    launches = serve(report)
+    from deepspeed_tpu_torch.models.llama import llama_config
+    model = llama(llama_config("llama3-8b"), SEED)
+    v1_launches = serve(report, model)
+    v2_launches, _ = serve_v2(report, model)
+    serve_v2_shared(report, model)
+    del model
+    torch.cuda.empty_cache()
     reference(report)
-    print(json.dumps(report["serve"]), flush=True)
-    print(json.dumps(report["reference"]), flush=True)
-    print(json.dumps(report["decode_profile"]), flush=True)
+    report["wall_s"] = time.perf_counter() - t_start
+    for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
+                "reference", "reference_v2"):
+        print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
-        dict(name="flash_attention_fwd", route="cuda",
-             source="deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
-             replaces="deepspeed_tpu/ops/pallas/flash_attention.py:593",
-             launches=launches["flash_attention_fwd"],
-             **{k: flash[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}),
-        dict(name="decode_attention", route="cuda",
-             source="deepspeed_tpu_torch/csrc/decode_attention.cu",
-             replaces="deepspeed_tpu/ops/pallas/decode_attention.py:103",
-             launches=launches["decode_attention"],
-             **{k: decode[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}),
+        kernel_row("flash_attention_fwd", "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+                   "deepspeed_tpu/ops/pallas/flash_attention.py:593",
+                   v1_launches["flash_attention_fwd"], flash[0]),
+        kernel_row("decode_attention", "deepspeed_tpu_torch/csrc/decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/decode_attention.py:103",
+                   v1_launches["decode_attention"], decode),
+        kernel_row("paged_decode_attention", "deepspeed_tpu_torch/csrc/paged_decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/paged_attention.py:159",
+                   v2_launches["paged_decode_attention"], paged_decode[0]),
+        kernel_row("paged_prefill_attention",
+                   "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
+                   "deepspeed_tpu/ops/pallas/paged_attention.py:366",
+                   v2_launches["paged_prefill_attention"], paged_prefill[0]),
     ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)

@@ -24,6 +24,21 @@ from deepspeed_tpu_torch.utils.logging import logger
 CACHE_LEN_MULTIPLE = 128  # the cache length is rounded up to a multiple of this
 
 
+def _cache_dims(cfg) -> tuple:
+    """(num_layers, kv_heads, head_dim) from a model config (duck-typed
+    over llama/gpt2/falcon naming)."""
+    layers = getattr(cfg, "num_hidden_layers", None) or getattr(cfg, "n_layer")
+    heads = (getattr(cfg, "num_key_value_heads", None)
+             or getattr(cfg, "num_kv_heads", None)
+             or getattr(cfg, "num_attention_heads", None) or getattr(cfg, "n_head"))
+    head_dim = getattr(cfg, "head_dim", None)
+    if head_dim is None:
+        hidden = getattr(cfg, "hidden_size", None) or getattr(cfg, "n_embd")
+        n_attn = getattr(cfg, "num_attention_heads", None) or getattr(cfg, "n_head")
+        head_dim = hidden // n_attn
+    return int(layers), int(heads), int(head_dim)
+
+
 class InferenceEngine:
     """Generation wrapper over a model (`nn.Module` with a `cfg`).
 

@@ -1,12 +1,19 @@
-"""Dense static-shape KV cache (counterpart of ``deepspeed_tpu/inference/kv_cache.py``).
+"""KV caches (counterpart of ``deepspeed_tpu/inference/kv_cache.py``).
 
-Layout: (num_layers, batch, max_len, kv_heads, head_dim) with per-row
-cursors `index` (B,): row b holds `index[b]` valid tokens. Validity is a
-position mask (`decode_mask`), not a dynamic length.
+Dense (`KVCache`): (num_layers, batch, max_len, kv_heads, head_dim) with
+per-row cursors `index` (B,): row b holds `index[b]` valid tokens. Validity
+is a position mask (`decode_mask`), not a dynamic length.
 
-Unlike the JAX package, whose arrays are immutable, `update_layer` writes
-into the cache in place: the tensors a `KVCache` holds are the cache, and a
-forward through it changes them.
+Block-paged (`PagedKVCache`, the v2 engine's layout): per layer a pool of
+physical blocks (Hkv, NB, BS, D) and per-row block tables (B, T) that map
+logical block j of row b onto a pool block; -1 marks an unowned entry.
+
+Unlike the JAX package, whose arrays are immutable, every write here lands
+in place with no host sync: the tensors a cache holds are the cache, and a
+forward through it changes them. JAX's `mode="drop"` writes (past a row's
+capacity, through a -1 table entry) go to a trash block that sits after the
+last layer's pool in the same storage and that no table can name, so the
+pools themselves hold exactly what the JAX package's hold.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -50,6 +58,205 @@ class KVCache:
             index, dtype=torch.int32, device=self.index.device))
 
 
+@dataclasses.dataclass
+class PagedLayer:
+    """One layer's view of a `PagedKVCache`: its pool, the block tables and
+    its staged decode token. Every tensor aliases the stacked cache.
+
+    `stage` (B, Hkv, D) or None: with staging on (the v2 engine's decode),
+    a single-token `update_layer` writes the new K/V here instead of into
+    the pool; attention folds it in, and `PagedKVCache.apply_stage` lands
+    every layer's staged token with one scatter per pool. Multi-token writes
+    (prefill, chunks) go to the pool.
+
+    `blocks` is the storage behind the pool, (L·Hkv·NB + 1, BS, D): pool
+    block (h, n) of this layer is `blocks[base + h·NB + n]`, and the last
+    block is the trash block that dropped writes land in."""
+
+    pool: torch.Tensor                    # (Hkv, NB, BS, D)
+    tables: torch.Tensor                  # (B, T) int32
+    stage: Optional[torch.Tensor] = None  # (B, Hkv, D)
+    blocks: Optional[torch.Tensor] = None
+    base: int = 0
+    # every write cursor is a multiple of BS (a host-side fact the engine
+    # knows); None means "look", which syncs on a CUDA tensor
+    aligned: Optional[bool] = None
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-paged KV cache with one set of (B, T) block tables shared by K,
+    V and every layer (the JAX package keeps a broadcast copy per layer and
+    side; the values are the same). Duck-typed to `KVCache`: `index`,
+    `max_len`, `replace`."""
+
+    k_blocks: torch.Tensor               # (L·Hkv·NB + 1, BS, D)
+    v_blocks: torch.Tensor
+    tables: torch.Tensor                 # (B, T) int32
+    index: torch.Tensor                  # (B,) int32
+    k_stage: Optional[torch.Tensor]      # (L, B, Hkv, D) or None
+    v_stage: Optional[torch.Tensor]
+    num_layers: int
+    kv_heads: int
+    aligned: Optional[bool] = None
+
+    @property
+    def block_size(self) -> int:
+        return self.k_blocks.shape[1]
+
+    @property
+    def head_dim(self) -> int:
+        return self.k_blocks.shape[2]
+
+    @property
+    def num_blocks(self) -> int:
+        return (self.k_blocks.shape[0] - 1) // (self.num_layers * self.kv_heads)
+
+    @property
+    def max_len(self) -> int:
+        """Logical capacity per sequence: T · BS."""
+        return self.tables.shape[1] * self.block_size
+
+    def _pool(self, blocks: torch.Tensor) -> torch.Tensor:
+        return blocks[:-1].view(self.num_layers, self.kv_heads, self.num_blocks,
+                                self.block_size, self.head_dim)
+
+    @property
+    def k_pool(self) -> torch.Tensor:
+        """(L, Hkv, NB, BS, D) view of the K pools."""
+        return self._pool(self.k_blocks)
+
+    @property
+    def v_pool(self) -> torch.Tensor:
+        return self._pool(self.v_blocks)
+
+    @classmethod
+    def create(cls, num_layers: int, batch: int, max_len: int, kv_heads: int,
+               head_dim: int, num_blocks: int, block_size: int = 256,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None,
+               staged: bool = False) -> "PagedKVCache":
+        t = -(-max_len // block_size)  # logical blocks per sequence
+        n = num_layers * kv_heads * num_blocks + 1
+
+        def stage():
+            return (torch.zeros((num_layers, batch, kv_heads, head_dim),
+                                dtype=dtype, device=device) if staged else None)
+
+        return cls(
+            k_blocks=torch.zeros((n, block_size, head_dim), dtype=dtype, device=device),
+            v_blocks=torch.zeros((n, block_size, head_dim), dtype=dtype, device=device),
+            tables=torch.full((batch, t), -1, dtype=torch.int32, device=device),
+            index=torch.zeros((batch,), dtype=torch.int32, device=device),
+            k_stage=stage(), v_stage=stage(),
+            num_layers=num_layers, kv_heads=kv_heads)
+
+    def replace(self, **changes) -> "PagedKVCache":
+        return dataclasses.replace(self, **changes)
+
+    def layer(self, i: int) -> Tuple[PagedLayer, PagedLayer]:
+        """Layer i's K and V views."""
+        base = i * self.kv_heads * self.num_blocks
+
+        def view(blocks, stage):
+            return PagedLayer(pool=self._pool(blocks)[i], tables=self.tables,
+                              stage=None if stage is None else stage[i],
+                              blocks=blocks, base=base, aligned=self.aligned)
+
+        return view(self.k_blocks, self.k_stage), view(self.v_blocks, self.v_stage)
+
+    def with_tables(self, tables) -> "PagedKVCache":
+        """Install new (B, T) block tables, in place."""
+        self.tables.copy_(torch.as_tensor(np.asarray(tables, np.int32)))
+        return self
+
+    def apply_stage(self) -> "PagedKVCache":
+        """Land every layer's staged decode token in the pool with one
+        scatter per pool. Call right after a staged single-token model step:
+        each staged token belongs at `index[b] − 1` (the model has advanced
+        the cursors). Parked rows and unowned entries drop. No-op without
+        staging."""
+        if self.k_stage is None:
+            return self
+        lh, nb, bs = self.num_layers * self.kv_heads, self.num_blocks, self.block_size
+        t = self.tables.shape[1]
+        dev = self.tables.device
+        pos = self.index.long() - 1
+        phys = self.tables.long().gather(1, (pos // bs).clamp(0, t - 1)[:, None])[:, 0]
+        valid = (pos >= 0) & (pos < t * bs) & (phys >= 0)
+        heads = torch.arange(lh, device=dev)[:, None]
+        rows = (heads * nb + phys[None]) * bs + (pos % bs)[None]      # (L·Hkv, B)
+        rows = torch.where(valid[None], rows, (lh * nb) * bs).reshape(-1)
+        for blocks, stage in ((self.k_blocks, self.k_stage),
+                              (self.v_blocks, self.v_stage)):
+            vals = stage.permute(0, 2, 1, 3).reshape(-1, self.head_dim)  # (L·Hkv·B, D)
+            blocks.view(-1, self.head_dim).index_copy_(0, rows, vals.to(blocks.dtype))
+        return self
+
+
+def _trash(layer: PagedLayer) -> int:
+    if layer.blocks is None:
+        raise ValueError("a PagedLayer written to must be a view of a PagedKVCache")
+    return layer.blocks.shape[0] - 1
+
+
+def _token_scatter(layer: PagedLayer, new: torch.Tensor, index: torch.Tensor) -> None:
+    hkv, nb, bs, d = layer.pool.shape
+    t = layer.tables.shape[1]
+    s = new.shape[1]
+    dev = new.device
+    pos = index.long()[:, None] + torch.arange(s, device=dev)[None, :]   # (B, S)
+    phys = layer.tables.long().gather(1, (pos // bs).clamp(0, t - 1))
+    # drop: parked rows (past capacity) and unowned entries (-1)
+    valid = (pos < t * bs) & (phys >= 0)
+    heads = torch.arange(hkv, device=dev)[:, None, None]
+    rows = (layer.base + heads * nb + phys[None]) * bs + (pos % bs)[None]  # (Hkv, B, S)
+    rows = torch.where(valid[None], rows, _trash(layer) * bs)
+    vals = new.permute(2, 0, 1, 3).reshape(-1, d).to(layer.blocks.dtype)
+    layer.blocks.view(-1, d).index_copy_(0, rows.reshape(-1), vals)
+
+
+def _block_scatter(layer: PagedLayer, new: torch.Tensor, index: torch.Tensor) -> None:
+    """S == BS and every cursor block-aligned: each row's piece fills one
+    block, so whole (BS, D) slabs are written."""
+    hkv, nb, bs, d = layer.pool.shape
+    t = layer.tables.shape[1]
+    idx = index.long()
+    phys = layer.tables.long().gather(1, (idx // bs).clamp(0, t - 1)[:, None])[:, 0]
+    ok = (idx < t * bs) & (phys >= 0)
+    heads = torch.arange(hkv, device=new.device)[:, None]
+    blk = torch.where(ok[None], layer.base + heads * nb + phys[None], _trash(layer))
+    vals = new.permute(2, 0, 1, 3).reshape(-1, bs, d).to(layer.blocks.dtype)
+    layer.blocks.index_copy_(0, blk.reshape(-1), vals)
+
+
+def _update_paged_layer(layer: PagedLayer, new: torch.Tensor,
+                        index: torch.Tensor) -> PagedLayer:
+    """Write `new` (B, S, Hkv, D) into the pool at each row's logical
+    positions index[b]..index[b]+S through its block table, in place.
+    Positions past the capacity and unowned entries drop. S == BS with
+    every cursor aligned takes the block scatter, else the token scatter;
+    both write the same values."""
+    bs = layer.pool.shape[2]
+    s = new.shape[1]
+    aligned = s == bs and (layer.aligned if layer.aligned is not None
+                           else bool((index % bs == 0).all()))
+    (_block_scatter if aligned else _token_scatter)(layer, new, index)
+    return layer
+
+
+def gather_paged_layer(layer: PagedLayer, dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """The dense logical view (B, T·BS, Hkv, D) of a paged layer, gathered
+    by whole blocks; unowned entries (-1) read block 0."""
+    hkv, nb, bs, d = layer.pool.shape
+    b, t = layer.tables.shape
+    blocks = layer.pool[:, layer.tables.long().clamp(min=0).reshape(-1)]
+    if dtype is not None:
+        blocks = blocks.to(dtype)
+    return blocks.reshape(hkv, b, t * bs, d).permute(1, 2, 0, 3)
+
+
 def _drop_write(cache: torch.Tensor, new: torch.Tensor,
                 index: torch.Tensor) -> None:
     """cache[b, index[b] + j] = new[b, j], dropping columns at or past
@@ -72,13 +279,20 @@ def _drop_write(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, cols.clamp(max=last)] = vals.to(cache.dtype)
 
 
-def update_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 k_new: torch.Tensor, v_new: torch.Tensor,
-                 index: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def update_layer(k_cache, v_cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 index: torch.Tensor) -> Tuple:
     """Insert `k_new`/`v_new` (B, S, Hkv, D) at per-row positions `index`
-    (B,) of one layer's dense cache (B, M, Hkv, D), in place. Columns at or
-    past max_len are dropped, as JAX's `mode="drop"` does. Returns the
-    caches."""
+    (B,) of one layer's cache, in place: dense (B, M, Hkv, D) tensors or
+    `PagedLayer` views. Columns at or past the capacity are dropped, as
+    JAX's `mode="drop"` does. A single token into a staged paged layer goes
+    to the stage only. Returns the caches."""
+    if isinstance(k_cache, PagedLayer):
+        if k_cache.stage is not None and k_new.shape[1] == 1:
+            k_cache.stage.copy_(k_new[:, 0])
+            v_cache.stage.copy_(v_new[:, 0])
+            return k_cache, v_cache
+        return (_update_paged_layer(k_cache, k_new, index),
+                _update_paged_layer(v_cache, v_new, index))
     _drop_write(k_cache, k_new, index)
     _drop_write(v_cache, v_new, index)
     return k_cache, v_cache

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.inference.kv_cache import KVCache, decode_mask, update_layer
+from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache, decode_mask, update_layer
 from deepspeed_tpu_torch.ops.attention import (
     apply_rotary_emb,
     attention,
@@ -190,7 +190,11 @@ class LlamaForCausalLM(nn.Module):
             cfg.hidden_size, cfg.vocab_size, False, cfg.dtype, **factory)
         nn.init.normal_(self.embed_tokens, std=0.02)
 
-    def forward(self, input_ids, cache: Optional[KVCache] = None):
+    def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None):
+        """`cache` is a dense `KVCache` or a `PagedKVCache`; with a paged
+        cache each layer gets `PagedLayer` views that alias the stacked
+        pools. `logits_at` (B,) picks one position per row, and the LM head
+        then runs on those rows only: logits (B, V) instead of (B, S, V)."""
         cfg = self.cfg
         h = F.embedding(input_ids, self.embed_tokens.to(cfg.dtype))
         if cache is not None:
@@ -198,11 +202,19 @@ class LlamaForCausalLM(nn.Module):
             index = cache.index
             positions = index[:, None] + torch.arange(s, device=h.device)[None, :]
             cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
-            mask = decode_mask(positions, cache.max_len, window=cfg.sliding_window)
+            paged = isinstance(cache, PagedKVCache)
+            # the paged kernels evaluate their masks from the cursors
+            mask = None if paged else decode_mask(positions, cache.max_len,
+                                                  window=cfg.sliding_window)
             for i, layer in enumerate(self.layers):
-                h, _ = layer(h, (cos, sin, index, mask), kv=(cache.k[i], cache.v[i]))
-            h = self.norm(h)
-            return self._lm_head(h), cache.replace(index=index + s)
+                kv = cache.layer(i) if paged else (cache.k[i], cache.v[i])
+                h, _ = layer(h, (cos, sin, index, mask), kv=kv)
+            if logits_at is not None:
+                h = h[torch.arange(b, device=h.device), logits_at.long()][:, None]
+            logits = self._lm_head(self.norm(h))
+            if logits_at is not None:
+                logits = logits[:, 0]
+            return logits, cache.replace(index=index + s)
         positions = torch.arange(input_ids.shape[1], device=h.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
         for layer in self.layers:

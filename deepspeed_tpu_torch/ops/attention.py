@@ -14,8 +14,13 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.inference.kv_cache import PagedLayer
 from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention
+from deepspeed_tpu_torch.ops.cuda.paged_attention import (
+    paged_decode_attention,
+    paged_prefill_attention,
+)
 
 _MASKED_MAX_LOGITS = 4096 * 4096  # above this, the masked path goes blockwise
 
@@ -162,7 +167,27 @@ def cached_attention(q, k_cache, v_cache, index, mask, impl: str = "auto",
     [0, index + 1) — the new token is written before attention — which
     assumes the prefix mask `kv_cache.decode_mask` makes; `impl="reference"`
     forces the masked path. Prefill (S > 1) and the CPU take the masked path.
+
+    A `PagedLayer` cache (the v2 engine's) always goes to the paged
+    wrappers, as it does on the TPU: S == 1 to the paged decode kernel (K3),
+    with the staged token when the layer has a stage, and S > 1 to the paged
+    prefill kernel (K4); `window` rides both. On the CPU the wrappers take
+    their plain versions; `mask` is not read.
     """
+    if isinstance(k_cache, PagedLayer):
+        if alibi is not None:
+            raise NotImplementedError(
+                "alibi in the paged kernels is not ported yet: ROADMAP.md, "
+                "Queue 1, 'v2 FastGen: the rest'")
+        if q.shape[1] == 1:
+            staged = k_cache.stage is not None
+            return paged_decode_attention(
+                q, k_cache.pool, v_cache.pool, k_cache.tables,
+                (index + 1).to(torch.int32),
+                k_new=k_cache.stage if staged else None,
+                v_new=v_cache.stage if staged else None, window=window)
+        return paged_prefill_attention(q, k_cache.pool, v_cache.pool, k_cache.tables,
+                                       index.to(torch.int32), window=window)
     if alibi is not None:
         return reference_attention(q, k_cache, v_cache, causal=False,
                                    segment_mask=mask, alibi=alibi)

@@ -1,0 +1,226 @@
+"""Attention over the block-paged KV cache (counterpart of ``deepspeed_tpu/ops/pallas/paged_attention.py``).
+
+`paged_decode_attention` (one new query per row, K3) and
+`paged_prefill_attention` (a chunk of S new queries per row, K4) launch the
+hand-written kernels `csrc/paged_decode_attention.cu` and
+`csrc/paged_prefill_attention.cu` for CUDA tensors, and take their plain
+PyTorch versions only for CPU tensors.
+
+Both compute the TPU kernels' function. Pools are (Hkv, NB, BS, D), tables
+(B, T) int32 map logical block j of row b to a pool block. A table entry is
+clamped into [0, NB-1] before it is read (a -1 entry or a parked row reads
+block 0, and its output is ignored), logits are (q·k)·scale in f32, the
+softmax uses natural exp, probabilities are cast to v's dtype before P·V,
+and a row with no valid key gives zeros. The decode kernel folds a staged
+token (`k_new`/`v_new`, not yet in the pool) in last, as f32 p·v; the
+prefill kernel masks causally by absolute position start + i over a pool
+that already holds the chunk. `window` keeps only keys in
+(qpos − window, qpos]. Alibi and the int8 pools' scales are not ported
+(ROADMAP.md, Queue 1, 'v2 FastGen: the rest').
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.op_builder import KernelLibrary
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)
+GROUP_SIZES = (1, 2, 4, 8)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", {
+    "ds_paged_decode_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+})
+PREFILL_LIBRARY = KernelLibrary("paged_prefill_attention.cu", {
+    "ds_paged_prefill_attention": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+})
+
+
+def _scale(d: int, softmax_scale: Optional[float]) -> float:
+    return softmax_scale if softmax_scale is not None else 1.0 / (d ** 0.5)
+
+
+def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """(Hkv, NB, BS, D) through clamped (B, T) tables → (Hkv, B, T·BS, D)."""
+    hkv, nb, bs, d = pool.shape
+    b, t = tables.shape
+    phys = tables.long().clamp(0, nb - 1).reshape(-1)
+    return pool[:, phys].reshape(hkv, b, t * bs, d)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
+                                 softmax_scale: Optional[float] = None,
+                                 k_new=None, v_new=None,
+                                 window: Optional[int] = None) -> torch.Tensor:
+    """q (B,1,H,D); pools (Hkv,NB,BS,D); tables (B,T); lengths (B,) valid
+    tokens per row, the last one staged when `k_new`/`v_new` (B,Hkv,D) are
+    given -> (B,1,H,D)."""
+    b, _, h, d = q.shape
+    hkv, nb, bs, _ = k_pool.shape
+    t = tables.shape[1]
+    n_rep = h // hkv
+    scale = _scale(d, softmax_scale)
+    staged = k_new is not None
+    lengths = lengths.to(q.device).long()
+    pool_len = lengths - 1 if staged else lengths
+    qpos = lengths - 1                    # the query's absolute position
+    qg = q.reshape(b, hkv, n_rep, d).float()
+    s = torch.einsum("bgrd,gbmd->bgrm", qg, _gather(k_pool, tables).float()) * scale
+    cols = torch.arange(t * bs, device=q.device)[None, :]
+    keep = cols < pool_len[:, None]
+    if window is not None:
+        keep = keep & (cols > (qpos - window)[:, None])
+    keep = keep[:, None, None, :]                               # (B,1,1,M)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    if staged:
+        sn = (qg * k_new.float()[:, :, None, :]).sum(-1, keepdim=True) * scale
+        m = torch.maximum(m, sn)
+    p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bgrm,gbmd->bgrd", p.to(v_pool.dtype).float(),
+                       _gather(v_pool, tables).float())
+    if staged:
+        pn = torch.exp(sn - m)
+        l = l + pn
+        acc = acc + pn * v_new.float()[:, :, None, :]
+    safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / safe_l).to(q.dtype).reshape(b, 1, h, d)
+
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
+                                  softmax_scale: Optional[float] = None,
+                                  window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,H,D), the S new tokens of each row, already written to the
+    pool at positions starts[b]..starts[b]+S-1; each attends every cached
+    position <= its own -> (B,S,H,D)."""
+    b, s, h, d = q.shape
+    hkv, nb, bs, _ = k_pool.shape
+    t = tables.shape[1]
+    n_rep = h // hkv
+    qg = q.reshape(b, s, hkv, n_rep, d).float()
+    sc = torch.einsum("bsgrd,gbmd->bgrsm", qg, _gather(k_pool, tables).float()) \
+        * _scale(d, softmax_scale)
+    qpos = starts.to(q.device).long()[:, None] + torch.arange(s, device=q.device)[None]
+    cols = torch.arange(t * bs, device=q.device)[None, None, :]
+    keep = cols <= qpos[:, :, None]
+    if window is not None:
+        keep = keep & (cols > qpos[:, :, None] - window)
+    keep = keep[:, None, None]                                  # (B,1,1,S,M)
+    sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(keep, torch.exp(sc - m), torch.zeros_like(sc))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bgrsm,gbmd->bgrsd", p.to(v_pool.dtype).float(),
+                       _gather(v_pool, tables).float())
+    safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = (acc / safe_l).to(q.dtype)                            # (B,g,r,S,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def _check(name, q, k_pool, v_pool, tables, per_row, window, extra=()):
+    for arg, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), *extra):
+        if x.device != q.device:
+            raise ValueError(f"{name}: {arg} is on {x.device}, q on {q.device}")
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {arg} must be bfloat16 on CUDA, got {x.dtype}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+    b, _, h, d = q.shape
+    hkv, nb, bs, dk = k_pool.shape
+    if v_pool.shape != k_pool.shape or dk != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match")
+    if h % hkv or h // hkv not in GROUP_SIZES:
+        raise ValueError(f"{name}: H/Hkv = {h}/{hkv} is not one of the group "
+                         f"sizes {GROUP_SIZES}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    for arg, x, shape in (("tables", tables, (b, tables.shape[-1])),
+                          ("lengths/starts", per_row, (b,))):
+        if x.device != q.device or x.dtype != torch.int32 or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous int32 {shape} "
+                             f"tensor on {q.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
+                           softmax_scale: Optional[float] = None,
+                           k_new=None, v_new=None,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """K3. q (B,1,H,D); pools (Hkv,NB,BS,D); tables (B,T) int32; lengths (B,)
+    int32 valid tokens per row. With `k_new`/`v_new` (B,Hkv,D) the last valid
+    token is staged and folded in; without them its slot is already written.
+    Returns (B,1,H,D).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
+                                            softmax_scale, k_new, v_new, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    staged = k_new is not None
+    extra = (("k_new", k_new), ("v_new", v_new)) if staged else ()
+    _check("paged_decode_attention", q, k_pool, v_pool, tables, lengths, window, extra)
+    b, s, h, d = q.shape
+    hkv, nb, bs, _ = k_pool.shape
+    if s != 1:
+        raise ValueError("paged_decode_attention is single-query; use "
+                         "paged_prefill_attention for S > 1")
+    if staged and (k_new.shape != (b, hkv, d) or v_new.shape != (b, hkv, d)):
+        raise ValueError(f"paged_decode_attention: k_new/v_new must be {(b, hkv, d)}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = DECODE_LIBRARY.lib().ds_paged_decode_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            lengths.data_ptr(), k_new.data_ptr() if staged else None,
+            v_new.data_ptr() if staged else None, out.data_ptr(),
+            b, h, hkv, d, nb, bs, tables.shape[1], int(staged), window or 0,
+            _scale(d, softmax_scale), stream)
+    DECODE_LIBRARY.check(code, "paged_decode_attention")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
+                            softmax_scale: Optional[float] = None,
+                            window: Optional[int] = None) -> torch.Tensor:
+    """K4. q (B,S,H,D), already written to the pool at starts[b]..+S-1;
+    pools (Hkv,NB,BS,D); tables (B,T) int32; starts (B,) int32. Returns
+    (B,S,H,D).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
+                                             softmax_scale, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
+    _check("paged_prefill_attention", q, k_pool, v_pool, tables, starts, window)
+    b, s, h, d = q.shape
+    hkv, nb, bs, _ = k_pool.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = PREFILL_LIBRARY.lib().ds_paged_prefill_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            starts.data_ptr(), out.data_ptr(), b, s, h, hkv, d, nb, bs,
+            tables.shape[1], window or 0, _scale(d, softmax_scale), stream)
+    PREFILL_LIBRARY.check(code, "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0

@@ -7,7 +7,7 @@ does, from the same distribution.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -35,14 +35,28 @@ def top_k_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(logits < kth, torch.full_like(logits, float("-inf")), logits)
 
 
+def row_generator(seed: int, fold: int, device=None) -> torch.Generator:
+    """The generator of one row's own stream, seeded from (seed, fold): the
+    counterpart of JAX's `fold_in(key, fold)`. A serving engine folds in the
+    sequence uid, so a row's draws depend on (seed, uid, draw index) and not
+    on the cache slot it was given."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(hash((int(seed), int(fold))) & 0xFFFF_FFFF_FFFF_FFFF)
+    return gen
+
+
 def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
                   temperature: float = 0.0, top_k: int = 0,
-                  top_p: float = 1.0) -> torch.Tensor:
+                  top_p: float = 1.0,
+                  row_generators: Optional[Sequence[torch.Generator]] = None
+                  ) -> torch.Tensor:
     """Sample token ids from `logits` (..., V) → (...,) int64.
 
     temperature == 0 → greedy argmax (the generator is unused). Otherwise
     temperature scaling, then the top-k cut, then the top-p cut, then a
-    categorical draw with `generator`."""
+    categorical draw with `generator`. `row_generators` (one per row of
+    (B, V) logits, from `row_generator`) draws each row from its own stream
+    instead (the JAX package's `row_fold`)."""
     logits = logits.float()
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
@@ -52,6 +66,12 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator] = N
     if top_p is not None and top_p < 1.0:
         logits = top_p_mask(logits, top_p)
     probs = torch.softmax(logits, dim=-1)
+    if row_generators is not None:
+        if probs.dim() != 2 or probs.shape[0] != len(row_generators):
+            raise ValueError("row_generators needs (B, V) logits and one "
+                             "generator per row")
+        return torch.cat([torch.multinomial(row[None], 1, generator=gen)[0]
+                          for row, gen in zip(probs, row_generators)])
     flat = probs.reshape(-1, probs.shape[-1])
     draws = torch.multinomial(flat, 1, generator=generator)
     return draws.reshape(probs.shape[:-1])
