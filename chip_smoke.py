@@ -7,8 +7,9 @@
 2. builds every kernel of the serving paths from `deepspeed_tpu_torch/csrc/`
    with `nvcc`, all at once;
 3. holds each kernel against its plain PyTorch version in bf16 at the
-   serving shapes, and times the kernel, the plain version and one PyTorch
-   library call for the same function with CUDA events;
+   serving shapes (and the flash backward at the training shapes), and
+   times the kernel, the plain version and one PyTorch library call for
+   the same function with CUDA events;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
    through v1 (`init_inference`): `forward` on 4 x 512 tokens, greedy
    `generate` of 64 tokens (the v1 main path, whose kernel launches are
@@ -23,7 +24,16 @@
    copy-on-write, and a prefix-shared prompt against sharing off;
 6. holds a 2-layer model of the same width on the card in bf16 against the
    plain versions on the CPU in f32, through v1 and through v2;
-7. prints one JSON line of kernels, then the result line.
+7. trains llama-1b (TinyLlama-1.1B shapes) at full width and depth with
+   random bf16 weights through `initialize` → `train_batch` (micro-batch
+   4, GAS 2, sequence 2048, FusedAdam, clipping 1.0, ZeRO stage 3 on one
+   rank, remat on): one warm-up and 5 timed steps on one batch (the
+   training main path, whose launches are counted), with the step time,
+   tokens/s, MFU, peak memory and a profile of one step; the loss must
+   fall. A 2-layer model of the same width is held on the card in bf16
+   against the CPU in f32 over one GAS window of `forward`/`backward`
+   (loss, grad norm, four gradients), and remat on against remat off;
+8. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing a result. Details go to chiprun_out/chip_smoke.json.
@@ -32,6 +42,7 @@ non-zero before printing a result. Details go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import sys
@@ -63,6 +74,26 @@ V2 = dict(max_batch=64, max_seq_len=T * BS, cache_block_size=BS, num_cache_block
           split_fuse_chunk=256, prefix_sharing=True)
 TRAFFIC_A = (96, 256, 64)        # prompts, prompt tokens, new tokens
 WATCH = (0, 1, 48, 95)           # traffic A rows whose last step is held against v1
+# K1-bwd shapes (B, Sq, Sk, H, Hkv, D, causal): (a) the llama-1b training
+# shape, (b) the JAX bench's 470M training shape, (c) the causal offset
+# path, (d) no mask
+BWD_SHAPES = [(4, 2048, 2048, 32, 4, 64, True), (2, 2048, 2048, 8, 8, 128, True),
+              (4, 128, 640, 32, 8, 128, True), (4, 512, 512, 32, 8, 128, False)]
+# training: llama-1b (TinyLlama-1.1B shapes), 16,384 tokens a step
+MBS, GAS, SEQ, TRAIN_STEPS = 4, 2, 2048, 5
+TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": MBS, "gradient_accumulation_steps": GAS,
+                "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+                "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
+                "zero_optimization": {"stage": 3}}
+# 2-layer full-width training reference, card bf16 against CPU f32. With
+# random weights the loss sits near ln V whatever attention computes, so
+# the loss gate cannot see a wrong kernel: the gradient gates are what check
+# the K1 kernels (layer 0's q_proj through its dq; its down_proj and the
+# embedding through layer 1's dq, dk and dv).
+TRAIN_REF_LOSS_RTOL, TRAIN_REF_NORM_RTOL, TRAIN_REF_GRAD_RTOL = 1e-3, 5e-2, 0.05
+REMAT_RTOL = 1e-3
+GRAD_KEYS = ("embed_tokens", "layers.0.self_attn.q_proj.weight",
+             "layers.0.mlp.down_proj.weight", "lm_head.weight")
 
 
 def log(*args):
@@ -116,6 +147,68 @@ def check_flash(gen, causal, sq, sk):
                 ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal)),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library)
+
+
+def check_flash_bwd(gen, b, sq, sk, h, hkv, d, causal):
+    """K1-bwd: dq and dk/dv against the plain backward, each relative to
+    max |ref|; each kernel against the plain version of its own half, and
+    the two together against the whole plain backward and SDPA's backward
+    (forward outside the timing). No library call computes dq or dk/dv
+    alone, so the per-kernel rows carry no library time."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v = randn((b, sq, h, d), gen), randn((b, sk, hkv, d), gen), randn((b, sk, hkv, d), gen)
+    do = randn((b, sq, h, d), gen)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    delta = fa._delta(out, do).contiguous()
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    rel = {n: rel_max_err(g, r) for n, g, r in zip(names, got, ref)}
+    err = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(names, got, ref)}
+    assert all(torch.isfinite(g).all() for g in got) and max(rel.values()) <= KERNEL_TOL, \
+        (b, sq, sk, h, hkv, d, causal, rel)
+    del ref
+    torch.cuda.empty_cache()
+    pairs = sum(min(i + sk - sq + 1, sk) for i in range(sq)) if causal else sq * sk
+    product = 2.0 * d * pairs * b * h           # one (q, k)-pair product over D, all heads
+    q_bytes, kv_bytes_ = q.numel() * 2, k.numel() * 2
+    rows_bytes = 2 * lse.numel() * 4            # lse and delta
+    # dq: S, dP and dS.K (3 products); dk/dv: S, dP, P^T.dO and dS^T.qs (4);
+    # the backward as a whole: 5 products, q, k, v, o, dO in and dq, dk, dv out
+    dq_bound = bound(3 * q_bytes + 2 * kv_bytes_ + rows_bytes, 3 * product)
+    dkv_bound = bound(2 * q_bytes + 4 * kv_bytes_ + rows_bytes, 4 * product)
+    all_bound = bound(4 * q_bytes + 4 * kv_bytes_ + rows_bytes, 5 * product)
+    args = (q, k, v, do, lse, delta, causal)
+
+    def plain_ms(fn):
+        ms = cuda_ms(fn, iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        return ms
+    plain = dict(dq=plain_ms(lambda: fa.flash_attention_bwd_dq_plain(*args)),
+                 dkv=plain_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args)),
+                 both=plain_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                                     causal=causal)))
+    library = None
+    if not causal or sq == sk:  # SDPA's is_causal is top-left aligned
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        g = do.transpose(1, 2)
+        library = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), g, retain_graph=True))
+        del o
+    dq = dict(max_abs_err=err["dq"], rel_max_err=rel["dq"],
+              ms=cuda_ms(lambda: fa.flash_attention_bwd_dq(*args)), plain_ms=plain["dq"],
+              bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=None)
+    dkv = dict(max_abs_err=max(err["dk"], err["dv"]), rel_max_err=max(rel["dk"], rel["dv"]),
+               ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args)), plain_ms=plain["dkv"],
+               bound_ms=dkv_bound[0], bound_by=dkv_bound[1], library_ms=None)
+    return dict(shape=f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} causal={causal}",
+                rel_max_err=rel, both_ms=cuda_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, out, lse, do, causal=causal)),
+                both_plain_ms=plain["both"], both_library_ms=library,
+                both_bound_ms=all_bound[0], both_bound_by=all_bound[1],
+                flash_attention_bwd_dq=dq, flash_attention_bwd_dkv=dkv)
 
 
 def check_decode(gen):
@@ -425,11 +518,12 @@ def instrument(engine, watch=()):
 
 def kernel_launches():
     from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention
-    from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from deepspeed_tpu_torch.ops.cuda.paged_attention import (
         paged_decode_attention, paged_prefill_attention)
     return (flash_attention_fwd, decode_attention, paged_decode_attention,
-            paged_prefill_attention)
+            paged_prefill_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 
 def read_launches():
@@ -470,7 +564,9 @@ def serve_v2(report, model):
     assert all(len(o) == plen + new and o[:plen] == p for o, p in zip(out, prompts))
     assert launches == {"flash_attention_fwd": 0, "decode_attention": 0,
                         "paged_decode_attention": L * calls["decode_steps"],
-                        "paged_prefill_attention": L * calls["chunk_calls"]}, (launches, calls)
+                        "paged_prefill_attention": L * calls["chunk_calls"],
+                        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}, \
+        (launches, calls)
     timing = engine.last_timing
     ttft = sorted(rec["first"] for rec in timing.values())
     span = max(rec["done"] for rec in timing.values())
@@ -659,6 +755,144 @@ def reference_v2(gpu_model, cpu_model, ids, steps: int = 8):
                 decode_steps=steps)
 
 
+def train(report):
+    """The training main path: llama-1b at full width and depth, random
+    bf16 weights, one warm-up and TRAIN_STEPS timed `train_batch` calls on
+    one fixed batch; launches counted over the timed calls."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
+    cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
+    gc.collect()   # the serving phases' instrumented engines hold reference cycles
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    model = llama(cfg, SEED + 30)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
+                                                loss_fn=llama_loss_fn(model))
+    acc = engine.accelerator
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (GAS * MBS, SEQ), generator=gen,
+                                        device="cuda")}
+    t0 = time.perf_counter()
+    engine.train_batch(batch=batch)                      # warm-up
+    acc.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: counted launches
+    acc.reset_peak_memory_stats()
+    zero_launches()
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        loss = float(engine.train_batch(batch=batch))
+        steps.append(dict(loss=loss, grad_norm=engine.get_global_grad_norm(),
+                          step_s=time.perf_counter() - ts))
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak = acc.max_memory_allocated()
+    L = cfg.num_hidden_layers
+    per_step = {"flash_attention_fwd": 2 * L * GAS,     # remat runs each forward again
+                "flash_attention_bwd_dq": L * GAS, "flash_attention_bwd_dkv": L * GAS}
+    assert launches == {"decode_attention": 0, "paged_decode_attention": 0,
+                        "paged_prefill_attention": 0,
+                        **{k: n * TRAIN_STEPS for k, n in per_step.items()}}, launches
+    losses = [s["loss"] for s in steps]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    tokens = GAS * MBS * SEQ
+    step_s = wall_s / TRAIN_STEPS
+    n_params = engine.total_params
+    flops_per_token = 6.0 * n_params + 6.0 * L * cfg.hidden_size * SEQ
+    peak_tflops = acc.peak_tflops("bfloat16")
+    mfu = tokens / step_s * flops_per_token / (peak_tflops * 1e12)
+    report["train_profile"] = profile_train(engine, batch)
+    del engine, model, batch
+    torch.cuda.empty_cache()
+    report["train"] = dict(
+        card=report["card"], model="llama-1b (TinyLlama-1.1B shapes, random bf16 weights, "
+                                   f"seed {SEED + 30})",
+        params=n_params, config=TRAIN_CONFIG, seq=SEQ,
+        tokens_per_step=tokens, warmup_s=warmup_s, steps=steps, step_s=step_s,
+        tokens_per_s=tokens / step_s, flops_per_token=flops_per_token,
+        peak_tflops_datasheet=peak_tflops, mfu=mfu, peak_memory_bytes=peak,
+        allocated_before_bytes=allocated_before,
+        launches=launches, launches_per_train_batch=per_step)
+    return launches
+
+
+def profile_train(engine, batch):
+    """Device time by kernel over one `train_batch`, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, 1, wall_us)
+
+
+def train_reference(report):
+    """Two layers at the llama-1b width: one GAS window of forward/backward
+    (micro-batch 2, sequence 512) on the card in bf16 against the plain
+    versions on the CPU in f32, on the same weights; and on the card, remat
+    on against remat off."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config, llama_loss_fn
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}}}
+    gpu_model = llama(llama_config("llama-1b", num_hidden_layers=2), SEED + 30)
+    card = gpu_model.embed_tokens.device
+    weights = {k: v.float().cpu() for k, v in gpu_model.state_dict().items()}
+
+    def port_model(device, dtype, remat=True):
+        model = LlamaForCausalLM(llama_config("llama-1b", num_hidden_layers=2, dtype=dtype,
+                                              remat=remat), device="meta")
+        model.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in weights.items()},
+                              assign=True)
+        return model
+
+    ids = torch.randint(0, 32000, (4, 512), generator=torch.Generator().manual_seed(SEED + 32))
+
+    def window(model, config, device=None):
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                    loss_fn=llama_loss_fn(model), device=device)
+        losses = []
+        for micro in (ids[:2], ids[2:]):
+            loss = engine({"input_ids": micro})
+            engine.backward(loss)
+            losses.append(float(loss.detach()))
+        grads = {k: engine.state.grad_acc[k].float().cpu() for k in GRAD_KEYS}
+        return float(np.mean(losses)), engine.get_global_grad_norm(), grads
+
+    bf16 = dict(config, bf16={"enabled": True})
+    zero_launches()
+    gpu = window(gpu_model, bf16)
+    remat_launches = read_launches()
+    del gpu_model
+    zero_launches()
+    gpu_off = window(port_model(card, torch.bfloat16, remat=False), bf16)
+    off_launches = read_launches()
+    cpu = window(port_model("cpu", torch.float32), config, device="cpu")
+    torch.cuda.empty_cache()
+    loss_err = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    norm_err = abs(gpu[1] - cpu[1]) / abs(cpu[1])
+    grad_errs = {k: rel_err(gpu[2][k], cpu[2][k]) for k in GRAD_KEYS}
+    remat_loss_err = abs(gpu[0] - gpu_off[0]) / abs(gpu_off[0])
+    remat_norm_err = abs(gpu[1] - gpu_off[1]) / abs(gpu_off[1])
+    assert loss_err <= TRAIN_REF_LOSS_RTOL and norm_err <= TRAIN_REF_NORM_RTOL \
+        and max(grad_errs.values()) <= TRAIN_REF_GRAD_RTOL, (loss_err, norm_err, grad_errs)
+    assert remat_loss_err <= REMAT_RTOL and remat_norm_err <= REMAT_RTOL, \
+        (remat_loss_err, remat_norm_err)
+    assert remat_launches["flash_attention_fwd"] == 2 * off_launches["flash_attention_fwd"] \
+        and remat_launches["flash_attention_bwd_dq"] == off_launches["flash_attention_bwd_dq"] > 0
+    report["train_reference"] = dict(
+        loss_card=gpu[0], loss_cpu=cpu[0], loss_rel_err=loss_err, grad_norm_card=gpu[1],
+        grad_norm_cpu=cpu[1], grad_norm_rel_err=norm_err, grad_acc_rel_rms_err=grad_errs,
+        remat_off_loss=gpu_off[0], remat_off_grad_norm=gpu_off[1],
+        remat_loss_rel_err=remat_loss_err, remat_grad_norm_rel_err=remat_norm_err,
+        launches_remat_on=remat_launches, launches_remat_off=off_launches)
+
+
 def kernel_row(name, source, replaces, launches, check):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches,
@@ -674,17 +908,22 @@ def main() -> int:
     smi = get_accelerator().name_and_power_limit()
     if smi is None:
         raise RuntimeError("nvidia-smi is missing: the card's power limit is unknown")
+    peak_tflops = get_accelerator().peak_tflops("bfloat16")
     print(smi)
+    print(f"{smi}: published dense bf16 peak {peak_tflops} TFLOP/s (data sheet, "
+          "the MFU denominator)")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+    report = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+              "peak_bf16_tflops_datasheet": peak_tflops}
     t_start = time.perf_counter()
 
     from deepspeed_tpu_torch.op_builder import build_all
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
-    libraries = [fa.LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY, pa.PREFILL_LIBRARY]
+    libraries = [fa.LIBRARY, fa.BWD_LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY,
+                 pa.PREFILL_LIBRARY]
     t0 = time.perf_counter()
     build_all(libraries)
     report["build_s"] = time.perf_counter() - t0
@@ -702,9 +941,11 @@ def main() -> int:
                     check_paged_decode(gen, rng, staged=False),
                     check_paged_decode(gen, rng, staged=True, window=300)]
     paged_prefill = [check_paged_prefill(gen, rng), check_paged_prefill(gen, rng, window=300)]
+    flash_bwd = [check_flash_bwd(gen, *shape) for shape in BWD_SHAPES]
     report.update(flash_attention_fwd=flash, decode_attention=decode,
-                  paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill)
-    for row in flash + [decode] + paged_decode + paged_prefill:
+                  paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
+                  flash_attention_bwd=flash_bwd)
+    for row in flash + [decode] + paged_decode + paged_prefill + flash_bwd:
         print(json.dumps(row), flush=True)
 
     from deepspeed_tpu_torch.models.llama import llama_config
@@ -715,9 +956,11 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     reference(report)
+    train_launches = train(report)
+    train_reference(report)
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
-                "reference", "reference_v2"):
+                "reference", "reference_v2", "train", "train_profile", "train_reference"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -734,6 +977,14 @@ def main() -> int:
                    "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
                    "deepspeed_tpu/ops/pallas/paged_attention.py:366",
                    v2_launches["paged_prefill_attention"], paged_prefill[0]),
+        kernel_row("flash_attention_bwd_dq", "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "deepspeed_tpu/ops/pallas/flash_attention.py:425",
+                   train_launches["flash_attention_bwd_dq"],
+                   flash_bwd[0]["flash_attention_bwd_dq"]),
+        kernel_row("flash_attention_bwd_dkv", "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "deepspeed_tpu/ops/pallas/flash_attention.py:425",
+                   train_launches["flash_attention_bwd_dkv"],
+                   flash_bwd[0]["flash_attention_bwd_dkv"]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

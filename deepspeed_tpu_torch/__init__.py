@@ -1,16 +1,43 @@
 """deepspeed_tpu_torch — the PyTorch/CUDA port of deepspeed_tpu.
 
-Serves Llama models through `init_inference(...)` → `forward` / `generate`
-on one CUDA device, with hand-written kernels for flash attention (forward)
-and decode attention. It imports `torch`, never `jax`, and nothing of
-`deepspeed_tpu`.
+Trains Llama models through `initialize(...)` → `train_batch` (or
+`forward`/`backward`/`step`) and serves them through `init_inference(...)`
+→ `forward`/`generate` and the v2 `InferenceEngineV2`, on one CUDA device,
+with hand-written kernels for flash attention (forward and backward),
+decode attention and paged attention. It imports `torch`, never `jax`, and
+nothing of `deepspeed_tpu`.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional
 
 __version__ = "0.1.0"
+
+
+def initialize(model: Any = None, model_parameters: Any = None, config: Any = None,
+               loss_fn: Optional[Callable] = None, training_data=None, collate_fn=None,
+               lr_scheduler=None, optimizer=None, device=None):
+    """Build a training engine (counterpart of `deepspeed_tpu.initialize`):
+    returns `(engine, optimizer, dataloader, lr_scheduler)`.
+
+    `model` is an `nn.Module`; `model_parameters` is a JAX parameter tree of
+    numpy arrays copied into it by the module's own `load_jax_params(tree)`,
+    or None to keep the module's own weights. `config` is a DeepSpeed config dict, a JSON path
+    or a `DeepSpeedConfig`. `loss_fn(module, batch)` returns the loss or
+    `(loss, aux)`; by default the module is called with the batch as keyword
+    arguments. `device=None` means CUDA; without CUDA it raises unless
+    `device="cpu"`.
+    """
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    if not isinstance(config, DeepSpeedConfig):
+        config = DeepSpeedConfig(config)
+    engine = DeepSpeedEngine(model=model, loss_fn=loss_fn, config=config,
+                             model_parameters=model_parameters,
+                             training_data=training_data, collate_fn=collate_fn,
+                             lr_scheduler=lr_scheduler, optimizer=optimizer, device=device)
+    return engine, engine.opt, engine.training_dataloader, engine.lr_scheduler
 
 
 def init_inference(model: Any = None, config: Any = None, device=None, **kwargs):

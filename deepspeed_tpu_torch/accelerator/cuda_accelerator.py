@@ -13,6 +13,11 @@ from typing import Optional, Union
 
 import torch
 
+# Published dense bf16 tensor-core peak in TFLOP/s at the full power limit
+# (NVIDIA H100 SXM data sheet, no sparsity): a datasheet figure for MFU, not
+# a measurement. A card set below its power limit runs slower.
+_PEAK_TFLOPS = {"H100": {"bfloat16": 989.0}}
+
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
     """`None` → `cuda`; a CUDA request on a machine without CUDA raises."""
@@ -52,6 +57,15 @@ class CudaAccelerator:
     def reset_peak_memory_stats(self) -> None:
         if self.is_cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+
+    def peak_tflops(self, dtype: str = "bfloat16") -> float:
+        """The card's published dense peak for `dtype`, in TFLOP/s. Raises
+        for a card or dtype the table does not hold."""
+        name = self.device_name()
+        for card, peaks in _PEAK_TFLOPS.items():
+            if card in name and dtype in peaks:
+                return peaks[dtype]
+        raise ValueError(f"no published {dtype} peak for {name!r}")
 
     def name_and_power_limit(self) -> Optional[str]:
         """`nvidia-smi --query-gpu=name,power.limit` for this device, as it

@@ -12,6 +12,7 @@ from typing import Any, Optional
 
 import torch
 
+from deepspeed_tpu_torch.runtime.config_utils import unported as _unported
 from deepspeed_tpu_torch.utils.logging import logger
 
 # fp16 names map to bf16, as in the JAX package: the port's kernels are bf16
@@ -22,12 +23,6 @@ _DTYPES = {
     "torch.float16": torch.bfloat16,
     "fp32": torch.float32, "float": torch.float32, "torch.float32": torch.float32,
 }
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet: ROADMAP.md, "
-        f"Queue 1, '{item}'")
 
 
 @dataclasses.dataclass

@@ -2,12 +2,15 @@
 
 RMSNorm + RoPE + GQA attention + SwiGLU MLP, pre-norm decoder, as
 `nn.Module`s. Parameters are f32 at construction, as the JAX package's
-`param_dtype`; the inference engine casts them to its dtype. Compute runs in
+`param_dtype`; the engines cast them to their dtype. Compute runs in
 `LlamaConfig.dtype`, with RMSNorm in f32.
 
-The training knobs of the JAX config (remat, domino, ring attention, loss
-and MLP chunking) are not ported yet; they come with training.
-`load_jax_params` turns a JAX parameter tree into this module's weights.
+`forward(input_ids, labels=...)` returns `(loss, {})` for training, with
+each block under `torch.utils.checkpoint` when `remat` is on (the JAX
+`remat_policy="nothing"`: the whole block is recomputed in backward). The
+other remat policies, domino, ring attention and loss or MLP chunking are
+not ported and raise. `load_jax_params` turns a JAX parameter tree into this
+module's weights and `to_jax_params` turns them back.
 """
 
 from __future__ import annotations
@@ -19,14 +22,17 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache, decode_mask, update_layer
+from deepspeed_tpu_torch.models.common import causal_lm_loss, make_causal_loss_fn
 from deepspeed_tpu_torch.ops.attention import (
     apply_rotary_emb,
     attention,
     cached_attention,
     rope_cos_sin,
 )
+from deepspeed_tpu_torch.runtime.config_utils import unported
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +47,16 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
+    remat: bool = True
+    # 'nothing' recomputes the whole block in backward; the JAX package's
+    # other policies save or offload chosen tensors and are not ported
+    remat_policy: str = "nothing"
     attn_impl: str = "auto"
+    loss_chunk_size: Optional[int] = None
+    mlp_chunk_size: Optional[int] = None
     attention_qkv_bias: bool = False
     attention_o_bias: bool = False
+    domino: bool = False
     sliding_window: Optional[int] = None
     head_dim_override: Optional[int] = None
     dtype: Any = torch.bfloat16
@@ -68,12 +81,26 @@ PRESETS = {
                      num_key_value_heads=4, max_position_embeddings=4096),
     "llama-tiny": dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                        num_hidden_layers=2, num_attention_heads=4,
-                       num_key_value_heads=2, max_position_embeddings=128),
+                       num_key_value_heads=2, max_position_embeddings=128,
+                       remat=False),
 }
 
 
 def llama_config(name: str, **overrides) -> LlamaConfig:
     return LlamaConfig(**{**PRESETS[name], **overrides})
+
+
+def check_ported(cfg: LlamaConfig) -> None:
+    """Raise on the config values this port does not run."""
+    if cfg.attn_impl == "ring":
+        raise unported("attn_impl='ring'", "Multi-GPU")
+    if cfg.remat and cfg.remat_policy != "nothing":
+        raise unported(f"remat_policy={cfg.remat_policy!r}", "Training: the rest")
+    for name in ("loss_chunk_size", "mlp_chunk_size"):
+        if getattr(cfg, name):
+            raise unported(name, "Training: the rest")
+    if cfg.domino:
+        raise unported("domino", "Training: the rest")
 
 
 class Dense(nn.Linear):
@@ -170,15 +197,13 @@ class LlamaBlock(nn.Module):
 
 class LlamaForCausalLM(nn.Module):
     """`forward(input_ids)` → logits (B, S, V); `forward(input_ids,
+    labels=labels)` → (causal-LM loss, {}); `forward(input_ids,
     cache=cache)` → (logits, cache) with the S new tokens written into the
     cache at its cursors and the cursors advanced."""
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' is not ported to deepspeed_tpu_torch yet: "
-                "ROADMAP.md, Queue 1, 'Multi-GPU'")
+        check_ported(cfg)
         factory = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(
@@ -190,7 +215,8 @@ class LlamaForCausalLM(nn.Module):
             cfg.hidden_size, cfg.vocab_size, False, cfg.dtype, **factory)
         nn.init.normal_(self.embed_tokens, std=0.02)
 
-    def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None):
+    def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None):
         """`cache` is a dense `KVCache` or a `PagedKVCache`; with a paged
         cache each layer gets `PagedLayer` views that alias the stacked
         pools. `logits_at` (B,) picks one position per row, and the LM head
@@ -217,9 +243,18 @@ class LlamaForCausalLM(nn.Module):
             return logits, cache.replace(index=index + s)
         positions = torch.arange(input_ids.shape[1], device=h.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, (cos, sin))
-        return self._lm_head(self.norm(h))
+            h = checkpoint(layer, h, (cos, sin), use_reentrant=False) if remat \
+                else layer(h, (cos, sin))
+        logits = self._lm_head(self.norm(h))
+        if labels is None:
+            return logits
+        return causal_lm_loss(logits, input_ids, labels), {}
+
+    def load_jax_params(self, tree) -> "LlamaForCausalLM":
+        """Copy a JAX parameter tree into this module (`load_jax_params`)."""
+        return load_jax_params(self, tree)
 
     def _lm_head(self, h):
         if self.lm_head is None:
@@ -241,6 +276,12 @@ def init_params(model: LlamaForCausalLM, generator: torch.Generator,
         else:
             p.normal_(0.0, std, generator=generator)
     return model
+
+
+def llama_loss_fn(model: Optional[LlamaForCausalLM] = None):
+    """The engine loss for a Llama: `loss_fn(module, batch)` with labels
+    shifted from `input_ids` when the batch carries none."""
+    return make_causal_loss_fn(model)
 
 
 def _t(x, like: torch.Tensor) -> torch.Tensor:
@@ -274,3 +315,33 @@ def load_jax_params(model: LlamaForCausalLM, tree) -> LlamaForCausalLM:
                 if dense.bias is not None:
                     dense.bias.copy_(_t(leaves["bias"][i], dense.bias))
     return model
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+@torch.no_grad()
+def to_jax_params(model: LlamaForCausalLM) -> dict:
+    """The inverse of `load_jax_params`: the module's weights as a JAX
+    `LlamaForCausalLM` parameter tree of f32 numpy arrays, per-layer leaves
+    stacked on a leading L axis and `nn.Linear` weights transposed into flax
+    `Dense` kernels."""
+    tree = {"embed_tokens": _np(model.embed_tokens),
+            "norm": {"weight": _np(model.norm.weight)}, "layers": {}}
+    if model.lm_head is not None:
+        tree["lm_head"] = _np(model.lm_head.weight).T
+    stack = tree["layers"]
+    for norm in ("input_layernorm", "post_attention_layernorm"):
+        stack[norm] = {"weight": np.stack([_np(getattr(layer, norm).weight)
+                                           for layer in model.layers])}
+    for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+                         ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+        stack[group] = {}
+        for name in names:
+            denses = [getattr(getattr(layer, group), name) for layer in model.layers]
+            leaves = {"kernel": np.stack([_np(d.weight).T for d in denses])}
+            if denses[0].bias is not None:
+                leaves["bias"] = np.stack([_np(d.bias) for d in denses])
+            stack[group][name] = leaves
+    return tree

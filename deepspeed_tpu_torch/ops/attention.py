@@ -1,10 +1,13 @@
 """Attention ops (counterpart of ``deepspeed_tpu/ops/attention.py``).
 
-Dispatch: on a CUDA tensor, `attention` runs the flash forward kernel
-(`ops/cuda/flash_attention.py`) and single-query `cached_attention` runs the
-decode kernel (`ops/cuda/decode_attention.py`). A sliding window, alibi, or
-`impl="reference"`/`"blockwise"` take the masked paths, as they do in the JAX
-package; so does a CPU tensor, as off the TPU there. Layouts are the JAX
+Dispatch: on a CUDA tensor, `attention` runs the flash kernels
+(`ops/cuda/flash_attention.py`: the forward, and when gradients are needed
+the `FlashAttention` Function with the dq and dk/dv backward kernels) and
+single-query `cached_attention` runs the decode kernel
+(`ops/cuda/decode_attention.py`). A sliding window, alibi, or
+`impl="reference"`/`"blockwise"` take the masked paths, differentiable
+through plain autograd, as they do in the JAX package; so does a CPU tensor
+unless `impl="pallas"` asks for the flash path. Layouts are the JAX
 package's: q (B, S, H, D), k/v (B, S, Hkv, D), dense caches (B, M, Hkv, D).
 """
 
@@ -142,8 +145,9 @@ def _masked(q, k, v, causal, softmax_scale, window, alibi, impl):
 def attention(q, k, v, causal: bool = True, softmax_scale: Optional[float] = None,
               impl: str = "auto", window: Optional[int] = None,
               alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The flash forward kernel on CUDA; the masked paths for a window,
-    alibi, `impl="reference"`/`"blockwise"`, or a CPU tensor.
+    """The flash kernels on CUDA (differentiable through `FlashAttention`);
+    the masked paths for a window, alibi, `impl="reference"`/`"blockwise"`,
+    or a CPU tensor.
     `impl="pallas"` (the JAX package's name for its kernel) asks for the
     kernel: with a window or alibi it raises, as in the JAX package."""
     if impl == "pallas" and (alibi is not None or window is not None):

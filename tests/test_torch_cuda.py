@@ -9,7 +9,9 @@ Shapes are ragged on purpose (tiles cut by the sequence end, Sq < Sk, both
 head widths, every GQA group size; for the paged kernels, block tables with
 -1 tails, a parked row, staged tokens and a sliding window); inputs are
 bf16, and outputs must agree to 2e-2 (p and the output round at 2^-8 and
-the outputs are O(1)).
+the outputs are O(1)); the backward's gradients are held to 2e-2 of their
+largest magnitude. A tiny `train_batch` in bf16 on the card is held against
+the same steps in f32 on the CPU.
 """
 
 import numpy as np
@@ -21,6 +23,11 @@ from deepspeed_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_plain,
 )
 from deepspeed_tpu_torch.ops.cuda.flash_attention import (
+    FlashAttention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
@@ -159,3 +166,100 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d):
     ref = decode_attention_plain(q, k, v, lengths)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200), (True, 77, 300),
+                                          (False, 130, 90)])
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, causal, sq, sk, n_rep, d):
+    """K1-bwd: dq and dk/dv against the plain backward, each launching once;
+    dk/dv sum the GQA group inside the kernel."""
+    hkv = 2
+    rng = np.random.default_rng(sq + n_rep + d)
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, 2, sq, sk, hkv * n_rep, hkv, d))
+    do = _bf16(rng.standard_normal(q.shape).astype(np.float32), cuda_device)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    launches = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    ref = flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.shape == r.shape and g.dtype == torch.bfloat16, name
+        err = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        assert err <= BF16_TOL, (name, err)
+
+
+@pytest.mark.cuda
+def test_flash_function_grads_match_plain_on_card(cuda_device):
+    """Autograd through `FlashAttention` on the card: the kernels' gradients
+    against autograd through the plain forward."""
+    rng = np.random.default_rng(7)
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, 2, 96, 96, 8, 2, 64))
+    do = _bf16(rng.standard_normal(q.shape).astype(np.float32), cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(FlashAttention.apply(*leaves, True, None), leaves, do)
+    ref = flash_attention_bwd_plain(q, k, v, *flash_attention_fwd_plain(q, k, v), do)
+    for g, r in zip(got, ref):
+        err = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        assert err <= BF16_TOL, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["head_dim", "dtype"])
+def test_flash_bwd_refuses_other_shapes_on_card(cuda_device, bad):
+    """A CUDA backward outside the kernels' variants raises, with no launch."""
+    d, dtype = {"head_dim": (96, torch.bfloat16), "dtype": (64, torch.float16)}[bad]
+    q = torch.zeros((1, 16, 4, d), dtype=dtype, device=cuda_device)
+    k = torch.zeros((1, 16, 2, d), dtype=dtype, device=cuda_device)
+    lse = torch.zeros((1, 4, 16, 1), dtype=torch.float32, device=cuda_device)
+    launches = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention_bwd(q, k, k, q, lse, q)
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention_bwd_dq(q, k, k, q, lse, lse)
+    with pytest.raises((ValueError, TypeError)):
+        flash_attention_bwd_dkv(q, k, k, q, lse, lse)
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == launches
+
+
+@pytest.mark.cuda
+def test_train_batch_on_card_matches_cpu_f32(cuda_device):
+    """Two `train_batch` steps of a 2-layer Llama with head dim 64 (the
+    kernels' width): the card in bf16 (flash forward and backward kernels,
+    remat on) against the CPU in f32 (plain versions) from the same
+    weights. bf16 rounds at 2^-8 per op, so the loss is held to 1e-2 and
+    the grad norm to 5e-2 relative."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import (
+        LlamaForCausalLM, init_params, llama_config, llama_loss_fn)
+    shape = dict(hidden_size=256, intermediate_size=512, num_attention_heads=4,
+                 num_key_value_heads=2, remat=True)
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}, "gradient_clipping": 1.0}
+    cpu_model = init_params(LlamaForCausalLM(llama_config("llama-tiny", dtype=torch.float32,
+                                                          **shape)),
+                            torch.Generator().manual_seed(0))
+    card_model = LlamaForCausalLM(llama_config("llama-tiny", dtype=torch.bfloat16, **shape))
+    card_model.load_state_dict(cpu_model.state_dict())
+    ids = np.random.default_rng(1).integers(0, 256, (2, 4, 128))
+    results = []
+    for model, cfg, device in ((card_model, dict(config, bf16={"enabled": True}), None),
+                               (cpu_model, config, "cpu")):
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    loss_fn=llama_loss_fn(model), device=device)
+        launches = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches,
+                    flash_attention_bwd_dkv.launches)
+        steps = [(float(engine.train_batch(batch={"input_ids": b})),
+                  engine.get_global_grad_norm()) for b in ids]
+        results.append(steps)
+        if device is None:   # 2 layers x 2 micros x 2 steps; remat runs the forward twice
+            assert (flash_attention_fwd.launches - launches[0],
+                    flash_attention_bwd_dq.launches - launches[1],
+                    flash_attention_bwd_dkv.launches - launches[2]) == (16, 8, 8)
+    for (card_loss, card_norm), (cpu_loss, cpu_norm) in zip(*results):
+        assert abs(card_loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
+        assert abs(card_norm - cpu_norm) <= 5e-2 * abs(cpu_norm)
