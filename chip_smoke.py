@@ -4,12 +4,15 @@
 
 1. prints the card (`nvidia-smi` name and power limit) and the torch/CUDA
    versions;
-2. builds every kernel of the serving paths from `deepspeed_tpu_torch/csrc/`
-   with `nvcc`, all at once;
+2. builds every kernel of the serving and training paths from
+   `deepspeed_tpu_torch/csrc/` with `nvcc`, all at once;
 3. holds each kernel against its plain PyTorch version in bf16 at the
-   serving shapes (and the flash backward at the training shapes), and
-   times the kernel, the plain version and one PyTorch library call for
-   the same function with CUDA events;
+   serving shapes (the flash backward at the training shapes; the fused
+   dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
+   and two odd layouts; the int8 attention kernels on int8 caches, and with
+   unit scales bitwise against their bf16 kernels), and times the kernel,
+   the plain version and one PyTorch library call for the same function
+   with CUDA events;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
    through v1 (`init_inference`): `forward` on 4 x 512 tokens, greedy
    `generate` of 64 tokens (the v1 main path, whose kernel launches are
@@ -22,9 +25,19 @@
    traffic B, 16 prompts sharing a 512-token system prompt, a 900-token
    prompt put in split-fuse chunks while rows decode, a fork with
    copy-on-write, and a prefix-shared prompt against sharing off;
-6. holds a 2-layer model of the same width on the card in bf16 against the
-   plain versions on the CPU in f32, through v1 and through v2;
-7. trains llama-1b (TinyLlama-1.1B shapes) at full width and depth with
+6. serves it with the KV cache int8 at rest (`kv_cache_dtype="int8"`): v1
+   greedy `generate` (K2-int8 counted; the last step against the bf16-KV
+   engine's `generate` forced through the same tokens, and a control with
+   doubled scales that must fail that gate), v2 traffic A over int8 pools (K3-int8 and K4-int8
+   counted) and a fork with copy-on-write;
+7. serves it with int8 weights through `serve_mode="layer_scan"` (K5 on
+   every projection, counted): the same greedy `generate`, the last step
+   against the same int8 tree served by `dequant`, and a profile of the
+   decode step;
+8. holds a 2-layer model of the same width on the card in bf16 against the
+   plain versions on the CPU in f32, through v1 and through v2, and with
+   int8 weights through the layer scan;
+9. trains llama-1b (TinyLlama-1.1B shapes) at full width and depth with
    random bf16 weights through `initialize` → `train_batch` (micro-batch
    4, GAS 2, sequence 2048, FusedAdam, clipping 1.0, ZeRO stage 3 on one
    rank, remat on): one warm-up and 5 timed steps on one batch (the
@@ -33,7 +46,7 @@
    fall. A 2-layer model of the same width is held on the card in bf16
    against the CPU in f32 over one GAS window of `forward`/`backward`
    (loss, grad norm, four gradients), and remat on against remat off;
-8. prints one JSON line of kernels, then the result line.
+10. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing a result. Details go to chiprun_out/chip_smoke.json.
@@ -47,6 +60,7 @@ import json
 import pathlib
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -63,6 +77,10 @@ KERNEL_TOL = 2e-2       # bf16: p and the output round at 2^-8; outputs are O(1)
 # at 2 layers the card's bf16 lies ~1.5% from f32 on the CPU (`reference`),
 # both measured by this script. The bounds sit above those.
 CONSISTENCY_RTOL = 0.10  # decode vs forward on the card, 32 layers
+# int8-KV decode vs bf16-KV decode on the same path and tokens, 32 layers:
+# int8's own rounding, grown by depth, reads ~0.098 on an H100, and a write
+# whose scales are doubled reads ~1.35 (this script's control).
+INT8_KV_RTOL = 0.15
 REFERENCE_RTOL = 0.04    # bf16 on the card vs f32 on the CPU, 2 layers
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
@@ -79,6 +97,11 @@ WATCH = (0, 1, 48, 95)           # traffic A rows whose last step is held agains
 # path, (d) no mask
 BWD_SHAPES = [(4, 2048, 2048, 32, 4, 64, True), (2, 2048, 2048, 8, 8, 128, True),
               (4, 128, 640, 32, 8, 128, True), (4, 512, 512, 32, 8, 128, False)]
+# K5: the Llama-3-8B projections (K, N): q/o, k/v, gate/up, down; and the
+# JAX package's odd layouts (M, K, N, block): blocks spanning rows, and M, N
+# and K remainders
+QMM_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+QMM_ODD = [(4, 64, 128, 256), (5, 128, 384, 64)]
 # training: llama-1b (TinyLlama-1.1B shapes), 16,384 tokens a step
 MBS, GAS, SEQ, TRAIN_STEPS = 4, 2, 2048, 5
 TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": MBS, "gradient_accumulation_steps": GAS,
@@ -211,74 +234,128 @@ def check_flash_bwd(gen, b, sq, sk, h, hkv, d, causal):
                 flash_attention_bwd_dq=dq, flash_attention_bwd_dkv=dkv)
 
 
-def check_decode(gen):
+def int8_pair(x):
+    """x quantized per (token, head) as the int8 cache stores it: (int8, f32
+    scales)."""
+    from deepspeed_tpu_torch.ops.quantization import quantize_kv_tokens
+    return quantize_kv_tokens(x)
+
+
+def unit_scale_pair(x):
+    """x's integer part in int8 with unit scales, and the same values in
+    bf16: inputs on which an int8 kernel must equal its bf16 kernel."""
+    ints = (x.float() * 20).round().clamp(-127, 127).to(torch.int8)
+    return ints, torch.ones(ints.shape[:-1], device=ints.device), ints.to(torch.bfloat16)
+
+
+def check_decode(gen, int8=False):
+    """K2 at the v1 decode shape; with `int8`, K2-int8 on the same cache
+    quantized, and unit scales held bitwise to the bf16 kernel."""
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.quantization import dequantize_kv
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     m = max(DECODE_LENGTHS)
     q, k, v = randn((B, 1, H, D), gen), randn((B, m, HKV, D), gen), randn((B, m, HKV, D), gen)
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
-    out = da.decode_attention(q, k, v, lengths)
-    ref = da.decode_attention_plain(q, k, v, lengths)
+    kw, elem, extra = {}, 2 * D, {}
+    if int8:
+        (k, ks), (v, vs) = int8_pair(k), int8_pair(v)
+        kw, elem = dict(k_scales=ks, v_scales=vs), D + 4
+        ki, ones, kb = unit_scale_pair(randn((B, m, HKV, D), gen))
+        extra["unit_scales_bitwise_equal"] = torch.equal(
+            da.decode_attention(q, ki, ki, lengths, k_scales=ones, v_scales=ones),
+            da.decode_attention(q, kb, kb, lengths))
+        assert extra["unit_scales_bitwise_equal"]
+    out = da.decode_attention(q, k, v, lengths, **kw)
+    ref = da.decode_attention_plain(q, k, v, lengths, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL, err
     n_kv = sum(DECODE_LENGTHS)
-    nbytes = (q.numel() + out.numel()) * 2 + n_kv * HKV * D * 2 * 2 + lengths.numel() * 4
+    nbytes = (q.numel() + out.numel()) * 2 + n_kv * HKV * elem * 2 + lengths.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4.0 * D * n_kv * H)
     mask = (torch.arange(m, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    return dict(shape=f"B={B} M={m} H={H} Hkv={HKV} D={D} lengths={list(DECODE_LENGTHS)}",
+    # the yardstick reads the dequantized cache, as the bf16 row reads its cache
+    kd, vd = (dequantize_kv(k, ks, torch.bfloat16), dequantize_kv(v, vs, torch.bfloat16)) \
+        if int8 else (k, v)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kd, vd))
+    return dict(shape=f"B={B} M={m} H={H} Hkv={HKV} D={D} lengths={list(DECODE_LENGTHS)}"
+                      f"{' int8' if int8 else ''}",
                 max_abs_err=err,
-                ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths)),
-                plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths)),
+                ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths, **kw)),
+                plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths, **kw)),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)), **extra)
 
 
-def paged_inputs(rng, gen, blocks_per_row):
-    """bf16 pools (Hkv, NB, BS, D) and (B, T) tables: a seeded permutation
-    of the pool handed out row by row, -1 tails."""
+def paged_pools(gen, int8):
+    """(k_pool, v_pool, scales kwargs) at the serving shape: bf16, or the
+    same random values quantized as the int8 pools store them."""
+    k, v = randn((HKV, NB, BS, D), gen), randn((HKV, NB, BS, D), gen)
+    if not int8:
+        return k, v, {}
+    (k, ks), (v, vs) = int8_pair(k), int8_pair(v)
+    return k, v, dict(k_scales=ks, v_scales=vs)
+
+
+def paged_inputs(rng, gen, blocks_per_row, int8=False):
+    """Pools (Hkv, NB, BS, D), their scales kwargs, and (B, T) tables: a
+    seeded permutation of the pool handed out row by row, -1 tails."""
     perm, used = rng.permutation(NB), 0
     tables = np.full((len(blocks_per_row), T), -1, np.int32)
     for row, n in enumerate(blocks_per_row):
         tables[row, :n] = perm[used:used + n]
         used += n
     assert used <= NB
-    return (randn((HKV, NB, BS, D), gen), randn((HKV, NB, BS, D), gen), tables,
-            torch.from_numpy(tables).cuda())
+    return (*paged_pools(gen, int8), tables, torch.from_numpy(tables).cuda())
 
 
-def kv_bytes(tables, spans) -> int:
-    """Bytes of K and V that attention over `spans` ((lo, hi) logical
-    positions per row) reads, each pool row once: table entries clamp into
-    the pool, as the kernels clamp them."""
+def kv_bytes(tables, spans, int8=False) -> int:
+    """Bytes of K and V (and their scales) that attention over `spans`
+    ((lo, hi) logical positions per row) reads, each pool row once: table
+    entries clamp into the pool, as the kernels clamp them."""
     rows = [np.clip(tables[b, np.arange(lo, hi) // BS], 0, NB - 1) * BS
             + np.arange(lo, hi) % BS for b, (lo, hi) in enumerate(spans) if hi > lo]
     n = np.unique(np.concatenate(rows)).size if rows else 0
-    return n * HKV * D * 2 * 2
+    return n * HKV * (D + 4 if int8 else D * 2) * 2
 
 
-def dense_view(pool, tables_t):
-    """(B, Hkv, T·BS, D) logical view through the clamped tables, for SDPA."""
+def dense_view(pool, tables_t, scales=None):
+    """(B, Hkv, T·BS, D) logical view through the clamped tables, for SDPA
+    (an int8 pool dequantized to bf16)."""
+    from deepspeed_tpu_torch.ops.quantization import dequantize_kv
     from deepspeed_tpu_torch.ops.cuda.paged_attention import _gather
+    if scales is not None:
+        pool = dequantize_kv(pool, scales, torch.bfloat16)
     return _gather(pool, tables_t).transpose(0, 1).contiguous()
 
 
-def check_paged_decode(gen, rng, staged, window=None):
+def check_paged_decode(gen, rng, staged, window=None, int8=False):
     """K3 at the serving shape: 64 rows, 32 of one block and 31 of two with
-    ragged lengths, one parked row (cursor at the capacity, table all -1)."""
+    ragged lengths, one parked row (cursor at the capacity, table all -1).
+    With `int8`, K3-int8 on int8 pools, and unit scales held bitwise to the
+    bf16 kernel."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     b = 64
     lengths_np = np.concatenate([rng.integers(1, BS + 1, 32), rng.integers(BS + 1, 2 * BS + 1, 31),
                                  [T * BS + 1]]).astype(np.int32)
-    k_pool, v_pool, tables, tables_t = paged_inputs(
-        rng, gen, [-(-int(n) // BS) for n in lengths_np[:-1]] + [0])
+    k_pool, v_pool, scales, tables, tables_t = paged_inputs(
+        rng, gen, [-(-int(n) // BS) for n in lengths_np[:-1]] + [0], int8)
     lengths = torch.from_numpy(lengths_np).cuda()
     q = randn((b, 1, H, D), gen)
     k_new, v_new = (randn((b, HKV, D), gen), randn((b, HKV, D), gen)) if staged else (None, None)
-    kw = dict(k_new=k_new, v_new=v_new, window=window)
+    kw = dict(k_new=k_new, v_new=v_new, window=window, **scales)
+    extra = {}
+    if int8:
+        ki, ones, kb = unit_scale_pair(randn((HKV, NB, BS, D), gen))
+        unit = dict(k_new=k_new, v_new=v_new, window=window)
+        extra["unit_scales_bitwise_equal"] = torch.equal(
+            pa.paged_decode_attention(q, ki, ki, tables_t, lengths, k_scales=ones,
+                                      v_scales=ones, **unit),
+            pa.paged_decode_attention(q, kb, kb, tables_t, lengths, **unit))
+        assert extra["unit_scales_bitwise_equal"], (staged, window)
     out = pa.paged_decode_attention(q, k_pool, v_pool, tables_t, lengths, **kw)
     ref = pa.paged_decode_attention_plain(q, k_pool, v_pool, tables_t, lengths, **kw)
     torch.cuda.synchronize()
@@ -288,11 +365,12 @@ def check_paged_decode(gen, rng, staged, window=None):
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(b, np.int64)
     hi = np.minimum(lengths_np - int(staged), T * BS)
     keys = int(np.maximum(hi - lo, 0).sum()) + (b if staged else 0)
-    nbytes = (kv_bytes(tables, zip(lo, hi)) + (q.numel() + out.numel()) * 2
+    nbytes = (kv_bytes(tables, zip(lo, hi), int8) + (q.numel() + out.numel()) * 2
               + tables.size * 4 + b * 4 + (2 * b * HKV * D * 2 if staged else 0))
     bound_ms, bound_by = bound(nbytes, 4.0 * D * H * keys)
     # SDPA over the gathered dense view (staged column appended), as a yardstick
-    dk, dv = dense_view(k_pool, tables_t), dense_view(v_pool, tables_t)
+    dk = dense_view(k_pool, tables_t, scales.get("k_scales"))
+    dv = dense_view(v_pool, tables_t, scales.get("v_scales"))
     cols = torch.arange(T * BS, device="cuda")[None, :]
     mask = (cols >= torch.from_numpy(lo).cuda()[:, None]) & (cols < torch.from_numpy(hi).cuda()[:, None])
     if staged:
@@ -301,7 +379,7 @@ def check_paged_decode(gen, rng, staged, window=None):
         mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
     qt = q.transpose(1, 2)
     return dict(shape=f"B={b} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} staged={staged} "
-                      f"window={window} keys={keys}",
+                      f"window={window} keys={keys}{' int8' if int8 else ''}",
                 max_abs_err=err,
                 ms=cuda_ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, tables_t,
                                                              lengths, **kw)),
@@ -309,23 +387,33 @@ def check_paged_decode(gen, rng, staged, window=None):
                     q, k_pool, v_pool, tables_t, lengths, **kw)),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, dk, dv, attn_mask=mask[:, None, None, :], enable_gqa=True)))
+                    qt, dk, dv, attn_mask=mask[:, None, None, :], enable_gqa=True)), **extra)
 
 
-def check_paged_prefill(gen, rng, window=None):
+def check_paged_prefill(gen, rng, window=None, int8=False):
     """K4 at the serving shape: 16 rows of S = 256 new tokens at starts 0,
-    256, 300 (unaligned), 512 and 768, and one parked row."""
+    256, 300 (unaligned), 512 and 768, and one parked row. With `int8`,
+    K4-int8 on int8 pools, and unit scales held bitwise to the bf16 kernel."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     b, s = 16, 256
     starts_np = np.asarray([(0, 256, 300, 512, 768)[i % 5] for i in range(b - 1)]
                            + [T * BS], np.int32)
-    k_pool, v_pool, tables, tables_t = paged_inputs(
-        rng, gen, [-(-(int(st) + s) // BS) for st in starts_np[:-1]] + [0])
+    k_pool, v_pool, scales, tables, tables_t = paged_inputs(
+        rng, gen, [-(-(int(st) + s) // BS) for st in starts_np[:-1]] + [0], int8)
     starts = torch.from_numpy(starts_np).cuda()
     q = randn((b, s, H, D), gen)
-    out = pa.paged_prefill_attention(q, k_pool, v_pool, tables_t, starts, window=window)
-    ref = pa.paged_prefill_attention_plain(q, k_pool, v_pool, tables_t, starts, window=window)
+    kw = dict(window=window, **scales)
+    extra = {}
+    if int8:
+        ki, ones, kb = unit_scale_pair(randn((HKV, NB, BS, D), gen))
+        extra["unit_scales_bitwise_equal"] = torch.equal(
+            pa.paged_prefill_attention(q, ki, ki, tables_t, starts, window=window,
+                                       k_scales=ones, v_scales=ones),
+            pa.paged_prefill_attention(q, kb, kb, tables_t, starts, window=window))
+        assert extra["unit_scales_bitwise_equal"], window
+    out = pa.paged_prefill_attention(q, k_pool, v_pool, tables_t, starts, **kw)
+    ref = pa.paged_prefill_attention_plain(q, k_pool, v_pool, tables_t, starts, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL, (window, err)
@@ -333,24 +421,56 @@ def check_paged_prefill(gen, rng, window=None):
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
     hi = np.minimum(qpos + 1, T * BS)
     keys = int(np.maximum(hi - lo, 0).sum())
-    nbytes = (kv_bytes(tables, zip(lo[:, 0], hi[:, -1])) + (q.numel() + out.numel()) * 2
-              + tables.size * 4 + b * 4)
+    nbytes = (kv_bytes(tables, zip(lo[:, 0], hi[:, -1]), int8)
+              + (q.numel() + out.numel()) * 2 + tables.size * 4 + b * 4)
     bound_ms, bound_by = bound(nbytes, 4.0 * D * H * keys)
-    dk, dv = dense_view(k_pool, tables_t), dense_view(v_pool, tables_t)
+    dk = dense_view(k_pool, tables_t, scales.get("k_scales"))
+    dv = dense_view(v_pool, tables_t, scales.get("v_scales"))
     cols = torch.arange(T * BS, device="cuda")[None, None, :]
     mask = (cols >= torch.from_numpy(lo).cuda()[..., None]) & \
         (cols < torch.from_numpy(hi).cuda()[..., None])
     qt = q.transpose(1, 2)
     return dict(shape=f"B={b} S={s} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} "
-                      f"starts={sorted(set(starts_np.tolist()))} window={window} keys={keys}",
+                      f"starts={sorted(set(starts_np.tolist()))} window={window} keys={keys}"
+                      f"{' int8' if int8 else ''}",
                 max_abs_err=err,
                 ms=cuda_ms(lambda: pa.paged_prefill_attention(q, k_pool, v_pool, tables_t,
-                                                              starts, window=window)),
+                                                              starts, **kw)),
                 plain_ms=cuda_ms(lambda: pa.paged_prefill_attention_plain(
-                    q, k_pool, v_pool, tables_t, starts, window=window), iters=5),
+                    q, k_pool, v_pool, tables_t, starts, **kw), iters=5),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, dk, dv, attn_mask=mask[:, None], enable_gqa=True)))
+                    qt, dk, dv, attn_mask=mask[:, None], enable_gqa=True)), **extra)
+
+
+def check_qmm(gen, m, k, n, block):
+    """K5 at (M, K) x (K, N) with weights quantized in blocks of `block`,
+    against its plain version relative to max |ref|; the yardstick is
+    cuBLAS `F.linear` with a bf16 weight of the same shape."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantization import quantize_int8_blockwise
+    x = randn((m, k), gen)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    q, scales = quantize_int8_blockwise(w, block)
+    del w
+    out = qm.quantized_matmul(x, q, scales)
+    ref = qm.quantized_matmul_plain(x, q, scales)
+    torch.cuda.synchronize()
+    err = rel_max_err(out, ref)
+    assert out.shape == (m, n) and torch.isfinite(out).all() and err <= KERNEL_TOL, \
+        (m, k, n, block, err)
+    g = qm.scale_group_width(k, n, scales.numel())
+    nbytes = m * k * 2 + k * n + scales.numel() * 4 + m * n * 2
+    bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
+    w_t = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
+    return dict(shape=f"M={m} K={k} N={n} block={block} g={g}",
+                max_abs_err=(out.float() - ref.float()).abs().max().item(), rel_max_err=err,
+                ms=cuda_ms(lambda: qm.quantized_matmul(x, q, scales)),
+                plain_ms=cuda_ms(lambda: qm.quantized_matmul_plain(x, q, scales),
+                                 iters=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms(lambda: F.linear(x, w_t)))
 
 
 def llama(cfg, seed):
@@ -471,21 +591,29 @@ def profile_decode(engine, ids, steps: int = 8):
     return profile_summary(prof, steps, wall_us)
 
 
-def profile_summary(prof, steps, wall_us):
-    """Step time, device time and launches per step, and the top kernels."""
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0.0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(device_us(e) for e in kernels)
-    top = sorted(kernels, key=device_us, reverse=True)[:10]
+def device_kernels(prof) -> dict:
+    """{kernel name: (device us, launches)} of a torch.profiler run."""
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or \
+                getattr(e, "self_cuda_time_total", 0.0)
+            out[e.key] = (us, e.count)
+    return out
+
+
+def profile_summary(prof, steps, wall_us, kernels=None):
+    """Step time, device time and launches per step, and the top kernels
+    (`kernels`, from `device_kernels`, else the profile's own)."""
+    kernels = device_kernels(prof) if kernels is None else kernels
+    busy_us = sum(us for us, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:10]
     return dict(steps=steps, step_ms=wall_us / steps / 1e3,
                 device_ms_per_step=busy_us / steps / 1e3,
                 device_busy_share=(busy_us / wall_us) if busy_us else None,
-                kernel_launches_per_step=sum(e.count for e in kernels) / steps,
-                top=[dict(name=e.key[:90], ms_per_step=device_us(e) / steps / 1e3,
-                          launches_per_step=e.count / steps) for e in top])
+                kernel_launches_per_step=sum(n for _, n in kernels.values()) / steps,
+                top=[dict(name=name[:90], ms_per_step=us / steps / 1e3,
+                          launches_per_step=n / steps) for name, (us, n) in top])
 
 
 def v2_engine(model, **overrides):
@@ -516,40 +644,48 @@ def instrument(engine, watch=()):
     return calls, last
 
 
-def kernel_launches():
+def kernel_counters():
+    """Each kernel's name in the `kernels` line → (wrapper, its count)."""
     from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention
     from deepspeed_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from deepspeed_tpu_torch.ops.cuda.paged_attention import (
         paged_decode_attention, paged_prefill_attention)
-    return (flash_attention_fwd, decode_attention, paged_decode_attention,
-            paged_prefill_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+    counters = {fn.__name__: (fn, "launches") for fn in (
+        flash_attention_fwd, decode_attention, paged_decode_attention,
+        paged_prefill_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+        quantized_matmul)}
+    for fn in (decode_attention, paged_decode_attention, paged_prefill_attention):
+        counters[fn.__name__ + "_int8"] = (fn, "launches_int8")
+    return counters
 
 
 def read_launches():
-    return {fn.__name__: fn.launches for fn in kernel_launches()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
 
 
 def zero_launches():
-    for fn in kernel_launches():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
-def serve_v2(report, model):
-    """Traffic A (the v2 main path): 96 prompts of 256 random tokens, 64
-    greedy new tokens each, after one warm-up call. The pool holds 48
-    sequences of 320 tokens, so admission waits on blocks."""
-    import deepspeed_tpu_torch
-    cfg = model.cfg
-    L, vocab = cfg.num_hidden_layers, cfg.vocab_size
+def only(**counts):
+    """The launch counts of every kernel: these, and 0 for the rest."""
+    return {**dict.fromkeys(kernel_counters(), 0), **counts}
+
+
+def traffic_a(engine, rng):
+    """Traffic A through `engine` after one warm-up call: 96 prompts of 256
+    random tokens, 64 greedy new tokens each. The pool holds 48 sequences
+    of 320 tokens, so admission waits on blocks. Returns the outputs, the
+    run's numbers, its launches, its decode steps and chunk calls, and the
+    WATCH rows' last decode-step logits."""
+    vocab = engine.model_cfg.vocab_size
     n, plen, new = TRAFFIC_A
-    rng = np.random.default_rng(SEED + 10)
-    engine = v2_engine(model)
     calls, last = instrument(engine, WATCH)
     engine.generate(rng.integers(0, vocab, (1, plen)).tolist(), max_new_tokens=4)
     prompts = rng.integers(0, vocab, (n, plen)).tolist()
-
-    # the main path: counted launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -560,20 +696,38 @@ def serve_v2(report, model):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
-    peak = torch.cuda.max_memory_allocated()
     assert all(len(o) == plen + new and o[:plen] == p for o, p in zip(out, prompts))
-    assert launches == {"flash_attention_fwd": 0, "decode_attention": 0,
-                        "paged_decode_attention": L * calls["decode_steps"],
-                        "paged_prefill_attention": L * calls["chunk_calls"],
-                        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}, \
-        (launches, calls)
     timing = engine.last_timing
     ttft = sorted(rec["first"] for rec in timing.values())
-    span = max(rec["done"] for rec in timing.values())
     generated = sum(rec["new_tokens"] for rec in timing.values())
     assert generated == n * new
-    kv_util_peak, counters = engine._kv_util_peak, dict(engine.serving_counters)
-    calls = dict(calls)       # the main path's; the profile below adds steps
+    cache = engine.cache
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        cache.k_blocks, cache.v_blocks, cache.k_scale_blocks, cache.v_scale_blocks)
+        if t is not None)
+    stats = dict(prompts=n, prompt_tokens=plen, new_tokens=new, wall_s=wall_s,
+                 tok_s=generated / wall_s,
+                 decode_tok_s=generated / max(rec["done"] for rec in timing.values()),
+                 ttft_min_s=ttft[0], ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
+                 kv_util_peak=engine._kv_util_peak,
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 pool_bytes=pool_bytes, decode_steps=calls["decode_steps"],
+                 chunk_calls=calls["chunk_calls"],
+                 serving_counters=dict(engine.serving_counters), launches=launches)
+    return out, stats, launches, dict(calls), last
+
+
+def serve_v2(report, model):
+    """Traffic A (the v2 main path), its four WATCH rows' last decode step
+    against v1 `forward`, and a profile of the decode step."""
+    import deepspeed_tpu_torch
+    L = model.cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 10)
+    engine = v2_engine(model)
+    out, stats, launches, calls, last = traffic_a(engine, rng)
+    assert launches == only(paged_decode_attention=L * calls["decode_steps"],
+                            paged_prefill_attention=L * calls["chunk_calls"]), \
+        (launches, calls)
 
     # four rows' last decode step against v1 forward on the generated sequence
     v1 = deepspeed_tpu_torch.init_inference(model, dtype="bf16")
@@ -587,12 +741,7 @@ def serve_v2(report, model):
     torch.cuda.empty_cache()
     report["serve_v2"] = dict(
         card=report["card"], model="llama3-8b (random bf16 weights, seed 0)",
-        engine=dict(V2), prompts=n, prompt_tokens=plen, new_tokens=new,
-        wall_s=wall_s, tok_s=generated / wall_s, decode_tok_s=generated / span,
-        ttft_min_s=ttft[0], ttft_p50_s=ttft[len(ttft) // 2], ttft_max_s=ttft[-1],
-        kv_util_peak=kv_util_peak, peak_memory_bytes=peak, decode_steps=calls["decode_steps"],
-        chunk_calls=calls["chunk_calls"], serving_counters=counters, launches=launches,
-        last_step_vs_v1_forward_rel_rms_err=errs)
+        engine=dict(V2), **stats, last_step_vs_v1_forward_rel_rms_err=errs)
     return launches, calls
 
 
@@ -697,6 +846,254 @@ def serve_v2_shared(report, model):
         **counters)
 
 
+def generate_logits(engine, ids, new_tokens, force=None):
+    """`engine.generate(ids, max_new_tokens=new_tokens)` with the v1
+    sampler wrapped to keep every step's logits: (tokens, logits list).
+    `force` (B, S + new_tokens), when given, stands in for each sampled
+    token (teacher forcing: the engine's own prefill and decode path, on
+    those tokens)."""
+    from deepspeed_tpu_torch.inference import engine as v1
+    sampler, seen = v1.sample_logits, []
+
+    def keep(logits, *args, **kwargs):
+        seen.append(logits.detach())
+        if force is None:
+            return sampler(logits, *args, **kwargs)
+        return force[:, ids.shape[1] + len(seen) - 1]
+
+    v1.sample_logits = keep
+    try:
+        out = engine.generate(ids, max_new_tokens=new_tokens)
+    finally:
+        v1.sample_logits = sampler
+    return out, seen
+
+
+def serve_kv_int8(report, model):
+    """int8 KV at rest on Llama-3-8B's bf16 weights: v1 `dequant` greedy
+    `generate` (K2-int8 at every decode step; its last step against the
+    bf16-KV engine's `generate` forced through the same tokens, K2 on the
+    same decode path, and a control whose int8 writes carry scales twice
+    too large), v2 traffic A over int8 pools (K3-int8, K4-int8), and a fork
+    with copy-on-write over int8 pools."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import kv_cache
+    from deepspeed_tpu_torch.inference.capacity_scan import kv_cache_bytes, round_up_len
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16", kv_cache_dtype="int8")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.generate(ids[:1, :16], max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out, seen = generate_logits(engine, ids, NEW)
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    last = seen[-1]
+    # the prefill reads the int8 cache's dequantized view (the masked path)
+    assert launches == only(decode_attention_int8=L * (NEW - 1)), launches
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    bf16_kv = generate_logits(deepspeed_tpu_torch.init_inference(model, dtype="bf16"),
+                              ids, NEW, force=out)[1][-1]
+    err = rel_err(last, bf16_kv)
+    assert torch.isfinite(last).all() and err <= INT8_KV_RTOL, err
+    # the control: a fault in the int8 write (every scale doubled) must
+    # fail the same gate
+    quantize = kv_cache.quantize_kv_tokens
+    kv_cache.quantize_kv_tokens = lambda x: (lambda q, s: (q, 2.0 * s))(*quantize(x))
+    try:
+        control = rel_err(generate_logits(engine, ids, NEW, force=out)[1][-1], bf16_kv)
+    finally:
+        kv_cache.quantize_kv_tokens = quantize
+    assert control > INT8_KV_RTOL, control
+    max_len = round_up_len(PROMPT + NEW)
+    v1 = dict(batch=B, prompt=PROMPT, new_tokens=NEW, generate_ms=generate_ms,
+              generate_prefill_ms=prefill_ms,
+              decode_tok_s=B * (NEW - 1) / ((generate_ms - prefill_ms) / 1e3),
+              kv_cache_bytes=kv_cache_bytes(cfg, B, max_len, torch.bfloat16, "int8"),
+              kv_cache_bytes_bf16=kv_cache_bytes(cfg, B, max_len, torch.bfloat16),
+              last_step_vs_bf16_kv_generate_rel_rms_err=err,
+              doubled_scales_control_rel_rms_err=control, launches=launches)
+    del engine, bf16_kv, last, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # v2 traffic A over int8 pools
+    rng = np.random.default_rng(SEED + 10)
+    engine = v2_engine(model, kv_cache_dtype="int8")
+    out, stats, v2_launches, calls, _ = traffic_a(engine, rng)
+    assert v2_launches == only(paged_decode_attention_int8=L * calls["decode_steps"],
+                               paged_prefill_attention_int8=L * calls["chunk_calls"]), \
+        (v2_launches, calls)
+    # a fork mid-block: the parent's write copies the shared block (values
+    # and scales); parent and child fed the same token give equal logits
+    vocab = cfg.vocab_size
+    first = engine.put([200], [rng.integers(0, vocab, 100)], argmax_only=True)
+    tok = int(first[200])
+    for _ in range(3):
+        tok = int(engine.put([200], [np.asarray([tok])], argmax_only=True)[200])
+    cow0 = engine.block_manager.cow_copies
+    engine.fork(200, 400)
+    both = engine.put([200, 400], [np.asarray([tok])] * 2)
+    assert engine.block_manager.cow_copies == cow0 + 1
+    assert np.array_equal(both[200], both[400]), "int8 fork logits differ"
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_kv_int8"] = dict(
+        card=report["card"], model="llama3-8b (random bf16 weights, seed 0)",
+        v1=v1, v2_traffic_a=dict(engine=dict(V2, kv_cache_dtype="int8"), **stats),
+        fork_logits_bitwise_equal=True)
+    return launches, v2_launches
+
+
+def serve_int8(report, model):
+    """Llama-3-8B with int8 weights through `serve_mode="layer_scan"` (the
+    fused dequant-GEMM, K5, on every projection): B=4 x 512 prompts, greedy
+    `generate` of 64 tokens, the last decode step against the same int8
+    tree served by `dequant` (the engine's `forward` on the generated
+    tokens, which dequantizes the whole tree), and a profile of 8 decode
+    steps. `model`'s own weights are released into the
+    int8 tree."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.accelerator import get_accelerator
+    from deepspeed_tpu_torch.inference import quantized_layer_scan as qls
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    from deepspeed_tpu_torch.inference.serve_modes import resolve_serve_mode
+    from deepspeed_tpu_torch.models.llama import param_tree
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    quant = {"enabled": True, "group_size": 256}
+    auto = resolve_serve_mode(types.SimpleNamespace(
+        _config=DeepSpeedInferenceConfig(dtype="bf16", quant=quant, max_batch_size=B),
+        model_cfg=cfg, _quantized=True, accelerator=get_accelerator()),
+        param_tree(model, device="meta"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16", quant=quant,
+                                                serve_mode="layer_scan")
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    place_peak = torch.cuda.max_memory_allocated()
+    assert engine.serve_mode == "layer_scan" and engine._use_fused_int8()
+    at_rest = qls.at_rest_bytes(engine.params)
+    allocated = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.generate(ids[:1, :16], max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out, seen = generate_logits(engine, ids, NEW)
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    greedy_tok_s = engine.last_decode_tok_s
+    per_call = 7 * L
+    assert launches == only(quantized_matmul=per_call * NEW,
+                            decode_attention=L * (NEW - 1)), launches
+    assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
+    step_logits = seen[-1]
+    assert torch.equal(step_logits.float().argmax(-1), out[:, -1])
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    profile = profile_generate(engine, ids)
+
+    # the same int8 tree served by dequant: `forward` dequantizes the whole
+    # tree in every serve mode, then runs the module (cuBLAS, flash forward)
+    full = engine.forward(out[:, :-1])[:, -1]
+    err = rel_err(step_logits, full)
+    assert torch.isfinite(step_logits).all() and err <= CONSISTENCY_RTOL, err
+    del engine, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_int8"] = dict(
+        card=report["card"], model="llama3-8b (random bf16 weights, seed 0), int8 group 256",
+        auto_resolves_to=auto, serve_mode="layer_scan", batch=B, prompt=PROMPT,
+        new_tokens=NEW, placement_s=place_s, placement_peak_memory_bytes=place_peak,
+        weights_at_rest=at_rest, allocated_after_placement_bytes=allocated,
+        generate_ms=generate_ms, generate_prefill_ms=prefill_ms,
+        decode_tok_s=B * (NEW - 1) / ((generate_ms - prefill_ms) / 1e3),
+        engine_last_decode_tok_s=greedy_tok_s, generate_peak_memory_bytes=peak,
+        quantized_matmul_per_model_call=per_call, launches=launches,
+        last_step_vs_dequant_forward_rel_rms_err=err,
+        decode_profile=profile)
+    return launches
+
+
+def profile_generate(engine, ids, steps: int = 8):
+    """Device time by kernel over `steps` decode steps of the engine's own
+    `generate`, from torch.profiler: a `generate` of steps + 1 tokens less
+    a prefill-only one (one token). Adds K5's share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+    runs = []
+    for new in (steps + 1, 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            engine.generate(ids, max_new_tokens=new)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        runs.append((wall_us, device_kernels(prof)))
+    (wall, full), (prefill_wall, prefill) = runs
+    decode = {name: (us - prefill.get(name, (0.0, 0))[0], n - prefill.get(name, (0.0, 0))[1])
+              for name, (us, n) in full.items()}
+    summary = profile_summary(None, steps, wall - prefill_wall, decode)
+    busy = sum(us for us, _ in decode.values())
+    k5 = sum(us for name, (us, _) in decode.items() if "qmm_kernel" in name)
+    summary["quantized_matmul_ms_per_step"] = k5 / steps / 1e3
+    summary["quantized_matmul_device_share"] = k5 / busy if busy else None
+    return summary
+
+
+def reference_int8(report):
+    """Two layers at full width with int8 weights through the layer scan:
+    the card in bf16 (K5, K2) against the plain versions on the CPU in f32,
+    on the same int8 bytes: the prefill logits and one decode step."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.kv_cache import KVCache
+    from deepspeed_tpu_torch.inference.quantized_layer_scan import make_scan_apply
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config, to_jax_params
+    quant = dict(quant={"enabled": True, "group_size": 256}, serve_mode="layer_scan")
+    cfg = llama_config("llama3-8b", num_hidden_layers=2)
+    gpu = deepspeed_tpu_torch.init_inference(llama(cfg, SEED + 5), dtype="bf16", **quant)
+    cpu_cfg = llama_config("llama3-8b", num_hidden_layers=2, dtype=torch.float32)
+    cpu = deepspeed_tpu_torch.init_inference(
+        LlamaForCausalLM(cpu_cfg, device="meta"), params=to_jax_params(gpu.params),
+        dtype="fp32", device="cpu", fused_int8=True, **quant)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(SEED + 6))
+    errs = []
+    with torch.inference_mode():
+        steps = []
+        for engine in (gpu, cpu):
+            mcfg, device = engine.model_cfg, engine.device
+            apply = make_scan_apply(mcfg, fused=True)
+            cache = KVCache.create(2, 2, 128, mcfg.num_key_value_heads, mcfg.head_dim,
+                                   dtype=mcfg.dtype, device=device)
+            prefill, cache = apply(engine.params, ids.to(device), cache)
+            cache = cache.replace(index=cache.index + ids.shape[1])
+            tok = steps[0][0][:, -1].argmax(-1).to(device) if steps else \
+                prefill[:, -1].argmax(-1)
+            step, _ = apply(engine.params, tok[:, None], cache)
+            steps.append((prefill, step))
+        errs = [rel_err(steps[0][i], steps[1][i]) for i in range(2)]
+    assert max(errs) <= REFERENCE_RTOL, errs
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["reference_int8"] = dict(prefill_rel_rms_err=errs[0],
+                                    decode_step_rel_rms_err=errs[1])
+
+
 def reference(report):
     """Two layers at full width: the card in bf16 against the plain
     versions on the CPU in f32, on the same weights, through v1 and v2."""
@@ -793,9 +1190,7 @@ def train(report):
     L = cfg.num_hidden_layers
     per_step = {"flash_attention_fwd": 2 * L * GAS,     # remat runs each forward again
                 "flash_attention_bwd_dq": L * GAS, "flash_attention_bwd_dkv": L * GAS}
-    assert launches == {"decode_attention": 0, "paged_decode_attention": 0,
-                        "paged_prefill_attention": 0,
-                        **{k: n * TRAIN_STEPS for k, n in per_step.items()}}, launches
+    assert launches == only(**{k: n * TRAIN_STEPS for k, n in per_step.items()}), launches
     losses = [s["loss"] for s in steps]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     tokens = GAS * MBS * SEQ
@@ -922,8 +1317,9 @@ def main() -> int:
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
     libraries = [fa.LIBRARY, fa.BWD_LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY,
-                 pa.PREFILL_LIBRARY]
+                 pa.PREFILL_LIBRARY, qm.LIBRARY]
     t0 = time.perf_counter()
     build_all(libraries)
     report["build_s"] = time.perf_counter() - t0
@@ -942,10 +1338,24 @@ def main() -> int:
                     check_paged_decode(gen, rng, staged=True, window=300)]
     paged_prefill = [check_paged_prefill(gen, rng), check_paged_prefill(gen, rng, window=300)]
     flash_bwd = [check_flash_bwd(gen, *shape) for shape in BWD_SHAPES]
+    # K5: the decode case of each projection first (the main path's), then
+    # prefill, then the odd layouts
+    qmm = [check_qmm(gen, m, k, n, 256) for m in (B, B * PROMPT) for k, n in QMM_SHAPES]
+    qmm += [check_qmm(gen, *case) for case in QMM_ODD]
+    decode_int8 = check_decode(gen, int8=True)
+    paged_decode_int8 = [check_paged_decode(gen, rng, staged=True, int8=True),
+                         check_paged_decode(gen, rng, staged=False, int8=True),
+                         check_paged_decode(gen, rng, staged=True, window=300, int8=True)]
+    paged_prefill_int8 = [check_paged_prefill(gen, rng, int8=True),
+                          check_paged_prefill(gen, rng, window=300, int8=True)]
     report.update(flash_attention_fwd=flash, decode_attention=decode,
                   paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
-                  flash_attention_bwd=flash_bwd)
-    for row in flash + [decode] + paged_decode + paged_prefill + flash_bwd:
+                  flash_attention_bwd=flash_bwd, quantized_matmul=qmm,
+                  decode_attention_int8=decode_int8,
+                  paged_decode_attention_int8=paged_decode_int8,
+                  paged_prefill_attention_int8=paged_prefill_int8)
+    for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
+                + [decode_int8] + paged_decode_int8 + paged_prefill_int8):
         print(json.dumps(row), flush=True)
 
     from deepspeed_tpu_torch.models.llama import llama_config
@@ -953,14 +1363,19 @@ def main() -> int:
     v1_launches = serve(report, model)
     v2_launches, _ = serve_v2(report, model)
     serve_v2_shared(report, model)
+    kv_int8_launches, v2_int8_launches = serve_kv_int8(report, model)
+    int8_launches = serve_int8(report, model)     # releases the model's weights
     del model
+    gc.collect()
     torch.cuda.empty_cache()
     reference(report)
+    reference_int8(report)
     train_launches = train(report)
     train_reference(report)
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
-                "reference", "reference_v2", "train", "train_profile", "train_reference"):
+                "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
+                "train", "train_profile", "train_reference"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -985,6 +1400,21 @@ def main() -> int:
                    "deepspeed_tpu/ops/pallas/flash_attention.py:425",
                    train_launches["flash_attention_bwd_dkv"],
                    flash_bwd[0]["flash_attention_bwd_dkv"]),
+        # K5's row: the decode gate/up projection (M = 4, 4096 x 14336)
+        kernel_row("quantized_matmul", "deepspeed_tpu_torch/csrc/quantized_matmul.cu",
+                   "deepspeed_tpu/ops/pallas/quantized_matmul.py:146",
+                   int8_launches["quantized_matmul"], qmm[2]),
+        kernel_row("decode_attention_int8", "deepspeed_tpu_torch/csrc/decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/decode_attention.py:97",
+                   kv_int8_launches["decode_attention_int8"], decode_int8),
+        kernel_row("paged_decode_attention_int8",
+                   "deepspeed_tpu_torch/csrc/paged_decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/paged_attention.py:159",
+                   v2_int8_launches["paged_decode_attention_int8"], paged_decode_int8[0]),
+        kernel_row("paged_prefill_attention_int8",
+                   "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
+                   "deepspeed_tpu/ops/pallas/paged_attention.py:366",
+                   v2_int8_launches["paged_prefill_attention_int8"], paged_prefill_int8[0]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

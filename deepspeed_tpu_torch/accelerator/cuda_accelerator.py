@@ -54,6 +54,12 @@ class CudaAccelerator:
     def max_memory_allocated(self) -> int:
         return torch.cuda.max_memory_allocated(self.device) if self.is_cuda else 0
 
+    def total_memory(self) -> int:
+        """The card's memory in bytes; 0 on the CPU (size unknown)."""
+        if not self.is_cuda:
+            return 0
+        return int(torch.cuda.get_device_properties(self.device).total_memory)
+
     def reset_peak_memory_stats(self) -> None:
         if self.is_cuda:
             torch.cuda.reset_peak_memory_stats(self.device)

@@ -9,10 +9,22 @@
 //     served by one pass over that KV head's cache;
 //   * logits s = (q.k)*scale in f32, natural-exp online softmax in f32,
 //     p rounded to bf16 before P.V, l == 0 guarded (an empty row gives 0).
+// and, for an int8 cache (K2-int8, `_decode_kernel_quant` :97), what the TPU
+// kernel's int8 path computes:
+//   * k/v cache (B,M,Hkv,D) int8 with k_scales/v_scales (B,M,Hkv) f32, one
+//     per (slot, KV head); int8 -> f32 is exact;
+//   * the K scale multiplies the logit column, s = (q.k_q)*s_k*scale, and
+//     the V scale the probability column, p*s_v, before P.V, so no
+//     dequantized cache row is ever formed; l sums the unscaled p;
+//   * p*s_v is rounded to bf16 as the bf16 path rounds p (the TPU's int8
+//     path keeps it in f32). Multiplying by a unit scale is exact, so with
+//     unit scales the int8 path equals the bf16 path on the same
+//     integer-valued cache bit for bit.
 //
 // Bound on an H100: decode reads each valid cache row of K and V once and
 // does 4*n_rep*D operations on it, far below the card's ~295 operations per
-// byte, so the bytes read bound it: B*Hkv*len*D*2*2 bytes over 3.35 TB/s.
+// byte, so the bytes read bound it: B*Hkv*len*D*2*2 bytes over 3.35 TB/s
+// (int8: B*Hkv*len*(D+4)*2 bytes with the scales).
 //
 // Design: one thread block per (KV head, batch row), D threads. The block
 // walks the cache in chunks of 128 slots and stops at lengths[b], so slots
@@ -24,7 +36,9 @@
 // accumulates column d of P.V for all n_rep heads, reading V rows with
 // coalesced loads. With B*Hkv blocks (32 at B=4 on Llama-3-8B) most of the
 // 132 SMs stay idle: splitting the KV axis across blocks (flash-decoding) is
-// the first step of a later change that makes this kernel fast.
+// the first step of a later change that makes this kernel fast. The int8
+// cache is the same code instantiated on the element type, with the two
+// scale folds compiled in.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -38,11 +52,17 @@ constexpr int CH = 128;  // cache slots per chunk
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int D, int NREP>
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
+// KV = bf16: ks/vs unused. KV = int8_t: ks/vs are the (B,M,Hkv) scales.
+template <int D, int NREP, typename KV>
 __global__ void __launch_bounds__(D)
-decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const int* __restrict__ lengths,
+decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+              const KV* __restrict__ v, const float* __restrict__ ks,
+              const float* __restrict__ vs, const int* __restrict__ lengths,
               bf16* __restrict__ out, int M, int H, int Hkv, float scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int NW = D / 32;   // warps
   constexpr int PER = D / 32;  // row elements per lane
   __shared__ float sP[NREP][CH];
@@ -65,8 +85,9 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < PER; ++e)
       qr[r][e] = __bfloat162float(qg[r * D + lane * PER + e]);
 
-  const bf16* kb = k + ((size_t)b * M * Hkv + g) * D;
-  const bf16* vb = v + ((size_t)b * M * Hkv + g) * D;
+  const KV* kb = k + ((size_t)b * M * Hkv + g) * D;
+  const KV* vb = v + ((size_t)b * M * Hkv + g) * D;
+  const size_t srow = (size_t)b * M * Hkv + g;  // scale of slot j: srow + j*Hkv
 
   float acc[NREP];
 #pragma unroll
@@ -82,10 +103,11 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // (A) logits of the chunk
     for (int j = warp; j < n; j += NW) {
-      const bf16* krow = kb + (size_t)(c0 + j) * stride + lane * PER;
+      const KV* krow = kb + (size_t)(c0 + j) * stride + lane * PER;
       float kf[PER];
 #pragma unroll
-      for (int e = 0; e < PER; ++e) kf[e] = __bfloat162float(krow[e]);
+      for (int e = 0; e < PER; ++e) kf[e] = to_float(krow[e]);
+      const float sk = QUANT ? ks[srow + (size_t)(c0 + j) * Hkv] : 1.f;
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
         float dot = 0.f;
@@ -93,7 +115,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < PER; ++e) dot += qr[r][e] * kf[e];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(FULL, dot, o);
-        if (lane == 0) sP[r][j] = dot * scale;
+        if (lane == 0) sP[r][j] = (QUANT ? dot * sk : dot) * scale;
       }
     }
     __syncthreads();
@@ -110,7 +132,9 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int j = lane; j < n; j += 32) {
         const float p = expf(sP[r][j] - m_new);
         sum += p;
-        sP[r][j] = __bfloat162float(__float2bfloat16(p));  // p in v's dtype
+        // p (times the V scale) in bf16, as the bf16 path rounds it
+        const float pv = QUANT ? p * vs[srow + (size_t)(c0 + j) * Hkv] : p;
+        sP[r][j] = __bfloat162float(__float2bfloat16(pv));
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
@@ -127,7 +151,7 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < NREP; ++r) acc[r] *= sAlpha[r];
     for (int j = 0; j < n; ++j) {
-      const float vv = __bfloat162float(vb[(size_t)(c0 + j) * stride + tid]);
+      const float vv = to_float(vb[(size_t)(c0 + j) * stride + tid]);
 #pragma unroll
       for (int r = 0; r < NREP; ++r) acc[r] += sP[r][j] * vv;
     }
@@ -142,47 +166,58 @@ decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, int NREP>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int B, int M, int H, int Hkv,
-                   float scale, cudaStream_t stream) {
-  dim3 grid(Hkv, B);
-  decode_kernel<D, NREP><<<grid, D, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(lengths),
-      static_cast<bf16*>(out), M, H, Hkv, scale);
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *lengths;
+  void* out;
+  int B, M, H, Hkv;
+  float scale;
+};
+
+template <int D, int NREP, typename KV>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  dim3 grid(a.Hkv, a.B);
+  decode_kernel<D, NREP, KV><<<grid, D, 0, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.lengths),
+      static_cast<bf16*>(a.out), a.M, a.H, a.Hkv, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_d(int n_rep, const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, int B, int M, int H,
-                     int Hkv, float scale, cudaStream_t s) {
+template <int D, typename KV>
+cudaError_t launch_d(int n_rep, const Args& a, cudaStream_t s) {
   switch (n_rep) {
-    case 1: return launch<D, 1>(q, k, v, lengths, out, B, M, H, Hkv, scale, s);
-    case 2: return launch<D, 2>(q, k, v, lengths, out, B, M, H, Hkv, scale, s);
-    case 4: return launch<D, 4>(q, k, v, lengths, out, B, M, H, Hkv, scale, s);
-    case 8: return launch<D, 8>(q, k, v, lengths, out, B, M, H, Hkv, scale, s);
+    case 1: return launch<D, 1, KV>(a, s);
+    case 2: return launch<D, 2, KV>(a, s);
+    case 4: return launch<D, 4, KV>(a, s);
+    case 8: return launch<D, 8, KV>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename KV>
+cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
+  const int n_rep = a.H / a.Hkv;
+  switch (D) {
+    case 64: return launch_d<64, KV>(n_rep, a, s);
+    case 128: return launch_d<128, KV>(n_rep, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// k_scales == v_scales == nullptr: a bf16 cache; both given: an int8 cache.
 extern "C" int ds_decode_attention(const void* q, const void* k, const void* v,
+                                   const void* k_scales, const void* v_scales,
                                    const void* lengths, void* out, int B, int M,
                                    int H, int Hkv, int D, float scale,
                                    void* stream) {
+  if ((k_scales == nullptr) != (v_scales == nullptr) || Hkv <= 0 || H % Hkv)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_rep = H / Hkv;
-  switch (D) {
-    case 64:
-      return launch_d<64>(n_rep, q, k, v, lengths, out, B, M, H, Hkv, scale, s);
-    case 128:
-      return launch_d<128>(n_rep, q, k, v, lengths, out, B, M, H, Hkv, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const Args a{q, k, v, k_scales, v_scales, lengths, out, B, M, H, Hkv, scale};
+  return k_scales ? launch_kv<int8_t>(D, a, s) : launch_kv<bf16>(D, a, s);
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

@@ -1,8 +1,8 @@
 // Single-query (decode) attention through block tables, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `deepspeed_tpu/ops/pallas/paged_attention.py`
-// `paged_decode_attention` (:159) with `_paged_kernel` (:41), for bf16 pools
-// without alibi or int8 scales. It computes what that kernel computes:
+// `paged_decode_attention` (:159) with `_paged_kernel` (:41), for bf16 and
+// int8 pools without alibi. It computes what that kernel computes:
 //   * q (B,1,H,D) bf16, pools (Hkv,NB,BS,D) bf16, tables (B,T) int32,
 //     lengths (B,) int32 -> out (B,1,H,D) bf16;
 //   * row b attends its first pool_len keys, logical position p living in
@@ -18,11 +18,18 @@
 //     carries a cursor at the capacity) and every table entry to [0, NB-1]
 //     (-1 marks an unowned entry), so a parked row reads block 0 and its
 //     output is ignored by the caller.
+//   * int8 pools (K3-int8, :73-88) come with k_scales/v_scales (Hkv,NB,BS)
+//     f32, one per (KV head, block, slot), read through the same clamped
+//     pool row as the values. The K scale multiplies the logit column,
+//     (q.k_q)*s_k*scale, the V scale the probability column, p*s_v, before
+//     P.V; l sums the unscaled p; p*s_v rounds to bf16 as the bf16 path
+//     rounds p, so with unit scales the int8 path equals the bf16 path bit
+//     for bit. The staged token is bf16 and folds in without a scale.
 //
 // Bound on an H100: each valid key and value row is read once and takes
 // 4*n_rep*D operations, far below the card's ~295 operations per byte, so
 // the bytes read bound it: valid keys * Hkv * D * 2 (K and V) * 2 bytes over
-// 3.35 TB/s.
+// 3.35 TB/s (int8: valid keys * Hkv * (D + 4) * 2 bytes with the scales).
 //
 // Design: one thread block per (KV head g, row b), D threads, holding the
 // group's n_rep query heads as the TPU's whole-group tile does. The block
@@ -34,7 +41,8 @@
 // query head rescales the running state and writes bf16 probabilities, and
 // (C) thread d accumulates column d of P.V with coalesced V loads. At
 // B = 64, Hkv = 8 that is 512 blocks on 132 SMs; splitting the KV axis
-// across blocks (flash-decoding) is left for a later change.
+// across blocks (flash-decoding) is left for a later change. The int8 pool
+// is the same code instantiated on the element type, scale folds compiled in.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,18 +56,25 @@ constexpr int CH = 128;  // positions per chunk
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int D, int NREP>
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+
+// KV = bf16: ks/vs unused. KV = int8_t: ks/vs are the (Hkv,NB,BS) scales.
+template <int D, int NREP, typename KV>
 __global__ void __launch_bounds__(D)
-paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                    const bf16* __restrict__ vp, const int* __restrict__ tables,
+paged_decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
+                    const KV* __restrict__ vp, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int* __restrict__ tables,
                     const int* __restrict__ lengths, const bf16* __restrict__ kn,
                     const bf16* __restrict__ vn, bf16* __restrict__ out, int H,
                     int Hkv, int NB, int BS, int T, int staged, int window,
                     float scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int NW = D / 32;   // warps
   constexpr int PER = D / 32;  // row elements per lane
   __shared__ float sP[NREP][CH];
-  __shared__ size_t sRow[CH];  // pool row (in units of D) of each chunk slot
+  __shared__ size_t sRow[CH];  // pool row (in units of D) of each chunk slot,
+                               // also the index of its scale
   __shared__ float sM[NREP], sL[NREP], sAlpha[NREP], sPn[NREP];
 
   const int g = blockIdx.x;
@@ -104,10 +119,11 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 
     // (A) logits of the chunk
     for (int j = warp; j < n; j += NW) {
-      const bf16* krow = kp + sRow[j] * D + lane * PER;
+      const KV* krow = kp + sRow[j] * D + lane * PER;
       float kf[PER];
 #pragma unroll
-      for (int e = 0; e < PER; ++e) kf[e] = __bfloat162float(krow[e]);
+      for (int e = 0; e < PER; ++e) kf[e] = to_float(krow[e]);
+      const float sk = QUANT ? ks[sRow[j]] : 1.f;
 #pragma unroll
       for (int r = 0; r < NREP; ++r) {
         float dot = 0.f;
@@ -115,7 +131,7 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
         for (int e = 0; e < PER; ++e) dot += qr[r][e] * kf[e];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(FULL, dot, o);
-        if (lane == 0) sP[r][j] = dot * scale;
+        if (lane == 0) sP[r][j] = (QUANT ? dot * sk : dot) * scale;
       }
     }
     __syncthreads();
@@ -132,7 +148,9 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       for (int j = lane; j < n; j += 32) {
         const float p = expf(sP[r][j] - m_new);
         sum += p;
-        sP[r][j] = __bfloat162float(__float2bfloat16(p));  // p in v's dtype
+        // p (times the V scale) in bf16, as the bf16 path rounds it
+        const float pv = QUANT ? p * vs[sRow[j]] : p;
+        sP[r][j] = __bfloat162float(__float2bfloat16(pv));
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
@@ -149,7 +167,7 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
     for (int r = 0; r < NREP; ++r) acc[r] *= sAlpha[r];
     for (int j = 0; j < n; ++j) {
-      const float vv = __bfloat162float(vp[sRow[j] * D + tid]);
+      const float vv = to_float(vp[sRow[j] * D + tid]);
 #pragma unroll
       for (int r = 0; r < NREP; ++r) acc[r] += sP[r][j] * vv;
     }
@@ -198,54 +216,63 @@ paged_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 }
 
 struct Args {
-  const void *q, *k, *v, *tables, *lengths, *kn, *vn;
+  const void *q, *k, *v, *ks, *vs, *tables, *lengths, *kn, *vn;
   void* out;
   int B, H, Hkv, NB, BS, T, staged, window;
   float scale;
 };
 
-template <int D, int NREP>
+template <int D, int NREP, typename KV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   dim3 grid(a.Hkv, a.B);
-  paged_decode_kernel<D, NREP><<<grid, D, 0, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.tables),
+  paged_decode_kernel<D, NREP, KV><<<grid, D, 0, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.lengths), static_cast<const bf16*>(a.kn),
       static_cast<const bf16*>(a.vn), static_cast<bf16*>(a.out), a.H, a.Hkv,
       a.NB, a.BS, a.T, a.staged, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename KV>
 cudaError_t launch_d(int n_rep, const Args& a, cudaStream_t s) {
   switch (n_rep) {
-    case 1: return launch<D, 1>(a, s);
-    case 2: return launch<D, 2>(a, s);
-    case 4: return launch<D, 4>(a, s);
-    case 8: return launch<D, 8>(a, s);
+    case 1: return launch<D, 1, KV>(a, s);
+    case 2: return launch<D, 2, KV>(a, s);
+    case 4: return launch<D, 4, KV>(a, s);
+    case 8: return launch<D, 8, KV>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename KV>
+cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_d<64, KV>(a.H / a.Hkv, a, s);
+    case 128: return launch_d<128, KV>(a.H / a.Hkv, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// k_scales == v_scales == nullptr: bf16 pools; both given: int8 pools.
 extern "C" int ds_paged_decode_attention(
-    const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* lengths, const void* k_new, const void* v_new, void* out, int B,
-    int H, int Hkv, int D, int NB, int BS, int T, int staged, int window,
-    float scale, void* stream) {
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
+    const void* v_scales, const void* tables, const void* lengths,
+    const void* k_new, const void* v_new, void* out, int B, int H, int Hkv,
+    int D, int NB, int BS, int T, int staged, int window, float scale,
+    void* stream) {
   if (B == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv || NB <= 0 || BS <= 0 || T <= 0 ||
-      (staged && (k_new == nullptr || v_new == nullptr)))
+      (staged && (k_new == nullptr || v_new == nullptr)) ||
+      (k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, tables, lengths, k_new, v_new, out,
-               B, H, Hkv, NB, BS, T, staged, window, scale};
+  const Args a{q, k_pool, v_pool, k_scales, v_scales, tables, lengths, k_new,
+               v_new, out, B, H, Hkv, NB, BS, T, staged, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_d<64>(H / Hkv, a, s);
-    case 128: return launch_d<128>(H / Hkv, a, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return k_scales ? launch_kv<int8_t>(D, a, s) : launch_kv<bf16>(D, a, s);
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

@@ -3,8 +3,7 @@
 //
 // Replaces the TPU kernel `deepspeed_tpu/ops/pallas/paged_attention.py`
 // `paged_prefill_attention` (:366) with `_paged_prefill_kernel` (:267), for
-// bf16 pools without alibi or int8 scales. It computes what that kernel
-// computes:
+// bf16 and int8 pools without alibi. It computes what that kernel computes:
 //   * q (B,S,H,D) bf16, the S new tokens of each row, already written to the
 //     pool at positions starts[b]..starts[b]+S-1; pools (Hkv,NB,BS,D) bf16;
 //     tables (B,T) int32; starts (B,) int32 -> out (B,S,H,D) bf16;
@@ -14,7 +13,13 @@
 //   * logits (q.k)*scale in f32 (q is not pre-scaled), natural-exp online
 //     softmax in f32, p rounded to bf16 before P.V, l == 0 guarded;
 //   * every table entry is clamped to [0, NB-1] and keys stop at T*BS, so a
-//     parked row (start at the capacity) or a -1 entry reads inside the pool.
+//     parked row (start at the capacity) or a -1 entry reads inside the pool;
+//   * int8 pools (K4-int8, :299-312) come with k_scales/v_scales (Hkv,NB,BS)
+//     f32, read through the same clamped rows as the values. int8 -> bf16
+//     is exact in the K/V tiles; the K scale multiplies the logit columns,
+//     (q.k_q)*s_k*scale, and the V scale the probability columns, p*s_v,
+//     before they round to bf16 for P.V; l sums the unscaled p. With unit
+//     scales the int8 path equals the bf16 path bit for bit.
 //
 // Bound on an H100: 4*D operations per (query head, visible key) pair
 // against reading q, the visible K/V once and writing out once. At S = 256,
@@ -35,6 +40,9 @@
 // query's position (the causal frontier) and, with a window, starts at the
 // tile holding its first query's lowest visible key. mma.sync/wgmma with
 // the accumulator in registers and TMA loads are left for a later change.
+// An int8 pool is the same code instantiated on the element type: its tiles
+// are converted to bf16 on the way into shared memory, beside the tile's
+// key scales.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,13 +75,30 @@ struct Layout {
   static constexpr int o = p + BQ * LDP * 2;
   static constexpr int m = o + BQ * LDO * 4;
   static constexpr int l = m + BQ * 4;
-  static constexpr int bytes = l + BQ * 4;
+  static constexpr int ks = l + BQ * 4;     // f32 key scales of the tile
+  static constexpr int vs = ks + BK * 4;    // f32 value scales of the tile
+  static constexpr int bytes = vs + BK * 4;
 };
 
+// 8 consecutive pool elements as 8 bf16 (int8 -> bf16 is exact).
+__device__ __forceinline__ uint4 load8(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 load8(const int8_t* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  __align__(16) bf16 w[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) w[e] = __float2bfloat16((float)b[e]);
+  return *reinterpret_cast<const uint4*>(w);
+}
+
 // Keys [k0, k0+BK) of one KV head through the row's table; keys at or past
-// `cap` are zero.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* head_pool,
+// `cap` are zero. With scales (int8 pools), each key's scale goes to
+// dst_scales (0 past `cap`).
+template <int D, int LD, typename KV>
+__device__ __forceinline__ void load_tile(bf16* dst, const KV* head_pool,
+                                          float* dst_scales, const float* head_scales,
                                           const int* trow, int k0, int cap,
                                           int NB, int BS) {
   constexpr int CH = D / 8;
@@ -83,20 +108,33 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* head_pool,
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (p < cap) {
       const int phys = min(max(trow[p / BS], 0), NB - 1);
-      val = *reinterpret_cast<const uint4*>(
-          head_pool + ((size_t)phys * BS + p % BS) * D + c * 8);
+      val = load8(head_pool + ((size_t)phys * BS + p % BS) * D + c * 8);
     }
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
   }
+  if (sizeof(KV) == 1) {
+    for (int r = threadIdx.x; r < BK; r += NTHREADS) {
+      const int p = k0 + r;
+      float sc = 0.f;
+      if (p < cap) {
+        const int phys = min(max(trow[p / BS], 0), NB - 1);
+        sc = head_scales[(size_t)phys * BS + p % BS];
+      }
+      dst_scales[r] = sc;
+    }
+  }
 }
 
-template <int D, int NREP>
+// KV = bf16: ks/vs unused. KV = int8_t: ks/vs are the (Hkv,NB,BS) scales.
+template <int D, int NREP, typename KV>
 __global__ void __launch_bounds__(NTHREADS)
-paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                     const bf16* __restrict__ vp, const int* __restrict__ tables,
+paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
+                     const KV* __restrict__ vp, const float* __restrict__ ks,
+                     const float* __restrict__ vs, const int* __restrict__ tables,
                      const int* __restrict__ starts, bf16* __restrict__ out,
                      int S, int H, int NB, int BS, int T, int window,
                      float scale) {
+  constexpr bool QUANT = sizeof(KV) == 1;
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
@@ -107,6 +145,8 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   float* sO = reinterpret_cast<float*>(smem + L::o);
   float* sM = reinterpret_cast<float*>(smem + L::m);
   float* sL = reinterpret_cast<float*>(smem + L::l);
+  float* sKs = reinterpret_cast<float*>(smem + L::ks);
+  float* sVs = reinterpret_cast<float*>(smem + L::vs);
 
   const int row0 = blockIdx.x * BQ;
   const int g = blockIdx.y;
@@ -118,8 +158,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   const int lane = threadIdx.x % 32;
   const int r0 = warp * 16;
   const int* trow = tables + (size_t)b * T;
-  const bf16* kh = kp + (size_t)g * NB * BS * D;
-  const bf16* vh = vp + (size_t)g * NB * BS * D;
+  const KV* kh = kp + (size_t)g * NB * BS * D;
+  const KV* vh = vp + (size_t)g * NB * BS * D;
+  const float* ksh = QUANT ? ks + (size_t)g * NB * BS : nullptr;
+  const float* vsh = QUANT ? vs + (size_t)g * NB * BS : nullptr;
 
   // Q tile: row r is position (row0 + r) / NREP of head g*NREP + member
   constexpr int CH = D / 8;
@@ -152,8 +194,8 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 
   for (int t = t_begin; t < t_end; ++t) {
     const int k0 = t * BK;
-    load_tile<D, L::LDQ>(sK, kh, trow, k0, cap, NB, BS);
-    load_tile<D, L::LDQ>(sV, vh, trow, k0, cap, NB, BS);
+    load_tile<D, L::LDQ, KV>(sK, kh, sKs, ksh, trow, k0, cap, NB, BS);
+    load_tile<D, L::LDQ, KV>(sV, vh, sVs, vsh, trow, k0, cap, NB, BS);
     __syncthreads();
 
     // S = Q . K^T for this warp's 16 rows
@@ -189,8 +231,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       const bool live = fr < nrows;
       const bool v0 = live && c0 < cap && c0 <= qpos && (window <= 0 || c0 > qpos - window);
       const bool v1 = live && c1 < cap && c1 <= qpos && (window <= 0 || c1 > qpos - window);
-      const float s0 = v0 ? sS[r * L::LDS + lane] * scale : NEG_INF;
-      const float s1 = v1 ? sS[r * L::LDS + lane + 32] * scale : NEG_INF;
+      // the K scale folds into the logit columns
+      const float d0 = sS[r * L::LDS + lane], d1 = sS[r * L::LDS + lane + 32];
+      const float s0 = v0 ? (QUANT ? d0 * sKs[lane] : d0) * scale : NEG_INF;
+      const float s1 = v1 ? (QUANT ? d1 * sKs[lane + 32] : d1) * scale : NEG_INF;
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
@@ -202,8 +246,9 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
       const float alpha = expf(m_prev - m_new);
-      sP[r * L::LDP + lane] = __float2bfloat16(p0);
-      sP[r * L::LDP + lane + 32] = __float2bfloat16(p1);
+      // the V scale folds into the probability columns
+      sP[r * L::LDP + lane] = __float2bfloat16(QUANT ? p0 * sVs[lane] : p0);
+      sP[r * L::LDP + lane + 32] = __float2bfloat16(QUANT ? p1 * sVs[lane + 32] : p1);
       for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= alpha;
       __syncwarp();
       if (lane == 0) {
@@ -252,56 +297,65 @@ paged_prefill_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 }
 
 struct Args {
-  const void *q, *k, *v, *tables, *starts;
+  const void *q, *k, *v, *ks, *vs, *tables, *starts;
   void* out;
   int B, S, H, Hkv, NB, BS, T, window;
   float scale;
 };
 
-template <int D, int NREP>
+template <int D, int NREP, typename KV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<D, NREP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_prefill_kernel<D, NREP, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S * NREP + BQ - 1) / BQ, a.Hkv, a.B);
-  paged_prefill_kernel<D, NREP><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.tables),
+  paged_prefill_kernel<D, NREP, KV><<<grid, NTHREADS, bytes, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.starts), static_cast<bf16*>(a.out), a.S, a.H,
       a.NB, a.BS, a.T, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename KV>
 cudaError_t launch_d(int n_rep, const Args& a, cudaStream_t s) {
   switch (n_rep) {
-    case 1: return launch<D, 1>(a, s);
-    case 2: return launch<D, 2>(a, s);
-    case 4: return launch<D, 4>(a, s);
-    case 8: return launch<D, 8>(a, s);
+    case 1: return launch<D, 1, KV>(a, s);
+    case 2: return launch<D, 2, KV>(a, s);
+    case 4: return launch<D, 4, KV>(a, s);
+    case 8: return launch<D, 8, KV>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename KV>
+cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_d<64, KV>(a.H / a.Hkv, a, s);
+    case 128: return launch_d<128, KV>(a.H / a.Hkv, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// k_scales == v_scales == nullptr: bf16 pools; both given: int8 pools.
 extern "C" int ds_paged_prefill_attention(
-    const void* q, const void* k_pool, const void* v_pool, const void* tables,
-    const void* starts, void* out, int B, int S, int H, int Hkv, int D, int NB,
-    int BS, int T, int window, float scale, void* stream) {
+    const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
+    const void* v_scales, const void* tables, const void* starts, void* out,
+    int B, int S, int H, int Hkv, int D, int NB, int BS, int T, int window,
+    float scale, void* stream) {
   if (B == 0 || S == 0) return cudaSuccess;
-  if (Hkv <= 0 || H % Hkv || NB <= 0 || BS <= 0 || T <= 0)
+  if (Hkv <= 0 || H % Hkv || NB <= 0 || BS <= 0 || T <= 0 ||
+      (k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, tables, starts, out,
+  const Args a{q, k_pool, v_pool, k_scales, v_scales, tables, starts, out,
                B, S, H, Hkv, NB, BS, T, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_d<64>(H / Hkv, a, s);
-    case 128: return launch_d<128>(H / Hkv, a, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return k_scales ? launch_kv<int8_t>(D, a, s) : launch_kv<bf16>(D, a, s);
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

@@ -3,6 +3,7 @@
 Same keys as the JAX package's `DeepSpeedInferenceConfig`. Values this port
 does not serve yet raise `NotImplementedError` naming the ROADMAP.md item
 that brings them; unknown keys are accepted and ignored with a warning.
+`choose_serve_mode` is the JAX package's `serve_mode="auto"` decision table.
 """
 
 from __future__ import annotations
@@ -39,11 +40,16 @@ class DeepSpeedInferenceConfig:
     max_out_tokens: int = 1024
     min_out_tokens: int = 1
     max_batch_size: Optional[int] = None
-    quant: Optional[dict] = None
+    quant: Optional[dict] = None  # {"enabled": True, "group_size": N} → int8 weights
+    # "dequant" (the whole tree resident; int8 dequantized at use),
+    # "layer_scan" (int8 per-layer stacks through the fused dequant-GEMM) or
+    # "auto" (`choose_serve_mode` on the card's memory); "capacity" raises
     serve_mode: str = "auto"
     speculative: Optional[dict] = None
     capacity: Optional[dict] = None
-    kv_cache_dtype: Optional[str] = None
+    kv_cache_dtype: Optional[str] = None  # "int8": the KV cache int8 at rest
+    # the layer scan's products: None = the fused dequant-GEMM kernel on
+    # CUDA (the naive path on the CPU); False = the naive dequant matmul
     fused_int8: Optional[bool] = None
     resilience: Optional[dict] = None
     replace_with_kernel_inject: bool = False
@@ -66,6 +72,8 @@ class DeepSpeedInferenceConfig:
                 **{k: v for k, v in tp.items() if k in names})
         dtype = kwargs.pop("dtype", torch.bfloat16)
         if dtype in ("int8", torch.int8):
+            # the JAX package's int8 compute dtype; weights quantize through
+            # `quant` instead
             raise _unported("dtype='int8'", "Weight quantization and serve modes")
         if isinstance(dtype, str):
             dtype = _DTYPES[dtype.lower()]
@@ -81,20 +89,54 @@ class DeepSpeedInferenceConfig:
         self._check_ported()
 
     def _check_ported(self) -> None:
-        if self.serve_mode not in ("auto", "dequant"):
-            raise _unported(f"serve_mode={self.serve_mode!r}",
-                            "Weight quantization and serve modes")
-        if self.quant and self.quant.get("enabled", True):
-            raise _unported("quant", "Weight quantization and serve modes")
-        if self.kv_cache_dtype == "int8":
-            raise _unported("kv_cache_dtype='int8'", "int8 KV at rest")
-        if self.kv_cache_dtype is not None:
+        if self.serve_mode == "capacity":
+            raise _unported("serve_mode='capacity'", "The rest")
+        if self.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got "
                              f"{self.kv_cache_dtype!r}")
         if self.speculative and self.speculative.get("enabled", True):
-            raise _unported("speculative", "Speculative decoding")
+            raise _unported("speculative", "The rest")
         if self.capacity is not None:
-            raise _unported("capacity", "Capacity streaming")
+            raise _unported("capacity", "The rest")
         if self.tensor_parallel.enabled and self.tensor_parallel.tp_size > 1:
             raise _unported(f"tensor_parallel.tp_size={self.tensor_parallel.tp_size}",
                             "Multi-GPU")
+
+
+def choose_serve_mode(*, quantized: bool, layout_ok: bool, multi_device: bool,
+                      dense_bytes: int, int8_bytes: int, layer_bytes: int,
+                      kv_bytes: int, workspace_bytes: int,
+                      hbm_bytes: int, n_devices: int = 1,
+                      tp_shardable: bool = False,
+                      spec_bytes: int = 0) -> str:
+    """The `serve_mode="auto"` decision table, first fit wins. Every mode
+    must also hold the KV cache, the decode workspace and `spec_bytes`;
+    `hbm_bytes` is per device and the resident modes size against
+    `hbm_bytes × n_devices`.
+
+    | condition                                               | mode       |
+    |---------------------------------------------------------|------------|
+    | HBM size unknown (0)                                    | dequant    |
+    | unquantized: streaming unsupported or fits 0.9·HBM_tot  | dequant    |
+    | unquantized otherwise                                   | capacity   |
+    | quantized: layer_scan unsupported on this mesh/layout   | dequant    |
+    | 1.5·dense + KV + ws ≤ 0.5·HBM_tot                       | dequant    |
+    | int8 tree + one dense layer + KV + ws ≤ 0.8·HBM_tot     | layer_scan |
+    | otherwise, capacity supported (single device)           | capacity   |
+    | otherwise                                               | layer_scan |
+    """
+    if not hbm_bytes:
+        return "dequant"
+    overhead = kv_bytes + workspace_bytes + int(spec_bytes)
+    hbm_total = hbm_bytes * max(1, int(n_devices))
+    scan_ok = layout_ok and (not multi_device or tp_shardable)
+    capacity_ok = layout_ok and not multi_device
+    if not quantized:
+        if not capacity_ok or dense_bytes + overhead <= 0.9 * hbm_total:
+            return "dequant"
+        return "capacity"
+    if not scan_ok or 1.5 * dense_bytes + overhead <= 0.5 * hbm_total:
+        return "dequant"
+    if int8_bytes + layer_bytes + overhead <= 0.8 * hbm_total:
+        return "layer_scan"
+    return "capacity" if capacity_ok else "layer_scan"

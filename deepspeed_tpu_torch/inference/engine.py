@@ -3,7 +3,14 @@
 `forward` scores a prompt with no cache; `generate` runs a prefill and then
 a decode loop over a dense `KVCache`. Where the JAX package compiles the
 whole loop into one program, this engine runs it eagerly, one model call per
-token. The serve-mode ladder, telemetry hub, program ledger and recompile
+token.
+
+Serve modes (`serve_modes.py`): `dequant` runs the module, on its own
+weights or, with `quant`, on the int8 tree dequantized whole (once per
+`generate`, once per `forward`); `layer_scan` runs `generate` through
+`quantized_layer_scan` on the per-layer int8 stacks with the fused
+dequant-GEMM. `kv_cache_dtype="int8"` stores the dequant mode's cache int8
+at rest. The serve-mode ladder, telemetry hub, program ledger and recompile
 detector of the JAX engine are not ported.
 """
 
@@ -13,15 +20,15 @@ import time
 from typing import Any, Optional
 
 import torch
+from torch.func import functional_call
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.inference.capacity_scan import round_up_len
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.kv_cache import KVCache
-from deepspeed_tpu_torch.models.llama import load_jax_params
+from deepspeed_tpu_torch.inference.serve_modes import dense_state, place_params
 from deepspeed_tpu_torch.ops.sampling import sample_logits
 from deepspeed_tpu_torch.utils.logging import logger
-
-CACHE_LEN_MULTIPLE = 128  # the cache length is rounded up to a multiple of this
 
 
 def _cache_dims(cfg) -> tuple:
@@ -42,10 +49,13 @@ def _cache_dims(cfg) -> tuple:
 class InferenceEngine:
     """Generation wrapper over a model (`nn.Module` with a `cfg`).
 
-    `params`, when given, is a JAX parameter tree (numpy leaves) copied into
-    the model with `load_jax_params`. Placement casts every floating
-    parameter to `config.dtype` and moves the model to `device` (`None` →
-    CUDA; a machine without CUDA raises unless `device="cpu"`)."""
+    `params`, when given, is a JAX parameter tree (numpy leaves), copied
+    into the model with `load_jax_params` or, with `quant`, kept as the
+    engine's tree (a quantized leaf keeps its int8 bytes). Placement
+    (`serve_modes.place_params`) casts every floating weight to
+    `config.dtype` on `device` (`None` → CUDA; a machine without CUDA raises
+    unless `device="cpu"`). `params` is then the placed tree with `quant`,
+    else None (the module holds the weights)."""
 
     def __init__(self, model: Any, config: Optional[DeepSpeedInferenceConfig] = None,
                  params: Any = None, device=None):
@@ -56,14 +66,17 @@ class InferenceEngine:
         self.device = self.accelerator.device
         if isinstance(model, tuple):
             model, params = model
-        if params is not None:
-            load_jax_params(model, params)
-        self.module = model.to(device=self.device, dtype=config.dtype).eval()
+        self.module = model
         self.model_cfg = model.cfg
+        self.params = place_params(self, params)
+        if config.kv_cache_dtype == "int8" and self.serve_mode != "dequant":
+            logger.warning(f"kv_cache_dtype='int8' only quantizes the dequant serve "
+                           f"mode's KV cache (resolved: {self.serve_mode}); the "
+                           "layer-scan mode keeps a dense KV cache")
         self.last_decode_tok_s: Optional[float] = None
-        n_params = sum(p.numel() for p in self.module.parameters())
-        logger.info(f"InferenceEngine: {n_params / 1e6:.1f}M params on "
-                    f"{self.accelerator.device_name()}, dtype={config.dtype}")
+        logger.info(f"InferenceEngine: serve_mode={self.serve_mode}, "
+                    f"quantized={self._quantized} on {self.accelerator.device_name()}, "
+                    f"dtype={config.dtype}")
 
     @property
     def config(self) -> DeepSpeedInferenceConfig:
@@ -72,10 +85,22 @@ class InferenceEngine:
     def _ids(self, input_ids) -> torch.Tensor:
         return torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
 
+    def _use_fused_int8(self) -> bool:
+        """The fused dequant-GEMM in the layer scan: `fused_int8=None` means
+        the kernel on CUDA; an explicit False is the naive dequant matmul."""
+        fused = self._config.fused_int8
+        return bool(fused) if fused is not None else self.accelerator.is_cuda
+
+    def _call(self, state, *args, **kwargs):
+        """The module on its own weights (`state` None) or on `state`."""
+        if state is None:
+            return self.module(*args, **kwargs)
+        return functional_call(self.module, state, args, kwargs)
+
     @torch.inference_mode()
     def forward(self, input_ids, *args, **kwargs) -> torch.Tensor:
         """Logits (B, S, V) of `input_ids` (B, S), with no cache."""
-        return self.module(self._ids(input_ids))
+        return self._call(dense_state(self), self._ids(input_ids))
 
     __call__ = forward
 
@@ -93,7 +118,7 @@ class InferenceEngine:
         cfg = self.model_cfg
         ids = self._ids(input_ids)
         b, s = ids.shape
-        max_len = -(-(s + max_new_tokens) // CACHE_LEN_MULTIPLE) * CACHE_LEN_MULTIPLE
+        max_len = round_up_len(s + max_new_tokens)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
 
@@ -102,17 +127,20 @@ class InferenceEngine:
                                  top_k=top_k, top_p=top_p)
 
         t0 = time.perf_counter()
+        model_call = self._model_call()
         cache = KVCache.create(cfg.num_hidden_layers, b, max_len,
                                cfg.num_key_value_heads, cfg.head_dim,
-                               dtype=self._config.dtype, device=self.device)
-        logits, cache = self.module(ids, cache=cache)
+                               dtype=self._config.dtype, device=self.device,
+                               quantized=(self._config.kv_cache_dtype == "int8"
+                                          and self.serve_mode == "dequant"))
+        logits, cache = model_call(ids, cache)
         tok = sample(logits[:, -1, :])
         done = torch.zeros((b,), dtype=torch.bool, device=self.device)
         if eos_token_id is not None:
             done = tok == eos_token_id
         new = [tok]
         for _ in range(max_new_tokens - 1):
-            logits, cache = self.module(tok[:, None], cache=cache)
+            logits, cache = model_call(tok[:, None], cache)
             tok = sample(logits[:, -1, :])
             if eos_token_id is not None:
                 tok = torch.where(done, torch.full_like(tok, pad_token_id), tok)
@@ -123,3 +151,22 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         self.last_decode_tok_s = (b * max_new_tokens / dt) if dt > 0 else None
         return out
+
+    def _model_call(self):
+        """`call(ids, cache) → (logits, cache)` with the cursors advanced, for
+        one generate: the module (on the int8 tree dequantized once, with
+        `quant`), or in the `layer_scan` mode the layer scan over the
+        per-layer int8 stacks, whose products run the fused dequant-GEMM."""
+        if self.serve_mode != "layer_scan":
+            state = dense_state(self)
+            return lambda ids, cache: self._call(state, ids, cache=cache)
+        from deepspeed_tpu_torch.inference.quantized_layer_scan import (
+            layer_slices, make_scan_apply)
+        apply = make_scan_apply(self.model_cfg, fused=self._use_fused_int8())
+        per_layer = layer_slices(self.params["layers"])
+
+        def call(ids, cache):
+            logits, cache = apply(self.params, ids, cache, per_layer)
+            return logits, cache.replace(index=cache.index + ids.shape[1])
+
+        return call

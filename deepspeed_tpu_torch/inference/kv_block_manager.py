@@ -15,12 +15,16 @@
   allocates a fresh block and queues the (src, dst) pool copy for the
   engine's next table sync.
 
+- Accounting: `KVBudget` says how many sequences' KV fit beside the
+  resident bytes, at the configured KV dtype.
+
 Host-side bookkeeping only. The JAX package's memory-plane telemetry hook
 (`plane_wire`) is not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 
@@ -163,3 +167,37 @@ class KVBlockManager:
     @property
     def has_pending_copies(self) -> bool:
         return bool(self._pending_copies)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVBudget:
+    """How many sequences fit: max_batch = floor(available / per_seq_kv_bytes)
+    with available = hbm_bytes − resident_bytes (weights + workspace) and
+    per_seq_kv_bytes the KV cache of one sequence at the configured dtype."""
+    hbm_bytes: int
+    resident_bytes: int
+    per_seq_kv_bytes: int
+    kv_dtype: str
+    max_batch: int
+
+    @property
+    def available_bytes(self) -> int:
+        return max(self.hbm_bytes - self.resident_bytes, 0)
+
+
+def kv_budget(*, hbm_bytes: int, resident_bytes: int, per_seq_kv_bytes: int,
+              kv_dtype: str = "bf16") -> KVBudget:
+    avail = max(hbm_bytes - resident_bytes, 0)
+    return KVBudget(hbm_bytes=hbm_bytes, resident_bytes=resident_bytes,
+                    per_seq_kv_bytes=per_seq_kv_bytes, kv_dtype=kv_dtype,
+                    max_batch=avail // max(per_seq_kv_bytes, 1))
+
+
+def model_kv_budget(model_cfg, *, hbm_bytes: int, resident_bytes: int,
+                    max_len: int, dtype, kv_dtype: Optional[str] = None) -> KVBudget:
+    """`kv_budget` with the per-sequence bytes from the model config, by the
+    `capacity_scan.kv_cache_bytes` formula `choose_serve_mode` reads."""
+    from deepspeed_tpu_torch.inference.capacity_scan import kv_cache_bytes
+    per_seq = kv_cache_bytes(model_cfg, 1, max_len, dtype, kv_dtype=kv_dtype)
+    return kv_budget(hbm_bytes=hbm_bytes, resident_bytes=resident_bytes,
+                     per_seq_kv_bytes=per_seq, kv_dtype=kv_dtype or "dense")

@@ -19,10 +19,16 @@ eagerly and keeps the results the same:
 Sampled rows draw from their own generator, seeded from (seed, uid), so a
 row's draws depend on (seed, uid, draw index) and not on its slot.
 
-Only the paged layout is ported. The slot layout, the serve-mode ladder,
-speculative rounds, `warmup` and the tracer, program ledger, recompile
-detector and memory plane are not (ROADMAP.md, Queue 1, 'v2 FastGen: the
-rest').
+`kv_cache_dtype="int8"` keeps the pools int8 at rest with f32 scales
+(quantized by the scatters and `apply_stage`, folded in by K3/K4), and a
+copy-on-write block copy moves the scales with the values. Placement is v1's
+(`serve_modes.place_params`): `quant` in the `dequant` mode serves the int8
+tree dequantized at every model call, as the JAX engine's programs do.
+
+Only the paged layout is ported. The slot layout (which the `layer_scan`
+and `capacity` modes need), the serve-mode ladder, speculative rounds,
+`warmup` and the tracer, program ledger, recompile detector and memory plane
+are not (ROADMAP.md, Queue 1, 'v2 FastGen: the rest').
 """
 
 from __future__ import annotations
@@ -38,8 +44,8 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, _unpo
 from deepspeed_tpu_torch.inference.engine import _cache_dims
 from deepspeed_tpu_torch.inference.kv_block_manager import KVBlockManager
 from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache
+from deepspeed_tpu_torch.inference.serve_modes import dense_state, place_params
 from deepspeed_tpu_torch.inference.v2.ragged import DSStateManager
-from deepspeed_tpu_torch.models.llama import load_jax_params
 from deepspeed_tpu_torch.ops.sampling import row_generator, sample_logits
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -68,10 +74,11 @@ class InferenceEngineV2:
         without CUDA it raises unless `device="cpu"`). The cache is a pool
         of `num_cache_blocks` blocks of `cache_block_size` tokens (default:
         max_batch × ceil(max_seq_len / block) blocks), so memory scales with
-        tokens in flight. `prefix_sharing` admits prompts through a match
-        against committed blocks and enables `fork`. `model` is an
-        `nn.Module` or a `(module, params)` tuple, `params` a JAX parameter
-        tree of numpy arrays."""
+        tokens in flight. `kv_cache_dtype="int8"` stores the pools int8 at
+        rest. `prefix_sharing` admits prompts through a match against
+        committed blocks and enables `fork`. `model` is an `nn.Module` or a
+        `(module, params)` tuple, `params` a JAX parameter tree of numpy
+        arrays. `serve_mode` and `quant` write through to the config."""
         if config is None:
             config = DeepSpeedInferenceConfig()
         elif isinstance(config, dict):
@@ -87,9 +94,7 @@ class InferenceEngineV2:
             raise _unported("kv_layout='slot'", _REST)
         if kv_layout not in (None, "paged"):
             raise ValueError(f"kv_layout must be 'paged' or 'slot', got {kv_layout!r}")
-        if kv_cache_dtype == "int8":
-            raise _unported("kv_cache_dtype='int8'", "int8 KV at rest")
-        if kv_cache_dtype is not None:
+        if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got {kv_cache_dtype!r}")
         if not config.max_batch_size:
             config.max_batch_size = max_batch
@@ -98,15 +103,23 @@ class InferenceEngineV2:
         self.device = self.accelerator.device
         if isinstance(model, tuple):
             model, params = model
-        if params is not None:
-            load_jax_params(model, params)
-        self.module = model.to(device=self.device, dtype=config.dtype).eval()
+        self.module = model
         self.model_cfg = model.cfg
+        self.params = place_params(self, params)
+        if kv_cache_dtype == "int8" and self.serve_mode != "dequant":
+            raise ValueError(
+                "kv_cache_dtype='int8' rides the paged dequant path; the "
+                f"layer-streamed serve mode {self.serve_mode!r} keeps dense "
+                "slot rows with no per-row view of a quantized cache — use "
+                "serve_mode='dequant' or drop the int8 cache")
+        if self.serve_mode != "dequant":
+            raise _unported(f"serve_mode={self.serve_mode!r} in v2 (it serves dense "
+                            "slot rows, kv_layout='slot')", _REST)
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
         self.split_fuse_chunk = split_fuse_chunk
         self.kv_layout = "paged"
-        self.kv_cache_dtype = None
+        self.kv_cache_dtype = kv_cache_dtype
         self._cache_block_size = cache_block_size
         self._num_cache_blocks = num_cache_blocks
         self._prefix_sharing = prefix_sharing
@@ -126,6 +139,14 @@ class InferenceEngineV2:
     def config(self) -> DeepSpeedInferenceConfig:
         return self._config
 
+    def _model(self, *args, **kwargs):
+        """The module on its own weights, or with `quant` on the int8 tree
+        dequantized for this call."""
+        state = dense_state(self)
+        if state is None:
+            return self.module(*args, **kwargs)
+        return torch.func.functional_call(self.module, state, args, kwargs)
+
     def _setup_cache(self) -> None:
         """The paged cache and the scheduler state; every row parked."""
         bs = self._cache_block_size
@@ -137,7 +158,7 @@ class InferenceEngineV2:
         self.cache = PagedKVCache.create(
             layers, self.max_batch, self.max_seq_len, kv_heads, head_dim,
             num_blocks=num_blocks, block_size=bs, dtype=self._config.dtype,
-            device=self.device, staged=True)
+            device=self.device, staged=True, quantized=self.kv_cache_dtype == "int8")
         self.state_manager = DSStateManager(self.max_batch, num_blocks=num_blocks,
                                             block_size=bs)
         self.block_manager: Optional[KVBlockManager] = None
@@ -148,7 +169,8 @@ class InferenceEngineV2:
         self._tables_dirty = False  # the cache was created with -1 tables
         # park every row: cursor at max_len, so writes drop
         self.cache.index.fill_(self.cache.max_len)
-        self._cache_desc = (f"{num_blocks} blocks × {bs} tokens (paged), "
+        self._cache_desc = (f"{num_blocks} blocks × {bs} tokens (paged"
+                            f"{', int8' if self.cache.quantized else ''}), "
                             f"{self.max_batch} seq rows")
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
@@ -179,14 +201,15 @@ class InferenceEngineV2:
 
     def _copy_blocks(self, copies) -> None:
         """Copy-on-write block copies, one gather and one scatter per pool
-        over every layer and head."""
+        (and per scale pool) over every layer and head."""
         c = self.cache
         lh, nb = c.num_layers * c.kv_heads, c.num_blocks
         heads = torch.arange(lh, device=self.device)[:, None] * nb
         src = (heads + self._tensor([s for s, _ in copies], torch.long)[None]).reshape(-1)
         dst = (heads + self._tensor([d for _, d in copies], torch.long)[None]).reshape(-1)
-        for blocks in (c.k_blocks, c.v_blocks):
-            blocks.index_copy_(0, dst, blocks[src])
+        for blocks in (c.k_blocks, c.v_blocks, c.k_scale_blocks, c.v_scale_blocks):
+            if blocks is not None:
+                blocks.index_copy_(0, dst, blocks[src])
 
     def _maybe_sync_tables(self) -> None:
         """Push host-side table edits to the device before a step; queued
@@ -273,7 +296,7 @@ class InferenceEngineV2:
         for i, p in enumerate(pieces):
             ids[i, :len(p)] = p
         valids = self._tensor([len(p) for p in pieces])
-        last, _ = self.module(self._tensor(ids, torch.long),
+        last, _ = self._model(self._tensor(ids, torch.long),
                               cache=self._rows(slots, starts, width),
                               logits_at=valids - 1)
         self.cache.index[self._tensor(slots, torch.long)] = self._tensor(starts) + valids
@@ -283,7 +306,7 @@ class InferenceEngineV2:
         """One token for every row (B, 1): staged attention, then one scatter
         per pool lands the staged tokens; inactive rows keep their cursors.
         Returns logits (B, V)."""
-        logits, stepped = self.module(tokens, cache=self.cache)
+        logits, stepped = self._model(tokens, cache=self.cache)
         stepped.apply_stage()
         self.cache = self.cache.replace(
             index=torch.where(active, stepped.index, self.cache.index))

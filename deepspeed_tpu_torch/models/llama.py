@@ -284,9 +284,54 @@ def llama_loss_fn(model: Optional[LlamaForCausalLM] = None):
     return make_causal_loss_fn(model)
 
 
-def _t(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=np.float32))
-                            ).to(device=like.device, dtype=like.dtype)
+_GROUPS = (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
+           ("mlp", ("gate_proj", "up_proj", "down_proj")))
+_NORMS = ("input_layernorm", "post_attention_layernorm")
+
+
+def module_state(model: LlamaForCausalLM, tree) -> dict:
+    """The module's parameter names → tensors of a JAX parameter tree of
+    torch tensors (float leaves): per-layer views of the stacked `layers`
+    leaves, flax (in, out) kernels as transposed (out, in) views, `lm_head`
+    (D, V) as the untied head. For `load_jax_params`, and for running the
+    module on a tree's weights with `torch.func.functional_call`."""
+    state = {"embed_tokens": tree["embed_tokens"], "norm.weight": tree["norm"]["weight"]}
+    if model.lm_head is not None:
+        state["lm_head.weight"] = tree["lm_head"].t()
+    stack = tree["layers"]
+    for i in range(len(model.layers)):
+        for norm in _NORMS:
+            state[f"layers.{i}.{norm}.weight"] = stack[norm]["weight"][i]
+        for group, names in _GROUPS:
+            for name in names:
+                leaves = stack[group][name]
+                state[f"layers.{i}.{group}.{name}.weight"] = leaves["kernel"][i].t()
+                if "bias" in leaves:
+                    state[f"layers.{i}.{group}.{name}.bias"] = leaves["bias"][i]
+    return state
+
+
+def tree_to_torch(tree, dtype: Optional[torch.dtype] = None, device=None):
+    """A JAX parameter tree of numpy (or JAX) arrays as torch tensors on
+    `device`: float leaves cast to `dtype` when given; a quantized leaf
+    keeps its int8 bytes and f32 scales."""
+    from deepspeed_tpu_torch.inference.quantization import is_quantized_leaf, tree_map
+
+    def tensor(x):
+        if isinstance(x, torch.Tensor):
+            return x
+        a = np.ascontiguousarray(np.asarray(x))
+        return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+    def leaf(x):
+        if is_quantized_leaf(x):
+            return {k: tensor(v).to(device) for k, v in x.items()}
+        t = tensor(x)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return tree_map(leaf, tree)
 
 
 @torch.no_grad()
@@ -295,25 +340,14 @@ def load_jax_params(model: LlamaForCausalLM, tree) -> LlamaForCausalLM:
     arrays) into `model`. The scan-stacked `layers/...` leaves carry a
     leading L axis and are split per layer; a flax `Dense` kernel (in, out)
     is transposed into an `nn.Linear` weight (out, in); `lm_head` (D, V) is
-    the untied head."""
-    model.embed_tokens.copy_(_t(tree["embed_tokens"], model.embed_tokens))
-    model.norm.weight.copy_(_t(tree["norm"]["weight"], model.norm.weight))
-    if model.lm_head is not None:
-        model.lm_head.weight.copy_(_t(np.asarray(tree["lm_head"]).T,
-                                      model.lm_head.weight))
-    stack = tree["layers"]
-    for i, layer in enumerate(model.layers):
-        for norm in ("input_layernorm", "post_attention_layernorm"):
-            w = getattr(layer, norm).weight
-            w.copy_(_t(stack[norm]["weight"][i], w))
-        for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
-                             ("mlp", ("gate_proj", "up_proj", "down_proj"))):
-            for name in names:
-                dense = getattr(getattr(layer, group), name)
-                leaves = stack[group][name]
-                dense.weight.copy_(_t(np.asarray(leaves["kernel"][i]).T, dense.weight))
-                if dense.bias is not None:
-                    dense.bias.copy_(_t(leaves["bias"][i], dense.bias))
+    the untied head. Quantized leaves (`{"__q8__", "scales"}`, flat or
+    per-layer scales) are dequantized into the float weights; an inference
+    engine given such a tree keeps the int8 bytes instead."""
+    from deepspeed_tpu_torch.inference.quantization import dequantize_param_tree
+    tree = dequantize_param_tree(tree_to_torch(tree, dtype=torch.float32))
+    params = dict(model.named_parameters())
+    for name, value in module_state(model, tree).items():
+        params[name].copy_(value.to(params[name].dtype))
     return model
 
 
@@ -322,26 +356,57 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 @torch.no_grad()
-def to_jax_params(model: LlamaForCausalLM) -> dict:
-    """The inverse of `load_jax_params`: the module's weights as a JAX
-    `LlamaForCausalLM` parameter tree of f32 numpy arrays, per-layer leaves
-    stacked on a leading L axis and `nn.Linear` weights transposed into flax
-    `Dense` kernels."""
-    tree = {"embed_tokens": _np(model.embed_tokens),
-            "norm": {"weight": _np(model.norm.weight)}, "layers": {}}
+def param_tree(model: LlamaForCausalLM, dtype: Optional[torch.dtype] = None,
+               device=None, release: bool = False) -> dict:
+    """The module's weights as a JAX `LlamaForCausalLM` parameter tree of
+    torch tensors: per-layer leaves stacked on a leading L axis, `nn.Linear`
+    weights transposed into flax (in, out) kernels, cast to `dtype` and
+    moved to `device` (default: the parameters' own). `device="meta"` gives
+    the shapes alone. `release=True` frees each module parameter once it is
+    copied (the module's storage moves to the meta device), so building the
+    tree never holds two copies of the weights."""
+    def take(owner, attr):
+        p = getattr(owner, attr)
+        t = p.detach().to(device=device, dtype=dtype)
+        if release:
+            setattr(owner, attr, nn.Parameter(
+                torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                requires_grad=p.requires_grad))
+        return t
+
+    def stacked(owners, attr, transpose=False):
+        return torch.stack([take(o, attr).t() if transpose else take(o, attr)
+                            for o in owners])
+
+    tree = {"embed_tokens": take(model, "embed_tokens"),
+            "norm": {"weight": take(model.norm, "weight")}, "layers": {}}
     if model.lm_head is not None:
-        tree["lm_head"] = _np(model.lm_head.weight).T
+        tree["lm_head"] = take(model.lm_head, "weight").t().contiguous()
     stack = tree["layers"]
-    for norm in ("input_layernorm", "post_attention_layernorm"):
-        stack[norm] = {"weight": np.stack([_np(getattr(layer, norm).weight)
-                                           for layer in model.layers])}
-    for group, names in (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
-                         ("mlp", ("gate_proj", "up_proj", "down_proj"))):
+    for norm in _NORMS:
+        stack[norm] = {"weight": stacked([getattr(layer, norm) for layer in model.layers],
+                                         "weight")}
+    for group, names in _GROUPS:
         stack[group] = {}
         for name in names:
             denses = [getattr(getattr(layer, group), name) for layer in model.layers]
-            leaves = {"kernel": np.stack([_np(d.weight).T for d in denses])}
+            leaves = {"kernel": stacked(denses, "weight", transpose=True)}
             if denses[0].bias is not None:
-                leaves["bias"] = np.stack([_np(d.bias) for d in denses])
+                leaves["bias"] = stacked(denses, "bias")
             stack[group][name] = leaves
     return tree
+
+
+@torch.no_grad()
+def to_jax_params(model) -> dict:
+    """The inverse of `load_jax_params`: a JAX `LlamaForCausalLM` parameter
+    tree of numpy arrays, from a module (f32, per-layer leaves stacked on a
+    leading L axis, `nn.Linear` weights transposed into flax kernels) or
+    from a tree of torch tensors such as an inference engine's `params`,
+    whose quantized leaves come back as the same int8 bytes and f32
+    scales."""
+    from deepspeed_tpu_torch.inference.quantization import is_quantized_leaf, tree_map
+    if isinstance(model, dict):
+        return tree_map(lambda x: ({k: v.detach().cpu().numpy() for k, v in x.items()}
+                                   if is_quantized_leaf(x) else _np(x)), model)
+    return tree_map(_np, param_tree(model, dtype=torch.float32))

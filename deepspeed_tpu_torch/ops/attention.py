@@ -17,13 +17,14 @@ from typing import Optional
 
 import torch
 
-from deepspeed_tpu_torch.inference.kv_cache import PagedLayer
+from deepspeed_tpu_torch.inference.kv_cache import PagedLayer, QuantizedKVLayer
 from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention
 from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_prefill_attention,
 )
+from deepspeed_tpu_torch.ops.quantization import dequantize_kv
 
 _MASKED_MAX_LOGITS = 4096 * 4096  # above this, the masked path goes blockwise
 
@@ -177,32 +178,51 @@ def cached_attention(q, k_cache, v_cache, index, mask, impl: str = "auto",
     with the staged token when the layer has a stage, and S > 1 to the paged
     prefill kernel (K4); `window` rides both. On the CPU the wrappers take
     their plain versions; `mask` is not read.
+
+    int8 caches keep their int8 form on every kernel branch: a paged
+    layer's `scales` ride to K3/K4, and a `QuantizedKVLayer` goes to the
+    decode kernel with its scales (K2-int8). The masked paths (prefill over
+    a dense int8 cache, the CPU, a window, alibi) read its dequantized view
+    in q's dtype.
     """
     if isinstance(k_cache, PagedLayer):
         if alibi is not None:
             raise NotImplementedError(
                 "alibi in the paged kernels is not ported yet: ROADMAP.md, "
                 "Queue 1, 'v2 FastGen: the rest'")
+        scales = dict(k_scales=k_cache.scales, v_scales=v_cache.scales)
         if q.shape[1] == 1:
             staged = k_cache.stage is not None
             return paged_decode_attention(
                 q, k_cache.pool, v_cache.pool, k_cache.tables,
                 (index + 1).to(torch.int32),
                 k_new=k_cache.stage if staged else None,
-                v_new=v_cache.stage if staged else None, window=window)
+                v_new=v_cache.stage if staged else None, window=window, **scales)
         return paged_prefill_attention(q, k_cache.pool, v_cache.pool, k_cache.tables,
-                                       index.to(torch.int32), window=window)
+                                       index.to(torch.int32), window=window, **scales)
+    quant = isinstance(k_cache, QuantizedKVLayer)
+
+    def masked():
+        k, v = k_cache, v_cache
+        if quant:
+            k = dequantize_kv(k.data, k.scales, q.dtype)
+            v = dequantize_kv(v.data, v.scales, q.dtype)
+        return reference_attention(q, k, v, causal=False, segment_mask=mask,
+                                   alibi=alibi)
+
     if alibi is not None:
-        return reference_attention(q, k_cache, v_cache, causal=False,
-                                   segment_mask=mask, alibi=alibi)
+        return masked()
     if impl == "decode_pallas" and window is not None:
         raise NotImplementedError(
             "the decode kernel is prefix-mask-only (ROADMAP.md, Queue 2, K2); "
             "a sliding window needs the masked path (impl='auto'/'reference')")
     if window is None and q.shape[1] == 1 and q.is_cuda and impl != "reference":
-        return decode_attention(q, k_cache, v_cache, (index + 1).to(torch.int32))
-    return reference_attention(q, k_cache, v_cache, causal=False,
-                               segment_mask=mask)
+        lengths = (index + 1).to(torch.int32)
+        if quant:
+            return decode_attention(q, k_cache.data, v_cache.data, lengths,
+                                    k_scales=k_cache.scales, v_scales=v_cache.scales)
+        return decode_attention(q, k_cache, v_cache, lengths)
+    return masked()
 
 
 def rms_norm_ref(x, weight, eps: float = 1e-6):

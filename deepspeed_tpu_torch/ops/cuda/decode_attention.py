@@ -6,6 +6,11 @@ for CUDA tensors and takes the plain PyTorch version,
 first `lengths[b]` slots of its cache row; slots past the length are never
 read. Natural-exp softmax in f32, probabilities in v's dtype before P.V, and
 an empty row gives zeros.
+
+An int8 cache (K2-int8) comes with `k_scales`/`v_scales` (B, M, Hkv) f32:
+the kernel folds the K scale into the logit columns and the V scale into the
+probability columns; the plain version dequantizes into q's dtype and runs
+the same plain math. Its launches count in `decode_attention.launches_int8`.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.ops.quantization import dequantize_kv
 from deepspeed_tpu_torch.op_builder import KernelLibrary
 
 NEG_INF = -1e30
@@ -23,8 +29,7 @@ GROUP_SIZES = (1, 2, 4, 8)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("decode_attention.cu", {
-    "ds_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            ctypes.c_float, _P],
+    "ds_decode_attention": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
 })
 
 
@@ -33,8 +38,14 @@ def _scale(d: int, softmax_scale: Optional[float]) -> float:
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths,
-                           softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,1,H,D); caches (B,M,Hkv,D); lengths (B,) -> (B,1,H,D)."""
+                           softmax_scale: Optional[float] = None,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
+    """q (B,1,H,D); caches (B,M,Hkv,D); lengths (B,) -> (B,1,H,D). With
+    `k_scales`/`v_scales` (B,M,Hkv) the caches are int8 and are dequantized
+    into q's dtype first."""
+    if k_scales is not None:
+        k_cache = dequantize_kv(k_cache, k_scales, q.dtype)
+        v_cache = dequantize_kv(v_cache, v_scales, q.dtype)
     b, _, h, d = q.shape
     m, hkv = k_cache.shape[1], k_cache.shape[2]
     n_rep = h // hkv
@@ -52,17 +63,26 @@ def decode_attention_plain(q, k_cache, v_cache, lengths,
     return (acc / safe_l).to(q.dtype).reshape(b, 1, h, d)
 
 
-def _check(q, k_cache, v_cache, lengths):
+def _check(q, k_cache, v_cache, lengths, k_scales, v_scales):
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise ValueError("decode_attention: give both k_scales and v_scales or neither")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} is on {t.device}, "
                              f"q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"decode_attention: {name} must be bfloat16 on "
+        want = torch.int8 if quant and name != "q" else torch.bfloat16
+        if t.dtype != want:
+            raise TypeError(f"decode_attention: {name} must be {want} on "
                             f"CUDA, got {t.dtype}")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be a contiguous "
                              "4-d tensor")
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ():
+        if t.device != q.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != tuple(k_cache.shape[:3]) or not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be a contiguous f32 "
+                             f"{tuple(k_cache.shape[:3])} tensor on {q.device}")
     b, s, h, d = q.shape
     if s != 1:
         raise ValueError("decode_attention is single-query; use flash "
@@ -85,17 +105,21 @@ def _check(q, k_cache, v_cache, lengths):
 
 
 def decode_attention(q, k_cache, v_cache, lengths,
-                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+                     softmax_scale: Optional[float] = None,
+                     k_scales=None, v_scales=None) -> torch.Tensor:
     """q (B,1,H,D); k/v_cache (B,M,Hkv,D); lengths (B,) valid slots per row
-    (the new token's slot already written). Returns (B,1,H,D).
+    (the new token's slot already written). Returns (B,1,H,D). An int8
+    cache comes with `k_scales`/`v_scales` (B,M,Hkv) f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths, softmax_scale)
+        return decode_attention_plain(q, k_cache, v_cache, lengths, softmax_scale,
+                                      k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    _check(q, k_cache, v_cache, lengths)
+    _check(q, k_cache, v_cache, lengths, k_scales, v_scales)
+    quant = k_scales is not None
     b, _, h, d = q.shape
     m, hkv = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
@@ -103,11 +127,17 @@ def decode_attention(q, k_cache, v_cache, lengths,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = LIBRARY.lib().ds_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None,
             lengths.data_ptr(), out.data_ptr(), b, m, h, hkv, d,
             _scale(d, softmax_scale), stream)
     LIBRARY.check(code, "decode_attention")
-    decode_attention.launches += 1
+    if quant:
+        decode_attention.launches_int8 += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_int8 = 0

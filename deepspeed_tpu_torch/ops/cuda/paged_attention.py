@@ -15,8 +15,15 @@ and a row with no valid key gives zeros. The decode kernel folds a staged
 token (`k_new`/`v_new`, not yet in the pool) in last, as f32 p·v; the
 prefill kernel masks causally by absolute position start + i over a pool
 that already holds the chunk. `window` keeps only keys in
-(qpos − window, qpos]. Alibi and the int8 pools' scales are not ported
-(ROADMAP.md, Queue 1, 'v2 FastGen: the rest').
+(qpos − window, qpos]. Alibi is not ported (ROADMAP.md, Queue 1, 'v2
+FastGen: the rest').
+
+int8 pools (K3-int8, K4-int8) come with `k_scales`/`v_scales` (Hkv, NB, BS)
+f32: the kernels fold the K scale into the logit columns and the V scale
+into the probability columns, reading each scale through the same clamped
+table entry as its value; the plain versions dequantize the pools into q's
+dtype and run the same plain math. The staged token is in q's dtype and
+folds in without a scale. int8 launches count in `.launches_int8`.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.ops.quantization import dequantize_kv
 from deepspeed_tpu_torch.op_builder import KernelLibrary
 
 NEG_INF = -1e30
@@ -34,15 +42,23 @@ GROUP_SIZES = (1, 2, 4, 8)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", {
-    "ds_paged_decode_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+    "ds_paged_decode_attention": [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P],
 })
 PREFILL_LIBRARY = KernelLibrary("paged_prefill_attention.cu", {
-    "ds_paged_prefill_attention": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+    "ds_paged_prefill_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
 })
 
 
 def _scale(d: int, softmax_scale: Optional[float]) -> float:
     return softmax_scale if softmax_scale is not None else 1.0 / (d ** 0.5)
+
+
+def _dequantized(q, k_pool, v_pool, k_scales, v_scales):
+    """The pools in q's dtype: int8 pools times their scales, else as given."""
+    if k_scales is None:
+        return k_pool, v_pool
+    return (dequantize_kv(k_pool, k_scales, q.dtype),
+            dequantize_kv(v_pool, v_scales, q.dtype))
 
 
 def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -56,10 +72,12 @@ def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
                                  softmax_scale: Optional[float] = None,
                                  k_new=None, v_new=None,
-                                 window: Optional[int] = None) -> torch.Tensor:
+                                 window: Optional[int] = None,
+                                 k_scales=None, v_scales=None) -> torch.Tensor:
     """q (B,1,H,D); pools (Hkv,NB,BS,D); tables (B,T); lengths (B,) valid
     tokens per row, the last one staged when `k_new`/`v_new` (B,Hkv,D) are
-    given -> (B,1,H,D)."""
+    given -> (B,1,H,D). int8 pools come with `k_scales`/`v_scales`."""
+    k_pool, v_pool = _dequantized(q, k_pool, v_pool, k_scales, v_scales)
     b, _, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     t = tables.shape[1]
@@ -95,10 +113,13 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
 
 def paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
                                   softmax_scale: Optional[float] = None,
-                                  window: Optional[int] = None) -> torch.Tensor:
+                                  window: Optional[int] = None,
+                                  k_scales=None, v_scales=None) -> torch.Tensor:
     """q (B,S,H,D), the S new tokens of each row, already written to the
     pool at positions starts[b]..starts[b]+S-1; each attends every cached
-    position <= its own -> (B,S,H,D)."""
+    position <= its own -> (B,S,H,D). int8 pools come with
+    `k_scales`/`v_scales`."""
+    k_pool, v_pool = _dequantized(q, k_pool, v_pool, k_scales, v_scales)
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     t = tables.shape[1]
@@ -123,16 +144,26 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
 
 
-def _check(name, q, k_pool, v_pool, tables, per_row, window, extra=()):
+def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
+           extra=()):
+    quant = k_scales is not None
+    if quant != (v_scales is not None):
+        raise ValueError(f"{name}: give both k_scales and v_scales or neither")
     for arg, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), *extra):
         if x.device != q.device:
             raise ValueError(f"{name}: {arg} is on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: {arg} must be bfloat16 on CUDA, got {x.dtype}")
+        want = torch.int8 if quant and arg in ("k_pool", "v_pool") else torch.bfloat16
+        if x.dtype != want:
+            raise TypeError(f"{name}: {arg} must be {want} on CUDA, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
     b, _, h, d = q.shape
     hkv, nb, bs, dk = k_pool.shape
+    for arg, x in (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ():
+        if x.device != q.device or x.dtype != torch.float32 \
+                or tuple(x.shape) != (hkv, nb, bs) or not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous f32 {(hkv, nb, bs)} "
+                             f"tensor on {q.device}")
     if v_pool.shape != k_pool.shape or dk != d:
         raise ValueError(f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
                          f"{tuple(v_pool.shape)} do not match")
@@ -154,22 +185,27 @@ def _check(name, q, k_pool, v_pool, tables, per_row, window, extra=()):
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                            softmax_scale: Optional[float] = None,
                            k_new=None, v_new=None,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
     """K3. q (B,1,H,D); pools (Hkv,NB,BS,D); tables (B,T) int32; lengths (B,)
     int32 valid tokens per row. With `k_new`/`v_new` (B,Hkv,D) the last valid
     token is staged and folded in; without them its slot is already written.
-    Returns (B,1,H,D).
+    int8 pools come with `k_scales`/`v_scales` (Hkv,NB,BS) f32. Returns
+    (B,1,H,D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
-                                            softmax_scale, k_new, v_new, window)
+                                            softmax_scale, k_new, v_new, window,
+                                            k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     staged = k_new is not None
+    quant = k_scales is not None
     extra = (("k_new", k_new), ("v_new", v_new)) if staged else ()
-    _check("paged_decode_attention", q, k_pool, v_pool, tables, lengths, window, extra)
+    _check("paged_decode_attention", q, k_pool, v_pool, tables, lengths, window,
+           k_scales, v_scales, extra)
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     if s != 1:
@@ -181,46 +217,61 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = DECODE_LIBRARY.lib().ds_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None, tables.data_ptr(),
             lengths.data_ptr(), k_new.data_ptr() if staged else None,
             v_new.data_ptr() if staged else None, out.data_ptr(),
             b, h, hkv, d, nb, bs, tables.shape[1], int(staged), window or 0,
             _scale(d, softmax_scale), stream)
     DECODE_LIBRARY.check(code, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if quant:
+        paged_decode_attention.launches_int8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_int8 = 0
 
 
 def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
                             softmax_scale: Optional[float] = None,
-                            window: Optional[int] = None) -> torch.Tensor:
+                            window: Optional[int] = None,
+                            k_scales=None, v_scales=None) -> torch.Tensor:
     """K4. q (B,S,H,D), already written to the pool at starts[b]..+S-1;
-    pools (Hkv,NB,BS,D); tables (B,T) int32; starts (B,) int32. Returns
-    (B,S,H,D).
+    pools (Hkv,NB,BS,D); tables (B,T) int32; starts (B,) int32. int8 pools
+    come with `k_scales`/`v_scales` (Hkv,NB,BS) f32. Returns (B,S,H,D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
-                                             softmax_scale, window)
+                                             softmax_scale, window, k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
-    _check("paged_prefill_attention", q, k_pool, v_pool, tables, starts, window)
+    quant = k_scales is not None
+    _check("paged_prefill_attention", q, k_pool, v_pool, tables, starts, window,
+           k_scales, v_scales)
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = PREFILL_LIBRARY.lib().ds_paged_prefill_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr() if quant else None,
+            v_scales.data_ptr() if quant else None, tables.data_ptr(),
             starts.data_ptr(), out.data_ptr(), b, s, h, hkv, d, nb, bs,
             tables.shape[1], window or 0, _scale(d, softmax_scale), stream)
     PREFILL_LIBRARY.check(code, "paged_prefill_attention")
-    paged_prefill_attention.launches += 1
+    if quant:
+        paged_prefill_attention.launches_int8 += 1
+    else:
+        paged_prefill_attention.launches += 1
     return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.launches_int8 = 0

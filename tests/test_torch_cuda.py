@@ -11,7 +11,10 @@ head widths, every GQA group size; for the paged kernels, block tables with
 bf16, and outputs must agree to 2e-2 (p and the output round at 2^-8 and
 the outputs are O(1)); the backward's gradients are held to 2e-2 of their
 largest magnitude. A tiny `train_batch` in bf16 on the card is held against
-the same steps in f32 on the CPU.
+the same steps in f32 on the CPU. The fused dequant-GEMM (K5) is held to
+2e-2 of its largest output at the Llama-3-8B projection shapes and the odd
+layouts; the int8 attention kernels to 2e-2 against their plain versions,
+and with unit scales to their bf16 kernels bit for bit.
 """
 
 import numpy as np
@@ -37,6 +40,11 @@ from deepspeed_tpu_torch.ops.cuda.paged_attention import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (
+    quantized_matmul,
+    quantized_matmul_plain,
+)
+from deepspeed_tpu_torch.ops.quantization import quantize_int8_blockwise
 
 BF16_TOL = 2e-2
 
@@ -263,3 +271,166 @@ def test_train_batch_on_card_matches_cpu_f32(cuda_device):
     for (card_loss, card_norm), (cpu_loss, cpu_norm) in zip(*results):
         assert abs(card_loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
         assert abs(card_norm - cpu_norm) <= 5e-2 * abs(cpu_norm)
+
+
+def _rel_max_err(got, ref) -> float:
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,block", [
+    # the Llama-3-8B projections at decode (M = 4) and prefill (M = 2048)
+    (4, 4096, 4096, 256), (4, 4096, 1024, 256), (4, 4096, 14336, 256),
+    (4, 14336, 4096, 256), (2048, 4096, 14336, 256), (2048, 14336, 4096, 256),
+    # blocks spanning rows; K, M and N remainders; groups of 64 and 96
+    (4, 64, 128, 256), (16, 200, 384, 96), (5, 128, 384, 64), (40, 200, 384, 96),
+    (77, 256, 200, 256 * 200 // 8),
+])
+def test_quantized_matmul_matches_plain_on_card(cuda_device, m, k, n, block):
+    rng = np.random.default_rng(m + k + n)
+    x = _bf16(rng.standard_normal((m, k)).astype(np.float32), cuda_device)
+    w = torch.from_numpy(0.02 * rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    q, s = quantize_int8_blockwise(w, block)
+    launches = quantized_matmul.launches
+    out = quantized_matmul(x, q, s)
+    ref = quantized_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    assert quantized_matmul.launches == launches + 1
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert _rel_max_err(out, ref) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_refuses_other_layouts_on_card(cuda_device):
+    """A scale layout `scale_group_width` rejects, groups narrower than the
+    kernel's 32-column tile, and a non-bf16 activation raise, with no launch."""
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((64, 128), dtype=torch.int8, device=cuda_device)
+    launches = quantized_matmul.launches
+    with pytest.raises(ValueError, match="row-aligned"):
+        quantized_matmul(torch.zeros((2, 3), dtype=torch.bfloat16, device=cuda_device),
+                         torch.zeros((3, 5), dtype=torch.int8, device=cuda_device),
+                         torch.ones(5, device=cuda_device))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        quantized_matmul(x, q, torch.ones(64 * 128 // 16, device=cuda_device))
+    with pytest.raises(TypeError):
+        quantized_matmul(x.float(), q, torch.ones(64 * 128 // 256, device=cuda_device))
+    assert quantized_matmul.launches == launches
+
+
+@pytest.mark.cuda
+def test_layer_scan_refuses_untiled_scales_on_card(cuda_device):
+    """`group_size=4096` over a (256, 768) gate/up kernel gives scale blocks
+    that straddle rows misaligned: the layer scan's fused products raise on
+    the card instead of dequantizing in plain PyTorch."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, init_params, llama_config
+    model = init_params(LlamaForCausalLM(llama_config(
+        "llama-tiny", dtype=torch.bfloat16, hidden_size=256, intermediate_size=768)),
+        torch.Generator().manual_seed(0))
+    engine = deepspeed_tpu_torch.init_inference(
+        model, dtype="bf16", quant={"enabled": True, "group_size": 4096},
+        serve_mode="layer_scan")
+    assert engine.serve_mode == "layer_scan" and engine._use_fused_int8()
+    with pytest.raises(ValueError, match="row-aligned"):
+        engine.generate(torch.zeros((1, 8), dtype=torch.long), max_new_tokens=2)
+
+
+def _int8_pools(rng, device, hkv, nb, bs, d, unit=False):
+    """int8 pools with (Hkv, NB, BS) scales: real ones from quantizing normal
+    values, or unit scales over integer values."""
+    from deepspeed_tpu_torch.ops.quantization import quantize_kv_tokens
+    out = []
+    for _ in range(2):
+        if unit:
+            vals = torch.from_numpy(rng.integers(-30, 30, (hkv, nb, bs, d)).astype(np.int8))
+            out += [vals.to(device), torch.ones((hkv, nb, bs), device=device)]
+        else:
+            vals, sc = quantize_kv_tokens(torch.from_numpy(
+                rng.standard_normal((hkv, nb, bs, d)).astype(np.float32)))
+            out += [vals.to(device), sc.to(device)]
+    return out          # k, k_scales, v, v_scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_decode_int8_kernel_matches_plain_on_card(cuda_device, n_rep):
+    b, m, hkv, d = 4, 300, 2, 128
+    rng = np.random.default_rng(40 + n_rep)
+    q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
+    k, ks, v, vs = _int8_pools(rng, cuda_device, b, m, hkv, d)   # (B, M, Hkv, D)
+    lengths = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device=cuda_device)
+    launches = decode_attention.launches_int8
+    out = decode_attention(q, k, v, lengths, k_scales=ks, v_scales=vs)
+    ref = decode_attention_plain(q, k, v, lengths, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert decode_attention.launches_int8 == launches + 1
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 20])
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_paged_int8_kernels_match_plain_on_card(cuda_device, n_rep, staged, window):
+    """K3-int8 (staged, window, a parked row) and K4-int8 (window)."""
+    b, hkv, bs, t, nb, d = 4, 2, 16, 4, 20, 128
+    rng = np.random.default_rng(50 + n_rep + staged)
+    k, ks, v, vs = _int8_pools(rng, cuda_device, hkv, nb, bs, d)
+    _, _, tables = _paged(rng, cuda_device, [3, 4, 4, 0], hkv, d, nb=nb, bs=bs, t=t)
+    scales = dict(k_scales=ks, v_scales=vs)
+    q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([1, 17, 40, t * bs + 1], dtype=torch.int32, device=cuda_device)
+    new = [_bf16(rng.standard_normal((b, hkv, d)).astype(np.float32), cuda_device)
+           for _ in range(2)] if staged else [None, None]
+    launches = (paged_decode_attention.launches_int8, paged_prefill_attention.launches_int8)
+    out = paged_decode_attention(q, k, v, tables, lengths, k_new=new[0], v_new=new[1],
+                                 window=window, **scales)
+    ref = paged_decode_attention_plain(q, k, v, tables, lengths, k_new=new[0],
+                                       v_new=new[1], window=window, **scales)
+    qs = _bf16(rng.standard_normal((b, 37, hkv * n_rep, d)).astype(np.float32), cuda_device)
+    starts = torch.tensor([0, 16, 21, t * bs], dtype=torch.int32, device=cuda_device)
+    out_p = paged_prefill_attention(qs, k, v, tables, starts, window=window, **scales)
+    ref_p = paged_prefill_attention_plain(qs, k, v, tables, starts, window=window, **scales)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches_int8, paged_prefill_attention.launches_int8) == \
+        (launches[0] + 1, launches[1] + 1)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    rows = slice(None) if window is None else slice(0, 3)   # a windowed parked row sees no key
+    torch.testing.assert_close(out_p[rows].float(), ref_p[rows].float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_int8_kernels_with_unit_scales_equal_bf16_kernels_on_card(cuda_device, n_rep):
+    """Integer-valued caches: each int8 kernel with unit scales gives the
+    bf16 kernel's output on the same values, bit for bit."""
+    b, hkv, bs, t, nb, d = 4, 2, 16, 4, 20, 128
+    rng = np.random.default_rng(60 + n_rep)
+    k, ks, v, vs = _int8_pools(rng, cuda_device, hkv, nb, bs, d, unit=True)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    _, _, tables = _paged(rng, cuda_device, [3, 4, 4, 0], hkv, d, nb=nb, bs=bs, t=t)
+    q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([1, 17, 40, t * bs + 1], dtype=torch.int32, device=cuda_device)
+    kn, vn = (_bf16(rng.standard_normal((b, hkv, d)).astype(np.float32), cuda_device)
+              for _ in range(2))
+    for window in (None, 20):
+        assert torch.equal(
+            paged_decode_attention(q, k, v, tables, lengths, k_new=kn, v_new=vn,
+                                   window=window, k_scales=ks, v_scales=vs),
+            paged_decode_attention(q, kb, vb, tables, lengths, k_new=kn, v_new=vn,
+                                   window=window))
+        qs = _bf16(rng.standard_normal((b, 37, hkv * n_rep, d)).astype(np.float32),
+                   cuda_device)
+        starts = torch.tensor([0, 16, 21, t * bs], dtype=torch.int32, device=cuda_device)
+        assert torch.equal(
+            paged_prefill_attention(qs, k, v, tables, starts, window=window,
+                                    k_scales=ks, v_scales=vs),
+            paged_prefill_attention(qs, kb, vb, tables, starts, window=window))
+    # K2 over dense (B, M, Hkv, D) integer caches
+    kd, sd, vd, _ = _int8_pools(rng, cuda_device, b, 300, hkv, d, unit=True)
+    lengths = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(decode_attention(q, kd, vd, lengths, k_scales=sd, v_scales=sd),
+                       decode_attention(q, kd.to(torch.bfloat16), vd.to(torch.bfloat16),
+                                        lengths))

@@ -192,7 +192,7 @@ def test_v2_unported_options_raise(reference):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine(tree, kv_layout="slot")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_engine(tree, kv_cache_dtype="int8")
+        port_engine(tree, serve_mode="layer_scan", quant={"enabled": True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine(tree, speculative={"enabled": True, "k": 4})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

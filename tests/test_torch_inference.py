@@ -96,10 +96,10 @@ def test_init_inference_without_cuda_raises():
 
 
 @pytest.mark.parametrize("config", [
-    {"serve_mode": "layer_scan"}, {"serve_mode": "capacity"},
-    {"quant": {"enabled": True}}, {"kv_cache_dtype": "int8"},
+    {"serve_mode": "capacity"},
     {"speculative": {"enabled": True, "k": 4}}, {"capacity": {}},
     {"tensor_parallel": {"tp_size": 2}}, {"dtype": "int8"},
+    {"quant": {"enabled": True}, "serve_mode": "capacity"},
 ])
 def test_unported_config_values_raise(config):
     model = LlamaForCausalLM(llama_config("llama-tiny", dtype=torch.float32))
