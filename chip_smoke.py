@@ -10,9 +10,11 @@
    serving shapes (the flash backward at the training shapes; the fused
    dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
    and two odd layouts; the int8 attention kernels on int8 caches, and with
-   unit scales bitwise against their bf16 kernels), and times the kernel,
-   the plain version and one PyTorch library call for the same function
-   with CUDA events;
+   unit scales bitwise against their bf16 kernels; the grouped expert GEMM
+   K6 at the Qwen1.5-MoE prefill and decode calls, Mixtral-8x7B's w1/w2 and
+   odd layouts; K1-fwd and K2 at Qwen1.5-MoE's GQA group 1), and times the
+   kernel, the plain version and one PyTorch library call for the same
+   function with CUDA events;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
    through v1 (`init_inference`): `forward` on 4 x 512 tokens, greedy
    `generate` of 64 tokens (the v1 main path, whose kernel launches are
@@ -37,6 +39,15 @@
 8. holds a 2-layer model of the same width on the card in bf16 against the
    plain versions on the CPU in f32, through v1 and through v2, and with
    int8 weights through the layer scan;
+8b. serves Qwen1.5-MoE-A2.7B at full width and depth with random bf16
+   weights through v1: `forward` on 4 x 512 (the ragged path, which drops
+   tokens over capacity), greedy `generate` of 64 tokens (the MoE main
+   path: K6 three times a layer in the prefill, counted), the last decode
+   step against a cached prefill of the whole sequence (not `forward`, whose
+   drops differ by design) beside the routing-flip share and a control,
+   a sampled `generate`, prefill and decode profiles, and decode with the
+   grouped GEMM forced; then 2-layer Qwen1.5-MoE and Mixtral-8x7B-width
+   models on the card in bf16 against the CPU in f32;
 9. trains llama-1b (TinyLlama-1.1B shapes) at full width and depth with
    random bf16 weights through `initialize` → `train_batch` (micro-batch
    4, GAS 2, sequence 2048, FusedAdam, clipping 1.0, ZeRO stage 3 on one
@@ -82,6 +93,20 @@ CONSISTENCY_RTOL = 0.10  # decode vs forward on the card, 32 layers
 # whose scales are doubled reads ~1.35 (this script's control).
 INT8_KV_RTOL = 0.15
 REFERENCE_RTOL = 0.04    # bf16 on the card vs f32 on the CPU, 2 layers
+# MoE serving, Qwen1.5-MoE-A2.7B (the published Qwen/Qwen1.5-MoE-A2.7B shapes).
+# Expert choice is discrete: two valid bf16 paths can route a near-tie token
+# to another expert, so the MoE gates sit beside a routing-flip share and a
+# control (K6 fed sizes rolled by one) that must fail them.
+QWEN_MOE = "qwen1.5-moe-a2.7b"
+# Bounds from this script's run on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): the last decode step against a cached prefill of the whole
+# sequence read 0.0177 at 24
+# layers (6 of 96 routing decisions flipped), its control 0.181. At 2
+# layers against CPU f32, Qwen read 0.0145 at most (4.4% flipped), control
+# 0.172; Mixtral 0.0919 over every position of the cached prefill (1.0%
+# flipped: a flip swaps half of a token's top-2 FFN), control 0.726.
+MOE_CONSISTENCY_RTOL = 0.06
+MOE_REFERENCE_RTOL = {QWEN_MOE: 0.05, "mixtral-8x7b": 0.2}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -146,10 +171,11 @@ def randn(shape, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def check_flash(gen, causal, sq, sk):
+def check_flash(gen, causal, sq, sk, h=H, hkv=HKV):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    q, k, v = randn((B, sq, H, D), gen), randn((B, sk, HKV, D), gen), randn((B, sk, HKV, D), gen)
+    q, k = randn((B, sq, h, D), gen), randn((B, sk, hkv, D), gen)
+    v = randn((B, sk, hkv, D), gen)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -159,13 +185,13 @@ def check_flash(gen, causal, sq, sk):
         (causal, sq, sk, err, lse_err)
     pairs = sum(min(i + sk - sq + 1, sk) for i in range(sq)) if causal else sq * sk
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
-    bound_ms, bound_by = bound(nbytes, 4.0 * D * pairs * B * H)
+    bound_ms, bound_by = bound(nbytes, 4.0 * D * pairs * B * h)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library = None
     if not causal or sq == sk:  # SDPA's is_causal is top-left aligned
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-    return dict(shape=f"B={B} Sq={sq} Sk={sk} H={H} Hkv={HKV} D={D} causal={causal}",
+    return dict(shape=f"B={B} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={D} causal={causal}",
                 max_abs_err=err, lse_max_abs_err=lse_err,
                 ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal)),
@@ -248,20 +274,20 @@ def unit_scale_pair(x):
     return ints, torch.ones(ints.shape[:-1], device=ints.device), ints.to(torch.bfloat16)
 
 
-def check_decode(gen, int8=False):
+def check_decode(gen, int8=False, h=H, hkv=HKV):
     """K2 at the v1 decode shape; with `int8`, K2-int8 on the same cache
     quantized, and unit scales held bitwise to the bf16 kernel."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.quantization import dequantize_kv
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     m = max(DECODE_LENGTHS)
-    q, k, v = randn((B, 1, H, D), gen), randn((B, m, HKV, D), gen), randn((B, m, HKV, D), gen)
+    q, k, v = randn((B, 1, h, D), gen), randn((B, m, hkv, D), gen), randn((B, m, hkv, D), gen)
     lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
     kw, elem, extra = {}, 2 * D, {}
     if int8:
         (k, ks), (v, vs) = int8_pair(k), int8_pair(v)
         kw, elem = dict(k_scales=ks, v_scales=vs), D + 4
-        ki, ones, kb = unit_scale_pair(randn((B, m, HKV, D), gen))
+        ki, ones, kb = unit_scale_pair(randn((B, m, hkv, D), gen))
         extra["unit_scales_bitwise_equal"] = torch.equal(
             da.decode_attention(q, ki, ki, lengths, k_scales=ones, v_scales=ones),
             da.decode_attention(q, kb, kb, lengths))
@@ -272,14 +298,14 @@ def check_decode(gen, int8=False):
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL, err
     n_kv = sum(DECODE_LENGTHS)
-    nbytes = (q.numel() + out.numel()) * 2 + n_kv * HKV * elem * 2 + lengths.numel() * 4
-    bound_ms, bound_by = bound(nbytes, 4.0 * D * n_kv * H)
+    nbytes = (q.numel() + out.numel()) * 2 + n_kv * hkv * elem * 2 + lengths.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4.0 * D * n_kv * h)
     mask = (torch.arange(m, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
     # the yardstick reads the dequantized cache, as the bf16 row reads its cache
     kd, vd = (dequantize_kv(k, ks, torch.bfloat16), dequantize_kv(v, vs, torch.bfloat16)) \
         if int8 else (k, v)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, kd, vd))
-    return dict(shape=f"B={B} M={m} H={H} Hkv={HKV} D={D} lengths={list(DECODE_LENGTHS)}"
+    return dict(shape=f"B={B} M={m} H={h} Hkv={hkv} D={D} lengths={list(DECODE_LENGTHS)}"
                       f"{' int8' if int8 else ''}",
                 max_abs_err=err,
                 ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths, **kw)),
@@ -473,6 +499,88 @@ def check_qmm(gen, m, k, n, block):
                 library_ms=cuda_ms(lambda: F.linear(x, w_t)))
 
 
+def routing_sizes(gen, tokens, experts, k):
+    """Group sizes of a top-k routing draw: `tokens` random router logits
+    through the port's gating, counted per expert (int32, on the card)."""
+    from deepspeed_tpu_torch.moe.sharded_moe import _top_k
+    idx = _top_k(torch.randn((tokens, experts), generator=gen, device="cuda"), k)
+    sizes = torch.zeros(experts, dtype=torch.int32, device="cuda")
+    return sizes.scatter_add_(0, idx.reshape(-1), torch.ones_like(idx.reshape(-1),
+                                                                  dtype=torch.int32))
+
+
+def grouped_mm_library(lhs, rhs, sizes, ref):
+    """`torch._grouped_mm` on the same inputs, where the card's torch has it
+    (a yardstick only: the port never calls it): (ms, its max error against
+    the plain version relative to max |ref|, None), or (None, None, the
+    reason)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, None, "torch has no _grouped_mm"
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    try:
+        out = fn(lhs, rhs, offs=offs)
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, TypeError) as e:
+        return None, None, str(e).splitlines()[0][:200]
+    return cuda_ms(lambda: fn(lhs, rhs, offs=offs)), rel_max_err(out, ref), None
+
+
+def check_gmm(gen, name, k, n, sizes):
+    """K6 on lhs (M, K), rhs (G, K, N) and `sizes` (G,) int32 against its
+    plain version, relative to max |ref|. The bound reads lhs, the weights
+    of the groups that have rows (the work this routing needs), the sizes,
+    and writes out; operations 2·M·K·N."""
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
+    m, g = int(sizes.sum()), sizes.numel()
+    lhs = randn((m, k), gen)
+    rhs = (torch.randn((g, k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    out = gg.grouped_gemm(lhs, rhs, sizes)
+    ref = gg.grouped_gemm_plain(lhs, rhs, sizes)
+    torch.cuda.synchronize()
+    err = rel_max_err(out, ref)
+    assert out.shape == (m, n) and torch.isfinite(out).all() and err <= KERNEL_TOL, \
+        (name, err)
+    used = int((sizes > 0).sum())
+    nbytes = m * k * 2 + used * k * n * 2 + g * 4 + m * n * 2
+    bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
+    library, library_err, library_note = grouped_mm_library(lhs, rhs, sizes, ref)
+    row = dict(shape=f"{name}: M={m} K={k} N={n} G={g} groups_with_rows={used} "
+                     f"sizes_min={int(sizes.min())} sizes_max={int(sizes.max())}",
+               max_abs_err=(out.float() - ref.float()).abs().max().item(), rel_max_err=err,
+               ms=cuda_ms(lambda: gg.grouped_gemm(lhs, rhs, sizes)),
+               plain_ms=cuda_ms(lambda: gg.grouped_gemm_plain(lhs, rhs, sizes),
+                                iters=3, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library,
+               library_rel_max_err=library_err, library_note=library_note)
+    del lhs, rhs, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def gmm_cases(gen):
+    """K6 at the shapes the MoE paths give it: Qwen1.5-MoE prefill (B = 4 x
+    512 tokens, top-4 of 60: M = 8192) gate/up and down, its decode-sized
+    call (4 tokens: M = 16 over 60), Mixtral-8x7B w1 and w2 (2048 tokens,
+    top-2 of 8: M = 4096), and odd layouts."""
+    qwen = routing_sizes(gen, B * PROMPT, 60, 4)
+    decode = routing_sizes(gen, B, 60, 4)
+    mixtral = routing_sizes(gen, 2048, 8, 2)
+
+    def sizes(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+    return [check_gmm(gen, "qwen prefill gate/up", 2048, 1408, qwen),
+            check_gmm(gen, "qwen prefill down", 1408, 2048, qwen),
+            check_gmm(gen, "qwen decode gate/up", 2048, 1408, decode),
+            check_gmm(gen, "qwen decode down", 1408, 2048, decode),
+            check_gmm(gen, "mixtral prefill w1", 4096, 14336, mixtral),
+            check_gmm(gen, "mixtral prefill w2", 14336, 4096, mixtral),
+            check_gmm(gen, "empty first and last groups", 1408, 2048,
+                      sizes([0, 300, 0, 77, 211, 0])),
+            check_gmm(gen, "one group holds every row", 2048, 1408, sizes([0, 0, 517, 0])),
+            check_gmm(gen, "M = 5", 40, 24, sizes([2, 0, 3]))]
+
+
 def llama(cfg, seed):
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, init_params
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
@@ -651,11 +759,12 @@ def kernel_counters():
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from deepspeed_tpu_torch.ops.cuda.paged_attention import (
         paged_decode_attention, paged_prefill_attention)
+    from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm
     from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
     counters = {fn.__name__: (fn, "launches") for fn in (
         flash_attention_fwd, decode_attention, paged_decode_attention,
         paged_prefill_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
-        quantized_matmul)}
+        quantized_matmul, grouped_gemm)}
     for fn in (decode_attention, paged_decode_attention, paged_prefill_attention):
         counters[fn.__name__ + "_int8"] = (fn, "launches_int8")
     return counters
@@ -1029,10 +1138,12 @@ def serve_int8(report, model):
     return launches
 
 
-def profile_generate(engine, ids, steps: int = 8):
+def profile_generate(engine, ids, steps: int = 8, kernel=("quantized_matmul", "qmm_kernel")):
     """Device time by kernel over `steps` decode steps of the engine's own
     `generate`, from torch.profiler: a `generate` of steps + 1 tokens less
-    a prefill-only one (one token). Adds K5's share of the device time."""
+    a prefill-only one (one token). Adds the share of the device time of
+    `kernel` (its name in the report, a substring of its CUDA name), unless
+    it is None."""
     from torch.profiler import ProfilerActivity, profile
     runs = []
     for new in (steps + 1, 1):
@@ -1047,11 +1158,281 @@ def profile_generate(engine, ids, steps: int = 8):
     decode = {name: (us - prefill.get(name, (0.0, 0))[0], n - prefill.get(name, (0.0, 0))[1])
               for name, (us, n) in full.items()}
     summary = profile_summary(None, steps, wall - prefill_wall, decode)
-    busy = sum(us for us, _ in decode.values())
-    k5 = sum(us for name, (us, _) in decode.items() if "qmm_kernel" in name)
-    summary["quantized_matmul_ms_per_step"] = k5 / steps / 1e3
-    summary["quantized_matmul_device_share"] = k5 / busy if busy else None
+    return summary if kernel is None else add_share(summary, decode, steps, kernel)
+
+
+def add_share(summary, kernels, steps, kernel):
+    """`summary` with the device ms per step and device-time share of
+    `kernel` (its name in the report, a substring of its CUDA name)."""
+    busy = sum(us for us, _ in kernels.values())
+    mine = sum(us for name, (us, _) in kernels.items() if kernel[1] in name)
+    summary[f"{kernel[0]}_ms_per_step"] = mine / steps / 1e3
+    summary[f"{kernel[0]}_device_share"] = mine / busy if busy else None
     return summary
+
+
+def profile_prefill(engine, ids, kernel=("grouped_gemm", "gmm_kernel")):
+    """Device time by kernel over one prefill (`generate` of one token),
+    from torch.profiler, with `kernel`'s share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate(ids, max_new_tokens=1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    return add_share(profile_summary(None, 1, wall_us, kernels), kernels, 1, kernel)
+
+
+def moe_model(cls, cfg, seed):
+    """An MoE model built on the card in bf16 (f32 construction would need
+    four bytes a parameter), with random weights from `seed`."""
+    from deepspeed_tpu_torch.models.llama import init_params
+    model = cls(cfg, device="cuda", dtype=torch.bfloat16)
+    return init_params(model, torch.Generator(device="cuda").manual_seed(seed))
+
+
+class RoutingRecorder:
+    """Each router's top-k experts of its latest call, in layer order."""
+
+    def __init__(self, model):
+        from deepspeed_tpu_torch.moe.layer import TopKGate
+        self.gates = [m for m in model.modules() if isinstance(m, TopKGate)]
+        self.last = {}
+        self.handles = [g.register_forward_hook(self._keep) for g in self.gates]
+
+    def _keep(self, gate, args, out):
+        self.last[gate] = out[2]   # the index form: (l_aux, gate_k, topk_idx, ...)
+
+    def take(self):
+        return [self.last[g] for g in self.gates]
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def flip_share(got, ref) -> float:
+    """Share of (token, layer) routing decisions whose expert sets differ
+    between two runs over the same tokens."""
+    flips = total = 0
+    for a, b in zip(got, ref):
+        a, b = a.sort(-1).values.cpu(), b.sort(-1).values.cpu()
+        flips += int((a != b).any(-1).sum())
+        total += a.shape[0]
+    return flips / total
+
+
+def cached_prefill(module, ids, last_only=False):
+    """The module's cached path over `ids` in one call (no drops; the
+    grouped GEMM from b·s·k ≥ 1024 rows): logits (B, S, V), or (B, V) at the
+    last position."""
+    from deepspeed_tpu_torch.inference.capacity_scan import round_up_len
+    from deepspeed_tpu_torch.inference.kv_cache import KVCache
+    cfg = module.cfg
+    b, s = ids.shape
+    dtype = next(module.parameters()).dtype
+    cache = KVCache.create(cfg.num_hidden_layers, b, round_up_len(s), cfg.num_key_value_heads,
+                           cfg.head_dim, dtype=dtype, device=ids.device)
+    at = torch.full((b,), s - 1, device=ids.device) if last_only else None
+    with torch.inference_mode():
+        return module(ids, cache=cache, logits_at=at)[0]
+
+
+def gate(what, err, bound_, control, flips):
+    """An MoE logits gate: `err` within `bound_`, and the control (the same
+    comparison with a fault in K6's schedule) outside it."""
+    assert err <= bound_ < control, (what, err, bound_, control, flips)
+
+
+def rolled_sizes_control(fn):
+    """`fn()` with a fault in K6's schedule: every group's rows sent to the
+    next group's expert (the sizes rolled by one)."""
+    from deepspeed_tpu_torch.moe import layer as moe_layer
+    real = moe_layer.grouped_gemm
+    moe_layer.grouped_gemm = lambda lhs, rhs, sizes: real(lhs, rhs, torch.roll(sizes, 1))
+    try:
+        return fn()
+    finally:
+        moe_layer.grouped_gemm = real
+
+
+def serve_moe(report):
+    """Qwen1.5-MoE-A2.7B at full width and depth (24 layers, random bf16
+    weights) through v1 `init_inference`: `forward` on B x 512 (the ragged
+    drop path), greedy `generate` of 64 tokens (the MoE main path: its
+    prefill runs K6 three times a layer, its decode steps the ragged
+    buffer and K2), the last decode step against a cached prefill of the
+    whole sequence (K6, no drops; never against `forward`, whose drops
+    differ by design) with the routing-flip share and a control, a sampled
+    `generate`, prefill and decode profiles, and decode with the grouped
+    GEMM forced (`dispatch_impl="gmm"`) beside `auto`."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM, qwen2_moe_config
+    cfg = qwen2_moe_config(QWEN_MOE)
+    L = cfg.num_hidden_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(moe_model(Qwen2MoeForCausalLM, cfg, SEED + 40),
+                                                dtype="bf16")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    module = engine.module
+    weights = sum(p.numel() * p.element_size() for p in module.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.forward(ids[:1, :16])                       # warm-up
+    engine.generate(ids, max_new_tokens=2)
+    recorder = RoutingRecorder(module)
+
+    # the main path: counted launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(ids)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out, seen = generate_logits(engine, ids, NEW)
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    greedy_tok_s = engine.last_decode_tok_s
+    decode_routing = recorder.take()
+    assert launches == only(flash_attention_fwd=L, decode_attention=L * (NEW - 1),
+                            grouped_gemm=3 * L), launches
+    assert logits.shape == (B, PROMPT, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
+    step_logits = seen[-1]
+    assert torch.equal(step_logits.float().argmax(-1), out[:, -1])
+    del logits
+
+    # the last decode step against a cached prefill of the whole sequence
+    seq = out[:, :-1]
+    full = cached_prefill(module, seq, last_only=True)
+    prefill_routing = [r.reshape(B, seq.shape[1], -1)[:, -1] for r in recorder.take()]
+    recorder.remove()
+    consistency = rel_err(step_logits, full)
+    flips = flip_share(decode_routing, prefill_routing)
+    control = rel_err(step_logits, rolled_sizes_control(
+        lambda: cached_prefill(module, seq, last_only=True)))
+    assert torch.isfinite(step_logits).all()
+    gate("serve_moe last step vs cached prefill", consistency, MOE_CONSISTENCY_RTOL, control,
+         flips)
+
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+
+    zero_launches()
+    sampled = engine.generate(ids, max_new_tokens=NEW, temperature=0.8, top_p=0.9,
+                              seed=SEED + 2)
+    sampled_launches = read_launches()
+    assert sampled_launches == launches | {"flash_attention_fwd": 0}, sampled_launches
+    assert sampled.shape == out.shape and int(sampled.min()) >= 0 \
+        and int(sampled.max()) < cfg.vocab_size
+
+    prefill_profile = profile_prefill(engine, ids)
+    decode_profile = profile_generate(engine, ids, kernel=None)   # no K6 at decode
+    # the ragged decode's expert products: one layer's batched FFN over the
+    # (E, C = B, D) buffer, by CUDA events, and its share of the profiled
+    # decode step's device time
+    experts = module.layers[0].mlp.experts
+    buf = randn((cfg.num_experts, B, cfg.hidden_size), gen)
+    with torch.inference_mode():
+        ragged_experts_ms = cuda_ms(lambda: experts(buf))
+    device_ms = decode_profile["device_ms_per_step"]
+    decode_profile["ragged_experts_ms_per_step"] = ragged_experts_ms * L
+    decode_profile["ragged_experts_device_share"] = \
+        ragged_experts_ms * L / device_ms if device_ms else None
+
+    # decode with the grouped GEMM forced (K6 at M = B·k = 16 rows)
+    for layer in module.layers:
+        layer.mlp.dispatch_impl = "gmm"
+    engine.generate(ids, max_new_tokens=2)                # warm-up
+    zero_launches()
+    t0 = time.perf_counter()
+    gmm_out = engine.generate(ids, max_new_tokens=NEW)
+    gmm_generate_ms = (time.perf_counter() - t0) * 1e3
+    gmm_launches = read_launches()
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    gmm_prefill_ms = (time.perf_counter() - t0) * 1e3
+    gmm_profile = profile_generate(engine, ids, kernel=("grouped_gemm", "gmm_kernel"))
+    for layer in module.layers:
+        layer.mlp.dispatch_impl = cfg.dispatch_impl
+    assert gmm_launches["grouped_gemm"] == 3 * L * NEW, gmm_launches
+    del engine, module, recorder, full, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_moe"] = dict(
+        card=report["card"], model=f"{QWEN_MOE} (random bf16 weights, seed {SEED + 40})",
+        layers=L, batch=B, prompt=PROMPT, new_tokens=NEW, build_and_place_s=build_s,
+        weights_at_rest_bytes=weights, generate_peak_memory_bytes=peak,
+        forward_ms=forward_ms, generate_ms=generate_ms, generate_prefill_ms=prefill_ms,
+        decode_tok_s=B * (NEW - 1) / ((generate_ms - prefill_ms) / 1e3),
+        engine_last_decode_tok_s=greedy_tok_s, launches=launches,
+        last_step_vs_cached_prefill_rel_rms_err=consistency,
+        last_step_routing_flip_share=flips, rolled_sizes_control_rel_rms_err=control,
+        gmm_decode=dict(generate_ms=gmm_generate_ms, generate_prefill_ms=gmm_prefill_ms,
+                        decode_tok_s=B * (NEW - 1) / ((gmm_generate_ms - gmm_prefill_ms)
+                                                      / 1e3),
+                        greedy_tokens_equal_share=float((gmm_out == out).float().mean()),
+                        launches=gmm_launches, decode_profile=gmm_profile),
+        ragged_experts_ms_per_layer=ragged_experts_ms,
+        prefill_profile=prefill_profile, decode_profile=decode_profile)
+    return launches
+
+
+def reference_moe(report):
+    """Two layers at the Qwen1.5-MoE-A2.7B and Mixtral-8x7B widths: the card
+    in bf16 against the plain versions on the CPU in f32, on the same
+    weights. The card's v1 greedy `generate` of 8 tokens (its prefill at
+    b·s·k = 1024 rows runs K6) and a cached prefill of the generated
+    sequence against the CPU's cached prefill of it, with the routing-flip
+    share and the rolled-sizes control."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_config
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM, qwen2_moe_config
+    rows = {}
+    for seed, (name, cls, config, prompt) in enumerate((
+            (QWEN_MOE, Qwen2MoeForCausalLM, qwen2_moe_config, 128),
+            ("mixtral-8x7b", MixtralForCausalLM, mixtral_config, 256))):
+        cfg = config(name, num_hidden_layers=2)
+        gpu = deepspeed_tpu_torch.init_inference(moe_model(cls, cfg, SEED + 50 + seed),
+                                                 dtype="bf16")
+        cpu_model = cls(config(name, num_hidden_layers=2, dtype=torch.float32), device="meta")
+        cpu_model.load_state_dict({k: v.float().cpu() for k, v in
+                                   gpu.module.state_dict().items()}, assign=True)
+        cpu = deepspeed_tpu_torch.init_inference(cpu_model, dtype="fp32", device="cpu")
+        ids = torch.randint(0, cfg.vocab_size, (2, prompt),
+                            generator=torch.Generator().manual_seed(SEED + 60 + seed))
+        zero_launches()
+        out, seen = generate_logits(gpu, ids, 8)
+        launches = read_launches()
+        assert launches["grouped_gemm"] == 3 * cfg.num_hidden_layers, launches
+        seq = out[:, :-1]
+        card_rec, cpu_rec = RoutingRecorder(gpu.module), RoutingRecorder(cpu.module)
+        card = cached_prefill(gpu.module, seq)
+        ref = cached_prefill(cpu.module, seq.cpu())
+        flips = flip_share(card_rec.take(), cpu_rec.take())
+        card_rec.remove()
+        cpu_rec.remove()
+        errs = dict(prefill_rel_rms_err=rel_err(seen[0], ref[:, prompt - 1]),
+                    last_decode_step_rel_rms_err=rel_err(seen[-1], ref[:, -1]),
+                    cached_prefill_rel_rms_err=rel_err(card, ref))
+        control = rel_err(rolled_sizes_control(lambda: cached_prefill(gpu.module, seq)), ref)
+        gate(f"reference_moe {name}", max(errs.values()), MOE_REFERENCE_RTOL[name], control,
+             flips)
+        rows[name] = dict(layers=2, prompt=prompt, **errs, routing_flip_share=flips,
+                          rolled_sizes_control_rel_rms_err=control, launches=launches)
+        del gpu, cpu, cpu_model, card, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["reference_moe"] = rows
 
 
 def reference_int8(report):
@@ -1316,10 +1697,11 @@ def main() -> int:
     from deepspeed_tpu_torch.op_builder import build_all
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
     libraries = [fa.LIBRARY, fa.BWD_LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY,
-                 pa.PREFILL_LIBRARY, qm.LIBRARY]
+                 pa.PREFILL_LIBRARY, qm.LIBRARY, gg.LIBRARY]
     t0 = time.perf_counter()
     build_all(libraries)
     report["build_s"] = time.perf_counter() - t0
@@ -1348,14 +1730,20 @@ def main() -> int:
                          check_paged_decode(gen, rng, staged=True, window=300, int8=True)]
     paged_prefill_int8 = [check_paged_prefill(gen, rng, int8=True),
                           check_paged_prefill(gen, rng, window=300, int8=True)]
+    # K6 (the Qwen prefill gate/up call first, the main path's), and K1-fwd
+    # and K2 at Qwen1.5-MoE's attention (H = Hkv = 16, GQA group 1)
+    gmm = gmm_cases(gen)
+    group_one = [check_flash(gen, True, PROMPT, PROMPT, h=16, hkv=16),
+                 check_decode(gen, h=16, hkv=16)]
     report.update(flash_attention_fwd=flash, decode_attention=decode,
                   paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
                   flash_attention_bwd=flash_bwd, quantized_matmul=qmm,
                   decode_attention_int8=decode_int8,
                   paged_decode_attention_int8=paged_decode_int8,
-                  paged_prefill_attention_int8=paged_prefill_int8)
+                  paged_prefill_attention_int8=paged_prefill_int8, grouped_gemm=gmm,
+                  attention_group_one=group_one)
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
-                + [decode_int8] + paged_decode_int8 + paged_prefill_int8):
+                + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one):
         print(json.dumps(row), flush=True)
 
     from deepspeed_tpu_torch.models.llama import llama_config
@@ -1370,12 +1758,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     reference(report)
     reference_int8(report)
+    moe_launches = serve_moe(report)
+    reference_moe(report)
     train_launches = train(report)
     train_reference(report)
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
                 "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
-                "train", "train_profile", "train_reference"):
+                "serve_moe", "reference_moe", "train", "train_profile", "train_reference"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -1415,6 +1805,10 @@ def main() -> int:
                    "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
                    "deepspeed_tpu/ops/pallas/paged_attention.py:366",
                    v2_int8_launches["paged_prefill_attention_int8"], paged_prefill_int8[0]),
+        # K6's row: the Qwen1.5-MoE prefill gate/up call (M = 8192 over 60)
+        kernel_row("grouped_gemm", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                   "deepspeed_tpu/ops/pallas/grouped_gemm.py:52",
+                   moe_launches["grouped_gemm"], gmm[0]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

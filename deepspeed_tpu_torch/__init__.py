@@ -2,10 +2,12 @@
 
 Trains Llama models through `initialize(...)` → `train_batch` (or
 `forward`/`backward`/`step`) and serves them through `init_inference(...)`
-→ `forward`/`generate` and the v2 `InferenceEngineV2`, on one CUDA device,
-with hand-written kernels for flash attention (forward and backward),
-decode attention and paged attention. It imports `torch`, never `jax`, and
-nothing of `deepspeed_tpu`.
+→ `forward`/`generate` and the v2 `InferenceEngineV2`, on one CUDA device;
+the MoE families (`models/qwen2_moe.py`, `models/mixtral.py`) serve
+through `init_inference`. Hand-written kernels: flash attention (forward
+and backward), decode and paged attention, the int8 dequant-GEMM and the
+grouped expert GEMM. It imports `torch`, never `jax`, and nothing of
+`deepspeed_tpu`.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     """Build an inference engine (counterpart of
     `deepspeed_tpu.init_inference`).
 
-    `model` is an `nn.Module` (e.g. `models.llama.LlamaForCausalLM`) or a
-    `(module, params)` tuple, where `params` is a JAX parameter tree of numpy
+    `model` is an `nn.Module` (`models.llama.LlamaForCausalLM`, or an MoE
+    family: `models.qwen2_moe.Qwen2MoeForCausalLM`,
+    `models.mixtral.MixtralForCausalLM`) or a `(module, params)` tuple, where `params` is a JAX parameter tree of numpy
     arrays; `params=` is accepted too. `config` is a dict or a
     `DeepSpeedInferenceConfig`, and keyword arguments are config keys.
     `device=None` means CUDA; without CUDA it raises unless `device="cpu"`.

@@ -1,0 +1,241 @@
+// Grouped (ragged) expert GEMM for Hopper (sm_90a): for every group g,
+// out[rows of g] = lhs[rows of g] @ rhs[g], bf16 in, f32 accumulation.
+//
+// Replaces the TPU kernel `deepspeed_tpu/ops/pallas/grouped_gemm.py`
+// `grouped_gemm` (:52), which runs megablox `gmm` (:83). It computes what
+// that kernel computes:
+//   * lhs (M,K) bf16 with its rows sorted by group; rhs (G,K,N) bf16
+//     row-major, the (E, D, F) / (E, F, D) expert stacks as the parameter
+//     tree holds them, read with no transpose; sizes (G,) int32 on the
+//     device -> out (M,N) bf16. Group g owns rows [start_g, start_g + s_g),
+//     start_g the exclusive prefix sum of the sizes;
+//   * megablox pads M up to a tile multiple and hands the pad rows to the
+//     last group; here the ragged M edge of every tile is masked instead, so
+//     nothing is padded and the outputs are the same. A negative size counts
+//     as 0; rows past M are never read or written; rows past the sum of the
+//     sizes (which the callers never leave) are written as zeros.
+//
+// Bound on an H100 SXM (data sheet: 3.35 TB/s, 989 TFLOP/s bf16, at the
+// full 700 W power limit): at Qwen1.5-MoE prefill (M = 8192 rows over 60
+// experts, 2048 x 1408) a call reads 346 MB of expert weights plus lhs and
+// out, 0.120 ms, against 0.048 ms of operations: the bytes bound it. At ~137 rows an expert a 64-row M tile reads each weight
+// tile three times (once per M tile of the group; consecutive blocks share
+// it through L2 when they run together, which the grid order below makes
+// likely, but nothing guarantees it). Mixtral-8x7B (M = 4096 over 8 experts,
+// 4096 x 14336) is bound by operations: 0.486 ms against 0.326 ms of bytes.
+// At decode (M = 16 over 60 experts) only the experts a row routes to are
+// read.
+//
+// Design. The schedule stays on the device: no host sync, no scratch.
+// Each block's warp 0 scans the group sizes (32 at a time, warp shuffles)
+// into each group's first row and its count of M tiles, ceil(s_g / BM),
+// and finds the (group, M tile) of its own blockIdx.x in that prefix; empty
+// groups get no tile. The grid is (ceil(M/BM) + G + 1) x ceil(N/BN), an
+// upper bound on the tiles that the host knows without reading the sizes;
+// blocks past the last tile exit. blockIdx.x walks the tiles, so the M tiles
+// of one group and one N tile sit next to each other in launch order and
+// share their weight tiles in L2. A block computes rows [row0, row1) x BN
+// columns: per K step it stages the lhs and rhs tiles in shared memory
+// (16-byte loads where K and N are multiples of 8 and the bases aligned,
+// guarded scalar loads otherwise: K = 1408 = 22 x 64 is Qwen's `down` depth
+// and N of its gate/up), runs WMMA bf16 16x16x16 products with the f32
+// fragments kept in registers across K, and stores only its own rows and
+// columns through shared memory. Two shapes: BM = 64, BN = 128, BK = 32 with
+// eight warps (2 x 4, 32 x 32 each) when groups average 32 rows or more;
+// otherwise (decode, groups of 0-2 rows) BM = 16, BN = 64, BK = 64 with four
+// warps of 16 x 16. cp.async/TMA pipelining, wgmma and a persistent
+// schedule that reads each weight tile once per group are left for a later
+// change.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+// Warp 0: this block's tile. info = {group (-1: rows past the groups, to be
+// zeroed), first row, end row}; end <= first means no tile (exit).
+template <int BM>
+__device__ void locate_tile(const int* __restrict__ sizes, int G, int M, int t,
+                            int* info) {
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) { info[0] = -1; info[1] = 0; info[2] = 0; }
+  __syncwarp();
+  int row_base = 0, tile_base = 0;
+  for (int c = 0; c < G; c += 32) {
+    const int g = c + lane;
+    const int s = g < G ? max(sizes[g], 0) : 0;
+    const int n = (s + BM - 1) / BM;
+    int rows = s, tiles = n;  // inclusive scans over the 32 lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int r = __shfl_up_sync(0xffffffffu, rows, o);
+      const int q = __shfl_up_sync(0xffffffffu, tiles, o);
+      if (lane >= o) { rows += r; tiles += q; }
+    }
+    const int first_tile = tile_base + tiles - n;
+    const int first_row = row_base + rows - s;
+    if (t >= first_tile && t < first_tile + n) {  // at most one lane of all
+      const int r0 = first_row + (t - first_tile) * BM;
+      info[0] = g;
+      info[1] = r0;
+      info[2] = min(min(r0 + BM, first_row + s), M);
+    }
+    row_base += __shfl_sync(0xffffffffu, rows, 31);
+    tile_base += __shfl_sync(0xffffffffu, tiles, 31);
+  }
+  __syncwarp();
+  if (lane == 0 && info[2] <= info[1] && info[0] < 0) {
+    // tiles past the groups cover rows [sum of sizes, M) with zeros
+    const int r0 = row_base + (t - tile_base) * BM;
+    if (t >= tile_base && r0 < M) {
+      info[1] = r0;
+      info[2] = min(r0 + BM, M);
+    }
+  }
+}
+
+template <int BM, int BN, int BK, int WM, int WN>
+__global__ void __launch_bounds__(WM * WN * 32)
+gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
+           const int* __restrict__ sizes, bf16* __restrict__ out, int M, int K,
+           int N, int G, int vec) {
+  constexpr int NT = WM * WN * 32;
+  constexpr int TM = BM / WM, TN = BN / WN;  // one warp's tile
+  constexpr int FM = TM / 16, FN = TN / 16;
+  constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
+  constexpr int AB_BYTES = (BM * LDA + BK * LDB) * 2;
+  constexpr int C_BYTES = BM * LDC * 4;
+  static_assert(TM % 16 == 0 && TN % 16 == 0 && BK % 16 == 0, "tile");
+  __shared__ __align__(128) unsigned char smem[AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES];
+  __shared__ int info[3];
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sB = sA + BM * LDA;
+  float* sC = reinterpret_cast<float*>(smem);  // the epilogue reuses the tiles' space
+
+  const int tid = threadIdx.x;
+  if (tid < 32) locate_tile<BM>(sizes, G, M, blockIdx.x, info);
+  __syncthreads();
+  const int group = info[0], row0 = info[1], row1 = info[2];
+  if (row1 <= row0) return;
+  const int n0 = blockIdx.y * BN;
+
+  if (group < 0) {  // rows past the sum of the sizes
+    for (int i = tid; i < BM * BN; i += NT) {
+      const int m = row0 + i / BN, n = n0 + i % BN;
+      if (m < row1 && n < N) out[(size_t)m * N + n] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int wm = warp / WN, wn = warp % WN;
+  const bf16* w = rhs + (size_t)group * K * N;
+  const bf16 zero = __float2bfloat16(0.f);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    if (vec) {
+      // 8 bf16 (16 bytes) a chunk; K % 8 == 0 and N % 8 == 0, so a chunk is
+      // wholly inside or wholly outside
+      for (int i = tid; i < BM * BK / 8; i += NT) {
+        const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+        const int m = row0 + r, k = k0 + c;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (m < row1 && k < K) v = *reinterpret_cast<const uint4*>(lhs + (size_t)m * K + k);
+        *reinterpret_cast<uint4*>(sA + r * LDA + c) = v;
+      }
+      for (int i = tid; i < BK * BN / 8; i += NT) {
+        const int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+        const int k = k0 + r, n = n0 + c;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (k < K && n < N) v = *reinterpret_cast<const uint4*>(w + (size_t)k * N + n);
+        *reinterpret_cast<uint4*>(sB + r * LDB + c) = v;
+      }
+    } else {
+      for (int i = tid; i < BM * BK; i += NT) {
+        const int r = i / BK, c = i % BK;
+        const int m = row0 + r, k = k0 + c;
+        sA[r * LDA + c] = (m < row1 && k < K) ? lhs[(size_t)m * K + k] : zero;
+      }
+      for (int i = tid; i < BK * BN; i += NT) {
+        const int r = i / BN, c = i % BN;
+        const int k = k0 + r, n = n0 + c;
+        sB[r * LDB + c] = (k < K && n < N) ? w[(size_t)k * N + n] : zero;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+        wmma::load_matrix_sync(a[i], sA + (wm * TM + i * 16) * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < FN; ++j)
+        wmma::load_matrix_sync(b[j], sB + kk * LDB + wn * TN + j * 16, LDB);
+#pragma unroll
+      for (int i = 0; i < FM; ++i)
+#pragma unroll
+        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();  // the tiles are overwritten by the next step (or by sC)
+  }
+
+  // epilogue: through shared memory, so the ragged M edge and the N tail are
+  // written under guard
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+      wmma::store_matrix_sync(sC + (wm * TM + i * 16) * LDC + wn * TN + j * 16,
+                              acc[i][j], LDC, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < BM * BN; i += NT) {
+    const int r = i / BN, c = i % BN;
+    const int m = row0 + r, n = n0 + c;
+    if (m < row1 && n < N) out[(size_t)m * N + n] = __float2bfloat16(sC[r * LDC + c]);
+  }
+}
+
+template <int BM, int BN, int BK, int WM, int WN>
+cudaError_t launch(const void* lhs, const void* rhs, const void* sizes, void* out,
+                   int M, int K, int N, int G, int vec, cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM + G + 1, (N + BN - 1) / BN);
+  gmm_kernel<BM, BN, BK, WM, WN><<<grid, WM * WN * 32, 0, stream>>>(
+      static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
+      static_cast<const int*>(sizes), static_cast<bf16*>(out), M, K, N, G, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out (M,N) = per-group lhs (M,K) @ rhs (G,K,N). The large tile when groups
+// average 32 rows or more, else the decode tile.
+extern "C" int ds_grouped_gemm(const void* lhs, const void* rhs, const void* sizes,
+                               void* out, int M, int K, int N, int G, void* stream) {
+  if (M == 0 || N == 0) return cudaSuccess;
+  if (M < 0 || N < 0 || K < 0 || G < 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = (K % 8 == 0) && (N % 8 == 0) &&
+                  ((reinterpret_cast<uintptr_t>(lhs) & 15) == 0) &&
+                  ((reinterpret_cast<uintptr_t>(rhs) & 15) == 0);
+  if ((long long)M >= 32LL * (G > 0 ? G : 1))
+    return launch<64, 128, 32, 2, 4>(lhs, rhs, sizes, out, M, K, N, G, vec, s);
+  return launch<16, 64, 64, 1, 4>(lhs, rhs, sizes, out, M, K, N, G, vec, s);
+}
+
+extern "C" const char* ds_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -47,10 +47,13 @@ def _cache_dims(cfg) -> tuple:
 
 
 class InferenceEngine:
-    """Generation wrapper over a model (`nn.Module` with a `cfg`).
+    """Generation wrapper over a model (`nn.Module` with a `cfg`): Llama,
+    or the MoE families Qwen2-MoE and Mixtral (`generate`'s prefill runs
+    their experts through the grouped GEMM, its decode steps through the
+    ragged buffer; `forward` routes with the training semantics' drops).
 
     `params`, when given, is a JAX parameter tree (numpy leaves), copied
-    into the model with `load_jax_params` or, with `quant`, kept as the
+    into the model with its `load_jax_params` or, with `quant`, kept as the
     engine's tree (a quantized leaf keeps its int8 bytes). Placement
     (`serve_modes.place_params`) casts every floating weight to
     `config.dtype` on `device` (`None` → CUDA; a machine without CUDA raises

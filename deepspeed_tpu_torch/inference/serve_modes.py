@@ -11,7 +11,12 @@ quantization and serve modes').
 
 The `engine` argument is duck-typed: the functions read `module`,
 `model_cfg`, `_config`, `accelerator` and `device`, and write
-`serve_mode`, `_quantized` and `module` back.
+`serve_mode`, `_quantized` and `module` back. The weights are reached
+through the module's own `param_tree`, `load_jax_params` and
+`module_state`, so any model family that has them is placed here. `quant`
+on a tree without the layer-scan layout (the MoE families) raises: a
+whole-tree int8 MoE tree is not ported (ROADMAP.md, Queue 1, 'Weight
+quantization and serve modes').
 """
 
 from __future__ import annotations
@@ -33,12 +38,7 @@ from deepspeed_tpu_torch.inference.quantization import (
     quantize_param_tree,
     tree_leaves,
 )
-from deepspeed_tpu_torch.models.llama import (
-    load_jax_params,
-    module_state,
-    param_tree,
-    tree_to_torch,
-)
+from deepspeed_tpu_torch.models.llama import tree_to_torch
 from deepspeed_tpu_torch.utils.logging import logger
 
 _ALIASES = {"quantized_layer_scan": "layer_scan", "whole_tree": "dequant"}
@@ -130,20 +130,23 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     cfg = engine._config
     model = engine.module
     engine._quantized = bool(cfg.quant and cfg.quant.get("enabled"))
-    shapes = params if params is not None else param_tree(model, device="meta")
+    shapes = params if params is not None else model.param_tree(device="meta")
     engine.serve_mode = resolve_serve_mode(engine, shapes)
     if engine.serve_mode == "capacity":
         raise _unported("serve_mode='capacity' (resolved by 'auto')", "The rest")
+    if engine._quantized and not qls.layer_scan_supported(shapes):
+        raise _unported(f"quant on {type(model).__name__} (int8 weights outside the "
+                        "llama layer-scan layout)", "Weight quantization and serve modes")
     if not engine._quantized:
         if params is not None:
-            load_jax_params(model, params)
+            model.load_jax_params(params)
         engine.module = model.to(device=engine.device, dtype=cfg.dtype).eval()
         return None
     if params is not None:
         tree = tree_to_torch(params, dtype=cfg.dtype, device=engine.device)
         engine.module = model.to("meta").eval()
     else:
-        tree = param_tree(model, dtype=cfg.dtype, device=engine.device, release=True)
+        tree = model.param_tree(dtype=cfg.dtype, device=engine.device, release=True)
         engine.module = model.eval()
     group = int(cfg.quant.get("group_size", 256))
     if engine.serve_mode == "layer_scan":
@@ -158,5 +161,5 @@ def dense_state(engine) -> Optional[dict]:
     weights)."""
     if not engine._quantized:
         return None
-    return module_state(engine.module,
-                        dequantize_param_tree(engine.params, dtype=engine._config.dtype))
+    return engine.module.module_state(
+        dequantize_param_tree(engine.params, dtype=engine._config.dtype))

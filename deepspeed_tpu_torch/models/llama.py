@@ -256,6 +256,15 @@ class LlamaForCausalLM(nn.Module):
         """Copy a JAX parameter tree into this module (`load_jax_params`)."""
         return load_jax_params(self, tree)
 
+    def param_tree(self, dtype: Optional[torch.dtype] = None, device=None,
+                   release: bool = False) -> dict:
+        """This module's weights as a JAX parameter tree (`param_tree`)."""
+        return param_tree(self, dtype=dtype, device=device, release=release)
+
+    def module_state(self, tree) -> dict:
+        """Parameter names → tensors of a JAX tree (`module_state`)."""
+        return module_state(self, tree)
+
     def _lm_head(self, h):
         if self.lm_head is None:
             return torch.einsum("bsd,vd->bsv", h, self.embed_tokens.to(self.cfg.dtype))
@@ -284,30 +293,32 @@ def llama_loss_fn(model: Optional[LlamaForCausalLM] = None):
     return make_causal_loss_fn(model)
 
 
-_GROUPS = (("self_attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
-           ("mlp", ("gate_proj", "up_proj", "down_proj")))
-_NORMS = ("input_layernorm", "post_attention_layernorm")
+def _leaves(node, path=()):
+    """(path, leaf) pairs of a nested dict."""
+    if isinstance(node, dict):
+        for key, child in node.items():
+            yield from _leaves(child, path + (key,))
+    else:
+        yield path, node
 
 
-def module_state(model: LlamaForCausalLM, tree) -> dict:
+def module_state(model: nn.Module, tree) -> dict:
     """The module's parameter names → tensors of a JAX parameter tree of
     torch tensors (float leaves): per-layer views of the stacked `layers`
-    leaves, flax (in, out) kernels as transposed (out, in) views, `lm_head`
-    (D, V) as the untied head. For `load_jax_params`, and for running the
-    module on a tree's weights with `torch.func.functional_call`."""
+    leaves, a flax `Dense` kernel (in, out) as a transposed (out, in) view,
+    other leaves (norm weights, biases, an MoE router or expert stack) as
+    they are, `lm_head` (D, V) as the untied head. For `load_jax_params`,
+    and for running the module on a tree's weights with
+    `torch.func.functional_call`. Any decoder laid out as `embed_tokens`,
+    `layers`, `norm` and `lm_head` maps this way (`models/moe_common.py`)."""
     state = {"embed_tokens": tree["embed_tokens"], "norm.weight": tree["norm"]["weight"]}
     if model.lm_head is not None:
         state["lm_head.weight"] = tree["lm_head"].t()
-    stack = tree["layers"]
-    for i in range(len(model.layers)):
-        for norm in _NORMS:
-            state[f"layers.{i}.{norm}.weight"] = stack[norm]["weight"][i]
-        for group, names in _GROUPS:
-            for name in names:
-                leaves = stack[group][name]
-                state[f"layers.{i}.{group}.{name}.weight"] = leaves["kernel"][i].t()
-                if "bias" in leaves:
-                    state[f"layers.{i}.{group}.{name}.bias"] = leaves["bias"][i]
+    for path, leaf in _leaves(tree["layers"]):
+        dense = path[-1] == "kernel"
+        name = ".".join(path[:-1] + ("weight",)) if dense else ".".join(path)
+        for i in range(len(model.layers)):
+            state[f"layers.{i}.{name}"] = leaf[i].t() if dense else leaf[i]
     return state
 
 
@@ -335,18 +346,23 @@ def tree_to_torch(tree, dtype: Optional[torch.dtype] = None, device=None):
 
 
 @torch.no_grad()
-def load_jax_params(model: LlamaForCausalLM, tree) -> LlamaForCausalLM:
-    """Copy a JAX `LlamaForCausalLM` parameter tree (nested dicts of numpy
-    arrays) into `model`. The scan-stacked `layers/...` leaves carry a
-    leading L axis and are split per layer; a flax `Dense` kernel (in, out)
-    is transposed into an `nn.Linear` weight (out, in); `lm_head` (D, V) is
-    the untied head. Quantized leaves (`{"__q8__", "scales"}`, flat or
+def load_jax_params(model: nn.Module, tree) -> nn.Module:
+    """Copy a JAX parameter tree (nested dicts of numpy arrays) into
+    `model`, which must have a leaf for every parameter. The scan-stacked
+    `layers/...` leaves carry a leading L axis and are split per layer; a
+    flax `Dense` kernel (in, out) is transposed into an `nn.Linear` weight
+    (out, in); `lm_head` (D, V) is the untied head. Quantized leaves (`{"__q8__", "scales"}`, flat or
     per-layer scales) are dequantized into the float weights; an inference
     engine given such a tree keeps the int8 bytes instead."""
     from deepspeed_tpu_torch.inference.quantization import dequantize_param_tree
     tree = dequantize_param_tree(tree_to_torch(tree, dtype=torch.float32))
+    state = module_state(model, tree)
     params = dict(model.named_parameters())
-    for name, value in module_state(model, tree).items():
+    missing, unknown = sorted(set(params) - set(state)), sorted(set(state) - set(params))
+    if missing or unknown:
+        raise KeyError(f"load_jax_params: the tree does not fit {type(model).__name__}: "
+                       f"missing {missing[:4]}, unknown {unknown[:4]}")
+    for name, value in state.items():
         params[name].copy_(value.to(params[name].dtype))
     return model
 
@@ -356,12 +372,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 @torch.no_grad()
-def param_tree(model: LlamaForCausalLM, dtype: Optional[torch.dtype] = None,
+def param_tree(model: nn.Module, dtype: Optional[torch.dtype] = None,
                device=None, release: bool = False) -> dict:
-    """The module's weights as a JAX `LlamaForCausalLM` parameter tree of
-    torch tensors: per-layer leaves stacked on a leading L axis, `nn.Linear`
-    weights transposed into flax (in, out) kernels, cast to `dtype` and
-    moved to `device` (default: the parameters' own). `device="meta"` gives
+    """The module's weights as a JAX parameter tree of torch tensors (the
+    inverse of `module_state`): per-layer leaves stacked on a leading L
+    axis, `nn.Linear` weights transposed into flax (in, out) kernels, other
+    parameters as they are, cast to `dtype` and moved to `device`
+    (default: the parameters' own). `device="meta"` gives
     the shapes alone. `release=True` frees each module parameter once it is
     copied (the module's storage moves to the meta device), so building the
     tree never holds two copies of the weights."""
@@ -374,33 +391,26 @@ def param_tree(model: LlamaForCausalLM, dtype: Optional[torch.dtype] = None,
                 requires_grad=p.requires_grad))
         return t
 
-    def stacked(owners, attr, transpose=False):
-        return torch.stack([take(o, attr).t() if transpose else take(o, attr)
-                            for o in owners])
-
     tree = {"embed_tokens": take(model, "embed_tokens"),
             "norm": {"weight": take(model.norm, "weight")}, "layers": {}}
     if model.lm_head is not None:
         tree["lm_head"] = take(model.lm_head, "weight").t().contiguous()
-    stack = tree["layers"]
-    for norm in _NORMS:
-        stack[norm] = {"weight": stacked([getattr(layer, norm) for layer in model.layers],
-                                         "weight")}
-    for group, names in _GROUPS:
-        stack[group] = {}
-        for name in names:
-            denses = [getattr(getattr(layer, group), name) for layer in model.layers]
-            leaves = {"kernel": stacked(denses, "weight", transpose=True)}
-            if denses[0].bias is not None:
-                leaves["bias"] = stacked(denses, "bias")
-            stack[group][name] = leaves
+    for name in [n for n, _ in model.layers[0].named_parameters()]:
+        *owner_path, attr = name.split(".")
+        owners = [layer.get_submodule(".".join(owner_path)) for layer in model.layers]
+        dense = isinstance(owners[0], nn.Linear) and attr == "weight"
+        node = tree["layers"]
+        for key in owner_path:
+            node = node.setdefault(key, {})
+        node["kernel" if dense else attr] = torch.stack(
+            [take(o, attr).t() if dense else take(o, attr) for o in owners])
     return tree
 
 
 @torch.no_grad()
 def to_jax_params(model) -> dict:
-    """The inverse of `load_jax_params`: a JAX `LlamaForCausalLM` parameter
-    tree of numpy arrays, from a module (f32, per-layer leaves stacked on a
+    """The inverse of `load_jax_params`: a JAX parameter tree of numpy
+    arrays, from a module (f32, per-layer leaves stacked on a
     leading L axis, `nn.Linear` weights transposed into flax kernels) or
     from a tree of torch tensors such as an inference engine's `params`,
     whose quantized leaves come back as the same int8 bytes and f32

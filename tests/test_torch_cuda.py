@@ -14,7 +14,10 @@ largest magnitude. A tiny `train_batch` in bf16 on the card is held against
 the same steps in f32 on the CPU. The fused dequant-GEMM (K5) is held to
 2e-2 of its largest output at the Llama-3-8B projection shapes and the odd
 layouts; the int8 attention kernels to 2e-2 against their plain versions,
-and with unit scales to their bf16 kernels bit for bit.
+and with unit scales to their bf16 kernels bit for bit. The grouped expert
+GEMM (K6) is held to 2e-2 of its largest output on ragged group layouts
+(empty groups first, in the middle and last, one group holding every row,
+decode-sized groups, M, K and N tails).
 """
 
 import numpy as np
@@ -34,6 +37,7 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
+from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm, grouped_gemm_plain
 from deepspeed_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -434,3 +438,72 @@ def test_int8_kernels_with_unit_scales_equal_bf16_kernels_on_card(cuda_device, n
     assert torch.equal(decode_attention(q, kd, vd, lengths, k_scales=sd, v_scales=sd),
                        decode_attention(q, kd.to(torch.bfloat16), vd.to(torch.bfloat16),
                                         lengths))
+
+
+@pytest.mark.cuda
+def test_flash_and_decode_kernels_at_group_one_on_card(cuda_device):
+    """K1-fwd and K2 at H = Hkv = 16, head dim 128: Qwen1.5-MoE's attention."""
+    rng = np.random.default_rng(70)
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, 2, 200, 200, 16, 16, 128))
+    out, _ = flash_attention_fwd(q, k, v, causal=True)
+    ref, _ = flash_attention_fwd_plain(q, k, v, causal=True)
+    lengths = torch.tensor([1, 200], dtype=torch.int32, device=cuda_device)
+    q1 = q[:, :1].contiguous()
+    dec = decode_attention(q1, k, v, lengths)
+    dec_ref = decode_attention_plain(q1, k, v, lengths)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    torch.testing.assert_close(dec.float(), dec_ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def _sizes(rng, m, g):
+    """Group sizes of m rows over g groups from a top-1 routing draw."""
+    return np.bincount(rng.integers(0, g, m), minlength=g).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "empty_first_middle_last", "one_group_all_rows", "m5_scalar_path",
+    "decode_60_groups", "prefill_8_groups", "rows_past_the_sizes"])
+def test_grouped_gemm_matches_plain_on_card(cuda_device, case):
+    """K6 against its plain version relative to max |ref|; one launch a call.
+    Rows past the sum of the sizes are zero in both."""
+    rng = np.random.default_rng(len(case))
+    sizes, k, n = {
+        "empty_first_middle_last": ([0, 37, 0, 100, 0], 128, 200),
+        "one_group_all_rows": ([0, 0, 300, 0], 64, 64),
+        "m5_scalar_path": ([2, 0, 3], 20, 36),
+        "decode_60_groups": (_sizes(rng, 16, 60), 2048, 1408),
+        "prefill_8_groups": (_sizes(rng, 2048, 8), 512, 1408),
+        "rows_past_the_sizes": ([10, 0, 20], 96, 72),
+    }[case]
+    m = 50 if case == "rows_past_the_sizes" else int(np.sum(sizes))
+    lhs = _bf16(rng.standard_normal((m, k)).astype(np.float32), cuda_device)
+    rhs = _bf16(rng.standard_normal((len(sizes), k, n)).astype(np.float32), cuda_device)
+    gs = torch.tensor(np.asarray(sizes, np.int32), device=cuda_device)
+    launches = grouped_gemm.launches
+    out = grouped_gemm(lhs, rhs, gs)
+    ref = grouped_gemm_plain(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert grouped_gemm.launches == launches + 1
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert _rel_max_err(out, ref) <= BF16_TOL
+    if case == "rows_past_the_sizes":
+        assert (out[30:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_refuses_other_operands_on_card(cuda_device):
+    """A non-bf16 or non-contiguous operand, or int64 sizes, raise with no
+    launch."""
+    lhs = torch.zeros((8, 32), dtype=torch.bfloat16, device=cuda_device)
+    rhs = torch.zeros((2, 32, 16), dtype=torch.bfloat16, device=cuda_device)
+    gs = torch.tensor([3, 5], dtype=torch.int32, device=cuda_device)
+    launches = grouped_gemm.launches
+    with pytest.raises(TypeError):
+        grouped_gemm(lhs.float(), rhs, gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_gemm(lhs, rhs.transpose(1, 2).contiguous().transpose(1, 2), gs)
+    with pytest.raises(ValueError, match="int32"):
+        grouped_gemm(lhs, rhs, gs.long())
+    assert grouped_gemm.launches == launches
