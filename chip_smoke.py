@@ -12,9 +12,15 @@
    and two odd layouts; the int8 attention kernels on int8 caches, and with
    unit scales bitwise against their bf16 kernels; the grouped expert GEMM
    K6 at the Qwen1.5-MoE prefill and decode calls, Mixtral-8x7B's w1/w2 and
-   odd layouts; K1-fwd and K2 at Qwen1.5-MoE's GQA group 1), and times the
-   kernel, the plain version and one PyTorch library call for the same
-   function with CUDA events;
+   odd layouts; K1-fwd and K2 at Qwen1.5-MoE's GQA group 1; K6's backward
+   kernels, dlhs and drhs, at the Qwen1.5-MoE training calls, Mixtral-8x7B's
+   w1 and odd layouts; the block-sparse attention K7 at the JAX kernel's
+   own shape, at Llama-3-8B's attention width over 16k tokens, on a
+   non-causal Fixed layout and with a fully masked causal row), and times
+   the kernel, the plain version and one PyTorch library call for the same
+   function with CUDA events; then runs the sparse path,
+   `SparseSelfAttention` forward (K7, counted) and backward (the gather
+   path's gradient) against autograd of the gather path;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
    through v1 (`init_inference`): `forward` on 4 x 512 tokens, greedy
    `generate` of 64 tokens (the v1 main path, whose kernel launches are
@@ -57,6 +63,17 @@
    fall. A 2-layer model of the same width is held on the card in bf16
    against the CPU in f32 over one GAS window of `forward`/`backward`
    (loss, grad norm, four gradients), and remat on against remat off;
+9b. trains Qwen1.5-MoE-A2.7B at full width and 4 of its 24 layers (random
+   bf16 weights, `dispatch_impl="gmm"`) through `initialize` →
+   `train_batch` (micro-batch 1, GAS 4, sequence 2048, FusedAdam, clipping
+   1.0, ZeRO stage 3 on one rank, remat on): one warm-up and 5 timed steps
+   (the MoE training main path: K6, its dlhs and drhs, and K1, counted),
+   step time, tokens/s, active-parameter MFU, peak memory and a profile of
+   one step; the loss must fall; then 2 timed steps of the same engine with
+   `dispatch_impl="auto"` (the ragged buffer in training). A 2-layer model
+   of the same width holds the gradients of one GAS window through the
+   grouped GEMM against the ragged buffer beside the routing-flip share,
+   with a control (drhs fed the sizes rolled by one) that must fail;
 10. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -142,6 +159,39 @@ TRAIN_REF_LOSS_RTOL, TRAIN_REF_NORM_RTOL, TRAIN_REF_GRAD_RTOL = 1e-3, 5e-2, 0.05
 REMAT_RTOL = 1e-3
 GRAD_KEYS = ("embed_tokens", "layers.0.self_attn.q_proj.weight",
              "layers.0.mlp.down_proj.weight", "lm_head.weight")
+# K7 (block-sparse attention): (name, B, S, H, D, block, layout, causal). (a) the
+# JAX kernel's docstring shape, causal BigBird; (b) Llama-3-8B's attention
+# width at 16k context, causal BigBird (its Kmax stays small, so the plain
+# gather fits); (c) non-causal Fixed; (d) a causal row whose only live block
+# lies above it (zeros), at block 32 and D 64
+SPARSE_SHAPES = [("a: bigbird causal", 1, 4096, 8, 128, 64, "bigbird", True),
+                 ("b: llama3-8b width, 16k, bigbird causal", 1, 16384, 32, 128, 64, "bigbird",
+                  True),
+                 ("c: fixed, not causal", 1, 4096, 8, 128, 64, "fixed", False),
+                 ("d: fully masked causal row", 2, 1024, 4, 64, 32, "masked_row", True)]
+# MoE training, Qwen1.5-MoE-A2.7B at full width and 4 of its 24 layers: the
+# engine keeps ~20 bytes a parameter (bf16 param and grad, f32 master, two
+# Adam moments, f32 accumulation), 2.905e9 parameters at 4 layers, ~58 GB
+QWEN_TRAIN_LAYERS = 4
+MOE_MBS, MOE_GAS, MOE_SEQ, MOE_STEPS, MOE_AUTO_STEPS = 1, 4, 2048, 5, 2
+MOE_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": MOE_MBS,
+                    "gradient_accumulation_steps": MOE_GAS, "bf16": {"enabled": True},
+                    "gradient_clipping": 1.0,
+                    "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
+                    "zero_optimization": {"stage": 3}}
+# 2-layer full-width Qwen1.5-MoE in bf16 on the card, gradients of one GAS
+# window through the grouped GEMM (K6 and its backward) against the ragged
+# buffer (cuBLAS batched products) on the same weights and tokens: both
+# dispatches compute the same function, and the router runs in f32. On an
+# NVIDIA H100 80GB HBM3 at 700 W this script read at most 0.0069 relative
+# RMS (embed_tokens; 0.0038 on the expert stacks, no routing decision
+# flipped), and its control, drhs fed the sizes rolled by one, 1.31 on the
+# expert stacks (PERF.md). The bound sits ~3x above the reading.
+TRAIN_MOE_GRAD_RTOL = 0.02
+MOE_GRAD_KEYS = ("layers.0.mlp.experts.gate", "layers.0.mlp.experts.up",
+                 "layers.0.mlp.experts.down", "layers.1.mlp.experts.gate",
+                 "layers.1.mlp.experts.up", "layers.1.mlp.experts.down",
+                 "layers.0.mlp.gate.wg", "layers.1.mlp.gate.wg", "embed_tokens")
 
 
 def log(*args):
@@ -509,21 +559,21 @@ def routing_sizes(gen, tokens, experts, k):
                                                                   dtype=torch.int32))
 
 
-def grouped_mm_library(lhs, rhs, sizes, ref):
-    """`torch._grouped_mm` on the same inputs, where the card's torch has it
-    (a yardstick only: the port never calls it): (ms, its max error against
-    the plain version relative to max |ref|, None), or (None, None, the
-    reason)."""
+def grouped_mm_library(operands, sizes, ref):
+    """`torch._grouped_mm` on `operands` grouped by `sizes`, where the card's
+    torch has it and takes their layout (a yardstick only: the port never
+    calls it): (ms, its max error against the plain version relative to
+    max |ref|, None), or (None, None, the reason)."""
     fn = getattr(torch, "_grouped_mm", None)
     if fn is None:
         return None, None, "torch has no _grouped_mm"
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
     try:
-        out = fn(lhs, rhs, offs=offs)
+        out = fn(*operands, offs=offs)
         torch.cuda.synchronize()
     except (RuntimeError, ValueError, TypeError) as e:
         return None, None, str(e).splitlines()[0][:200]
-    return cuda_ms(lambda: fn(lhs, rhs, offs=offs)), rel_max_err(out, ref), None
+    return cuda_ms(lambda: fn(*operands, offs=offs)), rel_max_err(out, ref), None
 
 
 def check_gmm(gen, name, k, n, sizes):
@@ -544,7 +594,7 @@ def check_gmm(gen, name, k, n, sizes):
     used = int((sizes > 0).sum())
     nbytes = m * k * 2 + used * k * n * 2 + g * 4 + m * n * 2
     bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
-    library, library_err, library_note = grouped_mm_library(lhs, rhs, sizes, ref)
+    library, library_err, library_note = grouped_mm_library((lhs, rhs), sizes, ref)
     row = dict(shape=f"{name}: M={m} K={k} N={n} G={g} groups_with_rows={used} "
                      f"sizes_min={int(sizes.min())} sizes_max={int(sizes.max())}",
                max_abs_err=(out.float() - ref.float()).abs().max().item(), rel_max_err=err,
@@ -759,12 +809,15 @@ def kernel_counters():
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from deepspeed_tpu_torch.ops.cuda.paged_attention import (
         paged_decode_attention, paged_prefill_attention)
-    from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import block_sparse_attention
+    from deepspeed_tpu_torch.ops.cuda.grouped_gemm import (
+        grouped_gemm, grouped_gemm_dlhs, grouped_gemm_drhs)
     from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
     counters = {fn.__name__: (fn, "launches") for fn in (
         flash_attention_fwd, decode_attention, paged_decode_attention,
         paged_prefill_attention, flash_attention_bwd_dq, flash_attention_bwd_dkv,
-        quantized_matmul, grouped_gemm)}
+        quantized_matmul, grouped_gemm, grouped_gemm_dlhs, grouped_gemm_drhs,
+        block_sparse_attention)}
     for fn in (decode_attention, paged_decode_attention, paged_prefill_attention):
         counters[fn.__name__ + "_int8"] = (fn, "launches_int8")
     return counters
@@ -1669,6 +1722,372 @@ def train_reference(report):
         launches_remat_on=remat_launches, launches_remat_off=off_launches)
 
 
+def sparse_layout(kind, h, s, block):
+    """The layouts of SPARSE_SHAPES, from the port's sparsity configs (a
+    seeded numpy draw for the masked-row case)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig)
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(num_heads=h, block=block,
+                                     attention="unidirectional").make_layout(s)
+    if kind == "fixed":
+        return FixedSparsityConfig(num_heads=h, block=block).make_layout(s)
+    n = s // block
+    layout = np.random.default_rng(SEED + 80).random((h, n, n)) < 0.4
+    layout[:, :, 0] = True
+    layout[0, 0, :] = False      # head 0's first query block sees only the last key block
+    layout[0, 0, n - 1] = True
+    return layout
+
+
+def live_work(layout, causal):
+    """(live (query block, key block) pairs, distinct live key blocks) of a
+    layout over its heads: the blocks K7 reads, for the bound."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import padded_layout_indices
+    idx, nlive = padded_layout_indices(layout)
+    live = np.arange(idx.shape[-1])[None, None] < nlive[..., None]
+    if causal:
+        live &= idx <= np.arange(idx.shape[1])[None, :, None]
+    distinct = sum(len(np.unique(idx[h][live[h]])) for h in range(idx.shape[0]))
+    return int(live.sum()), distinct
+
+
+def check_sparse(gen, name, b, s, h, d, block, kind, causal):
+    """K7 against its plain version (bf16, KERNEL_TOL); its bound reads q,
+    the live K and V blocks once and writes out, against 4·blk²·D
+    operations per live block pair; the library yardstick is SDPA with the
+    dense boolean mask, or at 16k (where that mask would take 8.6 GB) SDPA
+    causal without a mask, the dense work the sparsity avoids."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bs
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import layout_tensors
+    layout = sparse_layout(kind, h, s, block)
+    idx, nlive, _ = layout_tensors(layout, "cuda")
+    q, k, v = (randn((b, s, h, d), gen) for _ in range(3))
+    out = bs.block_sparse_attention(q, k, v, idx, nlive, block, causal)
+    ref = bs.block_sparse_attention_plain(q, k, v, idx, nlive, block, causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert out.shape == q.shape and torch.isfinite(out).all() and err <= KERNEL_TOL, (name, err)
+    if kind == "masked_row":
+        assert (out[:, :block, 0] == 0).all(), name
+    pairs, distinct = live_work(layout, causal)
+    nbytes = (q.numel() + out.numel()) * 2 + b * distinct * block * d * 2 * 2
+    bound_ms, bound_by = bound(nbytes, 4.0 * block * block * d * pairs * b)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if s <= 4096:
+        mask = torch.from_numpy(np.kron(layout, np.ones((block, block), bool))).cuda()
+        if causal:
+            mask &= torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[None]))
+        library_note = "SDPA with the dense boolean block mask"
+        del mask
+    else:
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+        library_note = "SDPA causal, no mask: the dense work the sparsity avoids"
+    row = dict(shape=f"{name}: B={b} S={s} H={h} D={d} block={block} Kmax={idx.shape[-1]} "
+                     f"live_pairs={pairs * b} density={layout.mean():.4f}",
+               max_abs_err=err, ms=cuda_ms(lambda: bs.block_sparse_attention(
+                   q, k, v, idx, nlive, block, causal)),
+               plain_ms=cuda_ms(lambda: bs.block_sparse_attention_plain(
+                   q, k, v, idx, nlive, block, causal), iters=3, warmup=1),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library,
+               library_note=library_note)
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def sparse_path(report):
+    """The sparse path: `SparseSelfAttention` forward and backward at shape
+    (a), K7 in the forward (counted), the gather path's gradient in the
+    backward; output and q/k/v gradients against autograd of the gather path
+    (`impl="reference"`) on the card, relative to max |ref|."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, SparseSelfAttention, sparse_attention)
+    name, b, s, h, d, block, _, causal = SPARSE_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    q, k, v = (randn((b, s, h, d), gen).requires_grad_() for _ in range(3))
+    g = randn((b, s, h, d), gen)
+    attn = SparseSelfAttention(BigBirdSparsityConfig(num_heads=h, block=block,
+                                                     attention="unidirectional"))
+    zero_launches()
+    out = attn(q, k, v, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    assert launches == only(block_sparse_attention=1), launches
+    layout = attn.config.make_layout(s)
+
+    def gather_path(q, k, v, causal):
+        return sparse_attention(q, k, v, layout, block=block, causal=causal, impl="reference")
+    ref = gather_path(q, k, v, causal=causal)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+    errs = {n: rel_max_err(a, r) for n, a, r in zip(("out", "dq", "dk", "dv"),
+                                                    (out, *grads), (ref, *ref_grads))}
+    assert all(torch.isfinite(t).all() for t in (out, *grads)) \
+        and max(errs.values()) <= KERNEL_TOL, errs
+
+    def fwd_bwd(fn):
+        o = fn(q, k, v, causal=causal)
+        torch.autograd.grad(o, (q, k, v), g)
+    report["sparse_path"] = dict(
+        shape=f"{name}: B={b} S={s} H={h} D={d} block={block}", rel_max_err=errs,
+        launches=launches, fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(attn), iters=5, warmup=1),
+        reference_fwd_bwd_ms=cuda_ms(lambda: fwd_bwd(gather_path), iters=5, warmup=1))
+    del q, k, v, g, out, ref, grads, ref_grads
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_gmm_bwd(gen, name, k, n, sizes):
+    """K6-bwd: dlhs (M, K) = grad @ rhs[g]^T and drhs (G, K, N) = lhs^T @
+    grad per group against their plain versions, relative to max |ref|; an
+    empty group's drhs slab must be exact zeros. Bounds: dlhs reads grad,
+    the weights of the groups with rows and writes (M, K); drhs reads lhs
+    and grad and writes the whole (G, K, N); each 2·M·K·N operations. The
+    library: `torch._grouped_mm` on grad and rhs transposed (dlhs), and
+    its K-grouped form on lhs^T and grad (drhs)."""
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
+    m, g = int(sizes.sum()), sizes.numel()
+    lhs, grad = randn((m, k), gen), randn((m, n), gen)
+    rhs = (torch.randn((g, k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    used = int((sizes > 0).sum())
+    rows = {}
+    for kind, fn, plain, args, operands, nbytes in (
+            ("dlhs", gg.grouped_gemm_dlhs, gg.grouped_gemm_dlhs_plain, (grad, rhs, sizes),
+             (grad, rhs.transpose(-2, -1)), m * n * 2 + used * k * n * 2 + g * 4 + m * k * 2),
+            ("drhs", gg.grouped_gemm_drhs, gg.grouped_gemm_drhs_plain, (lhs, grad, sizes),
+             (lhs.t(), grad), m * k * 2 + m * n * 2 + g * 4 + g * k * n * 2)):
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = rel_max_err(out, ref)
+        assert torch.isfinite(out).all() and err <= KERNEL_TOL, (name, kind, err)
+        if kind == "drhs":
+            assert all((out[e] == 0).all() for e in (sizes == 0).nonzero().flatten().tolist())
+        bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
+        library, library_err, library_note = grouped_mm_library(operands, sizes, ref)
+        rows[kind] = dict(
+            max_abs_err=(out.float() - ref.float()).abs().max().item(), rel_max_err=err,
+            ms=cuda_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: plain(*args), iters=3, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library,
+            library_rel_max_err=library_err, library_note=library_note)
+        del out, ref
+    del lhs, grad, rhs
+    torch.cuda.empty_cache()
+    return dict(shape=f"{name}: M={m} K={k} N={n} G={g} groups_with_rows={used} "
+                      f"sizes_min={int(sizes.min())} sizes_max={int(sizes.max())}",
+                grouped_gemm_bwd_dlhs=rows["dlhs"], grouped_gemm_bwd_drhs=rows["drhs"])
+
+
+def gmm_bwd_cases(gen):
+    """K6-bwd at the training shapes: Qwen1.5-MoE (one micro-batch of 2048
+    tokens, top-4 of 60: M = 8192) gate/up and down, Mixtral-8x7B w1 (2048
+    tokens, top-2 of 8: M = 4096), and odd layouts."""
+    qwen = routing_sizes(gen, MOE_MBS * MOE_SEQ, 60, 4)
+    mixtral = routing_sizes(gen, 2048, 8, 2)
+
+    def sizes(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+    return [check_gmm_bwd(gen, "qwen train gate/up", 2048, 1408, qwen),
+            check_gmm_bwd(gen, "qwen train down", 1408, 2048, qwen),
+            check_gmm_bwd(gen, "mixtral w1", 4096, 14336, mixtral),
+            check_gmm_bwd(gen, "empty first and last groups", 1408, 2048,
+                          sizes([0, 300, 0, 77, 211, 0])),
+            check_gmm_bwd(gen, "one group holds every row", 2048, 1408, sizes([0, 0, 517, 0])),
+            check_gmm_bwd(gen, "M = 5", 40, 24, sizes([2, 0, 3]))]
+
+
+def kernel_shares(kernels, steps):
+    """Device ms per step and share of the port's kernels in a profile
+    (`device_kernels`), by the kernels' names."""
+    def which(name):
+        if "tgmm_kernel" in name:
+            return "grouped_gemm_drhs"
+        if "gmm_kernel" in name:
+            return "grouped_gemm_dlhs" if ("true>" in name or "Lb1E" in name) \
+                else "grouped_gemm"
+        for key, label in (("flash_fwd_kernel", "flash_attention_fwd"),
+                           ("flash_bwd_dq_kernel", "flash_attention_bwd_dq"),
+                           ("flash_bwd_dkv_kernel", "flash_attention_bwd_dkv")):
+            if key in name:
+                return label
+        return None
+    busy = sum(us for us, _ in kernels.values())
+    out = {}
+    for name, (us, _) in kernels.items():
+        label = which(name)
+        if label is not None:
+            out[label] = out.get(label, 0.0) + us
+    return {label: dict(ms_per_step=us / steps / 1e3, device_share=us / busy if busy else None)
+            for label, us in out.items()}
+
+
+def train_moe(report):
+    """The MoE training main path: Qwen1.5-MoE-A2.7B at full width and
+    QWEN_TRAIN_LAYERS layers, random bf16 weights, `dispatch_impl="gmm"`,
+    through `initialize` → `train_batch`: one warm-up and MOE_STEPS timed
+    steps on one batch (launches counted), a profile of one step, then
+    MOE_AUTO_STEPS timed steps of the same engine with `dispatch_impl="auto"`
+    (the ragged buffer in training) after one warm-up."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.qwen2_moe import (
+        Qwen2MoeForCausalLM, qwen2_moe_config, qwen2_moe_loss_fn)
+    cfg = qwen2_moe_config(QWEN_MOE, num_hidden_layers=QWEN_TRAIN_LAYERS, dispatch_impl="gmm",
+                           remat=True, remat_policy="nothing")
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated_before = torch.cuda.memory_allocated()
+    model = moe_model(Qwen2MoeForCausalLM, cfg, SEED + 70)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=MOE_TRAIN_CONFIG,
+                                                loss_fn=qwen2_moe_loss_fn(model))
+    acc = engine.accelerator
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (MOE_GAS * MOE_MBS, MOE_SEQ),
+                                        generator=gen, device="cuda")}
+    t0 = time.perf_counter()
+    engine.train_batch(batch=batch)                      # warm-up
+    acc.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    def timed(n):
+        steps = []
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ts = time.perf_counter()
+            loss = float(engine.train_batch(batch=batch))
+            steps.append(dict(loss=loss, grad_norm=engine.get_global_grad_norm(),
+                              step_s=time.perf_counter() - ts))
+        return steps, (time.perf_counter() - t0) / n
+
+    acc.reset_peak_memory_stats()
+    zero_launches()
+    steps, step_s = timed(MOE_STEPS)
+    launches = read_launches()
+    peak = acc.max_memory_allocated()
+    L, micros = cfg.num_hidden_layers, MOE_GAS
+    # remat runs each block's forward again in backward: K6 and K1-fwd twice
+    per_step = {"grouped_gemm": 2 * 3 * L * micros, "grouped_gemm_dlhs": 3 * L * micros,
+                "grouped_gemm_drhs": 3 * L * micros, "flash_attention_fwd": 2 * L * micros,
+                "flash_attention_bwd_dq": L * micros, "flash_attention_bwd_dkv": L * micros}
+    assert launches == only(**{k: n * MOE_STEPS for k, n in per_step.items()}), launches
+    losses = [st["loss"] for st in steps]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    tokens = MOE_GAS * MOE_MBS * MOE_SEQ
+    n_total = engine.total_params
+    expert_p = 3 * cfg.hidden_size * cfg.moe_intermediate_size * cfg.num_experts * L
+    active = n_total - expert_p + expert_p * cfg.num_experts_per_tok / cfg.num_experts
+    flops_per_token = 6.0 * active + 6.0 * L * cfg.hidden_size * MOE_SEQ
+    peak_tflops = acc.peak_tflops("bfloat16")
+    mfu = tokens / step_s * flops_per_token / (peak_tflops * 1e12)
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    profile_ = profile_summary(None, 1, wall_us, kernels)
+    profile_["port_kernels"] = kernel_shares(kernels, 1)
+
+    for layer in engine.module.layers:
+        layer.mlp.dispatch_impl = "auto"
+    engine.train_batch(batch=batch)                      # warm-up of the ragged buffer
+    zero_launches()
+    auto_steps, auto_step_s = timed(MOE_AUTO_STEPS)
+    auto_launches = read_launches()
+    assert auto_launches["grouped_gemm"] == auto_launches["grouped_gemm_drhs"] == 0, auto_launches
+    del engine, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train_moe"] = dict(
+        card=report["card"], model=f"{QWEN_MOE} at {L} of 24 layers (random bf16 weights, "
+                                   f"seed {SEED + 70}), dispatch_impl='gmm'",
+        params=n_total, active_params=active, config=MOE_TRAIN_CONFIG, seq=MOE_SEQ,
+        tokens_per_step=tokens, warmup_s=warmup_s, steps=steps, step_s=step_s,
+        tokens_per_s=tokens / step_s, flops_per_token=flops_per_token,
+        peak_tflops_datasheet=peak_tflops, mfu_active=mfu, peak_memory_bytes=peak,
+        allocated_before_bytes=allocated_before, launches=launches,
+        launches_per_train_batch=per_step, profile=profile_,
+        auto=dict(dispatch="ragged (auto in training)", steps=auto_steps, step_s=auto_step_s,
+                  tokens_per_s=tokens / auto_step_s,
+                  mfu_active=tokens / auto_step_s * flops_per_token / (peak_tflops * 1e12),
+                  launches=auto_launches),
+        gmm_over_auto_step_time=step_s / auto_step_s)
+    return launches
+
+
+def train_moe_reference(report):
+    """Two layers of Qwen1.5-MoE-A2.7B at full width in bf16 on the card:
+    the gradients of one GAS window (2 micro-batches of 2048 tokens) of
+    `qwen2_moe_loss_fn` through the grouped GEMM (K6, dlhs, drhs) against
+    the same window through the ragged buffer, on the same weights and
+    tokens, with the routing-flip share between the two; and a control
+    whose drhs is fed the group sizes rolled by one."""
+    from deepspeed_tpu_torch.models.qwen2_moe import (
+        Qwen2MoeForCausalLM, qwen2_moe_config, qwen2_moe_loss_fn)
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
+    cfg = qwen2_moe_config(QWEN_MOE, num_hidden_layers=2, remat=False)
+    model = moe_model(Qwen2MoeForCausalLM, cfg, SEED + 72)
+    loss_fn = qwen2_moe_loss_fn(model)
+    params = dict(model.named_parameters())
+    ids = torch.randint(0, cfg.vocab_size, (2, 1, MOE_SEQ), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(SEED + 73))
+
+    def window(impl):
+        for layer in model.layers:
+            layer.mlp.dispatch_impl = impl
+        model.zero_grad(set_to_none=True)
+        routing = []
+        for micro in ids:
+            recorder = RoutingRecorder(model)
+            loss, _ = loss_fn(model, {"input_ids": micro})
+            (loss / len(ids)).backward()
+            routing += recorder.take()
+            recorder.remove()
+        torch.cuda.synchronize()
+        return {key: params[key].grad.float() for key in MOE_GRAD_KEYS}, routing
+
+    def errs(got, ref):
+        return {key: ((got[key] - ref[key]).norm() / ref[key].norm()).item()
+                for key in MOE_GRAD_KEYS}
+
+    zero_launches()
+    gmm, gmm_routing = window("gmm")
+    launches = read_launches()
+    L = cfg.num_hidden_layers
+    assert launches == only(grouped_gemm=3 * L * 2, grouped_gemm_dlhs=3 * L * 2,
+                            grouped_gemm_drhs=3 * L * 2, flash_attention_fwd=L * 2,
+                            flash_attention_bwd_dq=L * 2, flash_attention_bwd_dkv=L * 2), launches
+    ragged, ragged_routing = window("ragged")
+    rel = errs(gmm, ragged)
+    flips = flip_share(gmm_routing, ragged_routing)
+    real = gg.grouped_gemm_drhs
+
+    def rolled(lhs, grad, sizes):
+        return real(lhs, grad, torch.roll(sizes, 1))
+    rolled.launches = 0    # the wrapper counts its launch on the name it is called by
+    gg.grouped_gemm_drhs = rolled
+    try:
+        control, _ = window("gmm")
+    finally:
+        gg.grouped_gemm_drhs = real
+    control_rel = errs(control, ragged)
+    log(json.dumps(dict(train_moe_reference=dict(rel=rel, flips=flips, control=control_rel))))
+    gate("train_moe_reference gmm vs ragged gradients", max(rel.values()), TRAIN_MOE_GRAD_RTOL,
+         max(control_rel.values()), flips)
+    del model, params, gmm, ragged, control
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train_moe_reference"] = dict(
+        layers=L, micro_batches=2, seq=MOE_SEQ, grad_rel_rms_err=rel,
+        routing_flip_share=flips, rolled_drhs_sizes_control_rel_rms_err=control_rel,
+        launches=launches)
+
+
 def kernel_row(name, source, replaces, launches, check):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches,
@@ -1695,13 +2114,14 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from deepspeed_tpu_torch.op_builder import build_all
+    from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bs
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
     libraries = [fa.LIBRARY, fa.BWD_LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY,
-                 pa.PREFILL_LIBRARY, qm.LIBRARY, gg.LIBRARY]
+                 pa.PREFILL_LIBRARY, qm.LIBRARY, gg.LIBRARY, bs.LIBRARY]
     t0 = time.perf_counter()
     build_all(libraries)
     report["build_s"] = time.perf_counter() - t0
@@ -1735,16 +2155,23 @@ def main() -> int:
     gmm = gmm_cases(gen)
     group_one = [check_flash(gen, True, PROMPT, PROMPT, h=16, hkv=16),
                  check_decode(gen, h=16, hkv=16)]
+    # K6-bwd at the MoE training shapes (the Qwen gate/up call first, the
+    # main path's), and K7 at the sparse shapes ((a) first, the sparse path's)
+    gmm_bwd = gmm_bwd_cases(gen)
+    sparse = [check_sparse(gen, *shape) for shape in SPARSE_SHAPES]
     report.update(flash_attention_fwd=flash, decode_attention=decode,
                   paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
                   flash_attention_bwd=flash_bwd, quantized_matmul=qmm,
                   decode_attention_int8=decode_int8,
                   paged_decode_attention_int8=paged_decode_int8,
                   paged_prefill_attention_int8=paged_prefill_int8, grouped_gemm=gmm,
-                  attention_group_one=group_one)
+                  attention_group_one=group_one, grouped_gemm_bwd=gmm_bwd,
+                  block_sparse_attention=sparse)
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
-                + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one):
+                + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one
+                + gmm_bwd + sparse):
         print(json.dumps(row), flush=True)
+    sparse_launches = sparse_path(report)
 
     from deepspeed_tpu_torch.models.llama import llama_config
     model = llama(llama_config("llama3-8b"), SEED)
@@ -1762,10 +2189,13 @@ def main() -> int:
     reference_moe(report)
     train_launches = train(report)
     train_reference(report)
+    moe_train_launches = train_moe(report)
+    train_moe_reference(report)
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
                 "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
-                "serve_moe", "reference_moe", "train", "train_profile", "train_reference"):
+                "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
+                "sparse_path", "train_moe", "train_moe_reference"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -1809,6 +2239,17 @@ def main() -> int:
         kernel_row("grouped_gemm", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
                    "deepspeed_tpu/ops/pallas/grouped_gemm.py:52",
                    moe_launches["grouped_gemm"], gmm[0]),
+        # K6-bwd's rows: the Qwen1.5-MoE training gate/up call (M = 8192 over 60)
+        kernel_row("grouped_gemm_bwd_dlhs", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                   "deepspeed_tpu/ops/pallas/grouped_gemm.py:83",
+                   moe_train_launches["grouped_gemm_dlhs"], gmm_bwd[0]["grouped_gemm_bwd_dlhs"]),
+        kernel_row("grouped_gemm_bwd_drhs", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                   "deepspeed_tpu/ops/pallas/grouped_gemm.py:83",
+                   moe_train_launches["grouped_gemm_drhs"], gmm_bwd[0]["grouped_gemm_bwd_drhs"]),
+        # K7's row: shape (a), the sparse path's
+        kernel_row("block_sparse_attention", "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+                   "deepspeed_tpu/ops/pallas/block_sparse_attention.py:110",
+                   sparse_launches["block_sparse_attention"], sparse[0]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

@@ -4,10 +4,12 @@ Trains Llama models through `initialize(...)` → `train_batch` (or
 `forward`/`backward`/`step`) and serves them through `init_inference(...)`
 → `forward`/`generate` and the v2 `InferenceEngineV2`, on one CUDA device;
 the MoE families (`models/qwen2_moe.py`, `models/mixtral.py`) serve
-through `init_inference`. Hand-written kernels: flash attention (forward
-and backward), decode and paged attention, the int8 dequant-GEMM and the
-grouped expert GEMM. It imports `torch`, never `jax`, and nothing of
-`deepspeed_tpu`.
+through `init_inference` and train through `initialize` with their loss
+functions; `ops/sparse_attention` is block-sparse attention.
+Hand-written kernels: flash attention (forward and backward), decode and
+paged attention, the int8 dequant-GEMM, the grouped expert GEMM (forward
+and backward) and block-sparse attention. It imports `torch`, never
+`jax`, and nothing of `deepspeed_tpu`.
 """
 
 from __future__ import annotations

@@ -43,6 +43,15 @@ def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
     return cross_entropy_loss(logits, labels)
 
 
+def collect_router_metrics(router_load, router_drop) -> dict:
+    """Per-layer router telemetry of an MoE model's call: the MoE layers'
+    `router_load` (E,) and `router_drop` () in layer order, stacked to
+    (L, E) and (L,) as the JAX package's `nn.scan` stacks what its layers
+    `sow`. Returned as plain aux-dict entries."""
+    return {"router_load": torch.stack(list(router_load)),
+            "router_drop": torch.stack(list(router_drop))}
+
+
 def make_causal_loss_fn(model=None):
     """Engine loss function for a causal-LM zoo model: labels shifted from
     `input_ids` when the batch carries none. The engine passes its module,

@@ -4,15 +4,15 @@ Llama attention blocks (no qkv bias) with a top-2 MoE FFN,
 `block_sparse_moe`, whose top-k weights are renormalized over the kept
 experts. The cached path routes with no drops at capacity factor 1.0, the
 uncached one at the config's capacity factor with drops, as in the JAX
-package; the decoder and the parameter-tree mapping are
-`models/moe_common.py`. Training is not ported (ROADMAP.md, Queue 1, 'MoE:
-the rest').
+package; the decoder, training (labels, the aux loss, remat) and the
+parameter-tree mapping are `models/moe_common.py`; `mixtral_loss_fn` is the
+engine loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -22,13 +22,14 @@ from deepspeed_tpu_torch.models.moe_common import (
     MoeForCausalLM,
     load_jax_params,
     moe_block_forward,
+    moe_loss_fn,
     param_tree,
     to_jax_params,
 )
 from deepspeed_tpu_torch.moe.layer import MoE
 
-__all__ = ["MixtralConfig", "MixtralForCausalLM", "mixtral_config", "load_jax_params",
-           "param_tree", "to_jax_params"]
+__all__ = ["MixtralConfig", "MixtralForCausalLM", "mixtral_config", "mixtral_loss_fn",
+           "load_jax_params", "param_tree", "to_jax_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +104,15 @@ class MixtralBlock(nn.Module):
             capacity_factor=cfg.capacity_factor, dispatch_impl=cfg.dispatch_impl,
             dtype=cfg.dtype, device=factory["device"], param_dtype=factory["dtype"])
 
-    def forward(self, h, cos_sin, kv=None):
-        def ffn(h, normed, cached):
+    @property
+    def moe(self) -> MoE:
+        return self.block_sparse_moe
+
+    def forward(self, h, cos_sin, kv=None, gate_noise=None):
+        def ffn(h, normed, cached, noise):
             return h + self.block_sparse_moe(normed, train=not cached,
-                                             drop_tokens=not cached)
-        return moe_block_forward(self, ffn, h, cos_sin, kv)
+                                             drop_tokens=not cached, gate_noise=noise)
+        return moe_block_forward(self, ffn, h, cos_sin, kv, gate_noise)
 
 
 class MixtralForCausalLM(MoeForCausalLM):
@@ -115,3 +120,10 @@ class MixtralForCausalLM(MoeForCausalLM):
 
     def __init__(self, cfg: MixtralConfig, device=None, dtype=torch.float32):
         super().__init__(cfg, MixtralBlock, device=device, dtype=dtype)
+
+
+def mixtral_loss_fn(model: MixtralForCausalLM, aux_coef: Optional[float] = None):
+    """The engine loss: causal-LM loss + coef·l_aux, coef the config's
+    `router_aux_loss_coef` unless `aux_coef` is given; aux {"lm_loss",
+    "moe_aux_loss", "router_load", "router_drop"}."""
+    return moe_loss_fn(aux_coef if aux_coef is not None else model.cfg.router_aux_loss_coef)

@@ -13,6 +13,17 @@ uncached path is the training semantics whatever torch's grad mode is
 ragged buffer, which drops tokens over capacity). So `forward` and a cached
 prefill of the same tokens differ by design wherever a token is dropped.
 
+Training: `forward(input_ids, labels=labels)` returns `(causal-LM loss,
+aux)` with aux = {"moe_aux_loss": the layers' load-balancing losses summed,
+"router_load": (L, E), "router_drop": (L,)}; `moe_loss_fn` adds the aux
+loss times its coefficient, as the JAX families' loss functions do. Each
+block runs under `torch.utils.checkpoint` when `cfg.remat` and grad mode
+hold (the JAX `remat_policy="nothing"`; other policies raise). A block
+returns its MoE layer's aux loss and telemetry as outputs, so the ones the
+loss uses are those of the forward, not of the recompute; and the noisy
+gate's uniforms (`gate_rng`, a `torch.Generator`) are drawn before each
+block, so the recompute routes as the forward did.
+
 Parameter trees: the JAX layout, mapped by `models/llama.py`'s
 `module_state`/`param_tree`: per-layer leaves stacked on a leading L axis,
 a flax `Dense` kernel (in, out) an `nn.Linear` weight (out, in) transposed,
@@ -27,8 +38,14 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache, decode_mask
+from deepspeed_tpu_torch.models.common import (
+    causal_lm_loss,
+    collect_router_metrics,
+    shift_labels,
+)
 from deepspeed_tpu_torch.models.llama import (  # noqa: F401 (to_jax_params: for the families)
     RMSNorm,
     load_jax_params,
@@ -42,15 +59,19 @@ from deepspeed_tpu_torch.runtime.config_utils import unported
 
 class MoeForCausalLM(nn.Module):
     """`forward(input_ids)` → logits (B, S, V); `forward(input_ids,
+    labels=labels)` → (loss, aux) (module docstring); `forward(input_ids,
     cache=cache)` → (logits, cache) over a dense `KVCache`, the S new
     tokens written at the cursors and the cursors advanced. `logits_at`
     (B,) picks one position per row for the LM head. Subclasses build
-    `self.layers` from their block."""
+    `self.layers` from their block, which exposes its MoE layer as
+    `moe`."""
 
     def __init__(self, cfg, block_cls, device=None, dtype=torch.float32):
         super().__init__()
         if cfg.attn_impl == "ring":
             raise unported("attn_impl='ring'", "Multi-GPU")
+        if cfg.remat and cfg.remat_policy != "nothing":
+            raise unported(f"remat_policy={cfg.remat_policy!r}", "Training: the rest")
         factory = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(
@@ -63,10 +84,9 @@ class MoeForCausalLM(nn.Module):
         nn.init.normal_(self.lm_head.weight, std=0.02)
 
     def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None,
+                gate_rng: Optional[torch.Generator] = None):
         cfg = self.cfg
-        if labels is not None:
-            raise unported("MoE training (labels=, the router aux loss)", "MoE: the rest")
         h = F.embedding(input_ids, self.embed_tokens.to(cfg.dtype))
         if cache is not None:
             if isinstance(cache, PagedKVCache):
@@ -85,11 +105,25 @@ class MoeForCausalLM(nn.Module):
             if logits_at is not None:
                 logits = logits[:, 0]
             return logits, cache.replace(index=index + s)
-        positions = torch.arange(input_ids.shape[1], device=h.device)
+        b, s = input_ids.shape
+        positions = torch.arange(s, device=h.device)
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        l_aux, loads, drops = [], [], []
         for layer in self.layers:
-            h = layer(h, (cos, sin))
-        return self._lm_head(self.norm(h))
+            noise = layer.moe.draw_gate_noise(b * s, gate_rng)
+            if remat:
+                h, aux = checkpoint(layer, h, (cos, sin), None, noise, use_reentrant=False)
+            else:
+                h, aux = layer(h, (cos, sin), None, noise)
+            l_aux.append(aux[0])
+            loads.append(aux[1])
+            drops.append(aux[2])
+        logits = self._lm_head(self.norm(h))
+        if labels is None:
+            return logits
+        return causal_lm_loss(logits, input_ids, labels), {
+            "moe_aux_loss": torch.stack(l_aux).sum(), **collect_router_metrics(loads, drops)}
 
     def _lm_head(self, h):
         return F.linear(h, self.lm_head.weight.to(self.cfg.dtype))
@@ -100,17 +134,38 @@ class MoeForCausalLM(nn.Module):
     load_jax_params = load_jax_params
 
 
-def moe_block_forward(block, ffn, h, cos_sin, kv=None):
+def moe_block_forward(block, ffn, h, cos_sin, kv=None, gate_noise=None):
     """The pre-norm decoder block both families run: attention, then
-    `ffn(h, normed, cached)`, which adds the MoE FFN (and whatever the
-    family adds beside it) to h. Returns h, and with `kv` the layer's
-    caches."""
+    `ffn(h, normed, cached, gate_noise)`, which adds the MoE FFN (and
+    whatever the family adds beside it) to h. Returns h and, with `kv`, the
+    layer's caches, else the MoE layer's (l_aux, router_load,
+    router_drop)."""
     if kv is not None:
         cos, sin, index, mask = cos_sin
         attn, new_kv = block.self_attn(block.input_layernorm(h), cos, sin,
                                        kv=kv, mask=mask, index=index)
         h = h + attn
-        return ffn(h, block.post_attention_layernorm(h), True), new_kv
+        return ffn(h, block.post_attention_layernorm(h), True, None), new_kv
     cos, sin = cos_sin
     h = h + block.self_attn(block.input_layernorm(h), cos, sin)
-    return ffn(h, block.post_attention_layernorm(h), False)
+    h = ffn(h, block.post_attention_layernorm(h), False, gate_noise)
+    moe = block.moe
+    return h, (moe.l_aux, moe.router_load, moe.router_drop)
+
+
+def moe_loss_fn(coef: float):
+    """The engine loss of an MoE family: `loss_fn(module, batch, rng)` with
+    labels shifted from `input_ids` when the batch carries none and `rng`
+    the noisy gate's generator. Returns (loss + coef * l_aux, {"lm_loss",
+    "moe_aux_loss", "router_load", "router_drop"})."""
+    def loss_fn(module, batch, rng=None):
+        ids = batch["input_ids"]
+        labels = batch.get("labels")
+        if labels is None:
+            labels = shift_labels(ids)
+        loss, aux = module(ids, labels=labels, gate_rng=rng)
+        l_aux = aux["moe_aux_loss"]
+        return loss + coef * l_aux, {"lm_loss": loss, "moe_aux_loss": l_aux,
+                                     "router_load": aux["router_load"],
+                                     "router_drop": aux["router_drop"]}
+    return loss_fn

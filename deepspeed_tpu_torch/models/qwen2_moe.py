@@ -5,15 +5,15 @@ FFN beside a shared expert, a dense SwiGLU applied to every token and
 gated per token by sigmoid(shared_expert_gate(h)). The router keeps the raw
 softmax top-k weights (`norm_topk_prob=False`, HF's default for the
 family). The decoder, its two routing semantics (cached: no drops; uncached:
-the training semantics, with drops) and the parameter-tree mapping are
-`models/moe_common.py`. Training (labels, the aux loss) is not ported
-(ROADMAP.md, Queue 1, 'MoE: the rest').
+the training semantics, with drops), training (labels, the aux loss, remat)
+and the parameter-tree mapping are `models/moe_common.py`;
+`qwen2_moe_loss_fn` is the engine loss.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -24,13 +24,14 @@ from deepspeed_tpu_torch.models.moe_common import (
     MoeForCausalLM,
     load_jax_params,
     moe_block_forward,
+    moe_loss_fn,
     param_tree,
     to_jax_params,
 )
 from deepspeed_tpu_torch.moe.layer import MoE
 
-__all__ = ["Qwen2MoeConfig", "Qwen2MoeForCausalLM", "qwen2_moe_config", "load_jax_params",
-           "param_tree", "to_jax_params"]
+__all__ = ["Qwen2MoeConfig", "Qwen2MoeForCausalLM", "qwen2_moe_config", "qwen2_moe_loss_fn",
+           "load_jax_params", "param_tree", "to_jax_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,11 +126,15 @@ class Qwen2MoeBlock(nn.Module):
                        dtype=cfg.dtype, device=factory["device"], param_dtype=factory["dtype"])
         self.shared_expert = SharedExpert(cfg, **factory)
 
-    def forward(self, h, cos_sin, kv=None):
-        def ffn(h, normed, cached):
-            moe = self.mlp(normed, train=not cached, drop_tokens=not cached)
+    @property
+    def moe(self) -> MoE:
+        return self.mlp
+
+    def forward(self, h, cos_sin, kv=None, gate_noise=None):
+        def ffn(h, normed, cached, noise):
+            moe = self.mlp(normed, train=not cached, drop_tokens=not cached, gate_noise=noise)
             return h + moe + self.shared_expert(normed)
-        return moe_block_forward(self, ffn, h, cos_sin, kv)
+        return moe_block_forward(self, ffn, h, cos_sin, kv, gate_noise)
 
 
 class Qwen2MoeForCausalLM(MoeForCausalLM):
@@ -137,3 +142,10 @@ class Qwen2MoeForCausalLM(MoeForCausalLM):
 
     def __init__(self, cfg: Qwen2MoeConfig, device=None, dtype=torch.float32):
         super().__init__(cfg, Qwen2MoeBlock, device=device, dtype=dtype)
+
+
+def qwen2_moe_loss_fn(model: Qwen2MoeForCausalLM, aux_coef: Optional[float] = None):
+    """The engine loss: causal-LM loss + coef·l_aux, coef the config's
+    `router_aux_loss_coef` unless `aux_coef` is given; aux {"lm_loss",
+    "moe_aux_loss", "router_load", "router_drop"}."""
+    return moe_loss_fn(aux_coef if aux_coef is not None else model.cfg.router_aux_loss_coef)

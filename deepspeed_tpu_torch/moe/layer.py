@@ -10,11 +10,18 @@ the ragged buffer otherwise. There is one process, so the grouped GEMM
 always runs unsharded (the JAX `_gmm_mesh` of a trivial mesh).
 
 Parameters are `param_dtype` (f32) at construction, as in the JAX package;
-the engines cast them to their dtype, and the products run in `dtype`. The
-aux loss of the last call is kept on the module (`l_aux`) for a training
-slice. Not ported: expert parallelism (`ep_size > 1`, ROADMAP.md, Queue 1,
-'Multi-GPU'), the PR-MoE residual expert (`use_residual`) and the router
-telemetry the JAX layer `sow`s (Queue 1, 'MoE: the rest').
+the engines cast them to their dtype, and the products run in `dtype`. Each
+call leaves on the module what the JAX layer `sow`s: the load-balancing
+aux loss `l_aux` (differentiable to the router `wg`), `router_load` (E,),
+the share of the T·k expert assignments routed to each expert (before the
+capacity cut; after it on the einsum path, as in JAX), and `router_drop`
+(), the share the capacity limit dropped. The decoder blocks read them
+right after the call and return them, so that a recomputed block
+(`torch.utils.checkpoint`) cannot replace the ones the loss uses. In
+training, the grouped GEMM is differentiable (`ops/cuda/grouped_gemm.py`,
+K6 and its backward kernels). Not ported: expert parallelism (`ep_size >
+1`, ROADMAP.md, Queue 1, 'Multi-GPU') and the PR-MoE residual expert
+(`use_residual`, Queue 1, 'MoE: the rest').
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from deepspeed_tpu_torch.moe.sharded_moe import (
     dispatch_combine,
     dispatch_combine_gmm,
     dispatch_combine_ragged,
+    gate_noise,
     topkgating,
 )
 from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm
@@ -113,10 +121,11 @@ class TopKGate(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True,
                 noise_rng: Optional[torch.Generator] = None, ragged: bool = False,
-                drop_tokens: Optional[bool] = None):
+                drop_tokens: Optional[bool] = None, noise: Optional[torch.Tensor] = None):
         """x (T, D). `ragged` gives the index form (l_aux, gate_k, topk_idx,
         pos_k, kept, cap), else (l_aux, combine, dispatch, cap).
-        `drop_tokens` overrides the gate's own setting for this call."""
+        `drop_tokens` overrides the gate's own setting for this call;
+        `noise` gives the RSample uniforms (T, E) instead of `noise_rng`."""
         logits = x.float() @ self.wg.float()
         cf = self.capacity_factor if train else self.eval_capacity_factor
         policy = self.noisy_gate_policy if train else None
@@ -124,15 +133,16 @@ class TopKGate(nn.Module):
         if ragged:
             l_aux, gate_k, topk_idx, pos_k, kept, _, cap = _gating_core(
                 logits, self.k, cf, self.min_capacity, drop, noise_rng, policy,
-                self.norm_topk_prob)
+                self.norm_topk_prob, noise)
             return l_aux, gate_k, topk_idx, pos_k, kept, cap
         return topkgating(logits, self.k, cf, self.min_capacity, drop, noise_rng,
-                          policy, self.norm_topk_prob)
+                          policy, self.norm_topk_prob, noise)
 
 
 class MoE(nn.Module):
-    """MoE FFN block: (B, S, D) → (B, S, D). The aux loss of the call is
-    left in `self.l_aux`."""
+    """MoE FFN block: (B, S, D) → (B, S, D). The aux loss and the router
+    telemetry of the call are left in `self.l_aux`, `self.router_load` and
+    `self.router_drop`."""
 
     def __init__(self, hidden_size: int, num_experts: int = 1, ep_size: int = 1, k: int = 1,
                  intermediate_size: Optional[int] = None, capacity_factor: float = 1.0,
@@ -157,28 +167,52 @@ class MoE(nn.Module):
         self.experts = Experts(num_experts, hidden_size, intermediate_size or 4 * hidden_size,
                                dtype, activation, **factory)
         self.l_aux: Optional[torch.Tensor] = None
+        self.router_load: Optional[torch.Tensor] = None
+        self.router_drop: Optional[torch.Tensor] = None
+
+    def draw_gate_noise(self, tokens: int,
+                        generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """The RSample uniforms (tokens, E) a training call with
+        `noise_rng=generator` would draw, or None where it draws none. A
+        caller that recomputes the call (a checkpointed block) draws them
+        once, before it."""
+        if generator is None or self.gate.noisy_gate_policy != "RSample":
+            return None
+        return gate_noise((tokens, self.num_experts), generator)
 
     def forward(self, hidden_states: torch.Tensor, train: bool = True,
                 noise_rng: Optional[torch.Generator] = None,
-                drop_tokens: Optional[bool] = None) -> torch.Tensor:
+                drop_tokens: Optional[bool] = None,
+                gate_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`train` picks the capacity factor and the `auto` rule as the JAX
         layer's `train` does (not torch's grad mode); `drop_tokens`
-        overrides the gate's setting for this call."""
+        overrides the gate's setting for this call; `gate_noise` gives the
+        RSample uniforms (`draw_gate_noise`) in place of `noise_rng`."""
         b, s, d = hidden_states.shape
         x = hidden_states.reshape(b * s, d)
         impl = choose_dispatch(self.dispatch_impl, train, b * s * self.k)
+        assignments = float(b * s * self.k)
         if impl == "einsum":
             l_aux, combine, dispatch, _ = self.gate(x, train, noise_rng,
-                                                    drop_tokens=drop_tokens)
+                                                    drop_tokens=drop_tokens, noise=gate_noise)
             out = dispatch_combine(x, combine, dispatch, self.experts)
+            # only the post-capacity dispatch mask is at hand: its load is
+            # post-drop (sums to 1 - drop), as in the JAX layer
+            d32 = dispatch.detach().float()
+            router_load = d32.sum(dim=(0, 2)) / assignments
+            router_drop = 1.0 - d32.sum() / assignments
         else:
             l_aux, gate_k, topk_idx, pos_k, kept, cap = self.gate(
-                x, train, noise_rng, ragged=True, drop_tokens=drop_tokens)
+                x, train, noise_rng, ragged=True, drop_tokens=drop_tokens, noise=gate_noise)
             if impl == "gmm":
                 out = dispatch_combine_gmm(x, gate_k, topk_idx, self.num_experts,
                                            self.experts)
             else:
                 out = dispatch_combine_ragged(x, gate_k, topk_idx, pos_k, kept, cap,
                                               self.num_experts, self.experts)
-        self.l_aux = l_aux
+            flat = topk_idx.reshape(-1)
+            router_load = torch.zeros(self.num_experts, device=x.device).scatter_add_(
+                0, flat, torch.ones(flat.shape, device=x.device)) / assignments
+            router_drop = 1.0 - kept.detach().float().sum() / assignments
+        self.l_aux, self.router_load, self.router_drop = l_aux, router_load, router_drop
         return out.reshape(b, s, d)

@@ -36,14 +36,24 @@ def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+def gate_noise(shape, generator: torch.Generator) -> torch.Tensor:
+    """The uniform draws under `noisy_gate_policy="RSample"`'s Gumbel noise,
+    from `generator`, on its device."""
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
 def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
                  min_capacity: int, drop_tokens: bool,
                  noise_rng: Optional[torch.Generator], noisy_gate_policy: Optional[str],
-                 norm_topk_prob: bool = True):
+                 norm_topk_prob: bool = True, noise: Optional[torch.Tensor] = None):
     """Shared top-k decisions. Returns (l_aux, gate_k (T,k), topk_idx (T,k),
-    pos_k (T,k), kept (T,k), masks (T,k,E), cap). `noise_rng` draws the
-    Gumbel noise of `noisy_gate_policy="RSample"` (a torch generator; its
-    draws are not the JAX package's)."""
+    pos_k (T,k), kept (T,k), masks (T,k,E), cap). Under
+    `noisy_gate_policy="RSample"` the experts are chosen from the logits
+    plus Gumbel noise, -log(-log(u)), with u drawn from `noise_rng` (a torch
+    generator; its draws are not the JAX package's) or given as `noise`
+    (T, E), drawn beforehand (`gate_noise`); the gate weights and the aux
+    loss take the noiseless softmax, as in the JAX package. The JAX package
+    has no "Jitter" policy, and neither has the port: it is ignored."""
     t, e = logits.shape
     cap = _capacity(t, e, capacity_factor, min_capacity, k)
     if not drop_tokens:
@@ -51,9 +61,10 @@ def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
     gates = torch.softmax(logits.float(), dim=-1)
 
     select_from = logits
-    if noisy_gate_policy == "RSample" and noise_rng is not None:
-        u = torch.rand(logits.shape, generator=noise_rng, device=logits.device)
-        select_from = logits - torch.log(-torch.log(u.clamp_min(1e-20)))
+    if noisy_gate_policy == "RSample" and noise is None and noise_rng is not None:
+        noise = gate_noise(logits.shape, noise_rng)
+    if noisy_gate_policy == "RSample" and noise is not None:
+        select_from = logits - torch.log(-torch.log(noise.clamp_min(1e-20)))
 
     topk_idx = _top_k(select_from, k)                               # (T, k)
     masks = F.one_hot(topk_idx, e).float()                          # (T, k, E)
@@ -88,12 +99,13 @@ def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
 def topkgating(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
                min_capacity: int = 8, drop_tokens: bool = True,
                noise_rng: Optional[torch.Generator] = None,
-               noisy_gate_policy: Optional[str] = None, norm_topk_prob: bool = True):
+               noisy_gate_policy: Optional[str] = None, norm_topk_prob: bool = True,
+               noise: Optional[torch.Tensor] = None):
     """Generalized top-k gating. logits (T, E) → (l_aux, combine weights
     (T, E, C), dispatch mask (T, E, C) bool, capacity C)."""
     l_aux, gate_k, _, pos_k, _, masks, cap = _gating_core(
         logits, k, capacity_factor, min_capacity, drop_tokens, noise_rng,
-        noisy_gate_policy, norm_topk_prob)
+        noisy_gate_policy, norm_topk_prob, noise)
     loc = F.one_hot(pos_k.long(), cap).float()                      # (T, k, C)
     combine = torch.einsum("tk,tke,tkc->tec", gate_k, masks, loc)
     return l_aux, combine, combine > 0, cap

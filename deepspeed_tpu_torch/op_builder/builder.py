@@ -9,6 +9,9 @@ go to `build/torch_kernels/` beside the package.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `KernelLibrary.check` raises on a non-zero code.
+A kernel written through `ctypes` into a fresh tensor leaves that tensor
+with no `grad_fn`: a wrapper whose kernel has no backward calls
+`refuse_grad` first, so that grad mode raises instead of detaching.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "torch_kernels"
@@ -104,6 +109,14 @@ class KernelLibrary:
         if code != 0:
             msg = self.lib().ds_cuda_error_string(code).decode()
             raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires grad: the kernel's
+    output would carry no gradient back to it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it under "
+                           "torch.no_grad() or on inputs that do not require grad")
 
 
 def build_all(libraries: Iterable[KernelLibrary]) -> List[KernelLibrary]:

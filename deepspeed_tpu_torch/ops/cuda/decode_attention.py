@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
-from deepspeed_tpu_torch.op_builder import KernelLibrary
+from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -118,6 +118,7 @@ def decode_attention(q, k_cache, v_cache, lengths,
                                       k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    refuse_grad("decode_attention", q, k_cache, v_cache, k_scales, v_scales)
     _check(q, k_cache, v_cache, lengths, k_scales, v_scales)
     quant = k_scales is not None
     b, _, h, d = q.shape

@@ -1,19 +1,24 @@
-"""Grouped (ragged) expert GEMM (counterpart of ``deepspeed_tpu/ops/pallas/grouped_gemm.py``).
+"""Grouped (ragged) expert GEMM and its backward (counterpart of ``deepspeed_tpu/ops/pallas/grouped_gemm.py``).
 
 `grouped_gemm(lhs, rhs, group_sizes)` computes `out[rows of group g] =
 lhs[rows of group g] @ rhs[g]` over rows sorted by group: for CUDA tensors
 it launches the hand-written kernel `csrc/grouped_gemm.cu` (K6), for CPU
 tensors it takes the plain version, `grouped_gemm_plain`. rhs is the (G, K,
 N) expert stack as the parameter tree holds it, read with no transpose.
+When grad mode is on and an operand requires grad, the call goes through
+`GroupedGemm`, whose backward runs the two kernels of megablox `gmm`'s
+VJP, from the same source: `grouped_gemm_dlhs` (dlhs = grad @ rhs[g]^T,
+megablox `gmm(..., transpose_rhs=True)`) and `grouped_gemm_drhs` (drhs[g]
+= lhs[rows of g]^T @ grad[rows of g], megablox `tgmm`; an empty group's
+slab is zeros), each with its plain version for CPU tensors.
 
 The JAX wrapper pads M up to its row tile and hands the pad rows to the
-last group; the kernel masks the ragged edge of each tile instead, and the
-outputs are the same. `tiling` is the JAX package's megablox tile choice:
-it is taken and ignored, since the kernel picks its own tiles from M and G.
-The kernel reads `group_sizes` on the device, so a call makes no host sync.
-The expert-parallel flavour (`sharded_grouped_gemm`) and the backward
-(megablox `gmm` on rhsᵀ and `tgmm`) are not ported (ROADMAP.md, Queue 1,
-'Multi-GPU' and 'MoE: the rest').
+last group; the kernels mask the ragged edge of each tile instead, and the
+outputs and the gradients of real rows are the same. `tiling` is the JAX
+package's megablox tile choice: it is taken and ignored, since the kernels
+pick their own tiles from M and G. The kernels read `group_sizes` on the
+device, so a call makes no host sync. The expert-parallel flavour
+(`sharded_grouped_gemm`) is not ported (ROADMAP.md, Queue 1, 'Multi-GPU').
 """
 
 from __future__ import annotations
@@ -23,40 +28,144 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.op_builder import KernelLibrary
+from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("grouped_gemm.cu", {
-    "ds_grouped_gemm": [_P] * 4 + [_I] * 4 + [_P],
+    name: [_P] * 4 + [_I] * 4 + [_P]
+    for name in ("ds_grouped_gemm", "ds_grouped_gemm_dlhs", "ds_grouped_gemm_drhs")
 })
+
+
+def _spans(group_sizes: torch.Tensor, m: int):
+    """(group, first row, end row) of every group with rows, as the kernels
+    place them: negative sizes count as 0, rows past M are cut."""
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), m)
+        if end > start:
+            yield g, start, end
+        start = max(start, end)
 
 
 def grouped_gemm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
                        group_sizes: torch.Tensor) -> torch.Tensor:
     """The f32 loop over groups, cast to lhs's dtype. Reads the sizes on the
     host. Rows past the sum of the sizes are zero, as the kernel writes them."""
-    m, n = lhs.shape[0], rhs.shape[2]
-    out = torch.zeros((m, n), dtype=torch.float32, device=lhs.device)
-    start = 0
-    for g, size in enumerate(group_sizes.tolist()):
-        end = min(start + max(int(size), 0), m)
-        if end > start:
-            out[start:end] = lhs[start:end].float() @ rhs[g].float()
-        start = max(start, end)
+    out = torch.zeros((lhs.shape[0], rhs.shape[2]), dtype=torch.float32, device=lhs.device)
+    for g, start, end in _spans(group_sizes, lhs.shape[0]):
+        out[start:end] = lhs[start:end].float() @ rhs[g].float()
     return out.to(lhs.dtype)
 
 
-def _check(lhs, rhs, group_sizes):
-    for name, t in (("lhs", lhs), ("rhs", rhs)):
+def grouped_gemm_dlhs_plain(grad: torch.Tensor, rhs: torch.Tensor,
+                            group_sizes: torch.Tensor) -> torch.Tensor:
+    """dlhs (M, K) = per-group grad (M, N) @ rhs[g]^T in f32, cast to
+    grad's dtype; rows past the sum of the sizes are zero."""
+    out = torch.zeros((grad.shape[0], rhs.shape[1]), dtype=torch.float32, device=grad.device)
+    for g, start, end in _spans(group_sizes, grad.shape[0]):
+        out[start:end] = grad[start:end].float() @ rhs[g].float().T
+    return out.to(grad.dtype)
+
+
+def grouped_gemm_drhs_plain(lhs: torch.Tensor, grad: torch.Tensor,
+                            group_sizes: torch.Tensor) -> torch.Tensor:
+    """drhs (G, K, N) = per-group lhs[rows of g]^T @ grad[rows of g] in f32,
+    cast to lhs's dtype; an empty group's slab is zero."""
+    g_count = group_sizes.shape[0]
+    out = torch.zeros((g_count, lhs.shape[1], grad.shape[1]), dtype=torch.float32,
+                      device=lhs.device)
+    for g, start, end in _spans(group_sizes, lhs.shape[0]):
+        out[g] = lhs[start:end].float().T @ grad[start:end].float()
+    return out.to(lhs.dtype)
+
+
+def _check(what, a, b, group_sizes):
+    for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"grouped_gemm: {name} must be bfloat16 on CUDA, got {t.dtype}")
+            raise TypeError(f"{what}: operands must be bfloat16 on CUDA, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"grouped_gemm: {name} must be contiguous")
+            raise ValueError(f"{what}: operands must be contiguous")
     if group_sizes.dtype != torch.int32 or not group_sizes.is_contiguous():
-        raise ValueError("grouped_gemm: group_sizes must be a contiguous int32 tensor")
-    for name, t in (("rhs", rhs), ("group_sizes", group_sizes)):
-        if t.device != lhs.device:
-            raise ValueError(f"grouped_gemm: {name} is on {t.device}, lhs on {lhs.device}")
+        raise ValueError(f"{what}: group_sizes must be a contiguous int32 tensor")
+    for t in (b, group_sizes):
+        if t.device != a.device:
+            raise ValueError(f"{what}: operands on {t.device} and {a.device}")
+
+
+def _launch(fn_name, what, a, b, group_sizes, out, m, k, n):
+    _check(what, a, b, group_sizes)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        code = getattr(LIBRARY.lib(), fn_name)(
+            a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+            m, k, n, group_sizes.shape[0], stream)
+    LIBRARY.check(code, what)
+    return out
+
+
+def _device(what, t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def grouped_gemm_dlhs(grad: torch.Tensor, rhs: torch.Tensor,
+                      group_sizes: torch.Tensor) -> torch.Tensor:
+    """K6-bwd dlhs. grad (M, N) bf16, rhs (G, K, N) bf16, group_sizes (G,)
+    int32 -> (M, K) in grad's dtype. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if not _device("grouped_gemm_dlhs", grad):
+        return grouped_gemm_dlhs_plain(grad, rhs, group_sizes)
+    refuse_grad("grouped_gemm_dlhs", grad, rhs)
+    m, n = grad.shape
+    out = torch.empty((m, rhs.shape[1]), dtype=grad.dtype, device=grad.device)
+    _launch("ds_grouped_gemm_dlhs", "grouped_gemm_dlhs", grad, rhs, group_sizes, out,
+            m, rhs.shape[1], n)
+    grouped_gemm_dlhs.launches += 1
+    return out
+
+
+grouped_gemm_dlhs.launches = 0
+
+
+def grouped_gemm_drhs(lhs: torch.Tensor, grad: torch.Tensor,
+                      group_sizes: torch.Tensor) -> torch.Tensor:
+    """K6-bwd drhs. lhs (M, K) bf16, grad (M, N) bf16, group_sizes (G,)
+    int32 -> (G, K, N) in lhs's dtype. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if not _device("grouped_gemm_drhs", lhs):
+        return grouped_gemm_drhs_plain(lhs, grad, group_sizes)
+    refuse_grad("grouped_gemm_drhs", lhs, grad)
+    (m, k), n = lhs.shape, grad.shape[1]
+    out = torch.empty((group_sizes.shape[0], k, n), dtype=lhs.dtype, device=lhs.device)
+    _launch("ds_grouped_gemm_drhs", "grouped_gemm_drhs", lhs, grad, group_sizes, out, m, k, n)
+    grouped_gemm_drhs.launches += 1
+    return out
+
+
+grouped_gemm_drhs.launches = 0
+
+
+class GroupedGemm(torch.autograd.Function):
+    """`grouped_gemm` with its gradient: dlhs and drhs, each only where an
+    operand needs it."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        return _grouped_gemm(lhs, rhs, group_sizes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        grad = grad.contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = grouped_gemm_dlhs(grad, rhs, group_sizes).to(lhs.dtype)
+        if ctx.needs_input_grad[1]:
+            drhs = grouped_gemm_drhs(lhs, grad.to(lhs.dtype), group_sizes).to(rhs.dtype)
+        return dlhs, drhs, None
 
 
 def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
@@ -64,32 +173,32 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor
     """K6. lhs (M, K) bf16, rows sorted by group; rhs (G, K, N) bf16;
     group_sizes (G,) int32 on lhs's device, summing to M. Returns (M, N) in
     lhs's dtype, f32 accumulation. `tiling` is accepted for the JAX
-    signature and ignored.
+    signature and ignored. Differentiable (`GroupedGemm`) when grad mode is
+    on and lhs or rhs requires grad.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    CPU tensors take the plain versions; CUDA tensors launch the kernels or
     raise."""
     del tiling
     if lhs.dim() != 2 or rhs.dim() != 3:
         raise ValueError(f"grouped_gemm: lhs {tuple(lhs.shape)} must be (M, K) and "
                          f"rhs {tuple(rhs.shape)} (G, K, N)")
-    m, k = lhs.shape
-    g, k2, n = rhs.shape
+    k, (g, k2, _) = lhs.shape[1], rhs.shape
     if k != k2:
         raise ValueError(f"grouped_gemm: lhs K={k} vs rhs K={k2}")
     if tuple(group_sizes.shape) != (g,):
         raise ValueError(f"grouped_gemm: group_sizes {tuple(group_sizes.shape)} != ({g},)")
+    _device("grouped_gemm", lhs)
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        return GroupedGemm.apply(lhs, rhs, group_sizes)
+    return _grouped_gemm(lhs, rhs, group_sizes)
+
+
+def _grouped_gemm(lhs, rhs, group_sizes):
     if lhs.device.type == "cpu":
         return grouped_gemm_plain(lhs, rhs, group_sizes)
-    if lhs.device.type != "cuda":
-        raise ValueError(f"grouped_gemm: unsupported device {lhs.device}")
-    _check(lhs, rhs, group_sizes)
+    (m, k), n = lhs.shape, rhs.shape[2]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-    with torch.cuda.device(lhs.device):
-        stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        code = LIBRARY.lib().ds_grouped_gemm(
-            lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-            m, k, n, g, stream)
-    LIBRARY.check(code, "grouped_gemm")
+    _launch("ds_grouped_gemm", "grouped_gemm", lhs, rhs, group_sizes, out, m, k, n)
     grouped_gemm.launches += 1
     return out
 

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
-from deepspeed_tpu_torch.op_builder import KernelLibrary
+from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -201,6 +201,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                                             k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_new, v_new, k_scales, v_scales)
     staged = k_new is not None
     quant = k_scales is not None
     extra = (("k_new", k_new), ("v_new", v_new)) if staged else ()
@@ -251,6 +252,7 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
                                              softmax_scale, window, k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
+    refuse_grad("paged_prefill_attention", q, k_pool, v_pool, k_scales, v_scales)
     quant = k_scales is not None
     _check("paged_prefill_attention", q, k_pool, v_pool, tables, starts, window,
            k_scales, v_scales)

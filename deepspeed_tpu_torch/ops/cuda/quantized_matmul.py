@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.op_builder import KernelLibrary
+from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
 from deepspeed_tpu_torch.ops.quantization import dequantize_int8_blockwise
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -95,6 +95,7 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor,
         return quantized_matmul_plain(x, q, scales)
     if x.device.type != "cuda":
         raise ValueError(f"quantized_matmul: unsupported device {x.device}")
+    refuse_grad("quantized_matmul", x, scales)
     _check(x, q, scales)
     st, g = _scales_t(k, n, scales)
     groups = n // g

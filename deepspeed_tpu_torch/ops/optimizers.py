@@ -3,8 +3,8 @@
 `fused_adam` is the JAX package's `GradientTransformation` pair over
 name -> tensor dicts: `init(params) -> state` and `update(grads, state,
 params, lr) -> (params, state)`. The JAX package leaves the update to XLA
-fusion; here it is plain torch over whole lists of tensors
-(`torch._foreach_*`). Unlike the JAX function it updates `params` and the
+fusion; here it is plain torch over lists of tensors (`torch._foreach_*`), taken
+in runs of at most `CHUNK_ELEMENTS` elements so its temporaries stay small. Unlike the JAX function it updates `params` and the
 moments in place, which saves a copy of the f32 master and both moments;
 the engine skips the call on an overflowed step instead of selecting the
 old values.
@@ -23,6 +23,26 @@ import torch
 from deepspeed_tpu_torch.runtime.config_utils import unported
 
 Tree = Dict[str, torch.Tensor]
+
+
+# the update's f32 temporaries (denominator, step) cover at most this many
+# elements at a time: ~1 GB each, where whole-model lists would add two f32
+# copies of the model to the step's peak memory
+CHUNK_ELEMENTS = 1 << 28
+
+
+def _chunks(params: Tree):
+    """The parameter names in order, cut into runs of at most
+    CHUNK_ELEMENTS elements (a larger tensor is a run of its own)."""
+    run, size = [], 0
+    for name, p in params.items():
+        if run and size + p.numel() > CHUNK_ELEMENTS:
+            yield run
+            run, size = [], 0
+        run.append(name)
+        size += p.numel()
+    if run:
+        yield run
 
 
 class GradientTransformation(NamedTuple):
@@ -53,31 +73,31 @@ def fused_adam(betas: Tuple[float, float] = (0.9, 0.999),
     @torch.no_grad()
     def update(grads: Tree, state: AdamState, params: Tree, lr: float):
         count = state.count + 1
-        names = list(params)
-        p = [params[k] for k in names]
-        g = [grads[k] for k in names]
-        m = [state.exp_avg[k] for k in names]
-        v = [state.exp_avg_sq[k] for k in names]
-        if not adam_w_mode and weight_decay > 0.0:
-            g = torch._foreach_add(g, p, alpha=weight_decay)
-        torch._foreach_mul_(m, b1)
-        torch._foreach_add_(m, g, alpha=1 - b1)
-        torch._foreach_mul_(v, b2)
-        torch._foreach_addcmul_(v, g, g, value=1 - b2)
         if bias_correction:  # in f32, as the JAX package computes them
             c1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
             c2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
         else:
             c1 = c2 = 1.0
-        denom = torch._foreach_div(v, c2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, eps)
-        upd = torch._foreach_div(m, c1)
-        torch._foreach_div_(upd, denom)
-        del denom
-        if adam_w_mode and weight_decay > 0.0:
-            torch._foreach_add_(upd, p, alpha=weight_decay)
-        torch._foreach_add_(p, upd, alpha=-lr)
+        for names in _chunks(params):
+            p = [params[k] for k in names]
+            g = [grads[k] for k in names]
+            m = [state.exp_avg[k] for k in names]
+            v = [state.exp_avg_sq[k] for k in names]
+            if not adam_w_mode and weight_decay > 0.0:
+                g = torch._foreach_add(g, p, alpha=weight_decay)
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, g, alpha=1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, g, g, value=1 - b2)
+            denom = torch._foreach_div(v, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            upd = torch._foreach_div(m, c1)
+            torch._foreach_div_(upd, denom)
+            del denom
+            if adam_w_mode and weight_decay > 0.0:
+                torch._foreach_add_(upd, p, alpha=weight_decay)
+            torch._foreach_add_(p, upd, alpha=-lr)
         return params, AdamState(count, state.exp_avg, state.exp_avg_sq)
 
     return GradientTransformation(init, update)

@@ -14,6 +14,12 @@ Two user surfaces, as in the JAX package:
 and
     loss = engine.train_batch(data_iter)  # or batch=...
 
+A loss function is `loss_fn(module, batch)` or, where it takes a third
+argument, `loss_fn(module, batch, rng)`: the engine then hands it a
+`torch.Generator` on its device seeded with `seed + micro_steps`, a fresh
+stream for each micro-batch (the JAX engine's `_next_rng`; the draws are
+not JAX's). The MoE loss functions route the noisy gate's draws from it.
+
 ZeRO stages 0-3 are accepted: partitioning over one rank is the identity.
 The state is updated in place; where the JAX step selects the old target
 and optimizer state on an overflow, this one does not call the optimizer.
@@ -24,6 +30,7 @@ and offload are not ported; their config keys raise (`runtime/config.py`).
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -90,6 +97,7 @@ class DeepSpeedEngine:
                                        sched.params if sched else {}, self.base_lr)
         self.lr_scheduler = lr_scheduler or LRScheduler(self.lr_fn, self.base_lr)
         self.loss_fn = loss_fn or (lambda module, batch: module(**batch))
+        self._loss_takes_rng = len(inspect.signature(self.loss_fn).parameters) >= 3
 
         self.micro_steps = 0
         self.global_steps = 0
@@ -211,9 +219,20 @@ class DeepSpeedEngine:
     def __call__(self, batch):
         return self.forward(batch)
 
+    def _next_rng(self) -> torch.Generator:
+        """The micro-batch's generator: seeded with `seed + micro_steps`."""
+        gen = torch.Generator(device=self.device)
+        return gen.manual_seed(self.config.seed + self.micro_steps)
+
+    def _loss(self, batch):
+        args = (self.module, self._put_batch(batch))
+        if self._loss_takes_rng:
+            args += (self._next_rng(),)
+        return _split_loss(self.loss_fn(*args))
+
     def forward(self, batch) -> torch.Tensor:
         """The loss of one micro-batch, with its autograd graph."""
-        return _split_loss(self.loss_fn(self.module, self._put_batch(batch)))[0]
+        return self._loss(batch)[0]
 
     def backward(self, loss: torch.Tensor, retain_graph: bool = False) -> torch.Tensor:
         """Gradients of loss / GAS (times the loss scale) into `grad_acc`."""
@@ -294,7 +313,7 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        return _split_loss(self.loss_fn(self.module, self._put_batch(batch)))[0]
+        return self._loss(batch)[0]
 
     # ---------------------------------------------------------------- accessors
     def train_batch_size(self) -> int:

@@ -17,7 +17,15 @@ layouts; the int8 attention kernels to 2e-2 against their plain versions,
 and with unit scales to their bf16 kernels bit for bit. The grouped expert
 GEMM (K6) is held to 2e-2 of its largest output on ragged group layouts
 (empty groups first, in the middle and last, one group holding every row,
-decode-sized groups, M, K and N tails).
+decode-sized groups, M, K and N tails), and so are its backward kernels,
+dlhs and drhs (an empty group's drhs slab must be exact zeros); in grad
+mode K6's gradients equal plain autograd's to the same 2e-2, while the
+kernels without a backward (K2-K5, K7 alone) refuse grad mode. The
+block-sparse attention kernel (K7) is held to 2e-2 against its plain
+version on causal and non-causal layouts, every block and head width, and
+a causal row with no visible key (zeros); its autograd path's gradients
+are held to 2e-2 of their largest magnitude against autograd of the gather
+path.
 """
 
 import numpy as np
@@ -37,7 +45,19 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
 )
-from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm, grouped_gemm_plain
+from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
+    block_sparse_attention,
+    block_sparse_attention_plain,
+    padded_layout_indices,
+)
+from deepspeed_tpu_torch.ops.cuda.grouped_gemm import (
+    grouped_gemm,
+    grouped_gemm_dlhs,
+    grouped_gemm_dlhs_plain,
+    grouped_gemm_drhs,
+    grouped_gemm_drhs_plain,
+    grouped_gemm_plain,
+)
 from deepspeed_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -507,3 +527,185 @@ def test_grouped_gemm_refuses_other_operands_on_card(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         grouped_gemm(lhs, rhs, gs.long())
     assert grouped_gemm.launches == launches
+
+
+BWD_CASES = {   # group sizes, K, N
+    "empty_first_middle_last": ([0, 37, 0, 100, 0], 128, 200),
+    "one_group_all_rows": ([0, 0, 300, 0], 64, 64),
+    "m5_scalar_path": ([2, 0, 3], 20, 36),
+    "m_not_multiple_of_16": ([7, 19, 0, 11], 1408, 96),
+    "decode_60_groups": (None, 2048, 1408),
+    "prefill_8_groups": (None, 512, 1408),
+}
+
+
+def _bwd_case(case, device):
+    rng = np.random.default_rng(len(case) + 7)
+    sizes, k, n = BWD_CASES[case]
+    if sizes is None:
+        sizes = _sizes(rng, 16, 60) if case.startswith("decode") else _sizes(rng, 2048, 8)
+    m = int(np.sum(sizes))
+    lhs = _bf16(rng.standard_normal((m, k)).astype(np.float32), device)
+    rhs = _bf16(rng.standard_normal((len(sizes), k, n)).astype(np.float32), device)
+    grad = _bf16(rng.standard_normal((m, n)).astype(np.float32), device)
+    return lhs, rhs, grad, torch.tensor(np.asarray(sizes, np.int32), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_grouped_gemm_bwd_matches_plain_on_card(cuda_device, case):
+    """K6-bwd dlhs (M, K) and drhs (G, K, N) against their plain versions,
+    relative to max |ref|; one launch each; empty groups' drhs slabs are
+    exact zeros (the kernel writes them, `torch.empty` is not zeroed)."""
+    lhs, rhs, grad, gs = _bwd_case(case, cuda_device)
+    launches = (grouped_gemm_dlhs.launches, grouped_gemm_drhs.launches)
+    dlhs = grouped_gemm_dlhs(grad, rhs, gs)
+    drhs = grouped_gemm_drhs(lhs, grad, gs)
+    ref_dlhs = grouped_gemm_dlhs_plain(grad, rhs, gs)
+    ref_drhs = grouped_gemm_drhs_plain(lhs, grad, gs)
+    torch.cuda.synchronize()
+    assert (grouped_gemm_dlhs.launches, grouped_gemm_drhs.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    assert dlhs.shape == lhs.shape and drhs.shape == rhs.shape
+    assert torch.isfinite(dlhs).all() and torch.isfinite(drhs).all()
+    assert _rel_max_err(dlhs, ref_dlhs) <= BF16_TOL
+    assert _rel_max_err(drhs, ref_drhs) <= BF16_TOL
+    empty = (gs == 0).nonzero().flatten().tolist()
+    assert all((drhs[g] == 0).all() for g in empty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_first_middle_last", "m_not_multiple_of_16"])
+def test_grouped_gemm_grad_mode_matches_plain_autograd_on_card(cuda_device, case):
+    """K6 in grad mode goes through `GroupedGemm`: its lhs and rhs
+    gradients equal plain autograd through the f32 per-group products."""
+    lhs, rhs, grad, gs = _bwd_case(case, cuda_device)
+    a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    launches = (grouped_gemm.launches, grouped_gemm_dlhs.launches, grouped_gemm_drhs.launches)
+    out = grouped_gemm(a, b, gs)
+    out.backward(grad)
+    assert (grouped_gemm.launches - launches[0], grouped_gemm_dlhs.launches - launches[1],
+            grouped_gemm_drhs.launches - launches[2]) == (1, 1, 1)
+    ra, rb = lhs.float().requires_grad_(), rhs.float().requires_grad_()
+    rows, start = [], 0
+    for g, size in enumerate(gs.tolist()):
+        rows.append(ra[start:start + size] @ rb[g])
+        start += size
+    torch.cat(rows).backward(grad.float())
+    torch.cuda.synchronize()
+    assert _rel_max_err(a.grad, ra.grad) <= BF16_TOL
+    assert _rel_max_err(b.grad, rb.grad) <= BF16_TOL
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_refuse_grad_mode_on_card(cuda_device):
+    """K2, K3, K4, K5 (and K7 called alone) write through ctypes into a
+    fresh tensor with no grad_fn; in grad mode with an input that requires
+    grad they raise, with no launch. Under no_grad the same calls run."""
+    from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention as k2
+    dev = cuda_device
+    q1 = torch.zeros((1, 1, 4, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    cache = torch.zeros((1, 32, 2, 64), dtype=torch.bfloat16, device=dev)
+    lengths = torch.tensor([5], dtype=torch.int32, device=dev)
+    pool = torch.zeros((2, 4, 16, 64), dtype=torch.bfloat16, device=dev)
+    tables = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    qs = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    wq, ws = quantize_int8_blockwise(torch.zeros((64, 128), device=dev), 64)
+    s = torch.zeros((1, 64, 4, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    idx, nlive = (torch.from_numpy(a).to(dev)
+                  for a in padded_layout_indices(np.ones((4, 1, 1), bool)))
+    calls = {
+        "decode_attention": (k2, lambda: k2(q1, cache, cache, lengths)),
+        "paged_decode_attention": (paged_decode_attention, lambda: paged_decode_attention(
+            q1, pool, pool, tables, lengths)),
+        "paged_prefill_attention": (paged_prefill_attention, lambda: paged_prefill_attention(
+            qs, pool, pool, tables, torch.tensor([0], dtype=torch.int32, device=dev))),
+        "quantized_matmul": (quantized_matmul, lambda: quantized_matmul(x, wq, ws)),
+        "block_sparse_attention": (block_sparse_attention, lambda: block_sparse_attention(
+            s, s, s, idx, nlive, 64)),
+    }
+    for name, (fn, call) in calls.items():
+        launches = fn.launches
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+            call()
+        assert fn.launches == launches, name
+        with torch.no_grad():
+            call()
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1, name
+
+
+def _sparse_layout(rng, h, n, causal, masked_row):
+    layout = rng.random((h, n, n)) < 0.4
+    layout[:, :, 0] = True
+    if masked_row:   # head 0's first query block sees only the last key block
+        layout[0, 0, :] = False
+        layout[0, 0, n - 1] = True
+    return layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_sparse_attention_matches_plain_on_card(cuda_device, causal, block, d):
+    """K7 against its plain version on a random layout; with causal, a row
+    whose only live block lies above it outputs exact zeros."""
+    rng = np.random.default_rng(block + d + causal)
+    b, s, h = 2, 4 * block, 3
+    layout = _sparse_layout(rng, h, s // block, causal, masked_row=causal)
+    idx, nlive = (torch.from_numpy(a).to(cuda_device) for a in padded_layout_indices(layout))
+    q, k, v = (_bf16(rng.standard_normal((b, s, h, d)).astype(np.float32), cuda_device)
+               for _ in range(3))
+    launches = block_sparse_attention.launches
+    out = block_sparse_attention(q, k, v, idx, nlive, block, causal)
+    ref = block_sparse_attention_plain(q, k, v, idx, nlive, block, causal)
+    torch.cuda.synchronize()
+    assert block_sparse_attention.launches == launches + 1
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    if causal:
+        assert (out[:, :block, 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_sparse_attention_grads_match_gather_path_on_card(cuda_device):
+    """`SparseSelfAttention` on the card: the forward launches K7 once and
+    its q/k/v gradients (the gather path's, recomputed) equal autograd of
+    the gather path, relative to max |ref|."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, SparseSelfAttention, sparse_attention)
+    rng = np.random.default_rng(11)
+    cfg = BigBirdSparsityConfig(num_heads=4, block=64, attention="unidirectional")
+    attn = SparseSelfAttention(cfg)
+    q, k, v = (_bf16(rng.standard_normal((1, 512, 4, 128)).astype(np.float32),
+                     cuda_device).requires_grad_() for _ in range(3))
+    g = _bf16(rng.standard_normal((1, 512, 4, 128)).astype(np.float32), cuda_device)
+    launches = block_sparse_attention.launches
+    out = attn(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    assert block_sparse_attention.launches == launches + 1
+    ref = sparse_attention(q, k, v, cfg.make_layout(512), block=64, causal=True,
+                           impl="reference")
+    ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    for got, want in zip(grads, ref_grads):
+        assert _rel_max_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["block_16", "head_dim_96", "float32"])
+def test_sparse_attention_refuses_unsupported_shapes_on_card(cuda_device, bad):
+    """`impl="auto"` on the card takes K7 or raises: no fallback to the
+    gather path."""
+    from deepspeed_tpu_torch.ops.sparse_attention import sparse_attention
+    block, d, dtype = {"block_16": (16, 64, torch.bfloat16),
+                       "head_dim_96": (64, 96, torch.bfloat16),
+                       "float32": (64, 64, torch.float32)}[bad]
+    q = torch.zeros((1, 4 * block, 2, d), dtype=dtype, device=cuda_device)
+    launches = block_sparse_attention.launches
+    with pytest.raises((ValueError, TypeError)):
+        sparse_attention(q, q, q, np.ones((2, 4, 4), bool), block=block)
+    assert block_sparse_attention.launches == launches

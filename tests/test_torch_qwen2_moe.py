@@ -184,11 +184,16 @@ def test_quant_on_an_moe_model_raises(tree, serve_mode):
 
 
 def test_moe_training_and_paged_caches_raise():
+    """Training runs with `labels=` (remat "nothing" only: other policies
+    raise); a paged cache raises."""
     from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache
+    with pytest.raises(NotImplementedError, match="Training: the rest"):
+        Qwen2MoeForCausalLM(qwen2_moe_config("qwen2moe-tiny", dtype=torch.float32, remat=True,
+                                             remat_policy="checkpoint_dots"))
     model = Qwen2MoeForCausalLM(qwen2_moe_config("qwen2moe-tiny", dtype=torch.float32))
     ids = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE: the rest"):
-        model(ids, labels=ids)
+    loss, aux = model(ids, labels=ids)
+    assert torch.isfinite(loss) and set(aux) == {"moe_aux_loss", "router_load", "router_drop"}
     paged = PagedKVCache.__new__(PagedKVCache)
     with pytest.raises(NotImplementedError, match="MoE: the rest"):
         model(ids, cache=paged)
