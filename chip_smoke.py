@@ -18,7 +18,11 @@
    own shape, at Llama-3-8B's attention width over 16k tokens, on a
    non-causal Fixed layout and with a fully masked causal row), and times
    the kernel, the plain version and one PyTorch library call for the same
-   function with CUDA events; then runs the sparse path,
+   function with CUDA events; K3-alibi and K4-alibi at bloom-7b1's
+   attention (H = Hkv = 32, D = 128; staged and unstaged, over int8 pools)
+   and bloom-560m's (H = 16, D = 64), each beside a control, the kernel
+   run without the slopes, that must miss (SDPA's yardstick carries the
+   bias in a bf16 float mask); then runs the sparse path,
    `SparseSelfAttention` forward (K7, counted) and backward (the gather
    path's gradient) against autograd of the gather path;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
@@ -45,6 +49,17 @@
 8. holds a 2-layer model of the same width on the card in bf16 against the
    plain versions on the CPU in f32, through v1 and through v2, and with
    int8 weights through the layer scan;
+8a. serves bloom-7b1 at full width and depth with random bf16 weights:
+   v1 `forward` on 4 x 512 and greedy `generate` of 64 (the masked alibi
+   path: no kernel may launch), the last step against `forward`; v2 with
+   the automatic layout (paged) on traffic A (the Bloom v2 main path:
+   K3-alibi and K4-alibi counted), four rows' last step against v1
+   `forward`, and a decode-step profile; serves bloom-560m (24 layers, head
+   dim 64) through v2, whose automatic layout is slot rows (no kernel),
+   and forced onto the paged layout (K3/K4-alibi at D = 64), rows against
+   v1 `forward` and the two layouts' teacher-forced logits against each
+   other; holds a 2-layer bloom-7b1-width model on the card in bf16
+   against the CPU in f32 through v1 and v2 paged;
 8b. serves Qwen1.5-MoE-A2.7B at full width and depth with random bf16
    weights through v1: `forward` on 4 x 512 (the ragged path, which drops
    tokens over capacity), greedy `generate` of 64 tokens (the MoE main
@@ -124,6 +139,21 @@ QWEN_MOE = "qwen1.5-moe-a2.7b"
 # flipped: a flip swaps half of a token's top-2 FFN), control 0.726.
 MOE_CONSISTENCY_RTOL = 0.06
 MOE_REFERENCE_RTOL = {QWEN_MOE: 0.05, "mixtral-8x7b": 0.2}
+# BLOOM serving: bloom-7b1 (the published bigscience/bloom-7b1 shapes, 30
+# layers of 32 heads of 128, vocab 250,880) through v1 and v2 paged, and
+# bloom-560m (24 layers, 16 heads of 64) through v2 slot rows and paged.
+# Bound from this script's run on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): at 30 layers the last decode step read 0.0158 against
+# `forward` (v1) and 0.0158-0.0162 (v2 rows against v1 `forward`); at 24
+# layers bloom-560m's slot and paged rows 0.0127-0.0144, and the two
+# layouts' teacher-forced logits 0.0157 apart. The bound sits ~3x above.
+# The kernel phase's controls (the kernels without the slopes) miss by >= 2.9.
+BLOOM, BLOOM_SLOT = "bloom-7b1", "bloom-560m"
+BLOOM_CONSISTENCY_RTOL = 0.05
+SLOT_V2 = dict(max_batch=8, max_seq_len=1024, split_fuse_chunk=256)
+SLOT_PROMPTS = (100, 300, 600, 200) * 4  # the 600s run three chunks
+SLOT_NEW = 32
+WATCH_SLOT = (0, 1, 2, 15)               # one prompt of each length
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -365,17 +395,17 @@ def check_decode(gen, int8=False, h=H, hkv=HKV):
                     qt, kt, vt, attn_mask=mask, enable_gqa=True)), **extra)
 
 
-def paged_pools(gen, int8):
+def paged_pools(gen, int8, hkv=HKV, d=D):
     """(k_pool, v_pool, scales kwargs) at the serving shape: bf16, or the
     same random values quantized as the int8 pools store them."""
-    k, v = randn((HKV, NB, BS, D), gen), randn((HKV, NB, BS, D), gen)
+    k, v = randn((hkv, NB, BS, d), gen), randn((hkv, NB, BS, d), gen)
     if not int8:
         return k, v, {}
     (k, ks), (v, vs) = int8_pair(k), int8_pair(v)
     return k, v, dict(k_scales=ks, v_scales=vs)
 
 
-def paged_inputs(rng, gen, blocks_per_row, int8=False):
+def paged_inputs(rng, gen, blocks_per_row, int8=False, hkv=HKV, d=D):
     """Pools (Hkv, NB, BS, D), their scales kwargs, and (B, T) tables: a
     seeded permutation of the pool handed out row by row, -1 tails."""
     perm, used = rng.permutation(NB), 0
@@ -384,17 +414,17 @@ def paged_inputs(rng, gen, blocks_per_row, int8=False):
         tables[row, :n] = perm[used:used + n]
         used += n
     assert used <= NB
-    return (*paged_pools(gen, int8), tables, torch.from_numpy(tables).cuda())
+    return (*paged_pools(gen, int8, hkv, d), tables, torch.from_numpy(tables).cuda())
 
 
-def kv_bytes(tables, spans, int8=False) -> int:
+def kv_bytes(tables, spans, int8=False, hkv=HKV, d=D) -> int:
     """Bytes of K and V (and their scales) that attention over `spans`
     ((lo, hi) logical positions per row) reads, each pool row once: table
     entries clamp into the pool, as the kernels clamp them."""
     rows = [np.clip(tables[b, np.arange(lo, hi) // BS], 0, NB - 1) * BS
             + np.arange(lo, hi) % BS for b, (lo, hi) in enumerate(spans) if hi > lo]
     n = np.unique(np.concatenate(rows)).size if rows else 0
-    return n * HKV * (D + 4 if int8 else D * 2) * 2
+    return n * hkv * (d + 4 if int8 else d * 2) * 2
 
 
 def dense_view(pool, tables_t, scales=None):
@@ -407,24 +437,46 @@ def dense_view(pool, tables_t, scales=None):
     return _gather(pool, tables_t).transpose(0, 1).contiguous()
 
 
-def check_paged_decode(gen, rng, staged, window=None, int8=False):
+def alibi_mask(slopes, keep, cols):
+    """SDPA's float mask for alibi: slopes[h]·position where `keep`, −inf
+    elsewhere, in bf16 (SDPA takes the query's dtype). keep (B, [S,] M),
+    cols (B, [S,] M) key positions → (B, H, S, M)."""
+    bias = slopes.view(1, -1, *([1] * (cols.dim() - 1))) * cols[:, None].float()
+    out = torch.where(keep[:, None], bias, torch.full_like(bias, float("-inf")))
+    return (out if keep.dim() == 3 else out[:, :, None]).to(torch.bfloat16)
+
+
+def control_err(fn, ref, **kw):
+    """The kernel run without the slopes against the plain version with
+    them: the alibi gate must see the bias, so this must fail it."""
+    err = (fn(**kw).float() - ref.float()).abs().max().item()
+    assert err > KERNEL_TOL, err
+    return err
+
+
+def check_paged_decode(gen, rng, staged, window=None, int8=False, h=H, hkv=HKV, d=D,
+                       alibi=False):
     """K3 at the serving shape: 64 rows, 32 of one block and 31 of two with
     ragged lengths, one parked row (cursor at the capacity, table all -1).
     With `int8`, K3-int8 on int8 pools, and unit scales held bitwise to the
-    bf16 kernel."""
+    bf16 kernel. With `alibi`, K3-alibi with the model's slopes for `h`
+    heads, beside the control (`control_err`)."""
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    H, HKV, D = h, hkv, d  # noqa: N806 (the shape of this call)
     b = 64
     lengths_np = np.concatenate([rng.integers(1, BS + 1, 32), rng.integers(BS + 1, 2 * BS + 1, 31),
                                  [T * BS + 1]]).astype(np.int32)
     k_pool, v_pool, scales, tables, tables_t = paged_inputs(
-        rng, gen, [-(-int(n) // BS) for n in lengths_np[:-1]] + [0], int8)
+        rng, gen, [-(-int(n) // BS) for n in lengths_np[:-1]] + [0], int8, HKV, D)
     lengths = torch.from_numpy(lengths_np).cuda()
     q = randn((b, 1, H, D), gen)
     k_new, v_new = (randn((b, HKV, D), gen), randn((b, HKV, D), gen)) if staged else (None, None)
-    kw = dict(k_new=k_new, v_new=v_new, window=window, **scales)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kw = dict(k_new=k_new, v_new=v_new, window=window, alibi=slopes, **scales)
     extra = {}
-    if int8:
+    if int8 and not alibi:
         ki, ones, kb = unit_scale_pair(randn((HKV, NB, BS, D), gen))
         unit = dict(k_new=k_new, v_new=v_new, window=window)
         extra["unit_scales_bitwise_equal"] = torch.equal(
@@ -436,26 +488,35 @@ def check_paged_decode(gen, rng, staged, window=None, int8=False):
     ref = pa.paged_decode_attention_plain(q, k_pool, v_pool, tables_t, lengths, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    assert torch.isfinite(out).all() and err <= KERNEL_TOL, (staged, window, err)
+    assert torch.isfinite(out).all() and err <= KERNEL_TOL, (staged, window, alibi, err)
+    if alibi:
+        extra["control_no_alibi_max_abs_err"] = control_err(
+            pa.paged_decode_attention, ref, q=q, k_pool=k_pool, v_pool=v_pool,
+            tables=tables_t, lengths=lengths, **{**kw, "alibi": None})
     qpos = lengths_np.astype(np.int64) - 1
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(b, np.int64)
     hi = np.minimum(lengths_np - int(staged), T * BS)
     keys = int(np.maximum(hi - lo, 0).sum()) + (b if staged else 0)
-    nbytes = (kv_bytes(tables, zip(lo, hi), int8) + (q.numel() + out.numel()) * 2
-              + tables.size * 4 + b * 4 + (2 * b * HKV * D * 2 if staged else 0))
+    nbytes = (kv_bytes(tables, zip(lo, hi), int8, HKV, D) + (q.numel() + out.numel()) * 2
+              + tables.size * 4 + b * 4 + (2 * b * HKV * D * 2 if staged else 0)
+              + (H * 4 if alibi else 0))
     bound_ms, bound_by = bound(nbytes, 4.0 * D * H * keys)
     # SDPA over the gathered dense view (staged column appended), as a yardstick
     dk = dense_view(k_pool, tables_t, scales.get("k_scales"))
     dv = dense_view(v_pool, tables_t, scales.get("v_scales"))
     cols = torch.arange(T * BS, device="cuda")[None, :]
     mask = (cols >= torch.from_numpy(lo).cuda()[:, None]) & (cols < torch.from_numpy(hi).cuda()[:, None])
+    pos = cols.expand(b, -1)
     if staged:
         dk = torch.cat([dk, k_new[:, :, None]], dim=2)
         dv = torch.cat([dv, v_new[:, :, None]], dim=2)
         mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)
+        pos = torch.cat([pos, (lengths.long() - 1)[:, None]], dim=1)
+    attn_mask = alibi_mask(slopes, mask, pos) if alibi else mask[:, None, None, :]
     qt = q.transpose(1, 2)
     return dict(shape=f"B={b} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} staged={staged} "
-                      f"window={window} keys={keys}{' int8' if int8 else ''}",
+                      f"window={window} keys={keys}{' int8' if int8 else ''}"
+                      f"{' alibi' if alibi else ''}",
                 max_abs_err=err,
                 ms=cuda_ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, tables_t,
                                                              lengths, **kw)),
@@ -463,25 +524,30 @@ def check_paged_decode(gen, rng, staged, window=None, int8=False):
                     q, k_pool, v_pool, tables_t, lengths, **kw)),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, dk, dv, attn_mask=mask[:, None, None, :], enable_gqa=True)), **extra)
+                    qt, dk, dv, attn_mask=attn_mask, enable_gqa=True)), **extra)
 
 
-def check_paged_prefill(gen, rng, window=None, int8=False):
+def check_paged_prefill(gen, rng, window=None, int8=False, h=H, hkv=HKV, d=D, alibi=False):
     """K4 at the serving shape: 16 rows of S = 256 new tokens at starts 0,
     256, 300 (unaligned), 512 and 768, and one parked row. With `int8`,
-    K4-int8 on int8 pools, and unit scales held bitwise to the bf16 kernel."""
+    K4-int8 on int8 pools, and unit scales held bitwise to the bf16 kernel.
+    With `alibi`, K4-alibi with the model's slopes for `h` heads, beside the
+    control (`control_err`)."""
     import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    H, HKV, D = h, hkv, d  # noqa: N806 (the shape of this call)
     b, s = 16, 256
     starts_np = np.asarray([(0, 256, 300, 512, 768)[i % 5] for i in range(b - 1)]
                            + [T * BS], np.int32)
     k_pool, v_pool, scales, tables, tables_t = paged_inputs(
-        rng, gen, [-(-(int(st) + s) // BS) for st in starts_np[:-1]] + [0], int8)
+        rng, gen, [-(-(int(st) + s) // BS) for st in starts_np[:-1]] + [0], int8, HKV, D)
     starts = torch.from_numpy(starts_np).cuda()
     q = randn((b, s, H, D), gen)
-    kw = dict(window=window, **scales)
+    slopes = alibi_slopes(H, "cuda") if alibi else None
+    kw = dict(window=window, alibi=slopes, **scales)
     extra = {}
-    if int8:
+    if int8 and not alibi:
         ki, ones, kb = unit_scale_pair(randn((HKV, NB, BS, D), gen))
         extra["unit_scales_bitwise_equal"] = torch.equal(
             pa.paged_prefill_attention(q, ki, ki, tables_t, starts, window=window,
@@ -492,23 +558,29 @@ def check_paged_prefill(gen, rng, window=None, int8=False):
     ref = pa.paged_prefill_attention_plain(q, k_pool, v_pool, tables_t, starts, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    assert torch.isfinite(out).all() and err <= KERNEL_TOL, (window, err)
+    assert torch.isfinite(out).all() and err <= KERNEL_TOL, (window, alibi, err)
+    if alibi:
+        extra["control_no_alibi_max_abs_err"] = control_err(
+            pa.paged_prefill_attention, ref, q=q, k_pool=k_pool, v_pool=v_pool,
+            tables=tables_t, starts=starts, **{**kw, "alibi": None})
     qpos = starts_np.astype(np.int64)[:, None] + np.arange(s)[None, :]          # (B, S)
     lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
     hi = np.minimum(qpos + 1, T * BS)
     keys = int(np.maximum(hi - lo, 0).sum())
-    nbytes = (kv_bytes(tables, zip(lo[:, 0], hi[:, -1]), int8)
-              + (q.numel() + out.numel()) * 2 + tables.size * 4 + b * 4)
+    nbytes = (kv_bytes(tables, zip(lo[:, 0], hi[:, -1]), int8, HKV, D)
+              + (q.numel() + out.numel()) * 2 + tables.size * 4 + b * 4
+              + (H * 4 if alibi else 0))
     bound_ms, bound_by = bound(nbytes, 4.0 * D * H * keys)
     dk = dense_view(k_pool, tables_t, scales.get("k_scales"))
     dv = dense_view(v_pool, tables_t, scales.get("v_scales"))
     cols = torch.arange(T * BS, device="cuda")[None, None, :]
     mask = (cols >= torch.from_numpy(lo).cuda()[..., None]) & \
         (cols < torch.from_numpy(hi).cuda()[..., None])
+    attn_mask = alibi_mask(slopes, mask, cols.expand(b, s, -1)) if alibi else mask[:, None]
     qt = q.transpose(1, 2)
     return dict(shape=f"B={b} S={s} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} "
                       f"starts={sorted(set(starts_np.tolist()))} window={window} keys={keys}"
-                      f"{' int8' if int8 else ''}",
+                      f"{' int8' if int8 else ''}{' alibi' if alibi else ''}",
                 max_abs_err=err,
                 ms=cuda_ms(lambda: pa.paged_prefill_attention(q, k_pool, v_pool, tables_t,
                                                               starts, **kw)),
@@ -516,7 +588,7 @@ def check_paged_prefill(gen, rng, window=None, int8=False):
                     q, k_pool, v_pool, tables_t, starts, **kw), iters=5),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, dk, dv, attn_mask=mask[:, None], enable_gqa=True)), **extra)
+                    qt, dk, dv, attn_mask=attn_mask, enable_gqa=True)), **extra)
 
 
 def check_qmm(gen, m, k, n, block):
@@ -820,6 +892,8 @@ def kernel_counters():
         block_sparse_attention)}
     for fn in (decode_attention, paged_decode_attention, paged_prefill_attention):
         counters[fn.__name__ + "_int8"] = (fn, "launches_int8")
+    for fn in (paged_decode_attention, paged_prefill_attention):
+        counters[fn.__name__ + "_alibi"] = (fn, "launches_alibi")
     return counters
 
 
@@ -1581,9 +1655,206 @@ def reference_v2(gpu_model, cpu_model, ids, steps: int = 8):
         g, c = gpu.put(uids, feeds), cpu.put(uids, feeds)
     err_step = max(rel_err(torch.from_numpy(g[u]), torch.from_numpy(c[u])) for u in uids)
     assert max(err_prefill, err_step) <= REFERENCE_RTOL, (err_prefill, err_step)
+    layout = gpu.kv_layout
     del gpu, cpu
     return dict(prefill_rel_rms_err=err_prefill, last_decode_step_rel_rms_err=err_step,
-                decode_steps=steps)
+                decode_steps=steps, kv_layout=layout)
+
+
+def bloom(name, seed, **overrides):
+    """A BLOOM preset on the card with random bf16 weights from `seed`."""
+    from deepspeed_tpu_torch.models.bloom import bloom_config, init_bloom
+    return init_bloom(bloom_config(name, **overrides),
+                      torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+                      dtype=torch.bfloat16)
+
+
+def serve_bloom(report):
+    """bloom-7b1 at full width and depth, random bf16 weights. v1: `forward`
+    on 4 x 512 and greedy `generate` of 64 on the masked alibi path (no
+    kernel launches), the last decode step against `forward`. v2 with the
+    automatic layout (paged): traffic A, whose K3-alibi and K4-alibi
+    launches are counted (the Bloom v2 main path), four rows' last decode
+    step against v1 `forward`, and a decode-step profile."""
+    import deepspeed_tpu_torch
+    model = bloom(BLOOM, SEED + 30)
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.forward(ids[:, :64])                          # warm-up
+    engine.generate(ids[:1, :16], max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(ids)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out, steps = generate_logits(engine, ids, NEW)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    v1_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    assert v1_launches == only(), v1_launches          # BLOOM's v1 path runs no kernel
+    assert logits.shape == (B, PROMPT, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
+    full = engine.forward(out[:, :-1])[:, -1]
+    consistency = rel_err(steps[-1], full)
+    assert torch.isfinite(steps[-1]).all() and consistency <= BLOOM_CONSISTENCY_RTOL, consistency
+    assert torch.equal(steps[-1].float().argmax(-1), out[:, -1])
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del logits, full, steps
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 32)
+    v2 = v2_engine(model)
+    assert v2.kv_layout == "paged", v2.kv_layout
+    out2, stats, launches, calls, last = traffic_a(v2, rng)
+    assert launches == only(paged_decode_attention_alibi=L * calls["decode_steps"],
+                            paged_prefill_attention_alibi=L * calls["chunk_calls"]), \
+        (launches, calls)
+    full = engine.forward([out2[u][:-1] for u in WATCH])[:, -1]
+    errs = [rel_err(last[u], full[i]) for i, u in enumerate(WATCH)]
+    assert all(int(last[u].float().argmax()) == out2[u][-1] for u in WATCH)
+    assert max(errs) <= BLOOM_CONSISTENCY_RTOL, errs
+    del full
+    report["bloom_v2_decode_profile"] = profile_v2_decode(v2, rng)
+    del v2, engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_bloom"] = dict(
+        card=report["card"], model=f"{BLOOM} (random bf16 weights, seed {SEED + 30})",
+        v1=dict(batch=B, prompt=PROMPT, new_tokens=NEW, forward_ms=forward_ms,
+                generate_ms=generate_ms, generate_prefill_ms=prefill_ms,
+                decode_tok_s=B * (NEW - 1) / ((generate_ms - prefill_ms) / 1e3),
+                peak_memory_bytes=peak, launches=v1_launches,
+                last_step_vs_forward_rel_rms_err=consistency),
+        v2=dict(engine=dict(V2), kv_layout="paged", **stats,
+                last_step_vs_v1_forward_rel_rms_err=errs))
+    return launches
+
+
+def forced_logits(engine, prompts, feeds):
+    """`put` every prompt (its chunks drained), then one decode feed per
+    step from `feeds` (uid → tokens): the f32 logits of the prefill and of
+    each step, per uid. Rows are flushed after."""
+    uids = list(range(len(prompts)))
+    got = engine.put(uids, [np.asarray(p) for p in prompts])
+    while len(got) < len(uids):
+        got.update(engine.put([], []))
+    out = [got]
+    for i in range(len(feeds[0])):
+        out.append(engine.put(uids, [np.asarray([feeds[u][i]]) for u in uids]))
+    for u in uids:
+        engine.flush(u)
+    return out
+
+
+def serve_bloom_slot(report):
+    """bloom-560m at full depth (24 layers, 1024 wide, 16 heads of 64)
+    through v2. The automatic layout is slot (head dim 64): a short
+    traffic with prompts of up to three chunks, no kernel launched, four
+    rows' last decode step against v1 `forward`. The same traffic forced
+    onto the paged layout launches K3-alibi and K4-alibi at D = 64 (counted);
+    then teacher-forced prefill and decode logits of the WATCH_SLOT prompts on
+    the two layouts are held against each other."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    model = bloom(BLOOM_SLOT, SEED + 33)
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(SEED + 34)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SLOT_PROMPTS]
+    runs, engines = {}, {}
+    for layout in (None, "paged"):
+        eng = InferenceEngineV2(model, kv_layout=layout, **SLOT_V2)
+        calls, last = instrument(eng, WATCH_SLOT)
+        eng.generate(prompts[:1], max_new_tokens=2)     # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        calls.update(decode_steps=0, chunk_calls=0)
+        last.clear()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, max_new_tokens=SLOT_NEW)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        assert all(len(o) == len(p) + SLOT_NEW and o[:len(p)] == p for o, p in zip(out, prompts))
+        runs[eng.kv_layout] = dict(out=out, launches=read_launches(), calls=dict(calls),
+                                   last=dict(last), wall_s=wall_s,
+                                   tok_s=len(prompts) * SLOT_NEW / wall_s)
+        engines[eng.kv_layout] = eng
+    slot, paged = runs["slot"], runs["paged"]
+    assert slot["launches"] == only(), slot["launches"]
+    assert paged["launches"] == only(
+        paged_decode_attention_alibi=L * paged["calls"]["decode_steps"],
+        paged_prefill_attention_alibi=L * paged["calls"]["chunk_calls"]), paged
+    v1 = deepspeed_tpu_torch.init_inference(model, dtype="bf16")
+    errs = {}
+    for name, run in runs.items():
+        errs[name] = [rel_err(run["last"][u], v1.forward([run["out"][u][:-1]])[0, -1])
+                      for u in WATCH_SLOT]
+        assert max(errs[name]) <= BLOOM_CONSISTENCY_RTOL, (name, errs[name])
+    del v1
+    # teacher forcing: the WATCH_SLOT prompts and the slot run's tokens on both layouts
+    watch = [prompts[u] for u in WATCH_SLOT]
+    feeds = [slot["out"][u][len(prompts[u]):len(prompts[u]) + 8] for u in WATCH_SLOT]
+    forced = {name: forced_logits(eng, watch, feeds) for name, eng in engines.items()}
+    layout_err = max(rel_err(torch.from_numpy(a[u]), torch.from_numpy(b[u]))
+                     for a, b in zip(forced["slot"], forced["paged"]) for u in a)
+    assert layout_err <= BLOOM_CONSISTENCY_RTOL, layout_err
+    same = sum(a == b for a, b in zip(slot["out"], paged["out"]))
+    del engines, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_bloom_slot"] = dict(
+        model=f"{BLOOM_SLOT} (random bf16 weights, seed {SEED + 33})", engine=dict(SLOT_V2),
+        prompt_tokens=list(SLOT_PROMPTS), new_tokens=SLOT_NEW,
+        **{name: {k: run[k] for k in ("launches", "calls", "wall_s", "tok_s")}
+           for name, run in runs.items()},
+        last_step_vs_v1_forward_rel_rms_err=errs,
+        forced_slot_vs_paged_rel_rms_err=layout_err, forced_steps=8,
+        sequences_equal_across_layouts=f"{same}/{len(prompts)}")
+
+
+def reference_bloom(report):
+    """Two layers at bloom-7b1 width: the card in bf16 against the plain
+    versions on the CPU in f32, on the same weights, through v1 (the masked
+    alibi path) and through v2 paged (K3-alibi and K4-alibi against their
+    plain versions inside the model)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bloom import BloomForCausalLM, bloom_config
+    gpu = deepspeed_tpu_torch.init_inference(bloom(BLOOM, SEED + 35, num_hidden_layers=2),
+                                             dtype="bf16")
+    cpu_model = BloomForCausalLM(bloom_config(BLOOM, num_hidden_layers=2, dtype=torch.float32),
+                                 device="meta")
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in
+                               gpu.module.state_dict().items()}, assign=True)
+    cpu = deepspeed_tpu_torch.init_inference(cpu_model, dtype="fp32", device="cpu")
+    ids = torch.randint(0, gpu.model_cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(SEED + 36))
+    err_fwd = rel_err(gpu.forward(ids), cpu.forward(ids))
+    out, steps = generate_logits(gpu, ids.cuda(), 8)
+    ref = cpu.forward(out[:, :-1].cpu())
+    err_prefill = rel_err(steps[0], ref[:, ids.shape[1] - 1])
+    err_step = rel_err(steps[-1], ref[:, -1])
+    assert max(err_fwd, err_prefill, err_step) <= REFERENCE_RTOL, \
+        (err_fwd, err_prefill, err_step)
+    zero_launches()
+    v2 = reference_v2(gpu.module, cpu.module, ids.numpy())
+    launches = read_launches()
+    assert v2["kv_layout"] == "paged" and launches["paged_decode_attention_alibi"] > 0 \
+        and launches["paged_prefill_attention_alibi"] > 0, (v2, launches)
+    report["reference_bloom"] = dict(
+        forward_rel_rms_err=err_fwd, prefill_rel_rms_err=err_prefill,
+        last_decode_step_rel_rms_err=err_step, v2=v2)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def train(report):
@@ -2159,6 +2430,17 @@ def main() -> int:
     # main path's), and K7 at the sparse shapes ((a) first, the sparse path's)
     gmm_bwd = gmm_bwd_cases(gen)
     sparse = [check_sparse(gen, *shape) for shape in SPARSE_SHAPES]
+    # K3-alibi and K4-alibi at bloom-7b1's attention (H = Hkv = 32, D = 128;
+    # the Bloom v2 path's staged decode first), over int8 pools, and at
+    # bloom-560m's (H = 16, D = 64), each beside its control
+    bloom_w, small_w = dict(h=32, hkv=32, d=128, alibi=True), dict(h=16, hkv=16, d=64, alibi=True)
+    paged_decode_alibi = [check_paged_decode(gen, rng, staged=True, **bloom_w),
+                          check_paged_decode(gen, rng, staged=False, **bloom_w),
+                          check_paged_decode(gen, rng, staged=True, int8=True, **bloom_w),
+                          check_paged_decode(gen, rng, staged=True, **small_w)]
+    paged_prefill_alibi = [check_paged_prefill(gen, rng, **bloom_w),
+                           check_paged_prefill(gen, rng, int8=True, **bloom_w),
+                           check_paged_prefill(gen, rng, **small_w)]
     report.update(flash_attention_fwd=flash, decode_attention=decode,
                   paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
                   flash_attention_bwd=flash_bwd, quantized_matmul=qmm,
@@ -2166,10 +2448,11 @@ def main() -> int:
                   paged_decode_attention_int8=paged_decode_int8,
                   paged_prefill_attention_int8=paged_prefill_int8, grouped_gemm=gmm,
                   attention_group_one=group_one, grouped_gemm_bwd=gmm_bwd,
-                  block_sparse_attention=sparse)
+                  block_sparse_attention=sparse, paged_decode_attention_alibi=paged_decode_alibi,
+                  paged_prefill_attention_alibi=paged_prefill_alibi)
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
                 + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one
-                + gmm_bwd + sparse):
+                + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi):
         print(json.dumps(row), flush=True)
     sparse_launches = sparse_path(report)
 
@@ -2185,6 +2468,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     reference(report)
     reference_int8(report)
+    bloom_launches = serve_bloom(report)
+    serve_bloom_slot(report)
+    reference_bloom(report)
     moe_launches = serve_moe(report)
     reference_moe(report)
     train_launches = train(report)
@@ -2194,6 +2480,7 @@ def main() -> int:
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
                 "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
+                "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference"):
         print(json.dumps({key: report[key]}), flush=True)
@@ -2250,6 +2537,16 @@ def main() -> int:
         kernel_row("block_sparse_attention", "deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
                    "deepspeed_tpu/ops/pallas/block_sparse_attention.py:110",
                    sparse_launches["block_sparse_attention"], sparse[0]),
+        # K3-alibi and K4-alibi's rows: bloom-7b1's staged decode and prefill
+        # chunk; launches from the Bloom v2 path (traffic A)
+        kernel_row("paged_decode_attention_alibi",
+                   "deepspeed_tpu_torch/csrc/paged_decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/paged_attention.py:141",
+                   bloom_launches["paged_decode_attention_alibi"], paged_decode_alibi[0]),
+        kernel_row("paged_prefill_attention_alibi",
+                   "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
+                   "deepspeed_tpu/ops/pallas/paged_attention.py:348",
+                   bloom_launches["paged_prefill_attention_alibi"], paged_prefill_alibi[0]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

@@ -2,13 +2,15 @@
 
 Trains Llama models through `initialize(...)` → `train_batch` (or
 `forward`/`backward`/`step`) and serves them through `init_inference(...)`
-→ `forward`/`generate` and the v2 `InferenceEngineV2`, on one CUDA device;
-the MoE families (`models/qwen2_moe.py`, `models/mixtral.py`) serve
-through `init_inference` and train through `initialize` with their loss
-functions; `ops/sparse_attention` is block-sparse attention.
-Hand-written kernels: flash attention (forward and backward), decode and
-paged attention, the int8 dequant-GEMM, the grouped expert GEMM (forward
-and backward) and block-sparse attention. It imports `torch`, never
+→ `forward`/`generate` and the v2 `InferenceEngineV2` (paged cache or
+dense slot rows), on one CUDA device; BLOOM (`models/bloom.py`, alibi)
+serves through both engines; the MoE families (`models/qwen2_moe.py`,
+`models/mixtral.py`) serve through `init_inference` and train through
+`initialize` with their loss functions; `ops/sparse_attention` is
+block-sparse attention. Hand-written kernels: flash attention (forward and
+backward), decode and paged attention (the paged kernels with alibi too),
+the int8 dequant-GEMM, the grouped expert GEMM (forward and backward) and
+block-sparse attention. It imports `torch`, never
 `jax`, and nothing of `deepspeed_tpu`.
 """
 
@@ -48,10 +50,11 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     """Build an inference engine (counterpart of
     `deepspeed_tpu.init_inference`).
 
-    `model` is an `nn.Module` (`models.llama.LlamaForCausalLM`, or an MoE
-    family: `models.qwen2_moe.Qwen2MoeForCausalLM`,
-    `models.mixtral.MixtralForCausalLM`) or a `(module, params)` tuple, where `params` is a JAX parameter tree of numpy
-    arrays; `params=` is accepted too. `config` is a dict or a
+    `model` is an `nn.Module` (`models.llama.LlamaForCausalLM`,
+    `models.bloom.BloomForCausalLM`, or an MoE family:
+    `models.qwen2_moe.Qwen2MoeForCausalLM`, `models.mixtral.MixtralForCausalLM`)
+    or a `(module, params)` tuple, where `params` is a JAX parameter tree of
+    numpy arrays; `params=` is accepted too. `config` is a dict or a
     `DeepSpeedInferenceConfig`, and keyword arguments are config keys.
     `device=None` means CUDA; without CUDA it raises unless `device="cpu"`.
     """

@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel `deepspeed_tpu/ops/pallas/paged_attention.py`
 // `paged_decode_attention` (:159) with `_paged_kernel` (:41), for bf16 and
-// int8 pools without alibi. It computes what that kernel computes:
+// int8 pools, with and without alibi (`_mk_paged_kernel` :141 builds one
+// kernel per (quantized, staged, has_alibi)). It computes what that kernel
+// computes:
 //   * q (B,1,H,D) bf16, pools (Hkv,NB,BS,D) bf16, tables (B,T) int32,
 //     lengths (B,) int32 -> out (B,1,H,D) bf16;
 //   * row b attends its first pool_len keys, logical position p living in
@@ -25,11 +27,20 @@
 //     P.V; l sums the unscaled p; p*s_v rounds to bf16 as the bf16 path
 //     rounds p, so with unit scales the int8 path equals the bf16 path bit
 //     for bit. The staged token is bf16 and folds in without a scale.
+//   * alibi (K3-alibi, :89-90, :126-127) comes as slopes (H,) f32: every
+//     logit gets + slopes[h] * col in f32 after the scale (and the int8 K
+//     scale), before the mask; the staged column gets + slopes[h] * qpos.
+//     The bias reaches ~860 at v2's positions, where a bf16 ulp is 4, so it
+//     never leaves f32. `has_alibi` is a template flag: the instantiation
+//     without it compiles to the kernel without alibi.
 //
 // Bound on an H100: each valid key and value row is read once and takes
 // 4*n_rep*D operations, far below the card's ~295 operations per byte, so
 // the bytes read bound it: valid keys * Hkv * D * 2 (K and V) * 2 bytes over
 // 3.35 TB/s (int8: valid keys * Hkv * (D + 4) * 2 bytes with the scales).
+//
+// Alibi adds one multiply-add per logit and reads H floats: the bound is
+// unchanged.
 //
 // Design: one thread block per (KV head g, row b), D threads, holding the
 // group's n_rep query heads as the TPU's whole-group tile does. The block
@@ -60,13 +71,15 @@ __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); 
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 // KV = bf16: ks/vs unused. KV = int8_t: ks/vs are the (Hkv,NB,BS) scales.
-template <int D, int NREP, typename KV>
+// ALIBI: `alibi` holds the (H,) slopes; without it, it is unused.
+template <int D, int NREP, typename KV, bool ALIBI>
 __global__ void __launch_bounds__(D)
 paged_decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
                     const KV* __restrict__ vp, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ tables,
                     const int* __restrict__ lengths, const bf16* __restrict__ kn,
-                    const bf16* __restrict__ vn, bf16* __restrict__ out, int H,
+                    const bf16* __restrict__ vn, const float* __restrict__ alibi,
+                    bf16* __restrict__ out, int H,
                     int Hkv, int NB, int BS, int T, int staged, int window,
                     float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
@@ -96,6 +109,10 @@ paged_decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
 #pragma unroll
     for (int e = 0; e < PER; ++e)
       qr[r][e] = __bfloat162float(qg[r * D + lane * PER + e]);
+
+  float slope[NREP];
+#pragma unroll
+  for (int r = 0; r < NREP; ++r) slope[r] = ALIBI ? alibi[g * NREP + r] : 0.f;
 
   float acc[NREP];
 #pragma unroll
@@ -131,7 +148,10 @@ paged_decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
         for (int e = 0; e < PER; ++e) dot += qr[r][e] * kf[e];
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(FULL, dot, o);
-        if (lane == 0) sP[r][j] = (QUANT ? dot * sk : dot) * scale;
+        if (lane == 0) {
+          const float s = (QUANT ? dot * sk : dot) * scale;
+          sP[r][j] = ALIBI ? s + slope[r] * (float)(c0 + j) : s;
+        }
       }
     }
     __syncthreads();
@@ -189,7 +209,7 @@ paged_decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(FULL, dot, o);
         if (lane == 0) {
-          const float sn = dot * scale;
+          const float sn = ALIBI ? dot * scale + slope[r] * (float)qpos : dot * scale;
           const float m_prev = sM[r];
           const float m_new = fmaxf(m_prev, sn);
           const float alpha = expf(m_prev - m_new);
@@ -216,41 +236,42 @@ paged_decode_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
 }
 
 struct Args {
-  const void *q, *k, *v, *ks, *vs, *tables, *lengths, *kn, *vn;
+  const void *q, *k, *v, *ks, *vs, *tables, *lengths, *kn, *vn, *alibi;
   void* out;
   int B, H, Hkv, NB, BS, T, staged, window;
   float scale;
 };
 
-template <int D, int NREP, typename KV>
+template <int D, int NREP, typename KV, bool ALIBI>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   dim3 grid(a.Hkv, a.B);
-  paged_decode_kernel<D, NREP, KV><<<grid, D, 0, stream>>>(
+  paged_decode_kernel<D, NREP, KV, ALIBI><<<grid, D, 0, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.lengths), static_cast<const bf16*>(a.kn),
-      static_cast<const bf16*>(a.vn), static_cast<bf16*>(a.out), a.H, a.Hkv,
+      static_cast<const bf16*>(a.vn), static_cast<const float*>(a.alibi),
+      static_cast<bf16*>(a.out), a.H, a.Hkv,
       a.NB, a.BS, a.T, a.staged, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D, typename KV>
+template <int D, typename KV, bool ALIBI>
 cudaError_t launch_d(int n_rep, const Args& a, cudaStream_t s) {
   switch (n_rep) {
-    case 1: return launch<D, 1, KV>(a, s);
-    case 2: return launch<D, 2, KV>(a, s);
-    case 4: return launch<D, 4, KV>(a, s);
-    case 8: return launch<D, 8, KV>(a, s);
+    case 1: return launch<D, 1, KV, ALIBI>(a, s);
+    case 2: return launch<D, 2, KV, ALIBI>(a, s);
+    case 4: return launch<D, 4, KV, ALIBI>(a, s);
+    case 8: return launch<D, 8, KV, ALIBI>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename KV>
+template <typename KV, bool ALIBI>
 cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_d<64, KV>(a.H / a.Hkv, a, s);
-    case 128: return launch_d<128, KV>(a.H / a.Hkv, a, s);
+    case 64: return launch_d<64, KV, ALIBI>(a.H / a.Hkv, a, s);
+    case 128: return launch_d<128, KV, ALIBI>(a.H / a.Hkv, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -258,10 +279,12 @@ cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // k_scales == v_scales == nullptr: bf16 pools; both given: int8 pools.
+// alibi == nullptr: no bias; else the (H,) f32 slopes.
 extern "C" int ds_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
     const void* v_scales, const void* tables, const void* lengths,
-    const void* k_new, const void* v_new, void* out, int B, int H, int Hkv,
+    const void* k_new, const void* v_new, const void* alibi, void* out, int B,
+    int H, int Hkv,
     int D, int NB, int BS, int T, int staged, int window, float scale,
     void* stream) {
   if (B == 0) return cudaSuccess;
@@ -270,9 +293,11 @@ extern "C" int ds_paged_decode_attention(
       (k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool, k_scales, v_scales, tables, lengths, k_new,
-               v_new, out, B, H, Hkv, NB, BS, T, staged, window, scale};
+               v_new, alibi, out, B, H, Hkv, NB, BS, T, staged, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return k_scales ? launch_kv<int8_t>(D, a, s) : launch_kv<bf16>(D, a, s);
+  if (alibi)
+    return k_scales ? launch_kv<int8_t, true>(D, a, s) : launch_kv<bf16, true>(D, a, s);
+  return k_scales ? launch_kv<int8_t, false>(D, a, s) : launch_kv<bf16, false>(D, a, s);
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel `deepspeed_tpu/ops/pallas/paged_attention.py`
 // `paged_prefill_attention` (:366) with `_paged_prefill_kernel` (:267), for
-// bf16 and int8 pools without alibi. It computes what that kernel computes:
+// bf16 and int8 pools, with and without alibi (`_mk_paged_prefill_kernel`
+// :348 builds one kernel per (quantized, has_alibi)). It computes what that
+// kernel computes:
 //   * q (B,S,H,D) bf16, the S new tokens of each row, already written to the
 //     pool at positions starts[b]..starts[b]+S-1; pools (Hkv,NB,BS,D) bf16;
 //     tables (B,T) int32; starts (B,) int32 -> out (B,S,H,D) bf16;
@@ -20,6 +22,11 @@
 //     (q.k_q)*s_k*scale, and the V scale the probability columns, p*s_v,
 //     before they round to bf16 for P.V; l sums the unscaled p. With unit
 //     scales the int8 path equals the bf16 path bit for bit.
+//   * alibi (K4-alibi, :316-317) comes as slopes (H,) f32: each (query,
+//     key) logit gets + slopes[h] * key_pos in f32 after the scale (and the
+//     int8 K scale), before the causal and window mask. `has_alibi` is a
+//     template flag: the instantiation without it compiles to the kernel
+//     without alibi.
 //
 // Bound on an H100: 4*D operations per (query head, visible key) pair
 // against reading q, the visible K/V once and writing out once. At S = 256,
@@ -126,12 +133,14 @@ __device__ __forceinline__ void load_tile(bf16* dst, const KV* head_pool,
 }
 
 // KV = bf16: ks/vs unused. KV = int8_t: ks/vs are the (Hkv,NB,BS) scales.
-template <int D, int NREP, typename KV>
+// ALIBI: `alibi` holds the (H,) slopes; without it, it is unused.
+template <int D, int NREP, typename KV, bool ALIBI>
 __global__ void __launch_bounds__(NTHREADS)
 paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
                      const KV* __restrict__ vp, const float* __restrict__ ks,
                      const float* __restrict__ vs, const int* __restrict__ tables,
-                     const int* __restrict__ starts, bf16* __restrict__ out,
+                     const int* __restrict__ starts, const float* __restrict__ alibi,
+                     bf16* __restrict__ out,
                      int S, int H, int NB, int BS, int T, int window,
                      float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
@@ -231,10 +240,15 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
       const bool live = fr < nrows;
       const bool v0 = live && c0 < cap && c0 <= qpos && (window <= 0 || c0 > qpos - window);
       const bool v1 = live && c1 < cap && c1 <= qpos && (window <= 0 || c1 > qpos - window);
-      // the K scale folds into the logit columns
+      // the K scale folds into the logit columns, then the alibi bias
       const float d0 = sS[r * L::LDS + lane], d1 = sS[r * L::LDS + lane + 32];
-      const float s0 = v0 ? (QUANT ? d0 * sKs[lane] : d0) * scale : NEG_INF;
-      const float s1 = v1 ? (QUANT ? d1 * sKs[lane + 32] : d1) * scale : NEG_INF;
+      float s0 = v0 ? (QUANT ? d0 * sKs[lane] : d0) * scale : NEG_INF;
+      float s1 = v1 ? (QUANT ? d1 * sKs[lane + 32] : d1) * scale : NEG_INF;
+      if (ALIBI) {
+        const float slope = alibi[g * NREP + fr % NREP];
+        s0 = v0 ? s0 + slope * (float)c0 : NEG_INF;
+        s1 = v1 ? s1 + slope * (float)c1 : NEG_INF;
+      }
       float mx = fmaxf(s0, s1);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
@@ -297,45 +311,46 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
 }
 
 struct Args {
-  const void *q, *k, *v, *ks, *vs, *tables, *starts;
+  const void *q, *k, *v, *ks, *vs, *tables, *starts, *alibi;
   void* out;
   int B, S, H, Hkv, NB, BS, T, window;
   float scale;
 };
 
-template <int D, int NREP, typename KV>
+template <int D, int NREP, typename KV, bool ALIBI>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int bytes = Layout<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<D, NREP, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      paged_prefill_kernel<D, NREP, KV, ALIBI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((a.S * NREP + BQ - 1) / BQ, a.Hkv, a.B);
-  paged_prefill_kernel<D, NREP, KV><<<grid, NTHREADS, bytes, stream>>>(
+  paged_prefill_kernel<D, NREP, KV, ALIBI><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k),
       static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.tables),
-      static_cast<const int*>(a.starts), static_cast<bf16*>(a.out), a.S, a.H,
+      static_cast<const int*>(a.starts), static_cast<const float*>(a.alibi),
+      static_cast<bf16*>(a.out), a.S, a.H,
       a.NB, a.BS, a.T, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <int D, typename KV>
+template <int D, typename KV, bool ALIBI>
 cudaError_t launch_d(int n_rep, const Args& a, cudaStream_t s) {
   switch (n_rep) {
-    case 1: return launch<D, 1, KV>(a, s);
-    case 2: return launch<D, 2, KV>(a, s);
-    case 4: return launch<D, 4, KV>(a, s);
-    case 8: return launch<D, 8, KV>(a, s);
+    case 1: return launch<D, 1, KV, ALIBI>(a, s);
+    case 2: return launch<D, 2, KV, ALIBI>(a, s);
+    case 4: return launch<D, 4, KV, ALIBI>(a, s);
+    case 8: return launch<D, 8, KV, ALIBI>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename KV>
+template <typename KV, bool ALIBI>
 cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
   switch (D) {
-    case 64: return launch_d<64, KV>(a.H / a.Hkv, a, s);
-    case 128: return launch_d<128, KV>(a.H / a.Hkv, a, s);
+    case 64: return launch_d<64, KV, ALIBI>(a.H / a.Hkv, a, s);
+    case 128: return launch_d<128, KV, ALIBI>(a.H / a.Hkv, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -343,19 +358,23 @@ cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // k_scales == v_scales == nullptr: bf16 pools; both given: int8 pools.
+// alibi == nullptr: no bias; else the (H,) f32 slopes.
 extern "C" int ds_paged_prefill_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
-    const void* v_scales, const void* tables, const void* starts, void* out,
-    int B, int S, int H, int Hkv, int D, int NB, int BS, int T, int window,
+    const void* v_scales, const void* tables, const void* starts,
+    const void* alibi, void* out, int B, int S, int H, int Hkv, int D, int NB,
+    int BS, int T, int window,
     float scale, void* stream) {
   if (B == 0 || S == 0) return cudaSuccess;
   if (Hkv <= 0 || H % Hkv || NB <= 0 || BS <= 0 || T <= 0 ||
       (k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
-  const Args a{q, k_pool, v_pool, k_scales, v_scales, tables, starts, out,
-               B, S, H, Hkv, NB, BS, T, window, scale};
+  const Args a{q, k_pool, v_pool, k_scales, v_scales, tables, starts, alibi,
+               out, B, S, H, Hkv, NB, BS, T, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return k_scales ? launch_kv<int8_t>(D, a, s) : launch_kv<bf16>(D, a, s);
+  if (alibi)
+    return k_scales ? launch_kv<int8_t, true>(D, a, s) : launch_kv<bf16, true>(D, a, s);
+  return k_scales ? launch_kv<int8_t, false>(D, a, s) : launch_kv<bf16, false>(D, a, s);
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

@@ -48,9 +48,11 @@ def _cache_dims(cfg) -> tuple:
 
 class InferenceEngine:
     """Generation wrapper over a model (`nn.Module` with a `cfg`): Llama,
-    or the MoE families Qwen2-MoE and Mixtral (`generate`'s prefill runs
-    their experts through the grouped GEMM, its decode steps through the
-    ragged buffer; `forward` routes with the training semantics' drops).
+    BLOOM (its alibi attention takes the masked path, with no kernel, as in
+    the JAX package), or the MoE families Qwen2-MoE and Mixtral
+    (`generate`'s prefill runs their experts through the grouped GEMM, its
+    decode steps through the ragged buffer; `forward` routes with the
+    training semantics' drops).
 
     `params`, when given, is a JAX parameter tree (numpy leaves), copied
     into the model with its `load_jax_params` or, with `quant`, kept as the
@@ -118,7 +120,6 @@ class InferenceEngine:
         sampling from a generator seeded with `seed`. The first token comes
         from the prefill, then max_new_tokens − 1 decode steps; after a row
         emits `eos_token_id` its later tokens are `pad_token_id`."""
-        cfg = self.model_cfg
         ids = self._ids(input_ids)
         b, s = ids.shape
         max_len = round_up_len(s + max_new_tokens)
@@ -131,8 +132,8 @@ class InferenceEngine:
 
         t0 = time.perf_counter()
         model_call = self._model_call()
-        cache = KVCache.create(cfg.num_hidden_layers, b, max_len,
-                               cfg.num_key_value_heads, cfg.head_dim,
+        layers, kv_heads, head_dim = _cache_dims(self.model_cfg)
+        cache = KVCache.create(layers, b, max_len, kv_heads, head_dim,
                                dtype=self._config.dtype, device=self.device,
                                quantized=(self._config.kv_cache_dtype == "int8"
                                           and self.serve_mode == "dequant"))

@@ -2,7 +2,8 @@
 
 Dense (`KVCache`): (num_layers, batch, max_len, kv_heads, head_dim) with
 per-row cursors `index` (B,): row b holds `index[b]` valid tokens. Validity
-is a position mask (`decode_mask`), not a dynamic length.
+is a position mask (`decode_mask`), not a dynamic length. The v2 engine's
+slot layout serves one row at a time through `row_view` and `merge_row`.
 
 Block-paged (`PagedKVCache`, the v2 engine's layout): per layer a pool of
 physical blocks (Hkv, NB, BS, D) and per-row block tables (B, T) that map
@@ -98,6 +99,22 @@ class KVCache:
         cursor."""
         return self.replace(index=torch.as_tensor(
             index, dtype=torch.int32, device=self.index.device))
+
+
+def row_view(cache: KVCache, slot: int, start) -> KVCache:
+    """Row `slot` of a dense cache as a batch of one at cursor `start` (the
+    JAX v2 engine's `_row_view`). Its K and V are views of the cache's, so a
+    forward through the row writes the cache in place."""
+    start = torch.as_tensor(start, dtype=torch.int32, device=cache.index.device)
+    return KVCache(k=cache.k[:, slot:slot + 1], v=cache.v[:, slot:slot + 1],
+                   index=start.reshape(1))
+
+
+def merge_row(cache: KVCache, slot: int, new_index) -> KVCache:
+    """Fold a row view's update back (the JAX `_merge_row`): its K/V already
+    landed in place, so only row `slot`'s cursor moves to `new_index`."""
+    cache.index[slot] = new_index
+    return cache
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
-"""InferenceEngineV2: continuous batching over the block-paged KV cache
-(counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py``).
+"""InferenceEngineV2: continuous batching over the block-paged KV cache or
+dense slot rows (counterpart of ``deepspeed_tpu/inference/v2/engine_v2.py``).
 
 The FastGen serving loop: prompts join as cache rows and blocks free up,
 every live row decodes each step, long prompts prefill in chunks of
@@ -25,10 +25,18 @@ copy-on-write block copy moves the scales with the values. Placement is v1's
 (`serve_modes.place_params`): `quant` in the `dequant` mode serves the int8
 tree dequantized at every model call, as the JAX engine's programs do.
 
-Only the paged layout is ported. The slot layout (which the `layer_scan`
-and `capacity` modes need), the serve-mode ladder, speculative rounds,
-`warmup` and the tracer, program ledger, recompile detector and memory plane
-are not (ROADMAP.md, Queue 1, 'v2 FastGen: the rest').
+`kv_layout="slot"` keeps one dense `KVCache` row per sequence: prompt
+pieces run row by row through a view of their row (`kv_cache.row_view`),
+decode steps over every row at once (a Llama's through K2), and there are
+no blocks, so no prefix sharing and no `fork`. `kv_layout=None` picks as
+the JAX engine does: `slot` for an alibi model whose head dim or block size
+is under 128 (BLOOM-560m, bloom-tiny), else `paged` (BLOOM-7b1 runs K3-alibi
+and K4-alibi there). int8 KV needs the paged layout.
+
+The serve-mode ladder, v2 `layer_scan`/`capacity` (they serve slot rows),
+speculative rounds, `warmup` and the tracer, program ledger, recompile
+detector and memory plane are not ported (ROADMAP.md, Queue 1, 'v2
+FastGen: the rest').
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, _unported
 from deepspeed_tpu_torch.inference.engine import _cache_dims
 from deepspeed_tpu_torch.inference.kv_block_manager import KVBlockManager
-from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache
+from deepspeed_tpu_torch.inference.kv_cache import KVCache, PagedKVCache, merge_row, row_view
 from deepspeed_tpu_torch.inference.serve_modes import dense_state, place_params
 from deepspeed_tpu_torch.inference.v2.ragged import DSStateManager
 from deepspeed_tpu_torch.ops.sampling import row_generator, sample_logits
@@ -74,9 +82,11 @@ class InferenceEngineV2:
         without CUDA it raises unless `device="cpu"`). The cache is a pool
         of `num_cache_blocks` blocks of `cache_block_size` tokens (default:
         max_batch × ceil(max_seq_len / block) blocks), so memory scales with
-        tokens in flight. `kv_cache_dtype="int8"` stores the pools int8 at
+        tokens in flight. `kv_layout="slot"` keeps a dense max_batch ×
+        max_seq_len cache instead; None picks as the JAX engine does (the
+        module docstring). `kv_cache_dtype="int8"` stores the pools int8 at
         rest. `prefix_sharing` admits prompts through a match against
-        committed blocks and enables `fork`. `model` is an `nn.Module` or a
+        committed blocks and enables `fork` (paged only). `model` is an `nn.Module` or a
         `(module, params)` tuple, `params` a JAX parameter tree of numpy
         arrays. `serve_mode` and `quant` write through to the config."""
         if config is None:
@@ -90,9 +100,16 @@ class InferenceEngineV2:
         if speculative is not None:
             config.speculative = speculative
         config._check_ported()
-        if kv_layout == "slot":
-            raise _unported("kv_layout='slot'", _REST)
-        if kv_layout not in (None, "paged"):
+        if isinstance(model, tuple):
+            model, params = model
+        if kv_layout is None:
+            # the JAX engine's rule: its alibi kernels were validated at
+            # head dim and block >= 128, so smaller alibi models keep slot rows
+            _, _, head_dim = _cache_dims(model.cfg)
+            small_alibi = getattr(model.cfg, "uses_alibi", False) and (
+                head_dim < 128 or cache_block_size < 128)
+            kv_layout = "slot" if small_alibi else "paged"
+        if kv_layout not in ("paged", "slot"):
             raise ValueError(f"kv_layout must be 'paged' or 'slot', got {kv_layout!r}")
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got {kv_cache_dtype!r}")
@@ -101,8 +118,6 @@ class InferenceEngineV2:
         self._config = config
         self.accelerator = get_accelerator(device)
         self.device = self.accelerator.device
-        if isinstance(model, tuple):
-            model, params = model
         self.module = model
         self.model_cfg = model.cfg
         self.params = place_params(self, params)
@@ -115,10 +130,15 @@ class InferenceEngineV2:
         if self.serve_mode != "dequant":
             raise _unported(f"serve_mode={self.serve_mode!r} in v2 (it serves dense "
                             "slot rows, kv_layout='slot')", _REST)
+        if kv_cache_dtype == "int8" and kv_layout != "paged":
+            raise ValueError(
+                "kv_cache_dtype='int8' needs the paged layout (the dense "
+                "slot rows have no per-row view of a quantized cache); "
+                "drop kv_layout='slot' or the int8 cache")
         self.max_batch = max_batch
         self.max_seq_len = max_seq_len
         self.split_fuse_chunk = split_fuse_chunk
-        self.kv_layout = "paged"
+        self.kv_layout = kv_layout
         self.kv_cache_dtype = kv_cache_dtype
         self._cache_block_size = cache_block_size
         self._num_cache_blocks = num_cache_blocks
@@ -148,20 +168,28 @@ class InferenceEngineV2:
         return torch.func.functional_call(self.module, state, args, kwargs)
 
     def _setup_cache(self) -> None:
-        """The paged cache and the scheduler state; every row parked."""
+        """The cache and the scheduler state; every row parked (cursor at
+        max_len, so writes drop)."""
+        self.block_manager: Optional[KVBlockManager] = None
+        layers, kv_heads, head_dim = _cache_dims(self.model_cfg)
+        if self.kv_layout == "slot":
+            self.cache = KVCache.create(layers, self.max_batch, self.max_seq_len, kv_heads,
+                                        head_dim, dtype=self._config.dtype, device=self.device)
+            self.state_manager = DSStateManager(self.max_batch)
+            self.cache.index.fill_(self.cache.max_len)
+            self._cache_desc = f"{self.max_batch} slots × {self.max_seq_len} tokens"
+            return
         bs = self._cache_block_size
         t = -(-self.max_seq_len // bs)
         num_blocks = self._num_cache_blocks
         if num_blocks is None:
             num_blocks = self.max_batch * t  # slot-parity capacity
-        layers, kv_heads, head_dim = _cache_dims(self.model_cfg)
         self.cache = PagedKVCache.create(
             layers, self.max_batch, self.max_seq_len, kv_heads, head_dim,
             num_blocks=num_blocks, block_size=bs, dtype=self._config.dtype,
             device=self.device, staged=True, quantized=self.kv_cache_dtype == "int8")
         self.state_manager = DSStateManager(self.max_batch, num_blocks=num_blocks,
                                             block_size=bs)
-        self.block_manager: Optional[KVBlockManager] = None
         if self._prefix_sharing:
             self.block_manager = KVBlockManager(num_blocks, bs)
             self.state_manager.block_allocator = self.block_manager
@@ -180,7 +208,10 @@ class InferenceEngineV2:
     def _reserve(self, seq, total_tokens: int) -> None:
         """Grow a sequence's blocks to `total_tokens` and stage its table row
         for the next sync. A write about to land in a shared partial block
-        (after `fork`) copies it first (copy-on-write)."""
+        (after `fork`) copies it first (copy-on-write). Slot rows own no
+        blocks: a no-op."""
+        if self.kv_layout != "paged":
+            return
         total_tokens = min(total_tokens, self.cache.max_len)
         if self.block_manager is not None and seq.blocks:
             cur = seq.seen_tokens          # next write position
@@ -214,6 +245,8 @@ class InferenceEngineV2:
     def _maybe_sync_tables(self) -> None:
         """Push host-side table edits to the device before a step; queued
         copy-on-write copies go first (they read pre-step content)."""
+        if self.kv_layout != "paged":
+            return
         copies = (self.block_manager.drain_copies()
                   if self.block_manager is not None else [])
         if copies:
@@ -266,8 +299,10 @@ class InferenceEngineV2:
         self.cache.index[child.slot] = child.seen_tokens  # un-park the row
 
     def kv_utilization(self) -> float:
-        """Fraction of the KV pool's physical blocks in use."""
-        alloc = self.state_manager.block_allocator
+        """Fraction of the KV pool in use: physical blocks (paged) or
+        sequence rows (slot)."""
+        alloc = (self.state_manager.block_allocator if self.kv_layout == "paged"
+                 else self.state_manager.allocator)
         total = max(alloc.num_blocks, 1)
         return (total - alloc.free_blocks) / total
 
@@ -290,7 +325,17 @@ class InferenceEngineV2:
     def _chunk_batch(self, pieces, slots, starts) -> torch.Tensor:
         """R rows' prompt pieces in one model call, each written through its
         own table row at its own cursor; advances their cursors. Returns the
-        next-token logits (R, V) at each row's last piece token."""
+        next-token logits (R, V) at each row's last piece token. Slot rows
+        run one model call each, on a view of their row."""
+        if self.kv_layout == "slot":
+            last = []
+            for piece, slot, start in zip(pieces, slots, starts):
+                logits, _ = self._model(self._tensor([piece], torch.long),
+                                        cache=row_view(self.cache, slot, start),
+                                        logits_at=self._tensor([len(piece) - 1]))
+                merge_row(self.cache, slot, start + len(piece))
+                last.append(logits)
+            return torch.cat(last)
         width = max(len(p) for p in pieces)
         ids = np.zeros((len(pieces), width), np.int64)
         for i, p in enumerate(pieces):
@@ -304,10 +349,11 @@ class InferenceEngineV2:
 
     def _decode_step(self, tokens: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         """One token for every row (B, 1): staged attention, then one scatter
-        per pool lands the staged tokens; inactive rows keep their cursors.
-        Returns logits (B, V)."""
+        per pool lands the staged tokens (slot rows are written in place);
+        inactive rows keep their cursors. Returns logits (B, V)."""
         logits, stepped = self._model(tokens, cache=self.cache)
-        stepped.apply_stage()
+        if self.kv_layout == "paged":
+            stepped.apply_stage()
         self.cache = self.cache.replace(
             index=torch.where(active, stepped.index, self.cache.index))
         return logits[:, -1]
@@ -349,11 +395,13 @@ class InferenceEngineV2:
 
     # ------------------------------------------------------------ scheduling
     def can_schedule(self, uids: Sequence[int], lengths: Sequence[int]) -> bool:
-        """Slot and physical-block availability."""
+        """Slot and (paged) physical-block availability."""
         new_uids = [u for u in uids if not self.state_manager.known_sequence(u)]
         if len(new_uids) > self.state_manager.allocator.free_blocks or \
                 any(l > self.max_seq_len for l in lengths):
             return False
+        if self.kv_layout != "paged":
+            return True
         need = sum(self.state_manager.blocks_for(l) for u, l in zip(uids, lengths)
                    if not self.state_manager.known_sequence(u))
         return need <= self.state_manager.block_allocator.free_blocks
@@ -498,8 +546,9 @@ class InferenceEngineV2:
         for uid in uids:
             seq = self.state_manager.get_sequence(uid)
             slots.append(seq.slot)
-            self._tables_np[seq.slot] = -1
-            self._tables_dirty = True
+            if self.kv_layout == "paged":
+                self._tables_np[seq.slot] = -1
+                self._tables_dirty = True
             self.state_manager.flush_sequence(uid)
             self._row_gens.pop(uid, None)
         self.cache.index[self._tensor(slots, torch.long)] = self.cache.max_len
@@ -562,16 +611,17 @@ class InferenceEngineV2:
             # admit into this step; each admitted sequence prepays its
             # worst-case blocks (prompt + generation budget)
             while pending and self.state_manager.allocator.free_blocks > 0:
-                worst = self.state_manager.blocks_for(min(
-                    len(pending[0][1]) + max_new_tokens, self.cache.max_len))
-                pool = self.state_manager.block_allocator
-                if worst > pool.num_blocks:
-                    raise ValueError(
-                        f"prompt needs {worst} KV blocks worst-case but the "
-                        f"pool only has {pool.num_blocks} — raise "
-                        "num_cache_blocks or shorten the prompt/generation budget")
-                if worst > pool.free_blocks:
-                    break  # not enough physical blocks; retry later
+                if self.kv_layout == "paged":
+                    worst = self.state_manager.blocks_for(min(
+                        len(pending[0][1]) + max_new_tokens, self.cache.max_len))
+                    pool = self.state_manager.block_allocator
+                    if worst > pool.num_blocks:
+                        raise ValueError(
+                            f"prompt needs {worst} KV blocks worst-case but the "
+                            f"pool only has {pool.num_blocks} — raise "
+                            "num_cache_blocks or shorten the prompt/generation budget")
+                    if worst > pool.free_blocks:
+                        break  # not enough physical blocks; retry later
                 uid, prompt = pending.pop(0)
                 seq_new = self.state_manager.get_or_create_sequence(uid)
                 matched = self._match_prefix(seq_new, list(map(int, prompt)))

@@ -1,10 +1,12 @@
 """Ragged batching state (counterpart of ``deepspeed_tpu/inference/v2/ragged.py``).
 
 `BlockedAllocator`, `DSSequenceDescriptor` and `DSStateManager`: host-side
-bookkeeping only; device state is the `PagedKVCache`. One free list hands
-out cache slots (rows of the block table), a second hands out physical KV
-blocks, so a sequence pins ceil(len / block_size) blocks instead of a
-max_seq_len row. Pure Python, the same behaviour as the JAX package's.
+bookkeeping only; device state is the engine's cache. One free list hands
+out cache slots (rows of the block table, or dense rows in the slot
+layout), a second hands out physical KV blocks in the paged layout, so a
+sequence pins ceil(len / block_size) blocks instead of a max_seq_len row.
+A manager made without `num_blocks` (the slot layout) owns no blocks. Pure
+Python, the same behaviour as the JAX package's.
 """
 
 from __future__ import annotations
@@ -48,13 +50,14 @@ class BlockedAllocator:
 class DSSequenceDescriptor:
     """Per-sequence tracking."""
     uid: int
-    slot: int                       # block-table row
+    slot: int                       # cache row (dense row / block-table row)
     seen_tokens: int = 0            # tokens already in the KV cache
     tokens: List[int] = dataclasses.field(default_factory=list)
     # tokens accepted but not yet in the cache: a non-empty list means the
     # sequence is mid-prefill and its next work unit is a chunk
     pending: List[int] = dataclasses.field(default_factory=list)
-    blocks: List[int] = dataclasses.field(default_factory=list)  # physical KV blocks
+    # physical KV blocks owned (paged layout; empty in the slot layout)
+    blocks: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
 
     @property

@@ -1,5 +1,5 @@
-"""Shared model-zoo pieces: the causal-LM loss (counterpart of
-``deepspeed_tpu/models/common.py``).
+"""Shared model-zoo pieces (counterpart of ``deepspeed_tpu/models/common.py``):
+the zoo's projection (`Dense`) and `LayerNorm`, and the causal-LM loss.
 
 The loss is computed in f32, with `IGNORE_INDEX` labels left out of the
 mean, as in the JAX package. A loss function for the engine has the
@@ -11,8 +11,46 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
 
 IGNORE_INDEX = -100
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` that computes in the config's dtype, as flax's
+    `nn.Dense(dtype=...)` casts its input and kernel (and bias, when it has
+    one)."""
+
+    def __init__(self, in_features, out_features, bias, compute_dtype, **factory):
+        super().__init__(in_features, out_features, bias=bias, **factory)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.Module):
+    """flax's `nn.LayerNorm(dtype=...)` with a scale and a bias: the
+    statistics in f32 (var = E[x²] − E[x]², clipped at 0), the normalised
+    value times the scale plus the bias in f32, cast to `compute_dtype`.
+    Parameters are named `scale` and `bias`, as in the JAX tree."""
+
+    def __init__(self, hidden: int, eps: float, compute_dtype, **factory):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        self.scale = nn.Parameter(torch.ones(hidden, **factory))
+        self.bias = nn.Parameter(torch.zeros(hidden, **factory))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((x32 - mean) * mul + self.bias.float()).to(self.compute_dtype)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

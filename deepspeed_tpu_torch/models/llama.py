@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache, decode_mask, update_layer
-from deepspeed_tpu_torch.models.common import causal_lm_loss, make_causal_loss_fn
+from deepspeed_tpu_torch.models.common import Dense, causal_lm_loss, make_causal_loss_fn
 from deepspeed_tpu_torch.ops.attention import (
     apply_rotary_emb,
     attention,
@@ -101,20 +101,6 @@ def check_ported(cfg: LlamaConfig) -> None:
             raise unported(name, "Training: the rest")
     if cfg.domino:
         raise unported("domino", "Training: the rest")
-
-
-class Dense(nn.Linear):
-    """`nn.Linear` that computes in the config's dtype, as flax's
-    `nn.Dense(dtype=...)` casts its input and kernel."""
-
-    def __init__(self, in_features, out_features, bias, compute_dtype, **factory):
-        super().__init__(in_features, out_features, bias=bias, **factory)
-        self.compute_dtype = compute_dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class RMSNorm(nn.Module):
@@ -314,11 +300,20 @@ def module_state(model: nn.Module, tree) -> dict:
     state = {"embed_tokens": tree["embed_tokens"], "norm.weight": tree["norm"]["weight"]}
     if model.lm_head is not None:
         state["lm_head.weight"] = tree["lm_head"].t()
-    for path, leaf in _leaves(tree["layers"]):
+    state.update(stack_state("layers", len(model.layers), tree["layers"]))
+    return state
+
+
+def stack_state(prefix: str, num_layers: int, stack) -> dict:
+    """Module names `{prefix}.{i}.…` → per-layer views of a tree's
+    scan-stacked leaves: a flax `Dense` kernel (L, in, out) as transposed
+    (out, in) `nn.Linear` weights, other leaves as they are."""
+    state = {}
+    for path, leaf in _leaves(stack):
         dense = path[-1] == "kernel"
         name = ".".join(path[:-1] + ("weight",)) if dense else ".".join(path)
-        for i in range(len(model.layers)):
-            state[f"layers.{i}.{name}"] = leaf[i].t() if dense else leaf[i]
+        for i in range(num_layers):
+            state[f"{prefix}.{i}.{name}"] = leaf[i].t() if dense else leaf[i]
     return state
 
 
@@ -356,7 +351,7 @@ def load_jax_params(model: nn.Module, tree) -> nn.Module:
     engine given such a tree keeps the int8 bytes instead."""
     from deepspeed_tpu_torch.inference.quantization import dequantize_param_tree
     tree = dequantize_param_tree(tree_to_torch(tree, dtype=torch.float32))
-    state = module_state(model, tree)
+    state = model.module_state(tree)
     params = dict(model.named_parameters())
     missing, unknown = sorted(set(params) - set(state)), sorted(set(state) - set(params))
     if missing or unknown:
@@ -382,6 +377,18 @@ def param_tree(model: nn.Module, dtype: Optional[torch.dtype] = None,
     the shapes alone. `release=True` frees each module parameter once it is
     copied (the module's storage moves to the meta device), so building the
     tree never holds two copies of the weights."""
+    take = param_taker(dtype, device, release)
+    tree = {"embed_tokens": take(model, "embed_tokens"),
+            "norm": {"weight": take(model.norm, "weight")}, "layers": {}}
+    if model.lm_head is not None:
+        tree["lm_head"] = take(model.lm_head, "weight").t().contiguous()
+    tree["layers"] = stack_tree(model.layers, take)
+    return tree
+
+
+def param_taker(dtype: Optional[torch.dtype] = None, device=None, release: bool = False):
+    """`take(owner, attr)`: the parameter cast to `dtype` on `device`; with
+    `release`, the owner's parameter moves to the meta device once taken."""
     def take(owner, attr):
         p = getattr(owner, attr)
         t = p.detach().to(device=device, dtype=dtype)
@@ -390,21 +397,24 @@ def param_tree(model: nn.Module, dtype: Optional[torch.dtype] = None,
                 torch.empty(p.shape, dtype=p.dtype, device="meta"),
                 requires_grad=p.requires_grad))
         return t
+    return take
 
-    tree = {"embed_tokens": take(model, "embed_tokens"),
-            "norm": {"weight": take(model.norm, "weight")}, "layers": {}}
-    if model.lm_head is not None:
-        tree["lm_head"] = take(model.lm_head, "weight").t().contiguous()
-    for name in [n for n, _ in model.layers[0].named_parameters()]:
+
+def stack_tree(layers: nn.ModuleList, take) -> dict:
+    """The layers' parameters as scan-stacked JAX leaves (the inverse of
+    `stack_state`): each stacked on a leading L axis, `nn.Linear` weights
+    transposed into flax (in, out) kernels."""
+    stack: dict = {}
+    for name in [n for n, _ in layers[0].named_parameters()]:
         *owner_path, attr = name.split(".")
-        owners = [layer.get_submodule(".".join(owner_path)) for layer in model.layers]
+        owners = [layer.get_submodule(".".join(owner_path)) for layer in layers]
         dense = isinstance(owners[0], nn.Linear) and attr == "weight"
-        node = tree["layers"]
+        node = stack
         for key in owner_path:
             node = node.setdefault(key, {})
         node["kernel" if dense else attr] = torch.stack(
             [take(o, attr).t() if dense else take(o, attr) for o in owners])
-    return tree
+    return stack
 
 
 @torch.no_grad()
@@ -419,4 +429,4 @@ def to_jax_params(model) -> dict:
     if isinstance(model, dict):
         return tree_map(lambda x: ({k: v.detach().cpu().numpy() for k, v in x.items()}
                                    if is_quantized_leaf(x) else _np(x)), model)
-    return tree_map(_np, param_tree(model, dtype=torch.float32))
+    return tree_map(_np, model.param_tree(dtype=torch.float32))

@@ -19,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.llama import Dense, LlamaAttention, LlamaConfig, RMSNorm
+from deepspeed_tpu_torch.models.common import Dense
+from deepspeed_tpu_torch.models.llama import LlamaAttention, LlamaConfig, RMSNorm
 from deepspeed_tpu_torch.models.moe_common import (
     MoeForCausalLM,
     load_jax_params,

@@ -4,7 +4,8 @@ Dispatch: on a CUDA tensor, `attention` runs the flash kernels
 (`ops/cuda/flash_attention.py`: the forward, and when gradients are needed
 the `FlashAttention` Function with the dq and dk/dv backward kernels) and
 single-query `cached_attention` runs the decode kernel
-(`ops/cuda/decode_attention.py`). A sliding window, alibi, or
+(`ops/cuda/decode_attention.py`), and a paged cache the paged kernels, with
+their window and alibi forms. Elsewhere a sliding window, alibi, or
 `impl="reference"`/`"blockwise"` take the masked paths, differentiable
 through plain autograd, as they do in the JAX package; so does a CPU tensor
 unless `impl="pallas"` asks for the flash path. Layouts are the JAX
@@ -13,6 +14,7 @@ package's: q (B, S, H, D), k/v (B, S, Hkv, D), dense caches (B, M, Hkv, D).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -35,6 +37,20 @@ def repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
         return k
     b, s, h, d = k.shape
     return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """ALiBi per-head slopes (H,) f32: a geometric sequence from 2^(-8/n)
+    for the nearest power of two n at or below `n_heads`, then every other
+    slope of the sequence for 2n for the heads beyond it (BLOOM's
+    `build_alibi_tensor`)."""
+    p2 = 2 ** math.floor(math.log2(n_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(p2) - 3)))
+    slopes = [base ** (i + 1) for i in range(p2)]
+    if p2 < n_heads:
+        extra = 2.0 ** (-(2.0 ** -(math.log2(2 * p2) - 3)))
+        slopes += [extra ** (2 * i + 1) for i in range(n_heads - p2)]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
 def reference_attention(q, k, v, causal: bool = True,
@@ -176,21 +192,19 @@ def cached_attention(q, k_cache, v_cache, index, mask, impl: str = "auto",
     A `PagedLayer` cache (the v2 engine's) always goes to the paged
     wrappers, as it does on the TPU: S == 1 to the paged decode kernel (K3),
     with the staged token when the layer has a stage, and S > 1 to the paged
-    prefill kernel (K4); `window` rides both. On the CPU the wrappers take
-    their plain versions; `mask` is not read.
+    prefill kernel (K4); `window` and `alibi` (the kernels' alibi forms)
+    ride both, at every head dim the kernels take. On the CPU the wrappers
+    take their plain versions; `mask` is not read.
 
     int8 caches keep their int8 form on every kernel branch: a paged
     layer's `scales` ride to K3/K4, and a `QuantizedKVLayer` goes to the
     decode kernel with its scales (K2-int8). The masked paths (prefill over
     a dense int8 cache, the CPU, a window, alibi) read its dequantized view
-    in q's dtype.
+    in q's dtype. A dense cache with alibi takes the masked path, as in the
+    JAX package.
     """
     if isinstance(k_cache, PagedLayer):
-        if alibi is not None:
-            raise NotImplementedError(
-                "alibi in the paged kernels is not ported yet: ROADMAP.md, "
-                "Queue 1, 'v2 FastGen: the rest'")
-        scales = dict(k_scales=k_cache.scales, v_scales=v_cache.scales)
+        scales = dict(k_scales=k_cache.scales, v_scales=v_cache.scales, alibi=alibi)
         if q.shape[1] == 1:
             staged = k_cache.stage is not None
             return paged_decode_attention(

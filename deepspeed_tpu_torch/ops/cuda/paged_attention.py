@@ -15,15 +15,21 @@ and a row with no valid key gives zeros. The decode kernel folds a staged
 token (`k_new`/`v_new`, not yet in the pool) in last, as f32 p·v; the
 prefill kernel masks causally by absolute position start + i over a pool
 that already holds the chunk. `window` keeps only keys in
-(qpos − window, qpos]. Alibi is not ported (ROADMAP.md, Queue 1, 'v2
-FastGen: the rest').
+(qpos − window, qpos].
+
+`alibi` (H,) f32 slopes (K3-alibi, K4-alibi) add slopes[h]·key_position to
+the f32 logits before the mask; the decode kernel's staged column sits at
+the query's position, lengths − 1. The bias stays in f32: at v2's positions
+it reaches ~860, where a bf16 ulp is 4. Alibi launches count in
+`.launches_alibi`, bf16 or int8 pools alike.
 
 int8 pools (K3-int8, K4-int8) come with `k_scales`/`v_scales` (Hkv, NB, BS)
 f32: the kernels fold the K scale into the logit columns and the V scale
 into the probability columns, reading each scale through the same clamped
 table entry as its value; the plain versions dequantize the pools into q's
 dtype and run the same plain math. The staged token is in q's dtype and
-folds in without a scale. int8 launches count in `.launches_int8`.
+folds in without a scale. int8 launches without alibi count in
+`.launches_int8`, the rest in `.launches`.
 """
 
 from __future__ import annotations
@@ -42,10 +48,10 @@ GROUP_SIZES = (1, 2, 4, 8)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", {
-    "ds_paged_decode_attention": [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P],
+    "ds_paged_decode_attention": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
 })
 PREFILL_LIBRARY = KernelLibrary("paged_prefill_attention.cu", {
-    "ds_paged_prefill_attention": [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P],
+    "ds_paged_prefill_attention": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
 })
 
 
@@ -61,6 +67,11 @@ def _dequantized(q, k_pool, v_pool, k_scales, v_scales):
             dequantize_kv(v_pool, v_scales, q.dtype))
 
 
+def _slopes(alibi: torch.Tensor, hkv: int, n_rep: int) -> torch.Tensor:
+    """(H,) slopes as (Hkv, n_rep) f32: head g·n_rep + r is [g, r]."""
+    return alibi.float().reshape(hkv, n_rep)
+
+
 def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     """(Hkv, NB, BS, D) through clamped (B, T) tables → (Hkv, B, T·BS, D)."""
     hkv, nb, bs, d = pool.shape
@@ -73,10 +84,12 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
                                  softmax_scale: Optional[float] = None,
                                  k_new=None, v_new=None,
                                  window: Optional[int] = None,
-                                 k_scales=None, v_scales=None) -> torch.Tensor:
+                                 k_scales=None, v_scales=None,
+                                 alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,1,H,D); pools (Hkv,NB,BS,D); tables (B,T); lengths (B,) valid
     tokens per row, the last one staged when `k_new`/`v_new` (B,Hkv,D) are
-    given -> (B,1,H,D). int8 pools come with `k_scales`/`v_scales`."""
+    given -> (B,1,H,D). int8 pools come with `k_scales`/`v_scales`;
+    `alibi` (H,) adds slopes[h]·key_position to the logits."""
     k_pool, v_pool = _dequantized(q, k_pool, v_pool, k_scales, v_scales)
     b, _, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
@@ -90,6 +103,8 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
     qg = q.reshape(b, hkv, n_rep, d).float()
     s = torch.einsum("bgrd,gbmd->bgrm", qg, _gather(k_pool, tables).float()) * scale
     cols = torch.arange(t * bs, device=q.device)[None, :]
+    if alibi is not None:
+        s = s + _slopes(alibi, hkv, n_rep)[None, :, :, None] * cols.float()[:, None, None, :]
     keep = cols < pool_len[:, None]
     if window is not None:
         keep = keep & (cols > (qpos - window)[:, None])
@@ -98,6 +113,9 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
     m = s.amax(dim=-1, keepdim=True)
     if staged:
         sn = (qg * k_new.float()[:, :, None, :]).sum(-1, keepdim=True) * scale
+        if alibi is not None:
+            sn = sn + _slopes(alibi, hkv, n_rep)[None, :, :, None] * \
+                qpos.float()[:, None, None, None]
         m = torch.maximum(m, sn)
     p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
@@ -114,11 +132,13 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
 def paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
                                   softmax_scale: Optional[float] = None,
                                   window: Optional[int] = None,
-                                  k_scales=None, v_scales=None) -> torch.Tensor:
+                                  k_scales=None, v_scales=None,
+                                  alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B,S,H,D), the S new tokens of each row, already written to the
     pool at positions starts[b]..starts[b]+S-1; each attends every cached
     position <= its own -> (B,S,H,D). int8 pools come with
-    `k_scales`/`v_scales`."""
+    `k_scales`/`v_scales`; `alibi` (H,) adds slopes[h]·key_position to the
+    logits."""
     k_pool, v_pool = _dequantized(q, k_pool, v_pool, k_scales, v_scales)
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
@@ -129,6 +149,8 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
         * _scale(d, softmax_scale)
     qpos = starts.to(q.device).long()[:, None] + torch.arange(s, device=q.device)[None]
     cols = torch.arange(t * bs, device=q.device)[None, None, :]
+    if alibi is not None:
+        sc = sc + _slopes(alibi, hkv, n_rep)[None, :, :, None, None] * cols.float()[:, None]
     keep = cols <= qpos[:, :, None]
     if window is not None:
         keep = keep & (cols > qpos[:, :, None] - window)
@@ -142,6 +164,26 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / safe_l).to(q.dtype)                            # (B,g,r,S,D)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+
+
+def _check_alibi(name, q, alibi) -> None:
+    """Slopes must be a contiguous f32 (H,) tensor on q's device."""
+    h = q.shape[2]
+    if alibi is not None and (alibi.device != q.device or alibi.dtype != torch.float32
+                              or tuple(alibi.shape) != (h,) or not alibi.is_contiguous()):
+        raise ValueError(f"{name}: alibi must be a contiguous f32 {(h,)} tensor on "
+                         f"{q.device}, got {alibi.dtype} {tuple(alibi.shape)} on "
+                         f"{alibi.device}")
+
+
+def _count(fn, quant: bool, alibi) -> None:
+    """One launch of `fn`'s kernel: alibi, int8 or bf16, in that order."""
+    if alibi is not None:
+        fn.launches_alibi += 1
+    elif quant:
+        fn.launches_int8 += 1
+    else:
+        fn.launches += 1
 
 
 def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
@@ -186,22 +228,25 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                            softmax_scale: Optional[float] = None,
                            k_new=None, v_new=None,
                            window: Optional[int] = None,
-                           k_scales=None, v_scales=None) -> torch.Tensor:
+                           k_scales=None, v_scales=None,
+                           alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3. q (B,1,H,D); pools (Hkv,NB,BS,D); tables (B,T) int32; lengths (B,)
     int32 valid tokens per row. With `k_new`/`v_new` (B,Hkv,D) the last valid
     token is staged and folded in; without them its slot is already written.
-    int8 pools come with `k_scales`/`v_scales` (Hkv,NB,BS) f32. Returns
-    (B,1,H,D).
+    int8 pools come with `k_scales`/`v_scales` (Hkv,NB,BS) f32, alibi with
+    its (H,) f32 slopes. Returns (B,1,H,D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    _check_alibi("paged_decode_attention", q, alibi)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
                                             softmax_scale, k_new, v_new, window,
-                                            k_scales, v_scales)
+                                            k_scales, v_scales, alibi)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_new, v_new, k_scales, v_scales)
+    refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_new, v_new, k_scales,
+                v_scales, alibi)
     staged = k_new is not None
     quant = k_scales is not None
     extra = (("k_new", k_new), ("v_new", v_new)) if staged else ()
@@ -222,37 +267,40 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None, tables.data_ptr(),
             lengths.data_ptr(), k_new.data_ptr() if staged else None,
-            v_new.data_ptr() if staged else None, out.data_ptr(),
+            v_new.data_ptr() if staged else None,
+            alibi.data_ptr() if alibi is not None else None, out.data_ptr(),
             b, h, hkv, d, nb, bs, tables.shape[1], int(staged), window or 0,
             _scale(d, softmax_scale), stream)
     DECODE_LIBRARY.check(code, "paged_decode_attention")
-    if quant:
-        paged_decode_attention.launches_int8 += 1
-    else:
-        paged_decode_attention.launches += 1
+    _count(paged_decode_attention, quant, alibi)
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_int8 = 0
+paged_decode_attention.launches_alibi = 0
 
 
 def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
                             softmax_scale: Optional[float] = None,
                             window: Optional[int] = None,
-                            k_scales=None, v_scales=None) -> torch.Tensor:
+                            k_scales=None, v_scales=None,
+                            alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4. q (B,S,H,D), already written to the pool at starts[b]..+S-1;
     pools (Hkv,NB,BS,D); tables (B,T) int32; starts (B,) int32. int8 pools
-    come with `k_scales`/`v_scales` (Hkv,NB,BS) f32. Returns (B,S,H,D).
+    come with `k_scales`/`v_scales` (Hkv,NB,BS) f32, alibi with its (H,) f32
+    slopes. Returns (B,S,H,D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    _check_alibi("paged_prefill_attention", q, alibi)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
-                                             softmax_scale, window, k_scales, v_scales)
+                                             softmax_scale, window, k_scales, v_scales,
+                                             alibi)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
-    refuse_grad("paged_prefill_attention", q, k_pool, v_pool, k_scales, v_scales)
+    refuse_grad("paged_prefill_attention", q, k_pool, v_pool, k_scales, v_scales, alibi)
     quant = k_scales is not None
     _check("paged_prefill_attention", q, k_pool, v_pool, tables, starts, window,
            k_scales, v_scales)
@@ -265,15 +313,14 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scales.data_ptr() if quant else None,
             v_scales.data_ptr() if quant else None, tables.data_ptr(),
-            starts.data_ptr(), out.data_ptr(), b, s, h, hkv, d, nb, bs,
+            starts.data_ptr(), alibi.data_ptr() if alibi is not None else None,
+            out.data_ptr(), b, s, h, hkv, d, nb, bs,
             tables.shape[1], window or 0, _scale(d, softmax_scale), stream)
     PREFILL_LIBRARY.check(code, "paged_prefill_attention")
-    if quant:
-        paged_prefill_attention.launches_int8 += 1
-    else:
-        paged_prefill_attention.launches += 1
+    _count(paged_prefill_attention, quant, alibi)
     return out
 
 
 paged_prefill_attention.launches = 0
 paged_prefill_attention.launches_int8 = 0
+paged_prefill_attention.launches_alibi = 0

@@ -25,7 +25,10 @@ block-sparse attention kernel (K7) is held to 2e-2 against its plain
 version on causal and non-causal layouts, every block and head width, and
 a causal row with no visible key (zeros); its autograd path's gradients
 are held to 2e-2 of their largest magnitude against autograd of the gather
-path.
+path. The paged kernels' alibi forms (K3-alibi, K4-alibi) are held to 2e-2
+against their plain versions over bf16 and int8 pools at both head widths,
+beside a control (the kernels without the slopes) that must miss; bad
+slopes raise before a launch.
 """
 
 import numpy as np
@@ -709,3 +712,105 @@ def test_sparse_attention_refuses_unsupported_shapes_on_card(cuda_device, bad):
     with pytest.raises((ValueError, TypeError)):
         sparse_attention(q, q, q, np.ones((2, 4, 4), bool), block=block)
     assert block_sparse_attention.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_paged_alibi_kernels_match_plain_on_card(cuda_device, n_rep, d, staged, int8):
+    """K3-alibi (staged, a parked row) and K4-alibi over bf16 and int8
+    pools, slopes of 16 heads at positions up to 63 (the bias stays in f32);
+    alibi launches count in `.launches_alibi` only. The kernel run without
+    the slopes must fail the same gate."""
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+    b, hkv, bs, t, nb = 4, 16 // n_rep, 16, 4, 20
+    h = hkv * n_rep
+    rng = np.random.default_rng(70 + n_rep + d + staged + 2 * int8)
+    k, v, tables = _paged(rng, cuda_device, [3, 4, 4, 0], hkv, d, nb=nb, bs=bs, t=t)
+    scales = {}
+    if int8:
+        k, ks, v, vs = _int8_pools(rng, cuda_device, hkv, nb, bs, d)
+        scales = dict(k_scales=ks, v_scales=vs)
+    slopes = alibi_slopes(h, cuda_device)
+    q = _bf16(rng.standard_normal((b, 1, h, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([1, 17, 64, t * bs + 1], dtype=torch.int32, device=cuda_device)
+    new = [_bf16(rng.standard_normal((b, hkv, d)).astype(np.float32), cuda_device)
+           for _ in range(2)] if staged else [None, None]
+    qs = _bf16(rng.standard_normal((b, 37, h, d)).astype(np.float32), cuda_device)
+    starts = torch.tensor([0, 16, 21, t * bs], dtype=torch.int32, device=cuda_device)
+    before = [(fn.launches, fn.launches_int8, fn.launches_alibi)
+              for fn in (paged_decode_attention, paged_prefill_attention)]
+    out = paged_decode_attention(q, k, v, tables, lengths, k_new=new[0], v_new=new[1],
+                                 alibi=slopes, **scales)
+    out_p = paged_prefill_attention(qs, k, v, tables, starts, alibi=slopes, **scales)
+    after = [(fn.launches, fn.launches_int8, fn.launches_alibi)
+             for fn in (paged_decode_attention, paged_prefill_attention)]
+    assert after == [(n, n8, na + 1) for n, n8, na in before]
+    ref = paged_decode_attention_plain(q, k, v, tables, lengths, k_new=new[0], v_new=new[1],
+                                       alibi=slopes, **scales)
+    ref_p = paged_prefill_attention_plain(qs, k, v, tables, starts, alibi=slopes, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    torch.testing.assert_close(out_p.float(), ref_p.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    # control: without the slopes the kernels miss the bias by far more
+    no_bias = paged_decode_attention(q, k, v, tables, lengths, k_new=new[0], v_new=new[1],
+                                     **scales)
+    no_bias_p = paged_prefill_attention(qs, k, v, tables, starts, **scales)
+    assert (no_bias.float() - ref.float()).abs().max() > BF16_TOL
+    assert (no_bias_p.float() - ref_p.float()).abs().max() > BF16_TOL
+
+
+@pytest.mark.cuda
+def test_cached_attention_paged_alibi_launches_the_kernels_on_card(cuda_device):
+    """A CUDA `cached_attention` on a paged layer with alibi: a prefill
+    chunk and a staged decode step launch K4-alibi and K3-alibi."""
+    from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache, update_layer
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes, cached_attention
+    h, d, bs = 8, 128, 16
+    cache = PagedKVCache.create(1, 2, 64, h, d, num_blocks=8, block_size=bs,
+                                device=cuda_device, staged=True)
+    cache.with_tables(np.asarray([[0, 1, 2, 3], [4, 5, 6, 7]], np.int32))
+    rng = np.random.default_rng(90)
+    slopes = alibi_slopes(h, cuda_device)
+    index = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    x = [_bf16(rng.standard_normal((2, 20, h, d)).astype(np.float32), cuda_device)
+         for _ in range(3)]
+    before = (paged_decode_attention.launches_alibi, paged_prefill_attention.launches_alibi)
+    k, v = cache.replace(k_stage=None, v_stage=None).layer(0)
+    k, v = update_layer(k, v, x[1], x[2], index)
+    out = cached_attention(x[0], k, v, index, None, alibi=slopes)
+    k, v = cache.layer(0)
+    k, v = update_layer(k, v, x[1][:, :1], x[2][:, :1], index + 20)
+    step = cached_attention(x[0][:, :1].contiguous(), k, v, index + 20, None, alibi=slopes)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches_alibi,
+            paged_prefill_attention.launches_alibi) == (before[0] + 1, before[1] + 1)
+    assert out.shape == x[0].shape and step.shape == (2, 1, h, d)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(step.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["shape", "float64", "bf16", "cpu", "strided"])
+def test_paged_kernels_refuse_bad_slopes_on_card(cuda_device, bad):
+    """Slopes must be a contiguous f32 (H,) tensor on q's device: anything
+    else raises before a launch."""
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+    h, d = 4, 64
+    rng = np.random.default_rng(91)
+    k, v, tables = _paged(rng, cuda_device, [1, 1], 2, d)
+    q = _bf16(rng.standard_normal((2, 1, h, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([3, 9], dtype=torch.int32, device=cuda_device)
+    slopes = {"shape": alibi_slopes(h + 1, cuda_device),
+              "float64": alibi_slopes(h, cuda_device).double(),
+              "bf16": alibi_slopes(h, cuda_device).bfloat16(),
+              "cpu": alibi_slopes(h),
+              "strided": alibi_slopes(2 * h, cuda_device)[::2]}[bad]
+    launches = (paged_decode_attention.launches_alibi, paged_prefill_attention.launches_alibi)
+    with pytest.raises(ValueError, match="alibi"):
+        paged_decode_attention(q, k, v, tables, lengths, alibi=slopes)
+    with pytest.raises(ValueError, match="alibi"):
+        paged_prefill_attention(q, k, v, tables, lengths - 1, alibi=slopes)
+    assert (paged_decode_attention.launches_alibi,
+            paged_prefill_attention.launches_alibi) == launches

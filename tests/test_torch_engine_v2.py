@@ -190,8 +190,6 @@ def test_v2_sampled_generate(reference):
 def test_v2_unported_options_raise(reference):
     tree, _, _ = reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_engine(tree, kv_layout="slot")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine(tree, serve_mode="layer_scan", quant={"enabled": True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine(tree, speculative={"enabled": True, "k": 4})

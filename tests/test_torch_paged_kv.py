@@ -217,12 +217,15 @@ def test_paged_prefill_plain_matches_jax_kernel(n_rep, window):
 
 
 def test_paged_attention_through_cached_attention_rejects_alibi():
-    """The paged branch of `cached_attention` raises on alibi, naming the
-    ROADMAP item."""
+    """The paged branch of `cached_attention` takes alibi slopes of shape
+    (H,) and rejects any other shape (one slope would broadcast over every
+    head without a word)."""
     from deepspeed_tpu_torch.ops.attention import cached_attention
     cache = port_kv.PagedKVCache.create(1, 1, 16, 1, 8, num_blocks=2, block_size=8,
                                         dtype=torch.float32, device="cpu")
     k, v = cache.layer(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cached_attention(torch.zeros(1, 1, 2, 8), k, v, torch.zeros(1, dtype=torch.int32),
-                         None, alibi=torch.ones(2))
+    q, index = torch.zeros(1, 1, 2, 8), torch.zeros(1, dtype=torch.int32)
+    for bad in (torch.ones(1), torch.ones(3), torch.ones(2, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="alibi"):
+            cached_attention(q, k, v, index, None, alibi=bad)
+    assert cached_attention(q, k, v, index, None, alibi=torch.ones(2)).shape == q.shape
