@@ -89,6 +89,23 @@
    of the same width holds the gradients of one GAS window through the
    grouped GEMM against the ragged buffer beside the routing-flip share,
    with a control (drhs fed the sizes rolled by one) that must fail;
+9c. serves Llama-3-8B at full width and depth tensor-parallel over tp = 2
+   (`tensor_parallel={"tp_size": 2}`): two ranks, spawned processes on the
+   one card joined by gloo (NCCL rejects two ranks on one device, so the
+   collectives stage through the host: its times are not a
+   tensor-parallel speed), each building its shard from the seed of the
+   tp = 1 phases: v1 `forward` on 4 x 512 and greedy `generate` of 64 (K1
+   and K2 per shard counted), the last step teacher-forced on the tp = 1
+   tokens against the tp = 1 engine's, with a control (rank 1 serving rank
+   0's o_proj shard) that must miss; a sampled `generate`; v2 traffic A
+   (K3 and K4 per shard counted), four rows against v1 `forward`; int8
+   weights through the layer scan (K5 'n' and 'k' per shard counted, no
+   kernel fallback), the last step against the tp = 1 int8 engine's; both
+   ranks' tokens equal; then a 2-layer model at tp = 2 on the card in bf16
+   against the CPU in f32 at tp = 1. The kernel phase holds each rank's
+   shard of K2, K3, K4 and K5 ('n') bit for bit to the same heads or
+   columns of the unsharded kernel, and K5 'k''s two partial products
+   summed to the unsharded product;
 10. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -154,6 +171,14 @@ SLOT_V2 = dict(max_batch=8, max_seq_len=1024, split_fuse_chunk=256)
 SLOT_PROMPTS = (100, 300, 600, 200) * 4  # the 600s run three chunks
 SLOT_NEW = 32
 WATCH_SLOT = (0, 1, 2, 15)               # one prompt of each length
+# Tensor-parallel serving of Llama-3-8B over tp = 2: two ranks, one process
+# each, on the one card, joined by gloo (NCCL rejects two ranks on one
+# device), so the collectives stage through the host while the kernels,
+# weights and caches stay on the card. Its times are those of two ranks
+# sharing one H100, not a tensor-parallel speed.
+TP = 2
+TP_REFS = {}                 # the tp = 1 phases' greedy tokens and last-step logits
+TP_TIMEOUT_S = 600           # a rank waiting longer on a collective fails the run
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -621,6 +646,208 @@ def check_qmm(gen, m, k, n, block):
                 library_ms=cuda_ms(lambda: F.linear(x, w_t)))
 
 
+def shard_topology(rank):
+    """Rank `rank` of a tp = 2 topology on the card (no process group: the
+    kernel phase calls each rank's shard in this one process)."""
+    from deepspeed_tpu_torch.utils.groups import MeshTopology
+    return MeshTopology(tp=TP, world_size=TP, rank=rank, device="cuda")
+
+
+def head_shard(x, axis, rank):
+    """Rank `rank`'s contiguous slice of axis `axis` (heads or columns)."""
+    n = x.shape[axis] // TP
+    return x.narrow(axis, rank * n, n).contiguous()
+
+
+def shard_row(name, call, plain, whole, out_axis, nbytes, flops, library, relative=False):
+    """K8: `call(rank)` runs the per-shard wrapper on that rank's slice.
+    Each rank's output must equal the same heads (or columns) of `whole`,
+    the unsharded kernel's output, bit for bit; rank 0's is held against
+    its plain version (relative to its largest magnitude for K5, as
+    `check_qmm` holds K5) and timed beside it, its bound (the shard's own
+    bytes and operations) and `library`."""
+    outs = [call(r) for r in range(TP)]
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(o, head_shard(whole, out_axis, r)) for r, o in enumerate(outs))
+    assert bitwise, name
+    ref = plain()
+    err = (outs[0].float() - ref.float()).abs().max().item()
+    gated = rel_max_err(outs[0], ref) if relative else err
+    assert torch.isfinite(outs[0]).all() and gated <= KERNEL_TOL, (name, gated)
+    bound_ms, bound_by = bound(nbytes, flops)
+    return dict(bitwise_equal_to_unsharded=bitwise, max_abs_err=err,
+                **({"rel_max_err": gated} if relative else {}),
+                ms=cuda_ms(lambda: call(0)), plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(library))
+
+
+def check_sharded_decode(gen):
+    """K8-a: K2 per shard at the v1 decode shape, Llama-3-8B's heads cut
+    over tp = 2 (rank r: query heads 16r..16r+15, KV heads 4r..4r+3)."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda.sharded import sharded_decode_attention
+    m = max(DECODE_LENGTHS)
+    q, k, v = randn((B, 1, H, D), gen), randn((B, m, HKV, D), gen), randn((B, m, HKV, D), gen)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    whole = da.decode_attention(q, k, v, lengths)
+    shards = [[head_shard(x, 2, r) for x in (q, k, v)] for r in range(TP)]
+    topos = [shard_topology(r) for r in range(TP)]
+    q0, k0, v0 = shards[0]
+    n_kv, h, hkv = sum(DECODE_LENGTHS), H // TP, HKV // TP
+    mask = (torch.arange(m, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q0, k0, v0))
+    row = shard_row(
+        "sharded_decode_attention",
+        lambda r: sharded_decode_attention(*shards[r], lengths, topos[r]),
+        lambda: da.decode_attention_plain(q0, k0, v0, lengths), whole, 2,
+        q0.numel() * 2 * 2 + n_kv * hkv * D * 2 * 2 + lengths.numel() * 4,
+        4.0 * D * n_kv * h,
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    return dict(shape=f"B={B} M={m} H={h} Hkv={hkv} D={D} per rank of H={H} Hkv={HKV}, "
+                      f"tp={TP}, lengths={list(DECODE_LENGTHS)}", **row)
+
+
+def check_sharded_paged_decode(gen, rng):
+    """K8-b: K3 per shard at the v2 decode shape (staged, bf16 pools; the
+    rows of `check_paged_decode`), the pools' KV heads cut over tp = 2."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.ops.cuda.sharded import sharded_paged_decode_attention
+    b, h, hkv = 64, H // TP, HKV // TP
+    lengths_np = np.concatenate([rng.integers(1, BS + 1, 32), rng.integers(BS + 1, 2 * BS + 1, 31),
+                                 [T * BS + 1]]).astype(np.int32)
+    k_pool, v_pool, _, tables, tables_t = paged_inputs(
+        rng, gen, [-(-int(n) // BS) for n in lengths_np[:-1]] + [0])
+    lengths = torch.from_numpy(lengths_np).cuda()
+    q, k_new, v_new = randn((b, 1, H, D), gen), randn((b, HKV, D), gen), randn((b, HKV, D), gen)
+    whole = pa.paged_decode_attention(q, k_pool, v_pool, tables_t, lengths, k_new=k_new,
+                                      v_new=v_new)
+    shards = [dict(q=head_shard(q, 2, r), k_pool=head_shard(k_pool, 0, r),
+                   v_pool=head_shard(v_pool, 0, r), k_new=head_shard(k_new, 1, r),
+                   v_new=head_shard(v_new, 1, r)) for r in range(TP)]
+    topos = [shard_topology(r) for r in range(TP)]
+    s0 = shards[0]
+    hi = np.minimum(lengths_np - 1, T * BS)
+    keys = int(np.maximum(hi, 0).sum()) + b
+    nbytes = (kv_bytes(tables, zip(np.zeros(b, np.int64), hi), False, hkv, D)
+              + s0["q"].numel() * 2 * 2 + tables.size * 4 + b * 4 + 2 * b * hkv * D * 2)
+    dk = torch.cat([dense_view(s0["k_pool"], tables_t), s0["k_new"][:, :, None]], dim=2)
+    dv = torch.cat([dense_view(s0["v_pool"], tables_t), s0["v_new"][:, :, None]], dim=2)
+    cols = torch.arange(T * BS, device="cuda")[None, :]
+    mask = cols < torch.from_numpy(hi).cuda()[:, None]
+    mask = torch.cat([mask, torch.ones_like(mask[:, :1])], dim=1)[:, None, None, :]
+    qt = s0["q"].transpose(1, 2)
+
+    def call(r):
+        x = shards[r]
+        return sharded_paged_decode_attention(x["q"], x["k_pool"], x["v_pool"], tables_t,
+                                              lengths, topos[r], k_new=x["k_new"],
+                                              v_new=x["v_new"])
+
+    row = shard_row(
+        "sharded_paged_decode_attention", call,
+        lambda: pa.paged_decode_attention_plain(s0["q"], s0["k_pool"], s0["v_pool"], tables_t,
+                                                lengths, k_new=s0["k_new"], v_new=s0["v_new"]),
+        whole, 2, nbytes, 4.0 * D * h * keys,
+        lambda: F.scaled_dot_product_attention(qt, dk, dv, attn_mask=mask, enable_gqa=True))
+    return dict(shape=f"B={b} H={h} Hkv={hkv} D={D} BS={BS} T={T} NB={NB} staged per rank "
+                      f"of H={H} Hkv={HKV}, tp={TP}, keys={keys}", **row)
+
+
+def check_sharded_paged_prefill(gen, rng):
+    """K8-c: K4 per shard at the v2 prefill shape (16 rows of 256 new
+    tokens, the rows of `check_paged_prefill`), KV heads cut over tp = 2."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
+    from deepspeed_tpu_torch.ops.cuda.sharded import sharded_paged_prefill_attention
+    b, s, h, hkv = 16, 256, H // TP, HKV // TP
+    starts_np = np.asarray([(0, 256, 300, 512, 768)[i % 5] for i in range(b - 1)]
+                           + [T * BS], np.int32)
+    k_pool, v_pool, _, tables, tables_t = paged_inputs(
+        rng, gen, [-(-(int(st) + s) // BS) for st in starts_np[:-1]] + [0])
+    starts = torch.from_numpy(starts_np).cuda()
+    q = randn((b, s, H, D), gen)
+    whole = pa.paged_prefill_attention(q, k_pool, v_pool, tables_t, starts)
+    shards = [(head_shard(q, 2, r), head_shard(k_pool, 0, r), head_shard(v_pool, 0, r))
+              for r in range(TP)]
+    topos = [shard_topology(r) for r in range(TP)]
+    q0, kp0, vp0 = shards[0]
+    qpos = starts_np.astype(np.int64)[:, None] + np.arange(s)[None, :]
+    hi = np.minimum(qpos + 1, T * BS)
+    keys = int(np.maximum(hi, 0).sum())
+    nbytes = (kv_bytes(tables, zip(np.zeros(b, np.int64), hi[:, -1]), False, hkv, D)
+              + q0.numel() * 2 * 2 + tables.size * 4 + b * 4)
+    cols = torch.arange(T * BS, device="cuda")[None, None, :]
+    mask = (cols < torch.from_numpy(hi).cuda()[..., None])[:, None]
+    dk, dv = dense_view(kp0, tables_t), dense_view(vp0, tables_t)
+    qt = q0.transpose(1, 2)
+    row = shard_row(
+        "sharded_paged_prefill_attention",
+        lambda r: sharded_paged_prefill_attention(*shards[r], tables_t, starts, topos[r]),
+        lambda: pa.paged_prefill_attention_plain(q0, kp0, vp0, tables_t, starts),
+        whole, 2, nbytes, 4.0 * D * h * keys,
+        lambda: F.scaled_dot_product_attention(qt, dk, dv, attn_mask=mask, enable_gqa=True))
+    return dict(shape=f"B={b} S={s} H={h} Hkv={hkv} D={D} BS={BS} T={T} NB={NB} per rank of "
+                      f"H={H} Hkv={HKV}, tp={TP}, keys={keys}", **row)
+
+
+def check_sharded_qmm(gen):
+    """K8-d: K5 per shard at the decode calls (M = 4, blocks of 256):
+    'n' on gate/up's column shard (4096 x 7168 of 14336), each rank bitwise
+    the unsharded columns; 'k' on down's row shard (7168 of 14336 x 4096),
+    the two ranks' partial products summed (the all-reduce, here in one
+    process) within the kernel gate of the unsharded product, and rank 0's
+    partial held against the plain version at its own shape."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
+    from deepspeed_tpu_torch.ops.quantization import quantize_int8_blockwise
+    from deepspeed_tpu_torch.utils.partitioning import shard_leaf
+
+    def weight(k, n):
+        q, scales = quantize_int8_blockwise(
+            torch.randn((k, n), generator=gen, device="cuda") * 0.02, 256)
+        return {"__q8__": q, "scales": scales}
+
+    m, k, n = B, 4096, 14336
+    x, w = randn((m, k), gen), weight(k, n)
+    whole = qm.quantized_matmul(x, w["__q8__"], w["scales"])
+    cut = [shard_leaf(w, 1, TP, r) for r in range(TP)]
+    q0, s0 = cut[0]["__q8__"], cut[0]["scales"]
+    w_t = torch.randn((n // TP, k), generator=gen, device="cuda").to(torch.bfloat16)
+    row = shard_row(
+        "sharded_quantized_matmul 'n'",
+        lambda r: qm.sharded_quantized_matmul(x, cut[r]["__q8__"], cut[r]["scales"], "n"),
+        lambda: qm.sharded_quantized_matmul_plain(x, q0, s0, "n"), whole, 1,
+        m * k * 2 + q0.numel() + s0.numel() * 4 + m * (n // TP) * 2,
+        2.0 * m * k * n / TP, lambda: F.linear(x, w_t), relative=True)
+    # 'k': down's rows
+    xk, wk = randn((m, n), gen), weight(n, k)
+    whole_k = qm.quantized_matmul(xk, wk["__q8__"], wk["scales"])
+    rows = [shard_leaf(wk, 0, TP, r) for r in range(TP)]
+    parts = [qm.sharded_quantized_matmul(head_shard(xk, 1, r), rows[r]["__q8__"],
+                                         rows[r]["scales"], "k") for r in range(TP)]
+    k_err = rel_max_err(parts[0] + parts[1], whole_k)
+    assert k_err <= KERNEL_TOL, k_err
+    x0, qk0, sk0 = head_shard(xk, 1, 0), rows[0]["__q8__"], rows[0]["scales"]
+    k_ref = qm.sharded_quantized_matmul_plain(x0, qk0, sk0, "k")
+    k_plain_err = rel_max_err(parts[0], k_ref)
+    assert torch.isfinite(parts[0]).all() and k_plain_err <= KERNEL_TOL, k_plain_err
+    k_bound, k_by = bound(m * (n // TP) * 2 + qk0.numel() + sk0.numel() * 4 + m * k * 2,
+                          2.0 * m * k * n / TP)
+    wk_t = torch.randn((k, n // TP), generator=gen, device="cuda").to(torch.bfloat16)
+    k_row = dict(shape=f"M={m} K={n // TP} N={k} block=256 (down's rows, tp={TP})",
+                 partial_sum_rel_max_err=k_err,
+                 max_abs_err=(parts[0].float() - k_ref.float()).abs().max().item(),
+                 rel_max_err=k_plain_err,
+                 ms=cuda_ms(lambda: qm.sharded_quantized_matmul(x0, qk0, sk0, "k")),
+                 plain_ms=cuda_ms(lambda: qm.sharded_quantized_matmul_plain(x0, qk0, sk0, "k"),
+                                  iters=5, warmup=1),
+                 bound_ms=k_bound, bound_by=k_by, library_ms=cuda_ms(lambda: F.linear(x0, wk_t)))
+    return dict(shape=f"M={m} K={k} N={n // TP} block=256 (gate/up's columns, tp={TP})",
+                **row, k=k_row)
+
+
 def routing_sizes(gen, tokens, experts, k):
     """Group sizes of a top-k routing draw: `tokens` random router logits
     through the port's gating, counted per expert (int32, on the card)."""
@@ -771,6 +998,7 @@ def serve(report, model):
         layer.self_attn.cfg = cfg
     assert torch.isfinite(step_logits).all() and consistency <= CONSISTENCY_RTOL, consistency
     assert torch.equal(step_logits.float().argmax(-1), out[:, -1])
+    TP_REFS["v1"] = (out.cpu(), step_logits.float().cpu())
 
     # prefill alone, to split the generate time
     t0 = time.perf_counter()
@@ -894,6 +1122,16 @@ def kernel_counters():
         counters[fn.__name__ + "_int8"] = (fn, "launches_int8")
     for fn in (paged_decode_attention, paged_prefill_attention):
         counters[fn.__name__ + "_alibi"] = (fn, "launches_alibi")
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import sharded_quantized_matmul
+    from deepspeed_tpu_torch.ops.cuda.sharded import (
+        sharded_decode_attention, sharded_paged_decode_attention,
+        sharded_paged_prefill_attention)
+    for fn in (sharded_decode_attention, sharded_paged_decode_attention,
+               sharded_paged_prefill_attention):
+        counters[fn.__name__] = (fn, "launches")
+    for flavor in ("n", "k"):
+        counters[f"sharded_quantized_matmul_{flavor}"] = (sharded_quantized_matmul,
+                                                          f"launches_{flavor}")
     return counters
 
 
@@ -1238,6 +1476,7 @@ def serve_int8(report, model):
     assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
     step_logits = seen[-1]
     assert torch.equal(step_logits.float().argmax(-1), out[:, -1])
+    TP_REFS["int8"] = (out.cpu(), step_logits.float().cpu())
     t0 = time.perf_counter()
     engine.generate(ids, max_new_tokens=1)
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -1659,6 +1898,292 @@ def reference_v2(gpu_model, cpu_model, ids, steps: int = 8):
     del gpu, cpu
     return dict(prefill_rel_rms_err=err_prefill, last_decode_step_rel_rms_err=err_step,
                 decode_steps=steps, kv_layout=layout)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def serve_tp(report):
+    """Llama-3-8B at full width and depth served tensor-parallel over tp = 2:
+    two ranks (spawned processes) on the one card, joined by gloo, each
+    holding its shard (`tp_rank`). The phase's gates: equal tokens on both
+    ranks; rank 0's last v1 decode step (teacher-forced on the tp = 1
+    engine's tokens) against the tp = 1 engine's, and the same for the
+    int8 layer scan, within CONSISTENCY_RTOL; a control (rank 1 serving
+    rank 0's o_proj shard) that must miss that bound; v2 rows against v1
+    `forward` at tp = 2; launch counts of every per-shard route; no
+    kernel_fallback. Then `reference_tp`'s two layers against the CPU."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config
+    cpu_ref = LlamaForCausalLM(llama_config("llama3-8b", num_hidden_layers=2,
+                                            dtype=torch.float32), device="meta")
+    cpu_ref.load_state_dict({k: v.float().cpu() for k, v in llama(
+        llama_config("llama3-8b", num_hidden_layers=2), SEED + 7).state_dict().items()},
+        assign=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(TP_REFS, f"{tmp}/refs.pt")
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(free_port(), tmp), nprocs=TP, start_method="spawn")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP)]
+    r0, r1 = ranks
+    L = llama_config("llama3-8b").num_hidden_layers
+    for key in ("v1_greedy", "v1_sampled", "v2_outputs", "int8_greedy", "ref_tokens"):
+        assert r0[key] == r1[key], key
+    assert r0["v1_last_rel_rms_err"] <= CONSISTENCY_RTOL, r0["v1_last_rel_rms_err"]
+    assert r0["v1_control_rel_rms_err"] > CONSISTENCY_RTOL, r0["v1_control_rel_rms_err"]
+    assert r0["int8_last_rel_rms_err"] <= CONSISTENCY_RTOL, r0["int8_last_rel_rms_err"]
+    assert max(r0["v2_last_step_vs_v1_forward_rel_rms_err"]) <= CONSISTENCY_RTOL
+    for r in ranks:
+        calls = r["v2_calls"]
+        assert r["v1_launches"] == only(flash_attention_fwd=L, decode_attention=L * (NEW - 1),
+                                        sharded_decode_attention=L * (NEW - 1)), r["v1_launches"]
+        assert r["v2_launches"] == only(
+            paged_decode_attention=L * calls["decode_steps"],
+            sharded_paged_decode_attention=L * calls["decode_steps"],
+            paged_prefill_attention=L * calls["chunk_calls"],
+            sharded_paged_prefill_attention=L * calls["chunk_calls"]), r["v2_launches"]
+        assert r["int8_launches"] == only(
+            quantized_matmul=7 * L * NEW, sharded_quantized_matmul_n=5 * L * NEW,
+            sharded_quantized_matmul_k=2 * L * NEW, decode_attention=L * (NEW - 1),
+            sharded_decode_attention=L * (NEW - 1)), r["int8_launches"]
+        assert r["kernel_fallbacks"] == [], r["kernel_fallbacks"]
+    report["reference_tp"] = reference_tp(cpu_ref, r0)
+    del cpu_ref
+    gc.collect()
+    drop = ("v1_greedy", "v1_sampled", "v2_outputs", "int8_greedy", "ref_tokens",
+            "ref_logits")
+    report["serve_tp"] = dict(
+        card=report["card"], model="llama3-8b (random bf16 weights, seed 0) over tp=2",
+        setup=f"{TP} ranks, one process each, sharing one card over gloo: the "
+              "collectives stage through the host, so these times are not a "
+              "tensor-parallel speed", wall_s=wall_s,
+        ranks=[{k: v for k, v in r.items() if k not in drop} for r in ranks])
+    log(f"serve_tp: {TP} ranks sharing one card over gloo: " + "; ".join(
+        f"rank {r['rank']} on {r['device']} ({r['backend']}): v1 {r['v1_decode_tok_s']:.1f} "
+        f"tok/s, v2 {r['v2']['tok_s']:.1f} tok/s, int8 {r['int8_decode_tok_s']:.1f} tok/s, "
+        f"peak {r['peak_memory_bytes'] / 2**30:.2f} GiB" for r in ranks))
+    return r0
+
+
+def tp_rank(rank, port, tmp):
+    """One rank of `serve_tp`: joins the gloo group, builds its shard of
+    Llama-3-8B from the seed of the tp = 1 phases (each weight drawn whole,
+    as there, and cut), and serves it through v1, v2 and the int8 layer
+    scan, then the 2-layer reference model."""
+    import datetime
+    import logging
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils.logging import logger
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=TP,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    fallbacks = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: fallbacks.append(rec.getMessage()) \
+        if "kernel_fallback" in rec.getMessage() else None
+    logger.addHandler(handler)
+    try:
+        from deepspeed_tpu_torch.accelerator import get_accelerator
+        from deepspeed_tpu_torch.models.llama import llama_config
+        refs = torch.load(f"{tmp}/refs.pt", weights_only=False)
+        acc = get_accelerator()
+        out = dict(rank=rank, device=str(acc.device), backend=comm.get_backend())
+        torch.cuda.reset_peak_memory_stats()
+        model = llama_shard(llama_config("llama3-8b"), SEED, rank)
+        out.update(tp_v1(model, refs, rank))
+        out.update(tp_v2(model))
+        out.update(tp_int8(model, refs))       # releases the model's weights
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out.update(tp_reference(rank))
+        out["kernel_fallbacks"] = fallbacks
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        comm.barrier()
+    finally:
+        logger.removeHandler(handler)
+        comm.destroy_process_group()
+
+
+def llama_shard(cfg, seed, rank):
+    """Rank `rank`'s shard of `llama(cfg, seed)`: the same draws, cut."""
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16, tp_size=TP,
+                             tp_rank=rank)
+    return init_params(model, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def tp_prompts(cfg):
+    """`serve`'s prompts, from the same seed."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    return torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+
+
+def tp_v1(model, refs, rank):
+    """v1 at tp = 2: `forward` on 4 x 512 and greedy `generate` of 64 (K1-fwd
+    and K8-a counted), the last step teacher-forced on the tp = 1 tokens,
+    a control with rank 0's o_proj shard on rank 1, and a sampled run."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16",
+                                                tensor_parallel={"tp_size": TP})
+    cfg = model.cfg
+    ids = tp_prompts(cfg)
+    engine.forward(ids)                                  # warm-up
+    engine.generate(ids[:1, :16], max_new_tokens=2)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(ids)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=NEW)
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    assert logits.shape == (B, PROMPT, cfg.vocab_size) and torch.isfinite(logits).all()
+    del logits
+    ref_tokens, ref_last = refs["v1"]
+    _, seen = generate_logits(engine, ids, NEW, force=ref_tokens.cuda())
+    err = rel_err(seen[-1], ref_last)
+    # control: rank 1 serves rank 0's o_proj shard
+    own = [layer.self_attn.o_proj.weight.detach().clone() for layer in model.layers]
+    for layer in model.layers:
+        comm.broadcast(layer.self_attn.o_proj.weight.data, src=0)
+    _, seen_c = generate_logits(engine, ids, NEW, force=ref_tokens.cuda())
+    control = rel_err(seen_c[-1], ref_last)
+    for layer, w in zip(model.layers, own):
+        layer.self_attn.o_proj.weight.data.copy_(w)
+    del own, seen, seen_c
+    sampled = engine.generate(ids, max_new_tokens=NEW, temperature=0.8, top_p=0.9,
+                              seed=SEED + 2)
+    return dict(v1_forward_ms=forward_ms, v1_generate_ms=generate_ms,
+                **collective_ms(cfg),
+                v1_decode_tok_s=engine.last_decode_tok_s, v1_launches=launches,
+                v1_greedy=out.cpu().tolist(), v1_sampled=sampled.cpu().tolist(),
+                v1_greedy_equals_tp1=bool(torch.equal(out.cpu(), ref_tokens)),
+                v1_last_rel_rms_err=err, v1_control_rel_rms_err=control)
+
+
+def collective_ms(cfg, iters: int = 20):
+    """Host ms of one gloo collective of a decode step, synchronised: the
+    all-reduce of a row-parallel output (B, 1, hidden) and the gather of
+    the head's logits (B, V/tp), both bf16 on the card."""
+    from deepspeed_tpu_torch import comm
+    out = {}
+    for name, shape, op in (("all_reduce", (B, 1, cfg.hidden_size), comm.all_reduce),
+                            ("all_gather_logits", (B, cfg.vocab_size // TP),
+                             lambda t: comm.all_gather(t, axis=-1))):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        op(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            op(x)
+        torch.cuda.synchronize()
+        out[f"gloo_{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def tp_v2(model):
+    """v2 at tp = 2: traffic A on the head-sharded paged pool (K8-b and
+    K8-c counted), four rows' last decode step against v1 `forward`."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+    rng = np.random.default_rng(SEED + 10)
+    engine = v2_engine(model, config=DeepSpeedInferenceConfig(
+        dtype="bf16", tensor_parallel={"tp_size": TP}))
+    out, stats, launches, calls, last = traffic_a(engine, rng)
+    del engine
+    torch.cuda.empty_cache()
+    v1 = deepspeed_tpu_torch.init_inference(model, dtype="bf16",
+                                            tensor_parallel={"tp_size": TP})
+    full = v1.forward([out[u][:-1] for u in WATCH])[:, -1]
+    errs = [rel_err(last[u], full[i]) for i, u in enumerate(WATCH)]
+    assert all(int(last[u].float().argmax()) == out[u][-1] for u in WATCH)
+    return dict(v2=stats, v2_launches=launches, v2_calls=calls, v2_outputs=out,
+                v2_last_step_vs_v1_forward_rel_rms_err=errs)
+
+
+def tp_int8(model, refs):
+    """int8 weights through the layer scan at tp = 2 (K8-d 'n' and 'k'
+    counted): greedy `generate`, the last step teacher-forced on the tp = 1
+    int8 engine's tokens. Each rank quantizes its own shard; blocks of 256
+    lie inside every shard's rows, so its bytes are the cut of the whole
+    tree's (`serve_modes.place_params` checks that)."""
+    import deepspeed_tpu_torch
+    quant = {"enabled": True, "group_size": 256}
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16", quant=quant,
+                                                serve_mode="layer_scan",
+                                                tensor_parallel={"tp_size": TP})
+    assert engine.serve_mode == "layer_scan" and engine._use_fused_int8()
+    ids = tp_prompts(model.cfg)
+    engine.generate(ids[:1, :16], max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=NEW)
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    ref_tokens, ref_last = refs["int8"]
+    _, seen = generate_logits(engine, ids, NEW, force=ref_tokens.cuda())
+    err = rel_err(seen[-1], ref_last)
+    tok_s = engine.last_decode_tok_s
+    del engine
+    return dict(int8_generate_ms=generate_ms, int8_decode_tok_s=tok_s,
+                int8_launches=launches, int8_greedy=out.cpu().tolist(),
+                int8_greedy_equals_tp1=bool(torch.equal(out.cpu(), ref_tokens)),
+                int8_last_rel_rms_err=err)
+
+
+def tp_reference(rank):
+    """The 2-layer model of `reference_tp` at tp = 2 on the card: `forward`
+    logits and a greedy `generate` of 8 with its prefill and last decode
+    step's logits (rank 0 keeps them)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_config
+    model = llama_shard(llama_config("llama3-8b", num_hidden_layers=2), SEED + 7, rank)
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16",
+                                                tensor_parallel={"tp_size": TP})
+    ids = torch.randint(0, model.cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(SEED + 8))
+    logits = engine.forward(ids)
+    out, seen = generate_logits(engine, ids.cuda(), 8)
+    keep = dict(ref_tokens=out.cpu().tolist())
+    if rank == 0:
+        keep["ref_logits"] = (logits.cpu(), seen[0].cpu(), seen[-1].cpu())
+    return keep
+
+
+def reference_tp(cpu_model, r0):
+    """The card at tp = 2 in bf16 against the plain versions on the CPU in
+    f32 at tp = 1, on the same 2-layer weights: `forward`, and the prefill
+    and last decode step of a greedy `generate` against the CPU's `forward`
+    on the tokens the card generated."""
+    import deepspeed_tpu_torch
+    cpu = deepspeed_tpu_torch.init_inference(cpu_model, dtype="fp32", device="cpu")
+    ids = torch.randint(0, cpu_model.cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(SEED + 8))
+    logits, first, last = r0["ref_logits"]
+    err_fwd = rel_err(logits, cpu.forward(ids))
+    ref = cpu.forward(torch.tensor(r0["ref_tokens"])[:, :-1])
+    err_prefill = rel_err(first, ref[:, ids.shape[1] - 1])
+    err_step = rel_err(last, ref[:, -1])
+    assert max(err_fwd, err_prefill, err_step) <= REFERENCE_RTOL, \
+        (err_fwd, err_prefill, err_step)
+    return dict(tp=TP, forward_rel_rms_err=err_fwd, prefill_rel_rms_err=err_prefill,
+                last_decode_step_rel_rms_err=err_step)
 
 
 def bloom(name, seed, **overrides):
@@ -2441,6 +2966,12 @@ def main() -> int:
     paged_prefill_alibi = [check_paged_prefill(gen, rng, **bloom_w),
                            check_paged_prefill(gen, rng, int8=True, **bloom_w),
                            check_paged_prefill(gen, rng, **small_w)]
+    # K8-a..d: each rank's shard of K2, K3, K4 and K5 at Llama-3-8B's serving
+    # shapes over tp = 2, against the unsharded kernels' outputs
+    sharded = dict(sharded_decode_attention=check_sharded_decode(gen),
+                   sharded_paged_decode_attention=check_sharded_paged_decode(gen, rng),
+                   sharded_paged_prefill_attention=check_sharded_paged_prefill(gen, rng),
+                   sharded_quantized_matmul=check_sharded_qmm(gen))
     report.update(flash_attention_fwd=flash, decode_attention=decode,
                   paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
                   flash_attention_bwd=flash_bwd, quantized_matmul=qmm,
@@ -2449,10 +2980,11 @@ def main() -> int:
                   paged_prefill_attention_int8=paged_prefill_int8, grouped_gemm=gmm,
                   attention_group_one=group_one, grouped_gemm_bwd=gmm_bwd,
                   block_sparse_attention=sparse, paged_decode_attention_alibi=paged_decode_alibi,
-                  paged_prefill_attention_alibi=paged_prefill_alibi)
+                  paged_prefill_attention_alibi=paged_prefill_alibi, **sharded)
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
                 + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one
-                + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi):
+                + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi
+                + list(sharded.values())):
         print(json.dumps(row), flush=True)
     sparse_launches = sparse_path(report)
 
@@ -2466,6 +2998,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    tp = serve_tp(report)
     reference(report)
     reference_int8(report)
     bloom_launches = serve_bloom(report)
@@ -2482,7 +3015,7 @@ def main() -> int:
                 "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
-                "sparse_path", "train_moe", "train_moe_reference"):
+                "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -2547,6 +3080,27 @@ def main() -> int:
                    "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
                    "deepspeed_tpu/ops/pallas/paged_attention.py:348",
                    bloom_launches["paged_prefill_attention_alibi"], paged_prefill_alibi[0]),
+        # K8-a..d's rows: the per-shard calls at tp = 2, launches from the
+        # tensor-parallel path (rank 0: v1 decode, v2 traffic A, int8 layer scan)
+        kernel_row("sharded_decode_attention", "deepspeed_tpu_torch/csrc/decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/sharded.py:155",
+                   tp["v1_launches"]["sharded_decode_attention"],
+                   sharded["sharded_decode_attention"]),
+        kernel_row("sharded_paged_decode_attention",
+                   "deepspeed_tpu_torch/csrc/paged_decode_attention.cu",
+                   "deepspeed_tpu/ops/pallas/sharded.py:183",
+                   tp["v2_launches"]["sharded_paged_decode_attention"],
+                   sharded["sharded_paged_decode_attention"]),
+        kernel_row("sharded_paged_prefill_attention",
+                   "deepspeed_tpu_torch/csrc/paged_prefill_attention.cu",
+                   "deepspeed_tpu/ops/pallas/sharded.py:233",
+                   tp["v2_launches"]["sharded_paged_prefill_attention"],
+                   sharded["sharded_paged_prefill_attention"]),
+        kernel_row("sharded_quantized_matmul", "deepspeed_tpu_torch/csrc/quantized_matmul.cu",
+                   "deepspeed_tpu/ops/pallas/quantized_matmul.py:226",
+                   tp["int8_launches"]["sharded_quantized_matmul_n"]
+                   + tp["int8_launches"]["sharded_quantized_matmul_k"],
+                   sharded["sharded_quantized_matmul"]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

@@ -10,13 +10,18 @@ serves through both engines; the MoE families (`models/qwen2_moe.py`,
 block-sparse attention. Hand-written kernels: flash attention (forward and
 backward), decode and paged attention (the paged kernels with alibi too),
 the int8 dequant-GEMM, the grouped expert GEMM (forward and backward) and
-block-sparse attention. It imports `torch`, never
+block-sparse attention. Llama serves tensor-parallel over several ranks
+(`init_distributed`, `tensor_parallel={"tp_size": N}`), each rank running
+the kernels on its shard. It imports `torch`, never
 `jax`, and nothing of `deepspeed_tpu`.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
+
+from deepspeed_tpu_torch import comm  # noqa: F401
+from deepspeed_tpu_torch.comm import init_distributed  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -57,6 +62,8 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     numpy arrays; `params=` is accepted too. `config` is a dict or a
     `DeepSpeedInferenceConfig`, and keyword arguments are config keys.
     `device=None` means CUDA; without CUDA it raises unless `device="cpu"`.
+    `tensor_parallel={"tp_size": N}` serves a Llama over N ranks, one
+    process each (`init_distributed`; see `inference/engine.py`).
     """
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine

@@ -1,8 +1,11 @@
 """The CUDA device the port runs on (counterpart of ``deepspeed_tpu/accelerator/``).
 
 `resolve_device` is the one place the port decides where it runs: no device
-means CUDA, and a machine without CUDA raises unless the caller asks for the
-CPU. There is no silent CPU path.
+means the rank's card, `cuda:{local_rank % device_count}`
+(`local_device_index`), and a machine without CUDA raises unless the caller
+asks for the CPU. There is no silent CPU path. Two ranks on one card arise
+only under the `gloo` backend: `comm.init_distributed` refuses them under
+`nccl`.
 """
 
 from __future__ import annotations
@@ -19,8 +22,17 @@ import torch
 _PEAK_TFLOPS = {"H100": {"bfloat16": 989.0}}
 
 
+def local_device_index() -> int:
+    """The rank's card: its local rank modulo the cards on this host."""
+    from deepspeed_tpu_torch.comm import get_local_rank
+    return get_local_rank() % max(1, torch.cuda.device_count())
+
+
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
-    """`None` → `cuda`; a CUDA request on a machine without CUDA raises."""
+    """`None` → the rank's card (`local_device_index`); a CUDA request on a
+    machine without CUDA raises."""
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", local_device_index())
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

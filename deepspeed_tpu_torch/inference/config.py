@@ -3,6 +3,8 @@
 Same keys as the JAX package's `DeepSpeedInferenceConfig`. Values this port
 does not serve yet raise `NotImplementedError` naming the ROADMAP.md item
 that brings them; unknown keys are accepted and ignored with a warning.
+`tensor_parallel.tp_size` > 1 serves the Llama family over that many ranks
+(`serve_modes.serving_topology`); the engines refuse other models at tp > 1.
 `choose_serve_mode` is the JAX package's `serve_mode="auto"` decision table.
 """
 
@@ -98,9 +100,12 @@ class DeepSpeedInferenceConfig:
             raise _unported("speculative", "The rest")
         if self.capacity is not None:
             raise _unported("capacity", "The rest")
-        if self.tensor_parallel.enabled and self.tensor_parallel.tp_size > 1:
-            raise _unported(f"tensor_parallel.tp_size={self.tensor_parallel.tp_size}",
-                            "Multi-GPU")
+
+    @property
+    def tp_size(self) -> int:
+        """The tensor-parallel degree asked for (1 when disabled)."""
+        tp = self.tensor_parallel
+        return int(tp.tp_size) if tp.enabled else 1
 
 
 def choose_serve_mode(*, quantized: bool, layout_ok: bool, multi_device: bool,

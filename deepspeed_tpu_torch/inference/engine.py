@@ -12,6 +12,13 @@ weights or, with `quant`, on the int8 tree dequantized whole (once per
 dequant-GEMM. `kv_cache_dtype="int8"` stores the dequant mode's cache int8
 at rest. The serve-mode ladder, telemetry hub, program ledger and recompile
 detector of the JAX engine are not ported.
+
+Tensor parallelism (`tensor_parallel={"tp_size": N}`, Llama only): one
+process per rank, started by `torchrun` or joined by
+`deepspeed_tpu_torch.init_distributed`; each rank holds its shard of the
+weights and of the KV cache (Hkv/N heads) and every rank returns the same
+tokens. The gathered logits are the same bits on every rank, and a sampled
+`generate` draws from a generator seeded identically on each.
 """
 
 from __future__ import annotations
@@ -26,14 +33,18 @@ from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.capacity_scan import round_up_len
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.kv_cache import KVCache
-from deepspeed_tpu_torch.inference.serve_modes import dense_state, place_params
+from deepspeed_tpu_torch.inference.serve_modes import (
+    dense_state,
+    place_params,
+    serving_topology,
+)
 from deepspeed_tpu_torch.ops.sampling import sample_logits
 from deepspeed_tpu_torch.utils.logging import logger
 
 
-def _cache_dims(cfg) -> tuple:
+def _cache_dims(cfg, tp: int = 1) -> tuple:
     """(num_layers, kv_heads, head_dim) from a model config (duck-typed
-    over llama/gpt2/falcon naming)."""
+    over llama/gpt2/falcon naming); kv_heads is a tp-way rank's share."""
     layers = getattr(cfg, "num_hidden_layers", None) or getattr(cfg, "n_layer")
     heads = (getattr(cfg, "num_key_value_heads", None)
              or getattr(cfg, "num_kv_heads", None)
@@ -43,7 +54,9 @@ def _cache_dims(cfg) -> tuple:
         hidden = getattr(cfg, "hidden_size", None) or getattr(cfg, "n_embd")
         n_attn = getattr(cfg, "num_attention_heads", None) or getattr(cfg, "n_head")
         head_dim = hidden // n_attn
-    return int(layers), int(heads), int(head_dim)
+    if int(heads) % tp:
+        raise ValueError(f"{heads} KV heads do not divide over tp={tp}")
+    return int(layers), int(heads) // tp, int(head_dim)
 
 
 class InferenceEngine:
@@ -73,6 +86,7 @@ class InferenceEngine:
             model, params = model
         self.module = model
         self.model_cfg = model.cfg
+        self.topology = serving_topology(self)
         self.params = place_params(self, params)
         if config.kv_cache_dtype == "int8" and self.serve_mode != "dequant":
             logger.warning(f"kv_cache_dtype='int8' only quantizes the dequant serve "
@@ -132,7 +146,7 @@ class InferenceEngine:
 
         t0 = time.perf_counter()
         model_call = self._model_call()
-        layers, kv_heads, head_dim = _cache_dims(self.model_cfg)
+        layers, kv_heads, head_dim = _cache_dims(self.model_cfg, self.topology.tp_size)
         cache = KVCache.create(layers, b, max_len, kv_heads, head_dim,
                                dtype=self._config.dtype, device=self.device,
                                quantized=(self._config.kv_cache_dtype == "int8"
@@ -166,7 +180,8 @@ class InferenceEngine:
             return lambda ids, cache: self._call(state, ids, cache=cache)
         from deepspeed_tpu_torch.inference.quantized_layer_scan import (
             layer_slices, make_scan_apply)
-        apply = make_scan_apply(self.model_cfg, fused=self._use_fused_int8())
+        apply = make_scan_apply(self.model_cfg, fused=self._use_fused_int8(),
+                                mesh=self.topology if self.topology.tp_size > 1 else None)
         per_layer = layer_slices(self.params["layers"])
 
         def call(ids, cache):

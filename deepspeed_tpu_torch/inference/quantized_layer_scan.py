@@ -13,8 +13,14 @@ its own prefill, decode, sampling and eos loop over the same dense KV cache
 (length rounded up to 128, the serving dtype).
 
 `fused=False` is the JAX package's naive path, `x @ dequantize(q, s)` per
-product; the tensor-parallel kernels (`mesh`) are not ported (ROADMAP.md,
-Queue 1, 'Multi-GPU').
+product. With a tensor-parallel `mesh` (the topology; each rank holds its
+shard of the tree, `utils/partitioning.shard_tree`) the products run K5 per
+shard (`sharded_quantized_matmul`) in the flavour the JAX package's hints
+give (`TP_HINTS`): 'n' (column-parallel) for q/k/v/gate/up, 'k'
+(row-parallel, then an all-reduce over `model`, bias after it) for o/down;
+the embedding is a vocab-parallel lookup and the head's logits are
+gathered. `check_tp_flavors` holds a whole tree to the JAX rule before it
+is cut.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Callable, Dict, List
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.inference.kv_cache import decode_mask, update_layer
 from deepspeed_tpu_torch.inference.quantization import (
     _nbytes,
@@ -31,8 +38,15 @@ from deepspeed_tpu_torch.inference.quantization import (
     tree_leaves,
     tree_map,
 )
+from deepspeed_tpu_torch.models.common import gather_vocab, vocab_parallel_embedding
 from deepspeed_tpu_torch.ops.attention import apply_rotary_emb, cached_attention, rope_cos_sin
-from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul, scale_group_width
+from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (
+    quantized_matmul,
+    scale_group_width,
+    sharded_quantized_matmul,
+    tp_shard_flavor,
+)
+from deepspeed_tpu_torch.ops.cuda.sharded import kernel_fallback
 from deepspeed_tpu_torch.ops.quantization import (
     dequantize_int8_blockwise,
     quantize_int8_blockwise,
@@ -169,25 +183,69 @@ def _rmsnorm(x, w, eps, dtype):
     return ((x32 * torch.rsqrt(var + eps)) * w).to(dtype)
 
 
-def make_matmul(dtype, fused: bool = True) -> Callable:
+# each projection's flavour under tensor parallelism, the JAX package's
+# hints, which its at-rest cut (`utils/partitioning`) gives it
+TP_HINTS = {"q_proj": "n", "k_proj": "n", "v_proj": "n", "o_proj": "k",
+            "gate_proj": "n", "up_proj": "n", "down_proj": "k"}
+
+
+def check_tp_flavors(params: Any, tp: int) -> None:
+    """Raise unless every int8 projection of a whole per-layer-quantized
+    tree shards over a tp-way `model` axis in its hint's flavour by the JAX
+    rule (`tp_shard_flavor`). Where the rule picks the other flavour, or
+    none, the JAX package reshards the weight or dequantizes it; here each
+    rank holds the hint's cut, which K5 cannot run per shard."""
+    for part in (params["layers"]["self_attn"], params["layers"]["mlp"]):
+        for name, proj in part.items():
+            w = proj["kernel"]
+            if not is_quantized_leaf(w):
+                continue
+            _, k, n = w["__q8__"].shape
+            hint = TP_HINTS[name]
+            flavor = tp_shard_flavor(k, n, w["scales"].shape[-1], tp, prefer=hint)
+            if flavor != hint:
+                raise ValueError(
+                    f"{name}: the scale blocks of a ({k}, {n}) int8 kernel shard over "
+                    f"model={tp} as {flavor!r}, not as its {hint!r} cut; pick a quant "
+                    "group_size that divides its rows' share")
+
+
+def make_matmul(dtype, fused: bool = True, mesh=None) -> Callable:
     """x @ W (+ bias) over a projection dict whose `kernel` is a float (K, N)
     leaf or an int8 leaf with its scales. Fused: the K5 wrapper. On CUDA it
     launches the kernel or raises, on a scale layout the kernel does not
     tile too; on the CPU it takes the plain version, and a layout it does
     not tile takes the naive path, as in the JAX package. Naive: `x @
-    dequantize(q, s)` in `dtype`, the whole-tree engine's values."""
+    dequantize(q, s)` in `dtype`, the whole-tree engine's values.
 
-    def matmul(x, proj):
+    With a `mesh` whose `model` axis is nontrivial the leaf is the rank's
+    shard and `hint` its flavour ('n' or 'k'): fused, K5 per shard
+    (`sharded_quantized_matmul`); a 'k' product's partial sums are
+    all-reduced before the bias on every path."""
+    tp = mesh.tp_size if mesh is not None else 1
+
+    def matmul(x, proj, hint: str = "n"):
         w = proj["kernel"]
+        reduce = tp > 1 and hint == "k"
         if is_quantized_leaf(w):
             q, sc = w["__q8__"], w["scales"]
-            if fused and (x.is_cuda or scale_group_width(q.shape[0], q.shape[1],
-                                                         sc.shape[0]) is not None):
+            tiled = x.is_cuda or scale_group_width(q.shape[0], q.shape[1],
+                                                   sc.shape[0]) is not None
+            if fused and tiled and tp > 1:
+                y = sharded_quantized_matmul(x, q, sc, hint)
+                reduce = False
+            elif fused and tiled:
                 y = quantized_matmul(x, q, sc)
             else:
+                if fused and tp > 1:
+                    kernel_fallback("quantized_matmul",
+                                    f"({q.shape[0]}, {q.shape[1]}) int8 shard: scale "
+                                    "blocks don't tile its rows", x.device)
                 y = x @ dequantize_int8_blockwise(q, sc, dtype)
         else:
             y = x @ w.to(dtype)
+        if reduce:
+            y = comm.all_reduce(y, group="model")
         bias = proj.get("bias")
         if bias is not None:
             y = y + bias.to(dtype)
@@ -196,17 +254,20 @@ def make_matmul(dtype, fused: bool = True) -> Callable:
     return matmul
 
 
-def make_block_fn(model_cfg: Any, fused: bool = True) -> Callable:
+def make_block_fn(model_cfg: Any, fused: bool = True, mesh=None) -> Callable:
     """LlamaBlock's cached path over one layer's (possibly quantized)
     leaves: block(h, lp, (cos, sin, index, mask), (k_cache, v_cache)) →
-    (h, (k_cache, v_cache)); the caches are written in place."""
+    (h, (k_cache, v_cache)); the caches are written in place. With a
+    tensor-parallel `mesh`, over the rank's shard (`make_matmul`)."""
     cfg = model_cfg
     dtype = cfg.dtype
-    hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+    tp = mesh.tp_size if mesh is not None else 1
+    hd = cfg.head_dim
+    nh, nkv = cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp
     eps = cfg.rms_norm_eps
     window = getattr(cfg, "sliding_window", None)
     attn_impl = getattr(cfg, "attn_impl", "auto")
-    matmul = make_matmul(dtype, fused=fused)
+    matmul = make_matmul(dtype, fused=fused, mesh=mesh)
 
     def block(h, lp, aux, kv):
         cos, sin, index, mask = aux
@@ -219,11 +280,12 @@ def make_block_fn(model_cfg: Any, fused: bool = True) -> Callable:
         k_cache, v_cache = update_layer(kv[0], kv[1], k, v, index)
         ctx = cached_attention(q, k_cache, v_cache, index, mask,
                                impl=attn_impl, window=window)
-        h = h + matmul(ctx.reshape(bsz, sl, nh * hd), attn_p["o_proj"])
+        h = h + matmul(ctx.reshape(bsz, sl, nh * hd), attn_p["o_proj"],
+                       hint=TP_HINTS["o_proj"])
         hn = _rmsnorm(h, lp["post_attention_layernorm"]["weight"], eps, dtype)
         g = matmul(hn, mlp_p["gate_proj"])
         u = matmul(hn, mlp_p["up_proj"])
-        h = h + matmul(F.silu(g) * u, mlp_p["down_proj"])
+        h = h + matmul(F.silu(g) * u, mlp_p["down_proj"], hint=TP_HINTS["down_proj"])
         return h, (k_cache, v_cache)
 
     return block
@@ -241,18 +303,21 @@ def layer_slices(layers: Any) -> List[Any]:
     return [take(i) for i in range(n)]
 
 
-def make_scan_apply(model_cfg: Any, fused: bool = False) -> Callable:
+def make_scan_apply(model_cfg: Any, fused: bool = False, mesh=None) -> Callable:
     """`apply(params, ids, cache, per_layer=None) → (logits, cache)` over a
     per-layer-stacked llama tree and a dense `KVCache` (written in place;
     its cursors are left for the caller to advance). `per_layer` is
     `layer_slices(params["layers"])`, computed once by callers that step
-    many times."""
+    many times. With a tensor-parallel `mesh`, `params` is the rank's
+    shard and the logits are gathered whole on every rank."""
     cfg = model_cfg
     dtype = cfg.dtype
     hd = cfg.head_dim
     eps = cfg.rms_norm_eps
     window = getattr(cfg, "sliding_window", None)
-    block = make_block_fn(cfg, fused=fused)
+    block = make_block_fn(cfg, fused=fused, mesh=mesh)
+    tp = mesh.tp_size if mesh is not None else 1
+    rank = mesh.coord("model") if mesh is not None else 0
 
     def apply(params, ids, cache, per_layer=None):
         if per_layer is None:
@@ -261,7 +326,7 @@ def make_scan_apply(model_cfg: Any, fused: bool = False) -> Callable:
         head = params.get("lm_head")
         bsz, sl = ids.shape
         index = cache.index
-        h = F.embedding(ids, embed)
+        h = vocab_parallel_embedding(ids, embed, tp, rank)
         positions = index[:, None] + torch.arange(sl, device=ids.device)[None, :]
         cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, dtype)
         mask = decode_mask(positions, cache.max_len, window=window)
@@ -273,6 +338,6 @@ def make_scan_apply(model_cfg: Any, fused: bool = False) -> Callable:
             logits = torch.einsum("bsd,vd->bsv", h, embed)
         else:
             logits = h @ head.to(dtype)
-        return logits, cache
+        return gather_vocab(logits, tp), cache
 
     return apply

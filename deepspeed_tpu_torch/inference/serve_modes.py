@@ -17,6 +17,20 @@ through the module's own `param_tree`, `load_jax_params` and
 on a tree without the layer-scan layout (the MoE families) raises: a
 whole-tree int8 MoE tree is not ported (ROADMAP.md, Queue 1, 'Weight
 quantization and serve modes').
+
+Tensor parallelism: `serving_topology` installs (or adopts) the topology of
+`tensor_parallel.tp_size` ranks, and `place_params` places this rank's
+shard by one rule: a whole tree (`params`, or a whole module's own weights)
+is cut with `utils/partitioning.shard_tree` into this rank's shard (a whole
+module is rebuilt as one on the meta device); a module built as this rank's
+shard (`tp_size`/`tp_rank` at construction) and given no tree keeps its
+weights. A shard built for another rank raises.
+With `quant`, a whole tree is quantized first and then cut, as the JAX
+package does, so every rank's int8 bytes and scales are the matching slice
+of the unsharded tree, and the fused layer scan needs each projection to
+shard in its at-rest flavour by the JAX rule (`tp_shard_flavor`); a shard's
+own weights are quantized alone, which equals that cut when the scale
+groups tile its rows, which is checked.
 """
 
 from __future__ import annotations
@@ -38,8 +52,10 @@ from deepspeed_tpu_torch.inference.quantization import (
     quantize_param_tree,
     tree_leaves,
 )
-from deepspeed_tpu_torch.models.llama import tree_to_torch
+from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, tree_to_torch
+from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import logger
+from deepspeed_tpu_torch.utils.partitioning import shard_tree
 
 _ALIASES = {"quantized_layer_scan": "layer_scan", "whole_tree": "dequant"}
 
@@ -60,11 +76,45 @@ def _itemsize(x) -> int:
     return x.element_size() if isinstance(x, torch.Tensor) else x.dtype.itemsize
 
 
+def serving_topology(engine) -> "groups.MeshTopology":
+    """The installed topology, else, for tp > 1, one of
+    `tensor_parallel.tp_size` ranks over the processes, installed
+    (`comm.init_distributed` from the environment when no process group is
+    up), serving `engine.device`. tp > 1 serves the Llama family only;
+    other models raise."""
+    from deepspeed_tpu_torch import comm
+    tp = engine._config.tp_size
+    try:
+        topo = groups.get_topology(create_default=False)
+    except RuntimeError:
+        if tp > 1:
+            comm.init_distributed()
+            if comm.get_world_size() != tp:
+                raise ValueError(
+                    f"tensor_parallel.tp_size={tp} needs {tp} ranks, one process each, "
+                    f"and this run has {comm.get_world_size()}: start them with "
+                    f"torchrun --nproc_per_node={tp}, or call "
+                    "deepspeed_tpu_torch.init_distributed(...) in each")
+            topo = groups.initialize(groups.MeshTopology(tp=tp, device=engine.device))
+        else:
+            # one rank: a topology of its own, not installed
+            topo = groups.MeshTopology(device=engine.device)
+    if tp > 1 and topo.tp_size != tp:
+        raise ValueError(f"tensor_parallel.tp_size={tp} but the installed topology has "
+                         f"model={topo.tp_size}")
+    if topo.device is None:
+        topo.device = engine.device
+    if topo.tp_size > 1 and not isinstance(engine.module, LlamaForCausalLM):
+        raise _unported(f"tensor parallelism (tp={topo.tp_size}) with "
+                        f"{type(engine.module).__name__}", "Multi-GPU")
+    return topo
+
+
 def resolve_serve_mode(engine, params: Any) -> str:
-    """The serve mode for `params`, a JAX-layout tree (torch, numpy or meta
-    leaves). `auto` accounts the weights in each mode's at-rest form plus
-    the KV cache and decode workspace at the config's max batch and out
-    tokens, against the card's memory."""
+    """The serve mode for `params`, a whole JAX-layout tree (torch, numpy or
+    meta leaves). `auto` accounts the weights in each mode's at-rest form
+    plus the KV cache and decode workspace at the config's max batch and
+    out tokens, against the memory of the topology's cards."""
     config = engine._config
     mode = getattr(config, "serve_mode", "auto") or "auto"
     mode = _ALIASES.get(mode, mode)
@@ -73,6 +123,10 @@ def resolve_serve_mode(engine, params: Any) -> str:
             f"init_inference: unknown serve_mode {mode!r} (expected "
             "'auto', 'dequant', 'layer_scan' or 'capacity')")
     layout_ok = isinstance(params, dict) and qls.layer_scan_supported(params)
+    topo = getattr(engine, "topology", None)
+    sizes = topo.sizes if topo is not None else {}
+    multi_device = any(n > 1 for n in sizes.values())
+    tp_shardable = multi_device and {a for a, n in sizes.items() if n > 1} == {"model"}
     if mode in ("layer_scan", "capacity") and not layout_ok:
         logger.warning(
             f"serve_mode={mode!r} needs a llama-layout param tree (stacked "
@@ -105,13 +159,15 @@ def resolve_serve_mode(engine, params: Any) -> str:
     num_layers = getattr(cfg, "num_hidden_layers", None) or getattr(cfg, "n_layer", 1)
     b = int(getattr(config, "max_batch_size", None) or 1)
     max_len = round_up_len(getattr(config, "max_out_tokens", 1024))
+    n_devices = topo.world_size if topo is not None else 1
     return choose_serve_mode(
-        quantized=engine._quantized, layout_ok=layout_ok, multi_device=False,
+        quantized=engine._quantized, layout_ok=layout_ok, multi_device=multi_device,
         dense_bytes=dense, int8_bytes=int8, layer_bytes=dense // max(1, int(num_layers)),
         kv_bytes=kv_cache_bytes(cfg, b, max_len, config.dtype,
                                 kv_dtype=getattr(config, "kv_cache_dtype", None)),
         workspace_bytes=decode_workspace_bytes(cfg, b, max_len, config.dtype),
-        hbm_bytes=engine.accelerator.total_memory())
+        hbm_bytes=engine.accelerator.total_memory(), n_devices=n_devices,
+        tp_shardable=tp_shardable)
 
 
 def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
@@ -126,20 +182,42 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     layer stacks per layer, `dequant` the whole tree. The module's own
     storage moves to the meta device (it keeps its structure, and runs on a
     tree's weights through `torch.func.functional_call`), and the tree is
-    returned."""
+    returned.
+
+    Under a tensor-parallel topology (`engine.topology`) the placed weights
+    are this rank's shard (module docstring); `params` is the whole tree."""
     cfg = engine._config
     model = engine.module
     engine._quantized = bool(cfg.quant and cfg.quant.get("enabled"))
-    shapes = params if params is not None else model.param_tree(device="meta")
+    if params is not None:
+        shapes = params
+    else:  # the whole tree's shapes, also for a module built as a shard
+        whole = model if getattr(model, "tp_size", 1) == 1 else \
+            type(model)(model.cfg, device="meta", tp_size=1)
+        shapes = whole.param_tree(device="meta")
     engine.serve_mode = resolve_serve_mode(engine, shapes)
     if engine.serve_mode == "capacity":
         raise _unported("serve_mode='capacity' (resolved by 'auto')", "The rest")
     if engine._quantized and not qls.layer_scan_supported(shapes):
         raise _unported(f"quant on {type(model).__name__} (int8 weights outside the "
                         "llama layer-scan layout)", "Weight quantization and serve modes")
+    tp, rank = engine.topology.tp_size, engine.topology.coord("model")
+    shard_built = getattr(model, "tp_size", 1) > 1
+    if shard_built and (model.tp_size, model.tp_rank) != (tp, rank):
+        raise ValueError(
+            f"init_inference: the module is rank {model.tp_rank}'s shard of tp="
+            f"{model.tp_size}, and this process is rank {rank} of a model axis of {tp}")
+    if tp > 1 and not shard_built:
+        # a whole module: rebuilt as this rank's shard, fed the cut whole tree
+        if params is None:
+            params = model.param_tree(dtype=cfg.dtype, release=True)
+        model = type(model)(model.cfg, device="meta", tp_size=tp, tp_rank=rank)
+        if not engine._quantized:
+            model = model.to_empty(device=engine.device)
+    whole = tp > 1 and params is not None  # cut after quantizing
     if not engine._quantized:
         if params is not None:
-            model.load_jax_params(params)
+            model.load_jax_params(shard_tree(params, tp, rank) if whole else params)
         engine.module = model.to(device=engine.device, dtype=cfg.dtype).eval()
         return None
     if params is not None:
@@ -148,10 +226,36 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     else:
         tree = model.param_tree(dtype=cfg.dtype, device=engine.device, release=True)
         engine.module = model.eval()
-    group = int(cfg.quant.get("group_size", 256))
+    group, min_size = int(cfg.quant.get("group_size", 256)), 4096
+    if tp > 1 and not whole:
+        # the quantizer takes a leaf by its whole size; every leaf it can
+        # take (the kernels, the embedding, the head) is cut tp ways
+        min_size = -(-min_size // tp)
+        _check_shard_quantizable(tree, group, engine.serve_mode == "layer_scan", min_size)
     if engine.serve_mode == "layer_scan":
-        return qls.quantize_layer_stacks(tree, group_size=group)
-    return quantize_param_tree(tree, group_size=group)[0]
+        tree = qls.quantize_layer_stacks(tree, group_size=group, min_size=min_size)
+        if whole and cfg.fused_int8 is not False:
+            qls.check_tp_flavors(tree, tp)
+    else:
+        tree = quantize_param_tree(tree, group_size=group, min_size=min_size)[0]
+    return shard_tree(tree, tp, rank) if whole else tree
+
+
+def _check_shard_quantizable(tree, group: int, layer_scan: bool, min_size: int) -> None:
+    """A shard quantized on its own equals the matching cut of the
+    quantized whole only when every block of `group` elements lies inside
+    one row of a kernel it quantizes: the layer stacks' of at least
+    `min_size` elements a layer (layer scan), or every such matrix's (the
+    whole tree)."""
+    leaves = tree_leaves(tree["layers"]) if layer_scan else tree_leaves(tree)
+    for leaf in leaves:
+        dims = 3 if layer_scan else 2
+        size = leaf[0].numel() if layer_scan and leaf.dim() >= 3 else leaf.numel()
+        if leaf.dim() >= dims and size >= min_size and leaf.shape[-1] % group:
+            raise ValueError(
+                f"quant group_size={group} does not tile the {tuple(leaf.shape[1:])} rows of "
+                "a tensor-parallel shard: pass the whole tree as params, which is "
+                "quantized before it is cut")
 
 
 def dense_state(engine) -> Optional[dict]:

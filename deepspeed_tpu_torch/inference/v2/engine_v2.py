@@ -33,6 +33,11 @@ the JAX engine does: `slot` for an alibi model whose head dim or block size
 is under 128 (BLOOM-560m, bloom-tiny), else `paged` (BLOOM-7b1 runs K3-alibi
 and K4-alibi there). int8 KV needs the paged layout.
 
+Tensor parallelism (`config.tensor_parallel`, Llama only) is v1's: each
+rank runs this same host scheduler on the same requests, so every rank's
+block tables and cursors are equal, and the pools hold the rank's Hkv/tp
+heads (K3 and K4 per shard).
+
 The serve-mode ladder, v2 `layer_scan`/`capacity` (they serve slot rows),
 speculative rounds, `warmup` and the tracer, program ledger, recompile
 detector and memory plane are not ported (ROADMAP.md, Queue 1, 'v2
@@ -52,7 +57,11 @@ from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, _unpo
 from deepspeed_tpu_torch.inference.engine import _cache_dims
 from deepspeed_tpu_torch.inference.kv_block_manager import KVBlockManager
 from deepspeed_tpu_torch.inference.kv_cache import KVCache, PagedKVCache, merge_row, row_view
-from deepspeed_tpu_torch.inference.serve_modes import dense_state, place_params
+from deepspeed_tpu_torch.inference.serve_modes import (
+    dense_state,
+    place_params,
+    serving_topology,
+)
 from deepspeed_tpu_torch.inference.v2.ragged import DSStateManager
 from deepspeed_tpu_torch.ops.sampling import row_generator, sample_logits
 from deepspeed_tpu_torch.utils.logging import logger
@@ -120,6 +129,7 @@ class InferenceEngineV2:
         self.device = self.accelerator.device
         self.module = model
         self.model_cfg = model.cfg
+        self.topology = serving_topology(self)
         self.params = place_params(self, params)
         if kv_cache_dtype == "int8" and self.serve_mode != "dequant":
             raise ValueError(
@@ -171,7 +181,7 @@ class InferenceEngineV2:
         """The cache and the scheduler state; every row parked (cursor at
         max_len, so writes drop)."""
         self.block_manager: Optional[KVBlockManager] = None
-        layers, kv_heads, head_dim = _cache_dims(self.model_cfg)
+        layers, kv_heads, head_dim = _cache_dims(self.model_cfg, self.topology.tp_size)
         if self.kv_layout == "slot":
             self.cache = KVCache.create(layers, self.max_batch, self.max_seq_len, kv_heads,
                                         head_dim, dtype=self._config.dtype, device=self.device)

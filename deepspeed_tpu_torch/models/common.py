@@ -1,5 +1,10 @@
 """Shared model-zoo pieces (counterpart of ``deepspeed_tpu/models/common.py``):
-the zoo's projection (`Dense`) and `LayerNorm`, and the causal-LM loss.
+the zoo's projection (`Dense`) and `LayerNorm`, the causal-LM loss, and the
+tensor-parallel pieces: a row-parallel `Dense` (`reduce_over=tp`), the
+vocab-parallel embedding lookup and the head's logit gather. Each of those
+raises unless the installed topology's `model` group holds the tp ranks the
+shard was cut for: with fewer, its collective would be the identity and the
+result a partial sum.
 
 The loss is computed in f32, with `IGNORE_INDEX` labels left out of the
 mean, as in the JAX package. A loss function for the engine has the
@@ -14,22 +19,72 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch import comm
+
 IGNORE_INDEX = -100
 
 
 class Dense(nn.Linear):
     """`nn.Linear` that computes in the config's dtype, as flax's
     `nn.Dense(dtype=...)` casts its input and kernel (and bias, when it has
-    one)."""
+    one). `reduce_over=tp` (> 1) makes it row-parallel: the rank's partial
+    product is all-reduced over the tp ranks of the `model` group, and the
+    (whole) bias is added once, after the reduction."""
 
-    def __init__(self, in_features, out_features, bias, compute_dtype, **factory):
+    def __init__(self, in_features, out_features, bias, compute_dtype, reduce_over: int = 1,
+                 **factory):
         super().__init__(in_features, out_features, bias=bias, **factory)
         self.compute_dtype = compute_dtype
+        self.reduce_over = reduce_over
 
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if self.reduce_over == 1:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        check_model_group(self.reduce_over, "a row-parallel Dense")
+        y = comm.all_reduce(F.linear(x.to(dt), self.weight.to(dt)), group="model")
+        return y if bias is None else y + bias
+
+
+def check_model_group(tp: int, what: str) -> None:
+    """Raise unless the `model` group holds the `tp` ranks a shard was cut
+    for (a process group up, a topology of model=tp installed)."""
+    from deepspeed_tpu_torch.utils import groups
+    try:
+        n = groups.get_topology(create_default=False).tp_size if comm.is_initialized() else 1
+    except RuntimeError:
+        n = 1
+    if n != tp:
+        raise RuntimeError(
+            f"{what}: a shard of tp={tp} runs in a `model` group of {n} rank(s), whose "
+            "collectives would leave partial sums; serve it from tp ranks "
+            "(init_distributed, then init_inference with tensor_parallel.tp_size)")
+
+
+def vocab_parallel_embedding(ids: torch.Tensor, table: torch.Tensor, tp: int = 1,
+                             rank: int = 0) -> torch.Tensor:
+    """Embedding rows of `ids` from the rank's (V/tp, D) slice of the
+    table: ids outside the slice look up zeros, and the all-reduce over
+    the `model` group fills in every row (one rank holds each, so the sum
+    is exact)."""
+    if tp == 1:
+        return F.embedding(ids, table)
+    check_model_group(tp, "a vocab-parallel embedding")
+    v = table.shape[0]
+    local = ids - rank * v
+    outside = (local < 0) | (local >= v)
+    h = F.embedding(local.clamp(0, v - 1), table).masked_fill(outside[..., None], 0)
+    return comm.all_reduce(h, group="model")
+
+
+def gather_vocab(logits: torch.Tensor, tp: int = 1) -> torch.Tensor:
+    """A column-parallel head's logits (..., V/tp) → (..., V), in rank
+    order, on every rank."""
+    if tp == 1:
+        return logits
+    check_model_group(tp, "a column-parallel head")
+    return comm.all_gather(logits, group="model", axis=-1)
 
 
 class LayerNorm(nn.Module):

@@ -11,6 +11,16 @@ each block under `torch.utils.checkpoint` when `remat` is on (the JAX
 other remat policies, domino, ring attention and loss or MLP chunking are
 not ported and raise. `load_jax_params` turns a JAX parameter tree into this
 module's weights and `to_jax_params` turns them back.
+
+Tensor parallelism (serving only): built with `tp_size` > 1, the module
+holds one rank's shard in the Megatron layout the JAX package's logical
+axes give (`utils/partitioning.py`): H/tp and Hkv/tp heads (q/k/v
+column-parallel, o_proj row-parallel), intermediate/tp MLP columns
+(gate/up column-parallel, down_proj row-parallel), V/tp rows of the
+embedding (a vocab-parallel lookup) and V/tp columns of the head, whose
+logits are gathered on every rank. Each row-parallel output is all-reduced
+over the `model` group before its bias. `init_params` draws every weight
+at its whole shape, as a tp = 1 module does, and keeps the rank's slice.
 """
 
 from __future__ import annotations
@@ -25,7 +35,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.inference.kv_cache import PagedKVCache, decode_mask, update_layer
-from deepspeed_tpu_torch.models.common import Dense, causal_lm_loss, make_causal_loss_fn
+from deepspeed_tpu_torch.models.common import (
+    Dense,
+    causal_lm_loss,
+    gather_vocab,
+    make_causal_loss_fn,
+    vocab_parallel_embedding,
+)
 from deepspeed_tpu_torch.ops.attention import (
     apply_rotary_emb,
     attention,
@@ -90,10 +106,19 @@ def llama_config(name: str, **overrides) -> LlamaConfig:
     return LlamaConfig(**{**PRESETS[name], **overrides})
 
 
-def check_ported(cfg: LlamaConfig) -> None:
-    """Raise on the config values this port does not run."""
+def check_ported(cfg: LlamaConfig, tp: int = 1) -> None:
+    """Raise on the config values this port does not run (`tp`: the
+    tensor-parallel degree the module is built for)."""
     if cfg.attn_impl == "ring":
         raise unported("attn_impl='ring'", "Multi-GPU")
+    if tp > 1 and cfg.sliding_window is not None:
+        raise unported(f"sliding_window under tensor parallelism (tp={tp})", "Multi-GPU")
+    if tp > 1 and (cfg.num_attention_heads % tp or cfg.num_key_value_heads % tp
+                   or cfg.intermediate_size % tp or cfg.vocab_size % tp):
+        raise ValueError(
+            f"tensor parallelism tp={tp} needs the heads (H={cfg.num_attention_heads}, "
+            f"Hkv={cfg.num_key_value_heads}), intermediate_size={cfg.intermediate_size} "
+            f"and vocab_size={cfg.vocab_size} to divide it")
     if cfg.remat and cfg.remat_policy != "nothing":
         raise unported(f"remat_policy={cfg.remat_policy!r}", "Training: the rest")
     for name in ("loss_chunk_size", "mlp_chunk_size"):
@@ -118,20 +143,24 @@ class RMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, cfg: LlamaConfig, **factory):
+    """GQA attention over this rank's H/tp query and Hkv/tp KV heads."""
+
+    def __init__(self, cfg: LlamaConfig, tp: int = 1, **factory):
         super().__init__()
         self.cfg = cfg
-        hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+        hd = cfg.head_dim
+        self.heads = (cfg.num_attention_heads // tp, cfg.num_key_value_heads // tp)
+        nh, nkv = self.heads
         qb = cfg.attention_qkv_bias
         self.q_proj = Dense(cfg.hidden_size, nh * hd, qb, cfg.dtype, **factory)
         self.k_proj = Dense(cfg.hidden_size, nkv * hd, qb, cfg.dtype, **factory)
         self.v_proj = Dense(cfg.hidden_size, nkv * hd, qb, cfg.dtype, **factory)
         self.o_proj = Dense(nh * hd, cfg.hidden_size, cfg.attention_o_bias,
-                            cfg.dtype, **factory)
+                            cfg.dtype, reduce_over=tp, **factory)
 
     def forward(self, h, cos, sin, kv=None, mask=None, index=None):
         cfg = self.cfg
-        hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
+        hd, (nh, nkv) = cfg.head_dim, self.heads
         b, s = h.shape[:2]
         q = apply_rotary_emb(self.q_proj(h).reshape(b, s, nh, hd), cos, sin)
         k = apply_rotary_emb(self.k_proj(h).reshape(b, s, nkv, hd), cos, sin)
@@ -148,26 +177,28 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, cfg: LlamaConfig, **factory):
+    """SwiGLU over this rank's intermediate/tp columns."""
+
+    def __init__(self, cfg: LlamaConfig, tp: int = 1, **factory):
         super().__init__()
-        d, i = cfg.hidden_size, cfg.intermediate_size
+        d, i = cfg.hidden_size, cfg.intermediate_size // tp
         self.gate_proj = Dense(d, i, False, cfg.dtype, **factory)
         self.up_proj = Dense(d, i, False, cfg.dtype, **factory)
-        self.down_proj = Dense(i, d, False, cfg.dtype, **factory)
+        self.down_proj = Dense(i, d, False, cfg.dtype, reduce_over=tp, **factory)
 
     def forward(self, h):
         return self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, cfg: LlamaConfig, **factory):
+    def __init__(self, cfg: LlamaConfig, tp: int = 1, **factory):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                        cfg.dtype, **factory)
-        self.self_attn = LlamaAttention(cfg, **factory)
+        self.self_attn = LlamaAttention(cfg, tp, **factory)
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
                                                 cfg.dtype, **factory)
-        self.mlp = LlamaMLP(cfg, **factory)
+        self.mlp = LlamaMLP(cfg, tp, **factory)
 
     def forward(self, h, cos_sin, kv=None):
         if kv is not None:
@@ -185,20 +216,27 @@ class LlamaForCausalLM(nn.Module):
     """`forward(input_ids)` → logits (B, S, V); `forward(input_ids,
     labels=labels)` → (causal-LM loss, {}); `forward(input_ids,
     cache=cache)` → (logits, cache) with the S new tokens written into the
-    cache at its cursors and the cursors advanced."""
+    cache at its cursors and the cursors advanced.
 
-    def __init__(self, cfg: LlamaConfig, device=None, dtype=torch.float32):
+    `tp_size`/`tp_rank` build one rank's shard (module docstring)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=torch.float32,
+                 tp_size: int = 1, tp_rank: int = 0):
         super().__init__()
-        check_ported(cfg)
+        self.tp_size, self.tp_rank = int(tp_size), int(tp_rank)
+        tp = self.tp_size
+        if not 0 <= self.tp_rank < tp:
+            raise ValueError(f"tp_rank={self.tp_rank} outside tp_size={tp}")
+        check_ported(cfg, tp)
         factory = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.hidden_size, **factory))
-        self.layers = nn.ModuleList(LlamaBlock(cfg, **factory)
+            torch.empty(cfg.vocab_size // tp, cfg.hidden_size, **factory))
+        self.layers = nn.ModuleList(LlamaBlock(cfg, tp, **factory)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, **factory)
         self.lm_head = None if cfg.tie_word_embeddings else Dense(
-            cfg.hidden_size, cfg.vocab_size, False, cfg.dtype, **factory)
+            cfg.hidden_size, cfg.vocab_size // tp, False, cfg.dtype, **factory)
         nn.init.normal_(self.embed_tokens, std=0.02)
 
     def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
@@ -208,7 +246,11 @@ class LlamaForCausalLM(nn.Module):
         pools. `logits_at` (B,) picks one position per row, and the LM head
         then runs on those rows only: logits (B, V) instead of (B, S, V)."""
         cfg = self.cfg
-        h = F.embedding(input_ids, self.embed_tokens.to(cfg.dtype))
+        if labels is not None and self.tp_size > 1:
+            raise unported(f"training under tensor parallelism (tp={self.tp_size})",
+                           "Multi-GPU")
+        h = vocab_parallel_embedding(input_ids, self.embed_tokens.to(cfg.dtype),
+                                     self.tp_size, self.tp_rank)
         if cache is not None:
             b, s = input_ids.shape
             index = cache.index
@@ -253,8 +295,29 @@ class LlamaForCausalLM(nn.Module):
 
     def _lm_head(self, h):
         if self.lm_head is None:
-            return torch.einsum("bsd,vd->bsv", h, self.embed_tokens.to(self.cfg.dtype))
-        return self.lm_head(h)
+            logits = torch.einsum("bsd,vd->bsv", h, self.embed_tokens.to(self.cfg.dtype))
+        else:
+            logits = self.lm_head(h)
+        return gather_vocab(logits, self.tp_size)
+
+
+def module_model_dim(name: str) -> Optional[int]:
+    """The dimension of the module parameter `name` (a per-layer
+    `nn.Linear` weight is the transposed kernel, without the stacked L
+    axis) that shards over `model`, or None (replicated)."""
+    from deepspeed_tpu_torch.utils.partitioning import model_dim
+    parts = tuple(name.split("."))
+    dense = parts[-1] == "weight" and (parts[-2].endswith("_proj") or parts[0] == "lm_head")
+    if parts[0] == "layers":
+        path = ("layers",) + parts[2:-1] + (("kernel",) if dense else parts[-1:])
+        dim = model_dim(path)
+        dim = None if dim is None else dim - 1
+    else:
+        path = ("lm_head",) if parts[0] == "lm_head" else parts
+        dim = model_dim(path)
+    if dim is None or not dense:
+        return dim
+    return 1 - dim
 
 
 @torch.no_grad()
@@ -262,14 +325,26 @@ def init_params(model: LlamaForCausalLM, generator: torch.Generator,
                 std: float = 0.02) -> LlamaForCausalLM:
     """Random weights as the JAX package initialises them: normal(std) for
     the embedding and every kernel, zeros for biases, ones for RMSNorm
-    weights. Draws come from `generator`, on the parameters' device."""
+    weights. Draws come from `generator`, on the parameters' device. A
+    tensor-parallel shard draws each sharded weight at its whole shape, in
+    the order a tp = 1 module does, and keeps its slice, so every rank's
+    shard is the matching slice of the tp = 1 module's weights."""
+    tp, rank = getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)
     for name, p in model.named_parameters():
         if name.endswith("layernorm.weight") or name == "norm.weight":
             p.fill_(1.0)
         elif name.endswith(".bias"):
             p.zero_()
         else:
-            p.normal_(0.0, std, generator=generator)
+            dim = module_model_dim(name) if tp > 1 else None
+            if dim is None:
+                p.normal_(0.0, std, generator=generator)
+                continue
+            shape = list(p.shape)
+            shape[dim] *= tp
+            whole = torch.empty(shape, dtype=p.dtype, device=p.device)
+            whole.normal_(0.0, std, generator=generator)
+            p.copy_(whole.narrow(dim, rank * p.shape[dim], p.shape[dim]))
     return model
 
 

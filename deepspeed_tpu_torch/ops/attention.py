@@ -10,6 +10,10 @@ their window and alibi forms. Elsewhere a sliding window, alibi, or
 through plain autograd, as they do in the JAX package; so does a CPU tensor
 unless `impl="pallas"` asks for the flash path. Layouts are the JAX
 package's: q (B, S, H, D), k/v (B, S, Hkv, D), dense caches (B, M, Hkv, D).
+
+Under a tensor-parallel topology (only `model` nontrivial) the tensors are
+the rank's head shard, and `cached_attention` takes the per-shard wrappers
+of `ops/cuda/sharded.py` on its kernel branches (`_decode_tp_mesh`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,12 @@ from deepspeed_tpu_torch.ops.cuda.flash_attention import flash_attention
 from deepspeed_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_prefill_attention,
+)
+from deepspeed_tpu_torch.ops.cuda.sharded import (
+    serving_mesh,
+    sharded_decode_attention,
+    sharded_paged_decode_attention,
+    sharded_paged_prefill_attention,
 )
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
 
@@ -177,6 +187,14 @@ def attention(q, k, v, causal: bool = True, softmax_scale: Optional[float] = Non
     return flash_attention(q, k, v, causal=causal, softmax_scale=softmax_scale)
 
 
+def _decode_tp_mesh():
+    """The topology whose only nontrivial axis is `model`, or None. Its
+    ranks hold head shards (the model cuts H and Hkv by the same factor,
+    and `MeshTopology` refuses every other axis), so the kernel branches
+    take the per-shard wrappers, which check the shard."""
+    return serving_mesh("model")[0]
+
+
 def cached_attention(q, k_cache, v_cache, index, mask, impl: str = "auto",
                      window: Optional[int] = None,
                      alibi: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -202,18 +220,25 @@ def cached_attention(q, k_cache, v_cache, index, mask, impl: str = "auto",
     a dense int8 cache, the CPU, a window, alibi) read its dequantized view
     in q's dtype. A dense cache with alibi takes the masked path, as in the
     JAX package.
+
+    Under a tensor-parallel topology the kernel branches take the
+    per-shard wrappers (K2, K3, K4 on the rank's heads).
     """
     if isinstance(k_cache, PagedLayer):
         scales = dict(k_scales=k_cache.scales, v_scales=v_cache.scales, alibi=alibi)
+        mesh = _decode_tp_mesh()
         if q.shape[1] == 1:
             staged = k_cache.stage is not None
-            return paged_decode_attention(
-                q, k_cache.pool, v_cache.pool, k_cache.tables,
-                (index + 1).to(torch.int32),
-                k_new=k_cache.stage if staged else None,
-                v_new=v_cache.stage if staged else None, window=window, **scales)
-        return paged_prefill_attention(q, k_cache.pool, v_cache.pool, k_cache.tables,
-                                       index.to(torch.int32), window=window, **scales)
+            args = (q, k_cache.pool, v_cache.pool, k_cache.tables, (index + 1).to(torch.int32))
+            kw = dict(k_new=k_cache.stage if staged else None,
+                      v_new=v_cache.stage if staged else None, window=window, **scales)
+            if mesh is not None:
+                return sharded_paged_decode_attention(*args, mesh, **kw)
+            return paged_decode_attention(*args, **kw)
+        args = (q, k_cache.pool, v_cache.pool, k_cache.tables, index.to(torch.int32))
+        if mesh is not None:
+            return sharded_paged_prefill_attention(*args, mesh, window=window, **scales)
+        return paged_prefill_attention(*args, window=window, **scales)
     quant = isinstance(k_cache, QuantizedKVLayer)
 
     def masked():
@@ -231,11 +256,13 @@ def cached_attention(q, k_cache, v_cache, index, mask, impl: str = "auto",
             "the decode kernel is prefix-mask-only (ROADMAP.md, Queue 2, K2); "
             "a sliding window needs the masked path (impl='auto'/'reference')")
     if window is None and q.shape[1] == 1 and q.is_cuda and impl != "reference":
+        mesh = _decode_tp_mesh()
         lengths = (index + 1).to(torch.int32)
-        if quant:
-            return decode_attention(q, k_cache.data, v_cache.data, lengths,
-                                    k_scales=k_cache.scales, v_scales=v_cache.scales)
-        return decode_attention(q, k_cache, v_cache, lengths)
+        kd, vd = (k_cache.data, v_cache.data) if quant else (k_cache, v_cache)
+        kw = dict(k_scales=k_cache.scales, v_scales=v_cache.scales) if quant else {}
+        if mesh is not None:
+            return sharded_decode_attention(q, kd, vd, lengths, mesh, **kw)
+        return decode_attention(q, kd, vd, lengths, **kw)
     return masked()
 
 

@@ -18,7 +18,9 @@ outputs and the gradients of real rows are the same. `tiling` is the JAX
 package's megablox tile choice: it is taken and ignored, since the kernels
 pick their own tiles from M and G. The kernels read `group_sizes` on the
 device, so a call makes no host sync. The expert-parallel flavour
-(`sharded_grouped_gemm`) is not ported (ROADMAP.md, Queue 1, 'Multi-GPU').
+(`sharded_grouped_gemm`, K6 over an expert shard's span) is the one
+per-shard call (K8) not ported yet: it comes with MoE serving under expert
+parallelism (ROADMAP.md, Queue 1, 'Multi-GPU').
 """
 
 from __future__ import annotations

@@ -7,9 +7,16 @@ tensors it takes the plain version, `quantized_matmul_plain`. q is the
 (K, N) = (in, out) int8 kernel in the JAX package's layout and `scales` its
 flat blockwise f32 scales as `ops.quantization.quantize_int8_blockwise`
 makes them; `scale_group_width` and `_scales_t` are the JAX package's host
-helpers that relay them to one scale per (row k, column group j). The
-tensor-parallel flavours (`tp_shard_flavor`, `sharded_quantized_matmul`) are
-not ported (ROADMAP.md, Queue 1, 'Multi-GPU').
+helpers that relay them to one scale per (row k, column group j).
+
+Under tensor parallelism each rank holds its slice of the int8 weight and
+its scales (`utils/partitioning.shard_tree`), and
+`sharded_quantized_matmul` runs K5 on it: flavour 'n' (column-parallel,
+the rank's output columns, no collective) or 'k' (row-parallel, the rank's
+rows of K against its columns of x, then an all-reduce over the `model`
+group). `tp_shard_flavor` is the JAX package's rule for which flavour a
+weight's scale blocks allow; the layer scan holds a whole int8 tree to it
+before the tree is cut (`inference/quantized_layer_scan.check_tp_flavors`).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
 from deepspeed_tpu_torch.ops.quantization import dequantize_int8_blockwise
 
@@ -118,3 +126,61 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor,
 
 
 quantized_matmul.launches = 0
+
+
+def tp_shard_flavor(k: int, n: int, nblocks: int, tp: int,
+                    prefer: str = "n") -> Optional[str]:
+    """Which tensor-parallel sharding of a (K, N) int8 weight with flat
+    blockwise scales a tp-way `model` axis supports: 'n' (column-parallel:
+    whole scale groups per shard, per-row blocks only), 'k' (row-parallel:
+    row spans per shard cover whole blocks), or None. `prefer` breaks ties
+    toward the weight's layout (q/k/v/gate/up 'n', o/down 'k')."""
+    g = scale_group_width(k, n, nblocks)
+    if g is None or tp <= 1:
+        return None
+    e = k * n // nblocks  # elements per scale block
+    rows_per_block = e // n if (e % n == 0 and e != n) else 1
+
+    def ok(f: str) -> bool:
+        if f == "n":
+            return e <= n and (n // g) % tp == 0
+        return k % tp == 0 and (k // tp) % rows_per_block == 0
+
+    order = ("n", "k") if prefer != "k" else ("k", "n")
+    for f in order:
+        if ok(f):
+            return f
+    return None
+
+
+def sharded_quantized_matmul_plain(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                                   flavor: str, group="model") -> torch.Tensor:
+    """The plain version of `sharded_quantized_matmul`: K5's plain version
+    on the rank's shard, all-reduced over `group` for 'k'."""
+    y = quantized_matmul_plain(x, q, scales)
+    return comm.all_reduce(y, group=group) if flavor == "k" else y
+
+
+def sharded_quantized_matmul(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                             flavor: str, group="model") -> torch.Tensor:
+    """K5 on the rank's shard of a tensor-parallel int8 weight. 'n': q
+    (K, N/tp) and its scales are the rank's columns, x (..., K) is whole,
+    the result (..., N/tp) the rank's columns. 'k': q (K/tp, N) and its
+    scales are the rank's rows, x (..., K/tp) the matching columns of the
+    activation, and the partial products are all-reduced over `group` into
+    the whole (..., N) on every rank. Counts its CUDA launches per flavour
+    in `.launches_n` and `.launches_k`."""
+    if flavor not in ("n", "k"):
+        raise ValueError(f"sharded_quantized_matmul: flavor must be 'n' or 'k', got {flavor!r}")
+    if x.device.type == "cpu":
+        return sharded_quantized_matmul_plain(x, q, scales, flavor, group)
+    y = quantized_matmul(x, q, scales)
+    if flavor == "k":
+        sharded_quantized_matmul.launches_k += 1
+        return comm.all_reduce(y, group=group)
+    sharded_quantized_matmul.launches_n += 1
+    return y
+
+
+sharded_quantized_matmul.launches_n = 0
+sharded_quantized_matmul.launches_k = 0

@@ -28,7 +28,12 @@ are held to 2e-2 of their largest magnitude against autograd of the gather
 path. The paged kernels' alibi forms (K3-alibi, K4-alibi) are held to 2e-2
 against their plain versions over bf16 and int8 pools at both head widths,
 beside a control (the kernels without the slopes) that must miss; bad
-slopes raise before a launch.
+slopes raise before a launch. The per-shard calls of tensor parallelism
+(K8, tp = 2): each rank's slice of K2, K3 and K4 (bf16 and int8, staged
+and not) equals the same heads of the unsharded kernel bit for bit, K5 'n'
+on a column shard the unsharded columns, and K5 'k''s partial products sum
+to within 2e-2 of the unsharded product; a per-shard call on CPU tensors
+under a topology that serves the card raises.
 """
 
 import numpy as np
@@ -814,3 +819,117 @@ def test_paged_kernels_refuse_bad_slopes_on_card(cuda_device, bad):
         paged_prefill_attention(q, k, v, tables, lengths - 1, alibi=slopes)
     assert (paged_decode_attention.launches_alibi,
             paged_prefill_attention.launches_alibi) == launches
+
+
+# ------------------------------------------------- K8: per-shard calls, tp = 2
+def _shard(x, axis, rank, tp=2):
+    n = x.shape[axis] // tp
+    return x.narrow(axis, rank * n, n).contiguous()
+
+
+def _topologies(tp=2):
+    from deepspeed_tpu_torch.utils.groups import MeshTopology
+    return [MeshTopology(tp=tp, world_size=tp, rank=r, device="cuda") for r in range(tp)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_sharded_decode_attention_is_the_unsharded_heads_on_card(cuda_device, int8):
+    """K8-a: each rank's head slice of K2 (H 32, Hkv 8 over tp = 2) equals
+    the same heads of the unsharded kernel bit for bit, and its launches
+    count on the per-shard wrapper."""
+    from deepspeed_tpu_torch.ops.cuda.sharded import sharded_decode_attention
+    from deepspeed_tpu_torch.ops.quantization import quantize_kv_tokens
+    rng = np.random.default_rng(80)
+    q = _bf16(rng.standard_normal((3, 1, 32, 128)).astype(np.float32), cuda_device)
+    k = _bf16(rng.standard_normal((3, 300, 8, 128)).astype(np.float32), cuda_device)
+    v = _bf16(rng.standard_normal((3, 300, 8, 128)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([1, 177, 300], dtype=torch.int32, device=cuda_device)
+    kw = {}
+    if int8:
+        (k, ks), (v, vs) = quantize_kv_tokens(k), quantize_kv_tokens(v)
+        kw = dict(k_scales=ks, v_scales=vs)
+    whole = decode_attention(q, k, v, lengths, **kw)
+    before = sharded_decode_attention.launches
+    for r, topo in enumerate(_topologies()):
+        local = {n: _shard(t, 2, r) for n, t in kw.items()}
+        got = sharded_decode_attention(_shard(q, 2, r), _shard(k, 2, r), _shard(v, 2, r),
+                                       lengths, topo, heads=(32, 8), **local)
+        assert torch.equal(got, _shard(whole, 2, r))
+    assert sharded_decode_attention.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [False, True])
+def test_sharded_paged_kernels_are_the_unsharded_heads_on_card(cuda_device, staged):
+    """K8-b/c: each rank's KV-head slice of the pools through K3 (staged or
+    not) and K4 equals the same heads of the unsharded kernels bit for bit."""
+    from deepspeed_tpu_torch.ops.cuda.sharded import (
+        sharded_paged_decode_attention, sharded_paged_prefill_attention)
+    rng = np.random.default_rng(81)
+    h, hkv, d = 32, 8, 128
+    k_pool, v_pool, tables = _paged(rng, cuda_device, [3, 1, 4, 0], hkv, d)
+    q1 = _bf16(rng.standard_normal((4, 1, h, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([40, 9, 64, 65], dtype=torch.int32, device=cuda_device)
+    stage = {}
+    if staged:
+        stage = {n: _bf16(rng.standard_normal((4, hkv, d)).astype(np.float32), cuda_device)
+                 for n in ("k_new", "v_new")}
+    whole = paged_decode_attention(q1, k_pool, v_pool, tables, lengths, **stage)
+    q8 = _bf16(rng.standard_normal((4, 8, h, d)).astype(np.float32), cuda_device)
+    starts = torch.tensor([30, 0, 50, 64], dtype=torch.int32, device=cuda_device)
+    whole_prefill = paged_prefill_attention(q8, k_pool, v_pool, tables, starts)
+    for r, topo in enumerate(_topologies()):
+        kp, vp = _shard(k_pool, 0, r), _shard(v_pool, 0, r)
+        local = {n: _shard(t, 1, r) for n, t in stage.items()}
+        got = sharded_paged_decode_attention(_shard(q1, 2, r), kp, vp, tables, lengths, topo,
+                                             **local)
+        assert torch.equal(got, _shard(whole, 2, r))
+        got = sharded_paged_prefill_attention(_shard(q8, 2, r), kp, vp, tables, starts, topo)
+        assert torch.equal(got, _shard(whole_prefill, 2, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 100])
+def test_sharded_quantized_matmul_flavours_on_card(cuda_device, m):
+    """K8-d: 'n' on a column shard equals the unsharded columns bit for bit;
+    'k' partial products on row shards sum to within 2e-2 of the unsharded
+    product (one process: the all-reduce is the identity)."""
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import (
+        quantized_matmul, sharded_quantized_matmul)
+    from deepspeed_tpu_torch.ops.quantization import quantize_int8_blockwise
+    from deepspeed_tpu_torch.utils.partitioning import shard_leaf
+    rng = np.random.default_rng(82 + m)
+    x = _bf16(rng.standard_normal((m, 1024)).astype(np.float32), cuda_device)
+    w = torch.from_numpy((0.02 * rng.standard_normal((1024, 2048))).astype(np.float32))
+    q, s = quantize_int8_blockwise(w.to(cuda_device), 256)
+    leaf = {"__q8__": q, "scales": s}
+    whole = quantized_matmul(x, q, s)
+    launches = (sharded_quantized_matmul.launches_n, sharded_quantized_matmul.launches_k)
+    parts = []
+    for r in range(2):
+        col = shard_leaf(leaf, 1, 2, r)
+        got = sharded_quantized_matmul(x, col["__q8__"], col["scales"], "n")
+        assert torch.equal(got, _shard(whole, 1, r))
+        row = shard_leaf(leaf, 0, 2, r)
+        parts.append(sharded_quantized_matmul(_shard(x, 1, r), row["__q8__"], row["scales"],
+                                              "k"))
+    assert _rel_max_err(parts[0] + parts[1], whole) <= BF16_TOL
+    assert (sharded_quantized_matmul.launches_n, sharded_quantized_matmul.launches_k) == \
+        (launches[0] + 2, launches[1] + 2)
+
+
+@pytest.mark.cuda
+def test_sharded_call_on_a_cpu_tensor_under_a_cuda_topology_raises(cuda_device):
+    """A per-shard call under a topology that serves the card refuses CPU
+    tensors instead of running their plain version."""
+    from deepspeed_tpu_torch.ops.cuda.sharded import (
+        sharded_decode_attention, sharded_paged_decode_attention)
+    topo = _topologies()[0]
+    q, cache = torch.zeros((1, 1, 16, 128)), torch.zeros((1, 64, 4, 128))
+    lengths = torch.tensor([5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="card"):
+        sharded_decode_attention(q, cache, cache, lengths, topo)
+    pool, tables = torch.zeros((4, 2, 16, 128)), torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="card"):
+        sharded_paged_decode_attention(q, pool, pool, tables, lengths, topo)
