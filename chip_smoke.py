@@ -106,6 +106,22 @@
    shard of K2, K3, K4 and K5 ('n') bit for bit to the same heads or
    columns of the unsharded kernel, and K5 'k''s two partial products
    summed to the unsharded product;
+9d. serves Qwen1.5-MoE-A2.7B at full width and depth expert-parallel over
+   ep = 2 (`groups.initialize(MeshTopology(ep=2))`, then `init_inference`):
+   two ranks on the one card over gloo, as 9c, each building its shard (the
+   dense model whole, 30 of the 60 experts of every layer) from the seed of
+   8b: v1 `forward` on 4 x 512 (the ragged path: the rank's slice of the
+   expert buffer, all-gathered) and greedy `generate` of 64 (K8-e three
+   times a layer in the prefill, one all-reduce a layer; the ragged buffer
+   and K2 at decode), counted; the last step teacher-forced on 8b's tokens
+   against 8b's, beside the routing-flip share, with a control (rank 1
+   running its experts at rank 0's group offset) that must miss; a sampled
+   `generate`; the gloo all-reduce and all-gather at the prefill and decode
+   operand sizes and K8-e alone and with its all-reduce; decode with the
+   grouped GEMM forced (K8-e counted); both ranks' tokens equal; then the
+   2-layer models of 8b at ep = 2 against 8b's CPU f32 logits. The kernel
+   phase holds each rank's share of K8-e bit for bit to K6's rows of its
+   experts (zeros elsewhere) and the ranks' sum to K6's output;
 10. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -179,6 +195,11 @@ WATCH_SLOT = (0, 1, 2, 15)               # one prompt of each length
 TP = 2
 TP_REFS = {}                 # the tp = 1 phases' greedy tokens and last-step logits
 TP_TIMEOUT_S = 600           # a rank waiting longer on a collective fails the run
+# Expert-parallel serving of Qwen1.5-MoE-A2.7B over ep = 2 (`serve_ep`): two
+# ranks on the one card over gloo, as `serve_tp`, each holding the whole
+# dense model and 30 of the 60 experts of every layer.
+EP = 2
+EP_REFS = {}                 # `serve_moe`'s and `reference_moe`'s ep = 1 results
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -930,6 +951,86 @@ def gmm_cases(gen):
             check_gmm(gen, "M = 5", 40, 24, sizes([2, 0, 3]))]
 
 
+def expert_topology(rank):
+    """Rank `rank` of an ep = 2 topology on the card (no process group: the
+    kernel phase calls each rank's share in this one process)."""
+    from deepspeed_tpu_torch.utils.groups import MeshTopology
+    return MeshTopology(ep=EP, world_size=EP, rank=rank, device="cuda")
+
+
+def check_sharded_gmm(gen, name, k, n, sizes):
+    """K8-e on lhs (M, K), the expert stack (E, K, N) cut over ep = 2 and
+    `sizes` (E,): each rank's output before the all-reduce must be K6's rows
+    of its experts' span bit for bit and zeros elsewhere, and the two summed
+    (the all-reduce, here in one process) K6's output bit for bit. Rank 0's
+    output is held against the plain version relative to max |ref| and timed
+    beside it, its bound (its span's lhs rows, its experts that have rows,
+    the sizes, all of out) and `torch._grouped_mm` over its span."""
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
+    m, e = int(sizes.sum()), sizes.numel()
+    el = e // EP
+    lhs = randn((m, k), gen)
+    rhs = (torch.randn((e, k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    whole = gg.grouped_gemm(lhs, rhs, sizes)
+    locals_ = [rhs[r * el:(r + 1) * el].contiguous() for r in range(EP)]
+    topos = [expert_topology(r) for r in range(EP)]
+    starts = [0] + torch.cumsum(sizes, 0).tolist()
+    parts = [gg.sharded_grouped_gemm(lhs, locals_[r], sizes, topos[r], reduce=False)
+             for r in range(EP)]
+    torch.cuda.synchronize()
+    for r, part in enumerate(parts):
+        lo, hi = starts[r * el], starts[(r + 1) * el]
+        assert torch.equal(part[lo:hi], whole[lo:hi]), (name, r)
+        assert not part[:lo].any() and not part[hi:].any(), (name, r)
+    summed = torch.stack(parts).sum(0)
+    assert torch.equal(summed, whole), name
+    ref = gg.sharded_grouped_gemm_plain(lhs, locals_[0], sizes, 0)
+    err = rel_max_err(parts[0], ref)
+    assert torch.isfinite(parts[0]).all() and err <= KERNEL_TOL, (name, err)
+    span = starts[el]
+    local_sizes = sizes[:el].contiguous()
+    used = int((local_sizes > 0).sum())
+    nbytes = span * k * 2 + used * k * n * 2 + e * 4 + m * n * 2
+    bound_ms, bound_by = bound(nbytes, 2.0 * span * k * n)
+    library, library_err, library_note = grouped_mm_library(
+        (lhs[:span], locals_[0]), local_sizes, ref[:span])
+    row = dict(shape=f"{name}: M={m} K={k} N={n} E={e}, rank 0 of ep={EP}: experts 0..{el - 1}, "
+                     f"rows 0..{span - 1}, sizes_min={int(sizes.min())} "
+                     f"sizes_max={int(sizes.max())}",
+               ranks_bitwise_equal_to_unsharded_rows=True, sum_bitwise_equal_to_unsharded=True,
+               max_abs_err=(parts[0].float() - ref.float()).abs().max().item(),
+               rel_max_err=err,
+               ms=cuda_ms(lambda: gg.sharded_grouped_gemm(lhs, locals_[0], sizes, topos[0],
+                                                          reduce=False)),
+               plain_ms=cuda_ms(lambda: gg.sharded_grouped_gemm_plain(lhs, locals_[0], sizes, 0),
+                                iters=3, warmup=1),
+               unsharded_ms=cuda_ms(lambda: gg.grouped_gemm(lhs, rhs, sizes)),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library,
+               library_rel_max_err=library_err, library_note=library_note)
+    del lhs, rhs, whole, locals_, parts, summed, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharded_gmm_cases(gen):
+    """K8-e at the shapes the expert-parallel path gives it: the Qwen1.5-MoE
+    prefill (M = 8192 over 60 experts, gate/up then down) and decode calls
+    (M = 16), Mixtral-8x7B's w1 (M = 4096 over 8), and odd layouts: empty
+    experts at both edges of the spans, and M = 5."""
+    def sizes(values):
+        return torch.tensor(values, dtype=torch.int32, device="cuda")
+    qwen = routing_sizes(gen, B * PROMPT, 60, 4)
+    return [check_sharded_gmm(gen, "qwen prefill gate/up", 2048, 1408, qwen),
+            check_sharded_gmm(gen, "qwen prefill down", 1408, 2048, qwen),
+            check_sharded_gmm(gen, "qwen decode gate/up", 2048, 1408,
+                              routing_sizes(gen, B, 60, 4)),
+            check_sharded_gmm(gen, "mixtral prefill w1", 4096, 14336,
+                              routing_sizes(gen, 2048, 8, 2)),
+            check_sharded_gmm(gen, "empty experts at the span edges", 1408, 2048,
+                              sizes([0, 300, 0, 0, 211, 0])),
+            check_sharded_gmm(gen, "M = 5", 40, 24, sizes([2, 0, 0, 3]))]
+
+
 def llama(cfg, seed):
     from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, init_params
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
@@ -1122,12 +1223,13 @@ def kernel_counters():
         counters[fn.__name__ + "_int8"] = (fn, "launches_int8")
     for fn in (paged_decode_attention, paged_prefill_attention):
         counters[fn.__name__ + "_alibi"] = (fn, "launches_alibi")
+    from deepspeed_tpu_torch.ops.cuda.grouped_gemm import sharded_grouped_gemm
     from deepspeed_tpu_torch.ops.cuda.quantized_matmul import sharded_quantized_matmul
     from deepspeed_tpu_torch.ops.cuda.sharded import (
         sharded_decode_attention, sharded_paged_decode_attention,
         sharded_paged_prefill_attention)
     for fn in (sharded_decode_attention, sharded_paged_decode_attention,
-               sharded_paged_prefill_attention):
+               sharded_paged_prefill_attention, sharded_grouped_gemm):
         counters[fn.__name__] = (fn, "launches")
     for flavor in ("n", "k"):
         counters[f"sharded_quantized_matmul_{flavor}"] = (sharded_quantized_matmul,
@@ -1688,6 +1790,8 @@ def serve_moe(report):
     assert torch.isfinite(step_logits).all()
     gate("serve_moe last step vs cached prefill", consistency, MOE_CONSISTENCY_RTOL, control,
          flips)
+    EP_REFS[QWEN_MOE] = dict(tokens=out.cpu(), last=step_logits.float().cpu(),
+                             routing=[r.cpu() for r in decode_routing])
 
     t0 = time.perf_counter()
     engine.generate(ids, max_new_tokens=1)
@@ -1731,6 +1835,7 @@ def serve_moe(report):
     for layer in module.layers:
         layer.mlp.dispatch_impl = cfg.dispatch_impl
     assert gmm_launches["grouped_gemm"] == 3 * L * NEW, gmm_launches
+    EP_REFS[QWEN_MOE]["gmm_tokens"] = gmm_out.cpu()
     del engine, module, recorder, full, seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -1795,10 +1900,306 @@ def reference_moe(report):
              flips)
         rows[name] = dict(layers=2, prompt=prompt, **errs, routing_flip_share=flips,
                           rolled_sizes_control_rel_rms_err=control, launches=launches)
+        # `serve_ep` holds its ep = 2 ranks to the same CPU logits
+        EP_REFS[f"reference {name}"] = dict(seed=SEED + 50 + seed, ids=ids,
+                                            tokens=out.cpu(), cpu_logits=ref)
         del gpu, cpu, cpu_model, card, ref
         gc.collect()
         torch.cuda.empty_cache()
     report["reference_moe"] = rows
+
+
+def serve_ep(report):
+    """Qwen1.5-MoE-A2.7B at full width and depth served expert-parallel over
+    ep = 2: two ranks (spawned processes) on the one card, joined by gloo,
+    each holding the whole dense model and 30 of the 60 experts of every
+    layer (`MeshTopology(ep=2)`, a module built with `ep_rank`). The phase's
+    gates: equal greedy, sampled and gmm-decode tokens on both ranks; rank
+    0's last decode step, teacher-forced on `serve_moe`'s tokens, within
+    MOE_CONSISTENCY_RTOL of `serve_moe`'s, beside the routing-flip share,
+    and a control (rank 1 running its experts at rank 0's group offset)
+    that must miss that bound; the launch counts of the main path (`forward`
+    on B x 512 and greedy `generate` of 64: K8-e three times a layer in the
+    prefill, the ragged buffer and K2 at decode) and of decode with the
+    grouped GEMM forced; no kernel_fallback; then 2-layer Qwen1.5-MoE and
+    Mixtral-8x7B-width models at ep = 2 on the card in bf16, teacher-forced
+    on `reference_moe`'s tokens, against its CPU f32 logits at ep = 1."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config
+    cpu_logits = {k: v.pop("cpu_logits") for k, v in EP_REFS.items() if "cpu_logits" in v}
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(EP_REFS, f"{tmp}/refs.pt")
+        t0 = time.perf_counter()
+        mp.start_processes(ep_rank, args=(free_port(), tmp), nprocs=EP, start_method="spawn")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(EP)]
+    r0, r1 = ranks
+    L = qwen2_moe_config(QWEN_MOE).num_hidden_layers
+    for key in ("greedy", "sampled", "gmm_greedy", "reference_tokens"):
+        assert r0[key] == r1[key], key
+    gate("serve_ep last step vs ep = 1", r0["last_rel_rms_err"], MOE_CONSISTENCY_RTOL,
+         r0["control_rel_rms_err"], r0["last_step_routing_flip_share"])
+    for r in ranks:
+        assert r["launches"] == only(flash_attention_fwd=L, decode_attention=L * (NEW - 1),
+                                     grouped_gemm=3 * L, sharded_grouped_gemm=3 * L), \
+            r["launches"]
+        assert r["gmm_launches"] == only(
+            grouped_gemm=3 * L * NEW, sharded_grouped_gemm=3 * L * NEW,
+            decode_attention=L * (NEW - 1)), r["gmm_launches"]
+        assert r["kernel_fallbacks"] == [], r["kernel_fallbacks"]
+    rows = {}
+    for name, got in r0.pop("reference").items():
+        ref, prompt = cpu_logits[f"reference {name}"], got["prompt"]
+        errs = dict(prefill_rel_rms_err=rel_err(got["prefill"], ref[:, prompt - 1]),
+                    last_decode_step_rel_rms_err=rel_err(got["last"], ref[:, -1]),
+                    cached_prefill_rel_rms_err=rel_err(got["cached"], ref))
+        assert max(errs.values()) <= MOE_REFERENCE_RTOL[name], (name, errs)
+        rows[name] = dict(layers=2, ep=EP, prompt=prompt, **errs, launches=got["launches"])
+    report["reference_ep"] = rows
+    drop = ("greedy", "sampled", "gmm_greedy", "reference_tokens", "reference")
+    report["serve_ep"] = dict(
+        card=report["card"],
+        model=f"{QWEN_MOE} (random bf16 weights, seed {SEED + 40}) over ep={EP}",
+        setup=f"{EP} ranks, one process each, sharing one card over gloo: the "
+              "collectives stage through the host, so these times are not an "
+              "expert-parallel speed", wall_s=wall_s,
+        ranks=[{k: v for k, v in r.items() if k not in drop} for r in ranks])
+    log(f"serve_ep: {EP} ranks sharing one card over gloo: " + "; ".join(
+        f"rank {r['rank']}: decode {r['decode_tok_s']:.1f} tok/s, prefill "
+        f"{r['generate_prefill_ms']:.0f} ms, last step {r['last_rel_rms_err']:.4f} from ep=1, "
+        f"peak {r['peak_memory_bytes'] / 2**30:.2f} GiB" for r in ranks))
+    return r0
+
+
+def ep_rank(rank, port, tmp):
+    """One rank of `serve_ep`: joins the gloo group, installs the ep = 2
+    topology, builds its shard of Qwen1.5-MoE-A2.7B from `serve_moe`'s seed
+    (each expert stack drawn whole, as there, and cut) and serves it, then
+    the 2-layer reference models' shards."""
+    import datetime
+    import logging
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils import groups
+    from deepspeed_tpu_torch.utils.logging import logger
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=EP,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    fallbacks = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: fallbacks.append(rec.getMessage()) \
+        if "kernel_fallback" in rec.getMessage() else None
+    logger.addHandler(handler)
+    try:
+        from deepspeed_tpu_torch.accelerator import get_accelerator
+        acc = get_accelerator()
+        topo = groups.initialize(groups.MeshTopology(ep=EP, device=acc.device))
+        refs = torch.load(f"{tmp}/refs.pt", weights_only=False)
+        out = dict(rank=rank, device=str(acc.device), backend=comm.get_backend(),
+                   topology=repr(topo))
+        torch.cuda.reset_peak_memory_stats()
+        out.update(ep_v1(rank, refs))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["reference"], out["reference_tokens"] = ep_reference(rank, refs)
+        out["kernel_fallbacks"] = fallbacks
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        comm.barrier()
+    finally:
+        logger.removeHandler(handler)
+        comm.destroy_process_group()
+
+
+def moe_shard(cls, cfg, seed, rank):
+    """Rank `rank`'s expert shard of `moe_model(cls, cfg, seed)`: the same
+    draws, each expert stack cut to the rank's experts."""
+    from deepspeed_tpu_torch.models.llama import init_params
+    model = cls(cfg, device="cuda", dtype=torch.bfloat16, ep_size=EP, ep_rank=rank)
+    return init_params(model, torch.Generator(device="cuda").manual_seed(seed))
+
+
+def ep_v1(rank, refs):
+    """v1 at ep = 2: the main path (`forward` on B x 512, greedy `generate`
+    of 64; counted), the last step teacher-forced on `serve_moe`'s tokens
+    with its routing-flip share, the wrong-offset control, a sampled run,
+    the collectives' and K8-e's times, and decode with the grouped GEMM
+    forced (counted)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM, qwen2_moe_config
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
+    cfg = qwen2_moe_config(QWEN_MOE)
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(
+        moe_shard(Qwen2MoeForCausalLM, cfg, SEED + 40, rank), dtype="bf16")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    module = engine.module
+    assert engine.topology.ep_size == EP and module.ep_rank == rank
+    weights = sum(p.numel() * p.element_size() for p in module.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)     # serve_moe's prompts
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.forward(ids[:1, :16])                                     # warm-up
+    engine.generate(ids, max_new_tokens=2)
+    recorder = RoutingRecorder(module)
+
+    # the main path: counted launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(ids)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out = engine.generate(ids, max_new_tokens=NEW)
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    greedy_tok_s = engine.last_decode_tok_s
+    assert logits.shape == (B, PROMPT, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
+    del logits
+
+    # the last step teacher-forced on the ep = 1 tokens, and the control:
+    # rank 1 runs its experts at rank 0's offset (grouped and buffer routes)
+    ref = refs[QWEN_MOE]
+    force = ref["tokens"].cuda()
+    _, seen = generate_logits(engine, ids, NEW, force=force)
+    err = rel_err(seen[-1], ref["last"])
+    flips = flip_share(recorder.take(), ref["routing"])
+    recorder.remove()
+    experts = [layer.mlp.experts for layer in module.layers]
+    real_offset = gg.expert_offset
+    if rank == 1:
+        gg.expert_offset = lambda *args: 0
+        for x in experts:
+            x.first_expert = 0
+    try:
+        _, seen_c = generate_logits(engine, ids, NEW, force=force)
+    finally:
+        gg.expert_offset = real_offset
+        for x in experts:
+            x.first_expert = rank * x.up.shape[0]
+    control = rel_err(seen_c[-1], ref["last"])
+    del seen, seen_c
+
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    sampled = engine.generate(ids, max_new_tokens=NEW, temperature=0.8, top_p=0.9,
+                              seed=SEED + 2)
+    times = ep_collective_ms(cfg, engine)
+
+    # decode with the grouped GEMM forced (K8-e at M = B·k = 16 rows)
+    for layer in module.layers:
+        layer.mlp.dispatch_impl = "gmm"
+    engine.generate(ids, max_new_tokens=2)                # warm-up
+    zero_launches()
+    t0 = time.perf_counter()
+    gmm_out = engine.generate(ids, max_new_tokens=NEW)
+    gmm_generate_ms = (time.perf_counter() - t0) * 1e3
+    gmm_launches = read_launches()
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    gmm_prefill_ms = (time.perf_counter() - t0) * 1e3
+    for layer in module.layers:
+        layer.mlp.dispatch_impl = cfg.dispatch_impl
+    del engine, module, experts
+    return dict(
+        layers=cfg.num_hidden_layers, local_experts=cfg.num_experts // EP,
+        build_and_place_s=build_s, weights_at_rest_bytes=weights,
+        generate_peak_memory_bytes=peak, forward_ms=forward_ms, generate_ms=generate_ms,
+        generate_prefill_ms=prefill_ms,
+        decode_tok_s=B * (NEW - 1) / ((generate_ms - prefill_ms) / 1e3),
+        engine_last_decode_tok_s=greedy_tok_s, launches=launches,
+        last_rel_rms_err=err, last_step_routing_flip_share=flips,
+        control_rel_rms_err=control,
+        greedy_equal_to_ep1_share=float((out.cpu() == ref["tokens"]).float().mean()),
+        greedy=out.cpu().tolist(), sampled=sampled.cpu().tolist(), **times,
+        gmm_decode=dict(generate_ms=gmm_generate_ms, generate_prefill_ms=gmm_prefill_ms,
+                        decode_tok_s=B * (NEW - 1) / ((gmm_generate_ms - gmm_prefill_ms)
+                                                      / 1e3),
+                        greedy_equal_to_ep1_gmm_share=float(
+                            (gmm_out.cpu() == ref["gmm_tokens"]).float().mean())),
+        gmm_launches=gmm_launches, gmm_greedy=gmm_out.cpu().tolist())
+
+
+def ep_collective_ms(cfg, engine, iters: int = 10):
+    """Host ms, synchronised, of the gloo collectives of the expert-parallel
+    path at its operand sizes: the all-reduce of the prefill's `down` output
+    (B·PROMPT·k rows x hidden, bf16, once a layer), the all-reduce the JAX
+    order would add after gate and up (x moe_intermediate), the all-gather
+    of a decode step's expert slice (E/ep, B, hidden); and K8-e at the
+    prefill's `down` call alone (CUDA events) and with its all-reduce (the
+    whole call, host clock)."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
+    m, d, f = B * PROMPT * cfg.num_experts_per_tok, cfg.hidden_size, cfg.moe_intermediate_size
+    out = {}
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    for name, shape, op in (
+            ("all_reduce_prefill_down", (m, d), comm.all_reduce),
+            ("all_reduce_prefill_gate_up", (m, f), comm.all_reduce),
+            ("all_gather_decode_experts", (cfg.num_experts // EP, B, d), comm.all_gather)):
+        x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        out[f"gloo_{name}_ms"] = host_ms(lambda: op(x, group="expert"))
+        out[f"gloo_{name}_bytes"] = x.numel() * 2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)   # the same on both ranks
+    sizes = routing_sizes(gen, B * PROMPT, cfg.num_experts, cfg.num_experts_per_tok)
+    lhs = randn((m, f), gen)
+    down = engine.module.layers[0].mlp.experts.down.detach()
+    topo = engine.topology
+    with torch.inference_mode():
+        out["k8e_prefill_down_kernel_ms"] = cuda_ms(
+            lambda: gg.sharded_grouped_gemm(lhs, down, sizes, topo, reduce=False))
+        out["k8e_prefill_down_call_ms"] = host_ms(
+            lambda: gg.sharded_grouped_gemm(lhs, down, sizes, topo))
+    return out
+
+
+def ep_reference(rank, refs):
+    """The 2-layer models of `reference_moe` at ep = 2 on the card, built
+    from its seeds, teacher-forced on its tokens: the prefill's and last
+    decode step's logits and a cached prefill of the sequence (rank 0
+    keeps them), and the tokens."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_config
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM, qwen2_moe_config
+    rows, tokens = {}, []
+    for name, cls, config in ((QWEN_MOE, Qwen2MoeForCausalLM, qwen2_moe_config),
+                              ("mixtral-8x7b", MixtralForCausalLM, mixtral_config)):
+        ref = refs[f"reference {name}"]
+        cfg = config(name, num_hidden_layers=2)
+        engine = deepspeed_tpu_torch.init_inference(moe_shard(cls, cfg, ref["seed"], rank),
+                                                    dtype="bf16")
+        ids, force = ref["ids"].cuda(), ref["tokens"].cuda()
+        zero_launches()
+        out, seen = generate_logits(engine, ids, 8, force=force)
+        launches = read_launches()
+        assert launches["sharded_grouped_gemm"] == 3 * cfg.num_hidden_layers, launches
+        card = cached_prefill(engine.module, force[:, :-1])
+        tokens.append(out.cpu().tolist())
+        if rank == 0:
+            rows[name] = dict(prompt=ids.shape[1], prefill=seen[0].cpu(), last=seen[-1].cpu(),
+                              cached=card.cpu(), launches=launches)
+        del engine, seen, card
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, tokens
 
 
 def reference_int8(report):
@@ -2972,6 +3373,9 @@ def main() -> int:
                    sharded_paged_decode_attention=check_sharded_paged_decode(gen, rng),
                    sharded_paged_prefill_attention=check_sharded_paged_prefill(gen, rng),
                    sharded_quantized_matmul=check_sharded_qmm(gen))
+    # K8-e: each rank's share of K6 over ep = 2 at the MoE shapes (the Qwen
+    # prefill gate/up call first, the expert-parallel path's), against K6
+    sharded_gmm = sharded_gmm_cases(gen)
     report.update(flash_attention_fwd=flash, decode_attention=decode,
                   paged_decode_attention=paged_decode, paged_prefill_attention=paged_prefill,
                   flash_attention_bwd=flash_bwd, quantized_matmul=qmm,
@@ -2980,11 +3384,12 @@ def main() -> int:
                   paged_prefill_attention_int8=paged_prefill_int8, grouped_gemm=gmm,
                   attention_group_one=group_one, grouped_gemm_bwd=gmm_bwd,
                   block_sparse_attention=sparse, paged_decode_attention_alibi=paged_decode_alibi,
-                  paged_prefill_attention_alibi=paged_prefill_alibi, **sharded)
+                  paged_prefill_attention_alibi=paged_prefill_alibi, **sharded,
+                  sharded_grouped_gemm=sharded_gmm)
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
                 + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one
                 + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi
-                + list(sharded.values())):
+                + list(sharded.values()) + sharded_gmm):
         print(json.dumps(row), flush=True)
     sparse_launches = sparse_path(report)
 
@@ -3006,6 +3411,7 @@ def main() -> int:
     reference_bloom(report)
     moe_launches = serve_moe(report)
     reference_moe(report)
+    ep = serve_ep(report)
     train_launches = train(report)
     train_reference(report)
     moe_train_launches = train_moe(report)
@@ -3015,7 +3421,8 @@ def main() -> int:
                 "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
-                "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp"):
+                "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
+                "serve_ep", "reference_ep"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -3101,6 +3508,11 @@ def main() -> int:
                    tp["int8_launches"]["sharded_quantized_matmul_n"]
                    + tp["int8_launches"]["sharded_quantized_matmul_k"],
                    sharded["sharded_quantized_matmul"]),
+        # K8-e's row: rank 0 of ep = 2 at the Qwen1.5-MoE prefill gate/up call;
+        # launches from the expert-parallel main path (rank 0)
+        kernel_row("sharded_grouped_gemm", "deepspeed_tpu_torch/csrc/grouped_gemm.cu",
+                   "deepspeed_tpu/ops/pallas/grouped_gemm.py:88",
+                   ep["launches"]["sharded_grouped_gemm"], sharded_gmm[0]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)

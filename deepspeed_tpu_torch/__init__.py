@@ -12,7 +12,9 @@ backward), decode and paged attention (the paged kernels with alibi too),
 the int8 dequant-GEMM, the grouped expert GEMM (forward and backward) and
 block-sparse attention. Llama serves tensor-parallel over several ranks
 (`init_distributed`, `tensor_parallel={"tp_size": N}`), each rank running
-the kernels on its shard. It imports `torch`, never
+the kernels on its shard, and the MoE families serve expert-parallel
+(`init_distributed`, `groups.initialize(MeshTopology(ep=N))`), each rank
+holding its share of the experts. It imports `torch`, never
 `jax`, and nothing of `deepspeed_tpu`.
 """
 
@@ -63,7 +65,9 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     `DeepSpeedInferenceConfig`, and keyword arguments are config keys.
     `device=None` means CUDA; without CUDA it raises unless `device="cpu"`.
     `tensor_parallel={"tp_size": N}` serves a Llama over N ranks, one
-    process each (`init_distributed`; see `inference/engine.py`).
+    process each (`init_distributed`; see `inference/engine.py`); an
+    installed `utils.groups.MeshTopology(ep=N)` serves an MoE family over N
+    expert ranks.
     """
     from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
     from deepspeed_tpu_torch.inference.engine import InferenceEngine

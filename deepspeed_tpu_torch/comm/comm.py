@@ -1,11 +1,13 @@
 """Collectives over `torch.distributed` (counterpart of ``deepspeed_tpu/comm/comm.py``).
 
-A group is named by its mesh axis (`"model"`, or `"tp"`), as in the JAX
-package; its size and this rank's index on it come from the installed
-topology (`utils/groups.py`), whose only nontrivial axis spans every rank,
-so its process group is the default one. None means every rank. Where the JAX package's collectives are traced inside a
-`shard_map` region, these run eagerly, one call per collective, on the
-rank's own tensors. In one process (no process group) every collective is
+A group is named by its mesh axis (`"model"` or `"tp"`, `"expert"` or
+`"ep"`), as in the JAX package; its size and this rank's index on it come
+from the installed topology (`utils/groups.py`), whose only nontrivial
+axis spans every rank, so its process group is the default one and a
+trivial axis's collectives are the identity. None means every rank.
+Where the JAX package's collectives are traced inside a `shard_map`
+region, these run eagerly, one call per collective, on the rank's own
+tensors. In one process (no process group) every collective is
 the identity.
 
 `init_distributed` brings the process group up from its arguments or from

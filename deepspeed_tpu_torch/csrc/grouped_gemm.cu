@@ -20,6 +20,14 @@
 //     (M,N) -> drhs (G,K,N) = per-group lhs[rows of g]^T @ grad[rows of g],
 //     bf16 out of an f32 sum. An empty group's slab is written as zeros, as
 //     `tgmm` zero-fills it;
+//   * the expert-parallel flavour (`ds_grouped_gemm` with a group offset,
+//     K8-e), which replaces `grouped_gemm.py` `sharded_grouped_gemm` (:88):
+//     megablox `gmm` with `group_offset` over a shard's own experts. rhs
+//     holds the shard's GL experts [off, off + GL) of the G; the sizes are
+//     all G. The shard's rows are computed by the same tiles as K6's call
+//     over the whole stack, so they are K6's rows bit for bit, and every
+//     other row is written as zeros: the output is the operand of the
+//     all-reduce over `expert` that sums the shards (the wrapper's);
 //   * megablox pads M up to a tile multiple and hands the pad rows to the
 //     last group; here the ragged M edge of every tile is masked instead, so
 //     nothing is padded and the outputs are the same (pad rows are zeros, so
@@ -39,7 +47,10 @@
 // likely, but nothing guarantees it). Mixtral-8x7B (M = 4096 over 8 experts,
 // 4096 x 14336) is bound by operations: 0.486 ms against 0.326 ms of bytes,
 // for each of the three products. At decode (M = 16 over 60) only the
-// experts a row routes to are read.
+// experts a row routes to are read. K8-e at Qwen's prefill on one of two
+// expert ranks reads its 30 experts' weights (173 MB), the ~half of lhs
+// its experts own and writes all of out (23 MB of it, zeros outside the
+// span): ~0.064 ms of bytes against ~0.024 ms of operations.
 //
 // Design. The forward and dlhs share one kernel (`gmm_kernel`, TB selects
 // the transposed read of rhs) and one schedule, which stays on the device:
@@ -47,11 +58,13 @@
 // Each block's warp 0 scans the group sizes (32 at a time, warp shuffles)
 // into each group's first row and its count of M tiles, ceil(s_g / BM),
 // and finds the (group, M tile) of its own blockIdx.x in that prefix; empty
-// groups get no tile. The grid is (ceil(M/BM) + G + 1) x ceil(N/BN), an
-// upper bound on the tiles that the host knows without reading the sizes;
-// blocks past the last tile exit. blockIdx.x walks the tiles, so the M tiles
-// of one group and one N tile sit next to each other in launch order and
-// share their weight tiles in L2. A block computes rows [row0, row1) x BN
+// groups get no tile; K8-e scans all G sizes and tiles only its local
+// groups, then zeroes the rows outside them. The grid is (ceil(M/BM) + G +
+// 1) x ceil(N/BN), G the local groups, an upper bound on the tiles that the
+// host knows without reading the sizes; blocks past the last tile exit.
+// blockIdx.x walks the tiles, so the M tiles of one group and one N tile
+// sit next to each other in launch order and share their weight tiles in
+// L2. A block computes rows [row0, row1) x BN
 // columns: per K step it stages the lhs and rhs tiles in shared memory
 // (16-byte loads where the rows are multiples of 8 and the bases aligned,
 // guarded scalar loads otherwise: K = 1408 = 22 x 64 is Qwen's `down` depth
@@ -84,19 +97,27 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-// Warp 0: this block's tile. info = {group (-1: rows past the groups, to be
-// zeroed), first row, end row}; end <= first means no tile (exit).
+// Warp 0: this block's tile. info = {local group (-1: rows outside the
+// local groups, to be zeroed), first row, end row}; end <= first means no
+// tile (exit). The local groups are [off, off + GL) of the G groups: the
+// scan runs over all G sizes, so each local group's rows start where they
+// do in the whole call, and only the local groups get M tiles, cut at the
+// same rows as when off = 0 and GL = G (K6). The tiles after them zero the
+// rows before the local span, then the rows from its end to M.
 template <int BM>
-__device__ void locate_tile(const int* __restrict__ sizes, int G, int M, int t,
-                            int* info) {
+__device__ void locate_tile(const int* __restrict__ sizes, int G, int off, int GL, int M,
+                            int t, int* info) {
   const int lane = threadIdx.x & 31;
   if (lane == 0) { info[0] = -1; info[1] = 0; info[2] = 0; }
   __syncwarp();
-  int row_base = 0, tile_base = 0;
+  int row_base = 0, tile_base = 0, lo = 0, hi = 0;  // lo, hi: the local span
   for (int c = 0; c < G; c += 32) {
     const int g = c + lane;
     const int s = g < G ? max(sizes[g], 0) : 0;
-    const int n = (s + BM - 1) / BM;
+    const bool local = g >= off && g < off + GL;
+    const int n = local ? (s + BM - 1) / BM : 0;
+    lo += g < off ? s : 0;
+    hi += g < off + GL ? s : 0;
     int rows = s, tiles = n;  // inclusive scans over the 32 lanes
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -108,20 +129,29 @@ __device__ void locate_tile(const int* __restrict__ sizes, int G, int M, int t,
     const int first_row = row_base + rows - s;
     if (t >= first_tile && t < first_tile + n) {  // at most one lane of all
       const int r0 = first_row + (t - first_tile) * BM;
-      info[0] = g;
+      info[0] = g - off;
       info[1] = r0;
       info[2] = min(min(r0 + BM, first_row + s), M);
     }
     row_base += __shfl_sync(0xffffffffu, rows, 31);
     tile_base += __shfl_sync(0xffffffffu, tiles, 31);
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo += __shfl_xor_sync(0xffffffffu, lo, o);
+    hi += __shfl_xor_sync(0xffffffffu, hi, o);
+  }
   __syncwarp();
-  if (lane == 0 && info[2] <= info[1] && info[0] < 0) {
-    // tiles past the groups cover rows [sum of sizes, M) with zeros
-    const int r0 = row_base + (t - tile_base) * BM;
-    if (t >= tile_base && r0 < M) {
+  if (lane == 0 && info[2] <= info[1] && info[0] < 0 && t >= tile_base) {
+    // tiles past the local groups zero rows [0, lo), then [hi, M)
+    lo = min(lo, M);
+    hi = min(hi, M);
+    const int front = (lo + BM - 1) / BM, u = t - tile_base;
+    const int r0 = u < front ? u * BM : hi + (u - front) * BM;
+    const int end = u < front ? lo : M;
+    if (r0 < end) {
       info[1] = r0;
-      info[2] = min(r0 + BM, M);
+      info[2] = min(r0 + BM, end);
     }
   }
 }
@@ -133,7 +163,7 @@ template <int BM, int BN, int BK, int WM, int WN, bool TB>
 __global__ void __launch_bounds__(WM * WN * 32)
 gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
            const int* __restrict__ sizes, bf16* __restrict__ out, int M, int K,
-           int N, int G, int vec) {
+           int N, int G, int off, int GL, int vec) {
   constexpr int NT = WM * WN * 32;
   constexpr int TM = BM / WM, TN = BN / WN;  // one warp's tile
   constexpr int FM = TM / 16, FN = TN / 16;
@@ -150,13 +180,13 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
   float* sC = reinterpret_cast<float*>(smem);  // the epilogue reuses the tiles' space
 
   const int tid = threadIdx.x;
-  if (tid < 32) locate_tile<BM>(sizes, G, M, blockIdx.x, info);
+  if (tid < 32) locate_tile<BM>(sizes, G, off, GL, M, blockIdx.x, info);
   __syncthreads();
   const int group = info[0], row0 = info[1], row1 = info[2];
   if (row1 <= row0) return;
   const int n0 = blockIdx.y * BN;
 
-  if (group < 0) {  // rows past the sum of the sizes
+  if (group < 0) {  // rows outside the local groups
     for (int i = tid; i < BM * BN; i += NT) {
       const int m = row0 + i / BN, n = n0 + i % BN;
       if (m < row1 && n < N) out[(size_t)m * N + n] = __float2bfloat16(0.f);
@@ -166,7 +196,7 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
 
   const int warp = tid / 32;
   const int wm = warp / WN, wn = warp % WN;
-  const bf16* w = rhs + (size_t)group * K * N;
+  const bf16* w = rhs + (size_t)group * K * N;  // rhs holds the GL local groups
   const bf16 zero = __float2bfloat16(0.f);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
@@ -373,37 +403,51 @@ tgmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ grad,
   }
 }
 
+// The M tiles of the local groups number at most ceil(M/BM) + GL - 1 and
+// the zero tiles before and after the local span at most 2 more, so
+// ceil(M/BM) + GL + 1 blocks cover them; blocks past the last tile exit.
 template <int BM, int BN, int BK, int WM, int WN, bool TB>
 cudaError_t launch(const void* lhs, const void* rhs, const void* sizes, void* out,
-                   int M, int K, int N, int G, int vec, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM + G + 1, (N + BN - 1) / BN);
+                   int M, int K, int N, int G, int off, int GL, int vec,
+                   cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM + GL + 1, (N + BN - 1) / BN);
   gmm_kernel<BM, BN, BK, WM, WN, TB><<<grid, WM * WN * 32, 0, stream>>>(
       static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
-      static_cast<const int*>(sizes), static_cast<bf16*>(out), M, K, N, G, vec);
+      static_cast<const int*>(sizes), static_cast<bf16*>(out), M, K, N, G, off, GL, vec);
   return cudaGetLastError();
 }
 
 // The large tile when groups average 32 rows or more, else the decode tile.
+// The choice reads all G groups, whatever the local span, so an expert
+// shard's rows are computed with K6's tiles.
 template <bool TB>
 cudaError_t launch_gmm(const void* lhs, const void* rhs, const void* sizes, void* out,
-                       int M, int K, int N, int G, int vec, cudaStream_t s) {
+                       int M, int K, int N, int G, int off, int GL, int vec,
+                       cudaStream_t s) {
   if ((long long)M >= 32LL * (G > 0 ? G : 1))
-    return launch<64, 128, 32, 2, 4, TB>(lhs, rhs, sizes, out, M, K, N, G, vec, s);
-  return launch<16, 64, 64, 1, 4, TB>(lhs, rhs, sizes, out, M, K, N, G, vec, s);
+    return launch<64, 128, 32, 2, 4, TB>(lhs, rhs, sizes, out, M, K, N, G, off, GL, vec, s);
+  return launch<16, 64, 64, 1, 4, TB>(lhs, rhs, sizes, out, M, K, N, G, off, GL, vec, s);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-// out (M,N) = per-group lhs (M,K) @ rhs (G,K,N).
+// out (M,N) = per-group lhs (M,K) @ rhs[g - group_offset] for the local
+// groups [group_offset, group_offset + local_groups) of the G groups, and
+// zeros in every other row. rhs (local_groups,K,N); sizes (G,). K6 is
+// group_offset = 0, local_groups = G; an expert shard's call (K8-e) is its
+// span of the experts, and its rows are K6's rows for those experts.
 extern "C" int ds_grouped_gemm(const void* lhs, const void* rhs, const void* sizes,
-                               void* out, int M, int K, int N, int G, void* stream) {
+                               void* out, int M, int K, int N, int G, int group_offset,
+                               int local_groups, void* stream) {
   if (M == 0 || N == 0) return cudaSuccess;
-  if (M < 0 || N < 0 || K < 0 || G < 0) return cudaErrorInvalidValue;
+  if (M < 0 || N < 0 || K < 0 || G < 0 || group_offset < 0 || local_groups < 0 ||
+      group_offset + local_groups > G)
+    return cudaErrorInvalidValue;
   const int vec = (K % 8 == 0) && (N % 8 == 0) && aligned16(lhs) && aligned16(rhs);
-  return launch_gmm<false>(lhs, rhs, sizes, out, M, K, N, G, vec,
-                           static_cast<cudaStream_t>(stream));
+  return launch_gmm<false>(lhs, rhs, sizes, out, M, K, N, G, group_offset, local_groups,
+                           vec, static_cast<cudaStream_t>(stream));
 }
 
 // dlhs (M,K) = per-group grad (M,N) @ rhs[g]^T, rhs (G,K,N): the forward's
@@ -413,7 +457,7 @@ extern "C" int ds_grouped_gemm_dlhs(const void* grad, const void* rhs, const voi
   if (M == 0 || K == 0) return cudaSuccess;
   if (M < 0 || N < 0 || K < 0 || G < 0) return cudaErrorInvalidValue;
   const int vec = (N % 8 == 0) && aligned16(grad) && aligned16(rhs);
-  return launch_gmm<true>(grad, rhs, sizes, out, M, N, K, G, vec,
+  return launch_gmm<true>(grad, rhs, sizes, out, M, N, K, G, 0, G, vec,
                           static_cast<cudaStream_t>(stream));
 }
 

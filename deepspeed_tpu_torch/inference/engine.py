@@ -19,6 +19,13 @@ process per rank, started by `torchrun` or joined by
 weights and of the KV cache (Hkv/N heads) and every rank returns the same
 tokens. The gathered logits are the same bits on every rank, and a sampled
 `generate` draws from a generator seeded identically on each.
+
+Expert parallelism (the MoE families): under an installed
+`MeshTopology(ep=N)` (one process per rank, as above) each rank holds the
+whole dense model, the whole batch, a whole KV cache and its E/N experts of
+every stack; the MoE layers sum or gather the ranks' expert outputs over
+`expert` (`moe/layer.py`), so the logits, and the tokens, are the same bits
+on every rank.
 """
 
 from __future__ import annotations

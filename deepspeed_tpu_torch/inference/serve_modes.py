@@ -18,13 +18,16 @@ on a tree without the layer-scan layout (the MoE families) raises: a
 whole-tree int8 MoE tree is not ported (ROADMAP.md, Queue 1, 'Weight
 quantization and serve modes').
 
-Tensor parallelism: `serving_topology` installs (or adopts) the topology of
-`tensor_parallel.tp_size` ranks, and `place_params` places this rank's
-shard by one rule: a whole tree (`params`, or a whole module's own weights)
-is cut with `utils/partitioning.shard_tree` into this rank's shard (a whole
-module is rebuilt as one on the meta device); a module built as this rank's
-shard (`tp_size`/`tp_rank` at construction) and given no tree keeps its
-weights. A shard built for another rank raises.
+Tensor and expert parallelism: `serving_topology` installs (or adopts) the
+topology of `tensor_parallel.tp_size` ranks, or adopts an installed pure
+`expert` topology for the MoE families, and `place_params` places this
+rank's shard by one rule, over the topology's nontrivial axis: a whole
+tree (`params`, or a whole module's own weights) is cut with
+`utils/partitioning.shard_tree` into this rank's shard (a whole module is
+rebuilt as one on the meta device); a module built as this rank's shard
+(`tp_size`/`tp_rank`, or `ep_size`/`ep_rank`, at construction) and given no
+tree keeps its weights. A shard built for another rank or another axis
+raises.
 With `quant`, a whole tree is quantized first and then cut, as the JAX
 package does, so every rank's int8 bytes and scales are the matching slice
 of the unsharded tree, and the fused layer scan needs each projection to
@@ -53,6 +56,7 @@ from deepspeed_tpu_torch.inference.quantization import (
     tree_leaves,
 )
 from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, tree_to_torch
+from deepspeed_tpu_torch.models.moe_common import MoeForCausalLM
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.utils.partitioning import shard_tree
@@ -80,8 +84,8 @@ def serving_topology(engine) -> "groups.MeshTopology":
     """The installed topology, else, for tp > 1, one of
     `tensor_parallel.tp_size` ranks over the processes, installed
     (`comm.init_distributed` from the environment when no process group is
-    up), serving `engine.device`. tp > 1 serves the Llama family only;
-    other models raise."""
+    up), serving `engine.device`. tp > 1 serves the Llama family only, and
+    an `expert` axis above 1 the MoE families only; other models raise."""
     from deepspeed_tpu_torch import comm
     tp = engine._config.tp_size
     try:
@@ -107,6 +111,10 @@ def serving_topology(engine) -> "groups.MeshTopology":
     if topo.tp_size > 1 and not isinstance(engine.module, LlamaForCausalLM):
         raise _unported(f"tensor parallelism (tp={topo.tp_size}) with "
                         f"{type(engine.module).__name__}", "Multi-GPU")
+    if topo.ep_size > 1 and not isinstance(engine.module, MoeForCausalLM):
+        raise _unported(f"expert parallelism (ep={topo.ep_size}) with "
+                        f"{type(engine.module).__name__}, which has no experts",
+                        "Multi-GPU")
     return topo
 
 
@@ -185,15 +193,18 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     returned.
 
     Under a tensor-parallel topology (`engine.topology`) the placed weights
-    are this rank's shard (module docstring); `params` is the whole tree."""
+    are this rank's shard (module docstring), and under an expert-parallel
+    one its experts' share; `params` is the whole tree."""
     cfg = engine._config
     model = engine.module
     engine._quantized = bool(cfg.quant and cfg.quant.get("enabled"))
+    built = {"model": (getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)),
+             "expert": (getattr(model, "ep_size", 1), getattr(model, "ep_rank", 0))}
+    shard_built = any(n > 1 for n, _ in built.values())
     if params is not None:
         shapes = params
     else:  # the whole tree's shapes, also for a module built as a shard
-        whole = model if getattr(model, "tp_size", 1) == 1 else \
-            type(model)(model.cfg, device="meta", tp_size=1)
+        whole = type(model)(model.cfg, device="meta") if shard_built else model
         shapes = whole.param_tree(device="meta")
     engine.serve_mode = resolve_serve_mode(engine, shapes)
     if engine.serve_mode == "capacity":
@@ -201,23 +212,27 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     if engine._quantized and not qls.layer_scan_supported(shapes):
         raise _unported(f"quant on {type(model).__name__} (int8 weights outside the "
                         "llama layer-scan layout)", "Weight quantization and serve modes")
-    tp, rank = engine.topology.tp_size, engine.topology.coord("model")
-    shard_built = getattr(model, "tp_size", 1) > 1
-    if shard_built and (model.tp_size, model.tp_rank) != (tp, rank):
-        raise ValueError(
-            f"init_inference: the module is rank {model.tp_rank}'s shard of tp="
-            f"{model.tp_size}, and this process is rank {rank} of a model axis of {tp}")
-    if tp > 1 and not shard_built:
+    topo = engine.topology
+    axis = "expert" if topo.ep_size > 1 else "model"
+    size, rank = topo.axis_size(axis), topo.coord(axis)
+    prefix = {"model": "tp", "expert": "ep"}
+    for a, (n, r) in built.items():
+        if n > 1 and (a, n, r) != (axis, size, rank):
+            raise ValueError(
+                f"init_inference: the module is rank {r}'s shard of {prefix[a]}={n}, and "
+                f"this process is rank {rank} of the {axis} axis of {size}")
+    if size > 1 and not shard_built:
         # a whole module: rebuilt as this rank's shard, fed the cut whole tree
         if params is None:
             params = model.param_tree(dtype=cfg.dtype, release=True)
-        model = type(model)(model.cfg, device="meta", tp_size=tp, tp_rank=rank)
+        model = type(model)(model.cfg, device="meta", **{f"{prefix[axis]}_size": size,
+                                                         f"{prefix[axis]}_rank": rank})
         if not engine._quantized:
             model = model.to_empty(device=engine.device)
-    whole = tp > 1 and params is not None  # cut after quantizing
+    whole = size > 1 and params is not None  # cut after quantizing
     if not engine._quantized:
         if params is not None:
-            model.load_jax_params(shard_tree(params, tp, rank) if whole else params)
+            model.load_jax_params(shard_tree(params, size, rank, axis) if whole else params)
         engine.module = model.to(device=engine.device, dtype=cfg.dtype).eval()
         return None
     if params is not None:
@@ -227,18 +242,18 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
         tree = model.param_tree(dtype=cfg.dtype, device=engine.device, release=True)
         engine.module = model.eval()
     group, min_size = int(cfg.quant.get("group_size", 256)), 4096
-    if tp > 1 and not whole:
+    if size > 1 and not whole:
         # the quantizer takes a leaf by its whole size; every leaf it can
         # take (the kernels, the embedding, the head) is cut tp ways
-        min_size = -(-min_size // tp)
+        min_size = -(-min_size // size)
         _check_shard_quantizable(tree, group, engine.serve_mode == "layer_scan", min_size)
     if engine.serve_mode == "layer_scan":
         tree = qls.quantize_layer_stacks(tree, group_size=group, min_size=min_size)
         if whole and cfg.fused_int8 is not False:
-            qls.check_tp_flavors(tree, tp)
+            qls.check_tp_flavors(tree, size)
     else:
         tree = quantize_param_tree(tree, group_size=group, min_size=min_size)[0]
-    return shard_tree(tree, tp, rank) if whole else tree
+    return shard_tree(tree, size, rank, axis) if whole else tree
 
 
 def _check_shard_quantizable(tree, group: int, layer_scan: bool, min_size: int) -> None:

@@ -328,23 +328,30 @@ def init_params(model: LlamaForCausalLM, generator: torch.Generator,
     weights. Draws come from `generator`, on the parameters' device. A
     tensor-parallel shard draws each sharded weight at its whole shape, in
     the order a tp = 1 module does, and keeps its slice, so every rank's
-    shard is the matching slice of the tp = 1 module's weights."""
+    shard is the matching slice of the tp = 1 module's weights; an
+    expert-parallel shard of an MoE model (`ep_size`) does the same with
+    each expert stack, keeping its rank's experts."""
     tp, rank = getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)
+    ep, ep_rank = getattr(model, "ep_size", 1), getattr(model, "ep_rank", 0)
     for name, p in model.named_parameters():
         if name.endswith("layernorm.weight") or name == "norm.weight":
             p.fill_(1.0)
         elif name.endswith(".bias"):
             p.zero_()
         else:
-            dim = module_model_dim(name) if tp > 1 else None
+            dim, n, r = None, 1, 0
+            if tp > 1:
+                dim, n, r = module_model_dim(name), tp, rank
+            elif ep > 1 and ".experts." in name:
+                dim, n, r = 0, ep, ep_rank
             if dim is None:
                 p.normal_(0.0, std, generator=generator)
                 continue
             shape = list(p.shape)
-            shape[dim] *= tp
+            shape[dim] *= n
             whole = torch.empty(shape, dtype=p.dtype, device=p.device)
             whole.normal_(0.0, std, generator=generator)
-            p.copy_(whole.narrow(dim, rank * p.shape[dim], p.shape[dim]))
+            p.copy_(whole.narrow(dim, r * p.shape[dim], p.shape[dim]))
     return model
 
 

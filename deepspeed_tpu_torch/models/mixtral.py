@@ -90,7 +90,7 @@ def _as_llama(cfg: MixtralConfig) -> LlamaConfig:
 
 
 class MixtralBlock(nn.Module):
-    def __init__(self, cfg: MixtralConfig, **factory):
+    def __init__(self, cfg: MixtralConfig, experts: Optional[dict] = None, **factory):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, **factory)
         self.self_attn = LlamaAttention(_as_llama(cfg), **factory)
@@ -102,7 +102,8 @@ class MixtralBlock(nn.Module):
             hidden_size=cfg.hidden_size, num_experts=cfg.num_local_experts,
             k=cfg.num_experts_per_tok, intermediate_size=cfg.intermediate_size,
             capacity_factor=cfg.capacity_factor, dispatch_impl=cfg.dispatch_impl,
-            dtype=cfg.dtype, device=factory["device"], param_dtype=factory["dtype"])
+            dtype=cfg.dtype, device=factory["device"], param_dtype=factory["dtype"],
+            **(experts or {}))
 
     @property
     def moe(self) -> MoE:
@@ -118,8 +119,10 @@ class MixtralBlock(nn.Module):
 class MixtralForCausalLM(MoeForCausalLM):
     """Mixtral decoder; see `models/moe_common.MoeForCausalLM`."""
 
-    def __init__(self, cfg: MixtralConfig, device=None, dtype=torch.float32):
-        super().__init__(cfg, MixtralBlock, device=device, dtype=dtype)
+    def __init__(self, cfg: MixtralConfig, device=None, dtype=torch.float32,
+                 ep_size: int = 1, ep_rank: int = 0):
+        super().__init__(cfg, MixtralBlock, device=device, dtype=dtype, ep_size=ep_size,
+                         ep_rank=ep_rank)
 
 
 def mixtral_loss_fn(model: MixtralForCausalLM, aux_coef: Optional[float] = None):

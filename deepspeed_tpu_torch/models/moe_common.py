@@ -24,6 +24,14 @@ loss uses are those of the forward, not of the recompute; and the noisy
 gate's uniforms (`gate_rng`, a `torch.Generator`) are drawn before each
 block, so the recompute routes as the forward did.
 
+Expert parallelism (serving only): built with `ep_size` > 1 and `ep_rank`,
+every MoE layer holds that rank's E/ep experts of each stack and the rest
+of the model whole (`moe/layer.py`); its parameter tree is the whole tree
+cut over `expert` (`utils/partitioning.shard_tree(tree, ep, rank,
+"expert")`), which `load_jax_params` takes and `to_jax_params` gives back.
+`llama.init_params` draws each expert stack whole and keeps the rank's
+experts, so the shards of one seed are the cuts of the whole module.
+
 Parameter trees: the JAX layout, mapped by `models/llama.py`'s
 `module_state`/`param_tree`: per-layer leaves stacked on a leading L axis,
 a flax `Dense` kernel (in, out) an `nn.Linear` weight (out, in) transposed,
@@ -64,10 +72,15 @@ class MoeForCausalLM(nn.Module):
     tokens written at the cursors and the cursors advanced. `logits_at`
     (B,) picks one position per row for the LM head. Subclasses build
     `self.layers` from their block, which exposes its MoE layer as
-    `moe`."""
+    `moe`; `ep_size`/`ep_rank` build one expert rank's shard (module
+    docstring)."""
 
-    def __init__(self, cfg, block_cls, device=None, dtype=torch.float32):
+    def __init__(self, cfg, block_cls, device=None, dtype=torch.float32,
+                 ep_size: int = 1, ep_rank: int = 0):
         super().__init__()
+        self.ep_size, self.ep_rank = int(ep_size), int(ep_rank)
+        if not 0 <= self.ep_rank < self.ep_size:
+            raise ValueError(f"ep_rank={self.ep_rank} outside ep_size={self.ep_size}")
         if cfg.attn_impl == "ring":
             raise unported("attn_impl='ring'", "Multi-GPU")
         if cfg.remat and cfg.remat_policy != "nothing":
@@ -76,7 +89,8 @@ class MoeForCausalLM(nn.Module):
         self.cfg = cfg
         self.embed_tokens = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.hidden_size, **factory))
-        self.layers = nn.ModuleList(block_cls(cfg, **factory)
+        experts = dict(ep_size=self.ep_size, ep_rank=self.ep_rank)
+        self.layers = nn.ModuleList(block_cls(cfg, experts, **factory)
                                     for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, **factory)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, **factory)

@@ -114,7 +114,7 @@ class SharedExpert(nn.Module):
 
 
 class Qwen2MoeBlock(nn.Module):
-    def __init__(self, cfg: Qwen2MoeConfig, **factory):
+    def __init__(self, cfg: Qwen2MoeConfig, experts: Optional[dict] = None, **factory):
         super().__init__()
         self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype, **factory)
         self.self_attn = LlamaAttention(_as_llama(cfg), **factory)
@@ -124,7 +124,8 @@ class Qwen2MoeBlock(nn.Module):
                        k=cfg.num_experts_per_tok, intermediate_size=cfg.moe_intermediate_size,
                        capacity_factor=cfg.capacity_factor, drop_tokens=True,
                        norm_topk_prob=cfg.norm_topk_prob, dispatch_impl=cfg.dispatch_impl,
-                       dtype=cfg.dtype, device=factory["device"], param_dtype=factory["dtype"])
+                       dtype=cfg.dtype, device=factory["device"], param_dtype=factory["dtype"],
+                       **(experts or {}))
         self.shared_expert = SharedExpert(cfg, **factory)
 
     @property
@@ -141,8 +142,10 @@ class Qwen2MoeBlock(nn.Module):
 class Qwen2MoeForCausalLM(MoeForCausalLM):
     """Qwen2-MoE decoder; see `models/moe_common.MoeForCausalLM`."""
 
-    def __init__(self, cfg: Qwen2MoeConfig, device=None, dtype=torch.float32):
-        super().__init__(cfg, Qwen2MoeBlock, device=device, dtype=dtype)
+    def __init__(self, cfg: Qwen2MoeConfig, device=None, dtype=torch.float32,
+                 ep_size: int = 1, ep_rank: int = 0):
+        super().__init__(cfg, Qwen2MoeBlock, device=device, dtype=dtype, ep_size=ep_size,
+                         ep_rank=ep_rank)
 
 
 def qwen2_moe_loss_fn(model: Qwen2MoeForCausalLM, aux_coef: Optional[float] = None):

@@ -5,9 +5,23 @@
 expert's weight as its (K, N) rhs with no transpose. `TopKGate` holds the
 router `wg` (D, E) and computes its logits in f32. `MoE` runs one of the
 dispatches of `sharded_moe.py`, chosen by `dispatch_impl` with the JAX
-package's `auto` rule: the grouped GEMM for inference at b·s·k ≥ 1024 rows,
-the ragged buffer otherwise. There is one process, so the grouped GEMM
-always runs unsharded (the JAX `_gmm_mesh` of a trivial mesh).
+package's `auto` rule: the grouped GEMM for inference at b·s·k ≥ 1024 rows
+where the topology lets it run (`gmm_mesh`, the JAX `_gmm_mesh`), the
+ragged buffer otherwise.
+
+Expert parallelism (serving only): built with `ep_size` > 1 and `ep_rank`
+(by default the installed topology's `expert` coordinate), `Experts` holds
+experts [ep_rank·E/ep, (ep_rank+1)·E/ep) of each stack, and the router and
+everything else stay whole on every rank. Every rank routes the same
+tokens the same way. The grouped route runs K8-e (`sharded_grouped_gemm`)
+over the rank's span and all-reduces once over `expert`, after `down`: a
+row outside the span is zero after gate and up, and silu(0)·0 = 0, so the
+sum equals the JAX package's all-reduce after each product bit for bit.
+The ragged and einsum routes compute the rank's (E/ep, C, D) slice of the
+expert buffer, which `sharded_moe.py` all-gathers over `expert`. A shard
+runs only in an `expert` group of its ep ranks (with a process group up),
+and a whole module only outside one; no backward is ported under expert
+parallelism.
 
 Parameters are `param_dtype` (f32) at construction, as in the JAX package;
 the engines cast them to their dtype, and the products run in `dtype`. Each
@@ -19,14 +33,14 @@ capacity cut; after it on the einsum path, as in JAX), and `router_drop`
 right after the call and return them, so that a recomputed block
 (`torch.utils.checkpoint`) cannot replace the ones the loss uses. In
 training, the grouped GEMM is differentiable (`ops/cuda/grouped_gemm.py`,
-K6 and its backward kernels). Not ported: expert parallelism (`ep_size >
-1`, ROADMAP.md, Queue 1, 'Multi-GPU') and the PR-MoE residual expert
-(`use_residual`, Queue 1, 'MoE: the rest').
+K6 and its backward kernels). Not ported: training under expert
+parallelism (ROADMAP.md, Queue 1, 'Multi-GPU') and the PR-MoE residual
+expert (`use_residual`, Queue 1, 'MoE: the rest').
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -40,33 +54,86 @@ from deepspeed_tpu_torch.moe.sharded_moe import (
     gate_noise,
     topkgating,
 )
-from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm
+from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm, sharded_grouped_gemm
+from deepspeed_tpu_torch.ops.cuda.sharded import kernel_fallback, serving_mesh
 from deepspeed_tpu_torch.runtime.config_utils import unported
+from deepspeed_tpu_torch.utils import groups
 
 DISPATCH_IMPLS = ("auto", "gmm", "ragged", "einsum")
 GMM_MIN_ROWS = 1024   # `auto` takes the grouped GEMM for inference from here
 
 
-def choose_dispatch(impl: str, train: bool, rows: int) -> str:
+def choose_dispatch(impl: str, train: bool, rows: int, gmm_ok: bool = True) -> str:
     """The dispatch `MoE` runs for `rows` = b·s·k (token, expert) rows:
-    `auto` is the grouped GEMM for inference at ≥ 1024 rows, else ragged."""
+    `auto` is the grouped GEMM for inference at ≥ 1024 rows where the
+    topology lets it run (`gmm_ok`), else ragged."""
     if impl != "auto":
         return impl
-    return "gmm" if not train and rows >= GMM_MIN_ROWS else "ragged"
+    return "gmm" if not train and rows >= GMM_MIN_ROWS and gmm_ok else "ragged"
+
+
+def _installed_topology() -> Optional["groups.MeshTopology"]:
+    try:
+        return groups.get_topology(create_default=False)
+    except RuntimeError:
+        return None
+
+
+def gmm_mesh(num_experts: int) -> Tuple[Optional["groups.MeshTopology"], int]:
+    """Where the grouped GEMM may run under the installed topology (the
+    JAX `_gmm_mesh`): (None, 1) with every axis trivial, the kernel
+    unsharded; (topology, ep) on a pure `expert` topology with E % ep == 0,
+    K8-e; (None, 0) on any other partitioned topology, where `auto` takes
+    the ragged buffer and a forced `gmm` calls `kernel_fallback`."""
+    topo = _installed_topology()
+    if topo is None or topo.world_size == 1:
+        return None, 1
+    mesh, ep = serving_mesh("expert")
+    if mesh is not None and ep > 1 and num_experts % ep == 0:
+        return mesh, ep
+    return None, 0
+
+
+def expert_group(ep_size: int, ep_rank: int, what: str) -> Optional["groups.MeshTopology"]:
+    """The installed topology when its `expert` axis holds the `ep_size`
+    ranks a shard was built for, with this process as rank `ep_rank` and a
+    process group up (whose all-reduce sums the ranks); None for a whole
+    module (ep_size 1) outside such a group. Raises otherwise: a shard alone
+    would leave partial sums, and a whole module on an expert rank would
+    repeat every rank's work."""
+    from deepspeed_tpu_torch import comm
+    topo = _installed_topology()
+    ep = topo.axis_size("expert") if topo is not None and comm.is_initialized() else 1
+    rank = topo.coord("expert") if ep > 1 else 0
+    if (ep, rank) != (ep_size, ep_rank):
+        raise RuntimeError(
+            f"{what}: experts built for rank {ep_rank} of ep={ep_size} run as rank {rank} "
+            f"of an `expert` group of {ep} rank(s); serve a shard from its ep ranks "
+            "(init_distributed, groups.initialize(MeshTopology(ep=...)), then "
+            "init_inference, which builds each rank's shard)")
+    return topo if ep > 1 else None
 
 
 class Experts(nn.Module):
     """E expert FFNs: gated SiLU (`gate`, `up`, `down`) or plain GELU (`up`,
-    `down`; the JAX package's tanh-approximated `nn.gelu`)."""
+    `down`; the JAX package's tanh-approximated `nn.gelu`). With `ep_size`
+    > 1 the module holds experts [first_expert, first_expert + E/ep) of the
+    E (`num_experts` stays E)."""
 
     def __init__(self, num_experts: int, hidden_size: int, intermediate_size: int,
                  dtype=torch.bfloat16, activation: str = "silu", device=None,
-                 param_dtype=torch.float32):
+                 param_dtype=torch.float32, ep_size: int = 1, ep_rank: int = 0):
         super().__init__()
         factory = dict(device=device, dtype=param_dtype)
         if activation not in ("silu", "gelu"):
             raise ValueError(f"Experts: activation {activation!r} is not 'silu' or 'gelu'")
-        e, d, f = num_experts, hidden_size, intermediate_size
+        if num_experts % ep_size:
+            raise ValueError(f"Experts: {num_experts} experts not divisible by expert={ep_size}")
+        if not 0 <= ep_rank < ep_size:
+            raise ValueError(f"Experts: ep_rank={ep_rank} outside ep_size={ep_size}")
+        e, d, f = num_experts // ep_size, hidden_size, intermediate_size
+        self.num_experts, self.ep_size, self.ep_rank = num_experts, ep_size, ep_rank
+        self.first_expert = ep_rank * e
         self.compute_dtype = dtype
         self.up = nn.Parameter(torch.empty(e, d, f, **factory))
         self.down = nn.Parameter(torch.empty(e, f, d, **factory))
@@ -77,20 +144,36 @@ class Experts(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Batched: x (E, C, D) → (E, C, D). Grouped, when `group_sizes` is
-        given: x (M, D) rows sorted by expert, each expert's span through
-        its FFN as grouped GEMMs (K6), → (M, D)."""
+        """Batched: x (E, C, D) → (E, C, D), or under expert parallelism the
+        rank's experts' slice (E/ep, C, D). Grouped, when `group_sizes` (E,)
+        is given: x (M, D) rows sorted by expert, each expert's span through
+        its FFN as grouped GEMMs (K6; K8-e under expert parallelism,
+        all-reduced), → (M, D)."""
+        mesh = expert_group(self.ep_size, self.ep_rank, "Experts")
+        if mesh is not None and torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            raise unported("training under expert parallelism", "Multi-GPU")
         dt = self.compute_dtype
         w_up, w_down = self.up.to(dt), self.down.to(dt)
         w_gate = self.gate.to(dt) if self.gate is not None else None
         if group_sizes is not None:
-            def gg(lhs, rhs):
-                return grouped_gemm(lhs, rhs, group_sizes)
+            if mesh is not None:
+                def gg(lhs, rhs, reduce=False):
+                    return sharded_grouped_gemm(lhs, rhs, group_sizes, mesh, reduce=reduce)
+            else:
+                if gmm_mesh(self.num_experts)[1] == 0:
+                    kernel_fallback("grouped_gemm", "the topology is partitioned but not "
+                                    "pure expert-parallel; running unsharded", x.device)
+
+                def gg(lhs, rhs, reduce=False):
+                    return grouped_gemm(lhs, rhs, group_sizes)
             if w_gate is not None:
                 h = F.silu(gg(x, w_gate)) * gg(x, w_up)
             else:
                 h = F.gelu(gg(x, w_up), approximate="tanh")
-            return gg(h, w_down)
+            return gg(h, w_down, reduce=True)
+        if mesh is not None:
+            x = x[self.first_expert:self.first_expert + w_up.shape[0]]
         if w_gate is not None:
             h = F.silu(torch.einsum("ecd,edf->ecf", x, w_gate)) * \
                 torch.einsum("ecd,edf->ecf", x, w_up)
@@ -142,7 +225,10 @@ class TopKGate(nn.Module):
 class MoE(nn.Module):
     """MoE FFN block: (B, S, D) → (B, S, D). The aux loss and the router
     telemetry of the call are left in `self.l_aux`, `self.router_load` and
-    `self.router_drop`."""
+    `self.router_drop`. `ep_size` > 1 builds expert rank `ep_rank`'s shard
+    (module docstring); `ep_rank` None takes the installed topology's
+    `expert` coordinate, and an `ep_size` above 1 that the installed
+    topology's `expert` axis does not match raises."""
 
     def __init__(self, hidden_size: int, num_experts: int = 1, ep_size: int = 1, k: int = 1,
                  intermediate_size: Optional[int] = None, capacity_factor: float = 1.0,
@@ -150,11 +236,19 @@ class MoE(nn.Module):
                  drop_tokens: bool = True, noisy_gate_policy: Optional[str] = None,
                  norm_topk_prob: bool = True, use_residual: bool = False,
                  dtype=torch.bfloat16, activation: str = "silu",
-                 dispatch_impl: str = "auto", device=None, param_dtype=torch.float32):
+                 dispatch_impl: str = "auto", device=None, param_dtype=torch.float32,
+                 ep_rank: Optional[int] = None):
         super().__init__()
         factory = dict(device=device, param_dtype=param_dtype)
-        if ep_size > 1:
-            raise unported("expert parallelism (ep_size > 1)", "Multi-GPU")
+        ep_size = int(ep_size)
+        if ep_rank is None:
+            topo = _installed_topology()
+            if ep_size > 1 and (topo is None or topo.axis_size("expert") != ep_size):
+                raise ValueError(
+                    f"MoE: ep_size={ep_size} but the installed topology has expert="
+                    f"{topo.axis_size('expert') if topo is not None else 1}; pass ep_rank, "
+                    "or install MeshTopology(ep=ep_size) first")
+            ep_rank = topo.coord("expert") if ep_size > 1 else 0
         if use_residual:
             raise unported("MoE use_residual (PR-MoE residual expert)", "MoE: the rest")
         if dispatch_impl not in DISPATCH_IMPLS:
@@ -165,7 +259,8 @@ class MoE(nn.Module):
                              eval_capacity_factor, min_capacity, drop_tokens,
                              noisy_gate_policy, norm_topk_prob, **factory)
         self.experts = Experts(num_experts, hidden_size, intermediate_size or 4 * hidden_size,
-                               dtype, activation, **factory)
+                               dtype, activation, ep_size=ep_size, ep_rank=ep_rank, **factory)
+        self.ep_size, self.ep_rank = ep_size, ep_rank
         self.l_aux: Optional[torch.Tensor] = None
         self.router_load: Optional[torch.Tensor] = None
         self.router_drop: Optional[torch.Tensor] = None
@@ -190,7 +285,12 @@ class MoE(nn.Module):
         RSample uniforms (`draw_gate_noise`) in place of `noise_rng`."""
         b, s, d = hidden_states.shape
         x = hidden_states.reshape(b * s, d)
-        impl = choose_dispatch(self.dispatch_impl, train, b * s * self.k)
+        rows = b * s * self.k
+        gmm_ok = gmm_mesh(self.num_experts)[1] > 0
+        impl = choose_dispatch(self.dispatch_impl, train, rows, gmm_ok)
+        if impl != choose_dispatch(self.dispatch_impl, train, rows):
+            kernel_fallback("grouped_gemm", "auto would pick gmm but the topology is not "
+                            "trivial or pure expert-parallel; using ragged dispatch", x.device)
         assignments = float(b * s * self.k)
         if impl == "einsum":
             l_aux, combine, dispatch, _ = self.gate(x, train, noise_rng,

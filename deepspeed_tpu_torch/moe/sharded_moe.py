@@ -5,9 +5,19 @@ load-balancing aux loss, and three dispatches that consume the same
 decisions (`_gating_core`): the one-hot einsum golden path
 (`dispatch_combine`), the scatter/gather buffer (`dispatch_combine_ragged`)
 and the expert-sorted rows of the grouped GEMM (`dispatch_combine_gmm`,
-kernel K6). There is one device, so the JAX package's sharding transitions
-(`shard_along`, the all-to-all over the expert axis) have no counterpart;
-expert parallelism waits for ROADMAP.md, Queue 1, 'Multi-GPU'.
+kernel K6).
+
+Expert parallelism: every rank holds the whole batch and routes it the same
+way; `expert_fn` is the rank's `Experts`, which holds E/ep experts. The
+grouped route's `expert_fn` returns the (T·k, D) rows already summed over
+`expert` (K8-e and its all-reduce), with `group_sizes` over all E. On the
+buffer routes it returns the rank's (E/ep, C, D) slice of the expert
+outputs, and `_expert_outputs` all-gathers the slices over `expert` into
+the whole (E, C, D) buffer: the JAX package's sharding transition at
+`shard_along(expert_outputs, "expert", ...)`, after which the combine runs
+as at ep = 1, on the same bits. Token-sharded dense layers with an
+all-to-all (the reference's `_AllToAll`) are not ported (ROADMAP.md,
+Queue 1, 'Multi-GPU').
 
 Nothing here reads a tensor back to the host: group sizes are built with
 `scatter_add_`, dropped slots go to a trash row, and `argsort` is stable,
@@ -136,12 +146,26 @@ def top2gating(logits, capacity_factor=1.0, min_capacity=8, drop_tokens=True,
     return topkgating(logits, 2, capacity_factor, min_capacity, drop_tokens, noise_rng)
 
 
+def _expert_outputs(expert_fn: Callable, expert_inputs: torch.Tensor) -> torch.Tensor:
+    """`expert_fn` on the (E, C, D) buffer; an expert rank's slice
+    (E/ep, C, D) is all-gathered over `expert` into the whole buffer."""
+    from deepspeed_tpu_torch import comm
+    num_experts = expert_inputs.shape[0]
+    out = expert_fn(expert_inputs)
+    if out.shape[0] != num_experts:
+        out = comm.all_gather(out, group="expert", axis=0)
+        if out.shape[0] != num_experts:
+            raise RuntimeError(f"the expert ranks' slices hold {out.shape[0]} of "
+                               f"{num_experts} experts")
+    return out
+
+
 def dispatch_combine(x: torch.Tensor, combine: torch.Tensor, dispatch: torch.Tensor,
                      expert_fn: Callable) -> torch.Tensor:
     """The one-hot einsum path: x (T, D) → expert inputs (E, C, D) →
     `expert_fn` → combined back to (T, D). O(T·E·C·D); the golden reference."""
     expert_inputs = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
-    expert_outputs = expert_fn(expert_inputs)
+    expert_outputs = _expert_outputs(expert_fn, expert_inputs)
     return torch.einsum("tec,ecd->td", combine.to(x.dtype), expert_outputs)
 
 
@@ -151,7 +175,9 @@ def dispatch_combine_gmm(x: torch.Tensor, gate_k: torch.Tensor, topk_idx: torch.
     stable-sorted by expert, `grouped_fn(rows, group_sizes)` runs the expert
     FFN on them (K6), and the combine gathers back to token order weighted
     by the gate. Capacity-dropped slots are computed but weight-zeroed
-    (`gate_k` is masked by `kept`)."""
+    (`gate_k` is masked by `kept`). Under expert parallelism the sizes
+    stay over all E, and `grouped_fn` returns the rows summed over the
+    expert ranks."""
     t, d = x.shape
     k = topk_idx.shape[1]
     flat_e = topk_idx.reshape(-1)
@@ -182,7 +208,7 @@ def dispatch_combine_ragged(x: torch.Tensor, gate_k: torch.Tensor, topk_idx: tor
     xk = x[:, None].expand(t, k, d).reshape(t * k, d)
     buf = torch.zeros((trash + 1, d), dtype=x.dtype, device=x.device)
     buf.index_copy_(0, dest, xk)   # each (expert, slot) receives at most one token
-    expert_outputs = expert_fn(buf[:trash].reshape(num_experts, cap, d))
+    expert_outputs = _expert_outputs(expert_fn, buf[:trash].reshape(num_experts, cap, d))
     flat = torch.cat([expert_outputs.reshape(trash, d),
                       torch.zeros((1, d), dtype=expert_outputs.dtype, device=x.device)])
     out_k = flat.index_select(0, dest).reshape(t, k, d)

@@ -17,10 +17,20 @@ last group; the kernels mask the ragged edge of each tile instead, and the
 outputs and the gradients of real rows are the same. `tiling` is the JAX
 package's megablox tile choice: it is taken and ignored, since the kernels
 pick their own tiles from M and G. The kernels read `group_sizes` on the
-device, so a call makes no host sync. The expert-parallel flavour
-(`sharded_grouped_gemm`, K6 over an expert shard's span) is the one
-per-shard call (K8) not ported yet: it comes with MoE serving under expert
-parallelism (ROADMAP.md, Queue 1, 'Multi-GPU').
+device, so a call makes no host sync.
+
+`sharded_grouped_gemm(lhs, rhs_local, group_sizes, mesh)` is the
+expert-parallel flavour (K8-e, the JAX `sharded_grouped_gemm`, :88): under
+a topology whose `expert` axis has ep ranks, rhs_local holds this rank's
+E/ep experts [rank·E/ep, (rank+1)·E/ep) and lhs and the E sizes are the
+same on every rank. The kernel (the same source, given the rank's group
+offset) computes that span's rows, bit for bit K6's rows for those experts,
+and writes zeros in every other row; an all-reduce over `expert` then sums
+the ranks, whose spans are disjoint, so the sum is K6's output exactly.
+`reduce=False` leaves the rank's partial, for a caller that reduces once
+after a chain of products (`moe/layer.Experts`). Its plain version,
+`sharded_grouped_gemm_plain`, takes no collective. No backward is ported
+under expert parallelism: the wrapper refuses grad mode.
 """
 
 from __future__ import annotations
@@ -31,11 +41,13 @@ from typing import Optional, Tuple
 import torch
 
 from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
+from deepspeed_tpu_torch.runtime.config_utils import unported
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("grouped_gemm.cu", {
-    name: [_P] * 4 + [_I] * 4 + [_P]
-    for name in ("ds_grouped_gemm", "ds_grouped_gemm_dlhs", "ds_grouped_gemm_drhs")
+    "ds_grouped_gemm": [_P] * 4 + [_I] * 6 + [_P],  # + group offset, local groups
+    **{name: [_P] * 4 + [_I] * 4 + [_P]
+       for name in ("ds_grouped_gemm_dlhs", "ds_grouped_gemm_drhs")},
 })
 
 
@@ -95,13 +107,14 @@ def _check(what, a, b, group_sizes):
             raise ValueError(f"{what}: operands on {t.device} and {a.device}")
 
 
-def _launch(fn_name, what, a, b, group_sizes, out, m, k, n):
+def _launch(fn_name, what, a, b, group_sizes, out, m, k, n, span=()):
+    """`span` is the forward's (group offset, local groups)."""
     _check(what, a, b, group_sizes)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = getattr(LIBRARY.lib(), fn_name)(
             a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
-            m, k, n, group_sizes.shape[0], stream)
+            m, k, n, group_sizes.shape[0], *span, stream)
     LIBRARY.check(code, what)
     return out
 
@@ -195,14 +208,81 @@ def grouped_gemm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor
     return _grouped_gemm(lhs, rhs, group_sizes)
 
 
-def _grouped_gemm(lhs, rhs, group_sizes):
+def _grouped_gemm(lhs, rhs, group_sizes, group_offset: int = 0):
+    """K6; on CUDA, over rhs's groups [group_offset, group_offset +
+    rhs.shape[0]) of the sizes' G (all of them for K6) with zeros in every
+    other row (K8-e's launch)."""
     if lhs.device.type == "cpu":
         return grouped_gemm_plain(lhs, rhs, group_sizes)
     (m, k), n = lhs.shape, rhs.shape[2]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-    _launch("ds_grouped_gemm", "grouped_gemm", lhs, rhs, group_sizes, out, m, k, n)
+    _launch("ds_grouped_gemm", "grouped_gemm", lhs, rhs, group_sizes, out, m, k, n,
+            span=(group_offset, rhs.shape[0]))
     grouped_gemm.launches += 1
     return out
 
 
 grouped_gemm.launches = 0
+
+
+def sharded_grouped_gemm_plain(lhs: torch.Tensor, rhs_local: torch.Tensor,
+                               group_sizes: torch.Tensor, group_offset: int) -> torch.Tensor:
+    """One expert rank's partial of K8-e: the f32 loop over its local groups
+    [group_offset, group_offset + rhs_local.shape[0]) of the sizes, cast to
+    lhs's dtype; every other row is zero. No collective."""
+    out = torch.zeros((lhs.shape[0], rhs_local.shape[2]), dtype=torch.float32,
+                      device=lhs.device)
+    local = range(group_offset, group_offset + rhs_local.shape[0])
+    for g, start, end in _spans(group_sizes, lhs.shape[0]):
+        if g in local:
+            out[start:end] = lhs[start:end].float() @ rhs_local[g - group_offset].float()
+    return out.to(lhs.dtype)
+
+
+def expert_offset(what: str, num_groups: int, local_groups: int, mesh) -> int:
+    """This rank's first expert under `mesh`'s `expert` axis, after checking
+    that the E groups divide over it and that the rank holds E/ep of them."""
+    ep, rank = mesh.axis_size("expert"), mesh.coord("expert")
+    if num_groups % ep:
+        raise ValueError(f"{what}: {num_groups} experts not divisible by expert={ep}")
+    if local_groups != num_groups // ep:
+        raise ValueError(f"{what}: the rank holds {local_groups} experts, not its share "
+                         f"{num_groups // ep} of {num_groups} over expert={ep}")
+    return rank * local_groups
+
+
+def sharded_grouped_gemm(lhs: torch.Tensor, rhs_local: torch.Tensor,
+                         group_sizes: torch.Tensor, mesh, reduce: bool = True) -> torch.Tensor:
+    """K8-e. lhs (M, K) bf16, rows sorted by expert, the same on every
+    rank; rhs_local (E/ep, K, N) bf16, this rank's experts; group_sizes
+    (E,) int32 over all E; `mesh` the topology (its `expert` axis and
+    device). Returns (M, N) in lhs's dtype: K6's output, all-reduced over
+    `expert` (the rank's partial with `reduce=False`).
+
+    A CPU tensor takes the plain version, except under a topology whose
+    device is CUDA, where it raises; a CUDA tensor launches the kernel or
+    raises. Refuses grad mode (no backward under expert parallelism)."""
+    from deepspeed_tpu_torch import comm
+    what = "sharded_grouped_gemm"
+    if lhs.dim() != 2 or rhs_local.dim() != 3 or lhs.shape[1] != rhs_local.shape[1]:
+        raise ValueError(f"{what}: lhs {tuple(lhs.shape)} must be (M, K) and rhs_local "
+                         f"{tuple(rhs_local.shape)} (E/ep, K, N)")
+    if group_sizes.dim() != 1:
+        raise ValueError(f"{what}: group_sizes {tuple(group_sizes.shape)} must be (E,)")
+    offset = expert_offset(what, group_sizes.shape[0], rhs_local.shape[0], mesh)
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs_local.requires_grad):
+        raise unported(f"the gradient of {what} (training under expert parallelism)",
+                       "Multi-GPU")
+    cuda = _device(what, lhs)
+    if not cuda and mesh.device is not None and mesh.device.type == "cuda":
+        raise ValueError(f"{what}: the topology serves {mesh.device} and lhs is on "
+                         f"{lhs.device}; a per-shard call runs on the rank's card")
+    if cuda:
+        out = _grouped_gemm(lhs, rhs_local, group_sizes, offset)
+        sharded_grouped_gemm.launches += 1
+    else:
+        out = sharded_grouped_gemm_plain(lhs, rhs_local, group_sizes, offset)
+    return comm.all_reduce(out, group="expert") if reduce else out
+
+
+sharded_grouped_gemm.launches = 0

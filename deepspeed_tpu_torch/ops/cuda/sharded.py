@@ -17,9 +17,10 @@ the rank's share, and counts its CUDA launches in its own `.launches`
 plain version, except under a topology whose device is CUDA, where it
 raises. `kernel_fallback` is the JAX package's announcement that a sharded
 route cannot run: on the CPU it warns once, on CUDA it raises, since the
-port has no partitioner to fall back on. The grouped GEMM's expert-parallel
-flavour (`sharded_grouped_gemm`) is not ported (ROADMAP.md, Queue 1,
-'Multi-GPU').
+port has no partitioner to fall back on. `serving_mesh` finds the
+topology whose one nontrivial axis is `model` (these wrappers) or `expert`
+(the grouped GEMM's expert-parallel flavour, `sharded_grouped_gemm` in
+`ops/cuda/grouped_gemm.py`, K8-e, chosen by `moe/layer.gmm_mesh`).
 """
 
 from __future__ import annotations

@@ -64,9 +64,11 @@ def test_topology_matches_jax(kw, n):
         assert tuple(topo.coords[a] for a in MESH_AXES) == tuple(int(c) for c in where)
 
 
-@pytest.mark.parametrize("kw", [dict(dp=2), dict(ep=2), dict(sp=2), dict(pp=2),
+@pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2, ep=2), dict(sp=2), dict(pp=2),
                                 dict(tp=1)])
 def test_axes_other_than_model_raise(kw):
+    # `expert` alone is ported (tests/test_torch_ep_serving.py); with `model`
+    # it is not
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         MeshTopology(world_size=2, rank=0, **kw)
 

@@ -33,7 +33,11 @@ slopes raise before a launch. The per-shard calls of tensor parallelism
 and not) equals the same heads of the unsharded kernel bit for bit, K5 'n'
 on a column shard the unsharded columns, and K5 'k''s partial products sum
 to within 2e-2 of the unsharded product; a per-shard call on CPU tensors
-under a topology that serves the card raises.
+under a topology that serves the card raises. The grouped GEMM's
+expert-parallel flavour (K8-e, ep = 2 and 4): each rank's output equals the
+unsharded K6's rows of its experts bit for bit and is zero elsewhere, the
+ranks' sum equals K6's output bit for bit, and each is held to 2e-2 of its
+largest output against its plain version.
 """
 
 import numpy as np
@@ -933,3 +937,63 @@ def test_sharded_call_on_a_cpu_tensor_under_a_cuda_topology_raises(cuda_device):
     pool, tables = torch.zeros((4, 2, 16, 128)), torch.zeros((1, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="card"):
         sharded_paged_decode_attention(q, pool, pool, tables, lengths, topo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep", [2, 4])
+@pytest.mark.parametrize("case", [
+    "empty_at_the_span_edges", "decode_60_groups", "prefill_60_groups", "m5_scalar_path",
+    "rows_past_the_sizes"])
+def test_sharded_grouped_gemm_is_the_unsharded_rows_on_card(cuda_device, case, ep):
+    """K8-e: each expert rank's output is K6's rows of its span, bit for
+    bit, and zeros elsewhere; the ranks' sum is K6's output; each rank's
+    output within 2e-2 of its plain version; one launch a call."""
+    from deepspeed_tpu_torch.ops.cuda.grouped_gemm import (
+        sharded_grouped_gemm,
+        sharded_grouped_gemm_plain,
+    )
+    from deepspeed_tpu_torch.utils.groups import MeshTopology
+    rng = np.random.default_rng(len(case) + ep)
+    sizes, k, n = {
+        "empty_at_the_span_edges": ([0, 37, 0, 0, 100, 0, 0, 41], 128, 200),
+        "decode_60_groups": (_sizes(rng, 16, 60), 2048, 1408),
+        "prefill_60_groups": (_sizes(rng, 2048, 60), 1408, 2048),
+        "m5_scalar_path": ([2, 0, 0, 3], 20, 36),
+        "rows_past_the_sizes": ([10, 0, 20, 4], 96, 72),
+    }[case]
+    m = 50 if case == "rows_past_the_sizes" else int(np.sum(sizes))
+    e = len(sizes)
+    el = e // ep
+    lhs = _bf16(rng.standard_normal((m, k)).astype(np.float32), cuda_device)
+    rhs = _bf16(rng.standard_normal((e, k, n)).astype(np.float32), cuda_device)
+    gs = torch.tensor(np.asarray(sizes, np.int32), device=cuda_device)
+    whole = grouped_gemm(lhs, rhs, gs)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    parts = []
+    for r in range(ep):
+        topo = MeshTopology(ep=ep, world_size=ep, rank=r, device="cuda")
+        local = rhs[r * el:(r + 1) * el].contiguous()
+        launches = sharded_grouped_gemm.launches
+        out = sharded_grouped_gemm(lhs, local, gs, topo, reduce=False)
+        torch.cuda.synchronize()
+        assert sharded_grouped_gemm.launches == launches + 1
+        lo, hi = int(starts[r * el]), int(starts[(r + 1) * el])
+        assert torch.equal(out[lo:hi], whole[lo:hi]), r
+        assert not out[:lo].any() and not out[hi:].any(), r
+        ref = sharded_grouped_gemm_plain(lhs, local, gs, r * el)
+        if hi > lo:
+            assert _rel_max_err(out, ref) <= BF16_TOL
+        parts.append(out)
+    assert torch.equal(torch.stack(parts).sum(0), whole)
+
+
+@pytest.mark.cuda
+def test_sharded_grouped_gemm_refuses_cpu_tensors_under_a_card_topology(cuda_device):
+    from deepspeed_tpu_torch.ops.cuda.grouped_gemm import sharded_grouped_gemm
+    from deepspeed_tpu_torch.utils.groups import MeshTopology
+    topo = MeshTopology(ep=2, world_size=2, rank=0, device="cuda")
+    lhs = torch.zeros((8, 32), dtype=torch.bfloat16)
+    rhs = torch.zeros((2, 32, 16), dtype=torch.bfloat16)
+    gs = torch.tensor([3, 5, 0, 0], dtype=torch.int32)
+    with pytest.raises(ValueError, match="rank's card"):
+        sharded_grouped_gemm(lhs, rhs, gs, topo)
