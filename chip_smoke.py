@@ -7,7 +7,8 @@
 2. builds every kernel of the serving and training paths from
    `deepspeed_tpu_torch/csrc/` with `nvcc`, all at once;
 3. holds each kernel against its plain PyTorch version in bf16 at the
-   serving shapes (the flash backward at the training shapes; the fused
+   serving shapes (K1-fwd also at the llama-1b training call; the flash
+   backward at the training shapes, run twice and bitwise equal; the fused
    dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
    and two odd layouts; the int8 attention kernels on int8 caches, and with
    unit scales bitwise against their bf16 kernels; the grouped expert GEMM
@@ -74,9 +75,10 @@
    4, GAS 2, sequence 2048, FusedAdam, clipping 1.0, ZeRO stage 3 on one
    rank, remat on): one warm-up and 5 timed steps on one batch (the
    training main path, whose launches are counted), with the step time,
-   tokens/s, MFU, peak memory and a profile of one step; the loss must
-   fall. A 2-layer model of the same width is held on the card in bf16
-   against the CPU in f32 over one GAS window of `forward`/`backward`
+   tokens/s, MFU, peak memory and a profile of one step with K1's share
+   of its device time; the loss must fall. A 2-layer model of the same
+   width is held on the card in bf16 against the CPU in f32 over one GAS
+   window of `forward`/`backward`
    (loss, grad norm, four gradients), and remat on against remat off;
 9b. trains Qwen1.5-MoE-A2.7B at full width and 4 of its 24 layers (random
    bf16 weights, `dispatch_impl="gmm"`) through `initialize` →
@@ -297,11 +299,11 @@ def randn(shape, gen):
     return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def check_flash(gen, causal, sq, sk, h=H, hkv=HKV):
+def check_flash(gen, causal, sq, sk, h=H, hkv=HKV, b=B, d=D):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
-    q, k = randn((B, sq, h, D), gen), randn((B, sk, hkv, D), gen)
-    v = randn((B, sk, hkv, D), gen)
+    q, k = randn((b, sq, h, d), gen), randn((b, sk, hkv, d), gen)
+    v = randn((b, sk, hkv, d), gen)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -311,13 +313,13 @@ def check_flash(gen, causal, sq, sk, h=H, hkv=HKV):
         (causal, sq, sk, err, lse_err)
     pairs = sum(min(i + sk - sq + 1, sk) for i in range(sq)) if causal else sq * sk
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
-    bound_ms, bound_by = bound(nbytes, 4.0 * D * pairs * B * h)
+    bound_ms, bound_by = bound(nbytes, 4.0 * d * pairs * b * h)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library = None
     if not causal or sq == sk:  # SDPA's is_causal is top-left aligned
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
-    return dict(shape=f"B={B} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={D} causal={causal}",
+    return dict(shape=f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} causal={causal}",
                 max_abs_err=err, lse_max_abs_err=lse_err,
                 ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal)),
@@ -337,8 +339,13 @@ def check_flash_bwd(gen, b, sq, sk, h, hkv, d, causal):
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     delta = fa._delta(out, do).contiguous()
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal=causal)
     torch.cuda.synchronize()
+    # deterministic: no atomics, every sum in a fixed order
+    bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
+    assert bitwise, ("K1-bwd is not bitwise repeatable", b, sq, sk, h, hkv, d, causal)
+    del again
     names = ("dq", "dk", "dv")
     rel = {n: rel_max_err(g, r) for n, g, r in zip(names, got, ref)}
     err = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(names, got, ref)}
@@ -379,7 +386,8 @@ def check_flash_bwd(gen, b, sq, sk, h, hkv, d, causal):
                ms=cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args)), plain_ms=plain["dkv"],
                bound_ms=dkv_bound[0], bound_by=dkv_bound[1], library_ms=None)
     return dict(shape=f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} causal={causal}",
-                rel_max_err=rel, both_ms=cuda_ms(lambda: fa.flash_attention_bwd(
+                rel_max_err=rel, bitwise_repeatable=bitwise,
+                both_ms=cuda_ms(lambda: fa.flash_attention_bwd(
                     q, k, v, out, lse, do, causal=causal)),
                 both_plain_ms=plain["both"], both_library_ms=library,
                 both_bound_ms=all_bound[0], both_bound_by=all_bound[1],
@@ -2846,7 +2854,8 @@ def train(report):
 
 
 def profile_train(engine, batch):
-    """Device time by kernel over one `train_batch`, from torch.profiler."""
+    """Device time by kernel over one `train_batch`, from torch.profiler,
+    and K1's share of it (forward, dq and dk/dv together)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2854,7 +2863,16 @@ def profile_train(engine, batch):
         engine.train_batch(batch=batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return profile_summary(prof, 1, wall_us)
+    kernels = device_kernels(prof)
+    summary = profile_summary(None, 1, wall_us, kernels)
+    summary["port_kernels"] = kernel_shares(kernels, 1)
+    k1 = [v for k, v in summary["port_kernels"].items() if k.startswith("flash_attention")]
+    summary["k1_ms_per_step"] = sum(v["ms_per_step"] for v in k1)
+    summary["k1_device_share"] = sum(v["device_share"] or 0.0 for v in k1)
+    print(f"K1 (flash fwd, dq, dk/dv) in the llama-1b training step: "
+          f"{summary['k1_ms_per_step']:.2f} ms of {summary['device_ms_per_step']:.2f} device "
+          f"ms, share {summary['k1_device_share']:.3f}", flush=True)
+    return summary
 
 
 def train_reference(report):
@@ -3328,8 +3346,12 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
+    # K1-fwd: the v1 prefill first (the v1 path's), the causal offset, no
+    # mask, then the llama-1b training call (BWD_SHAPES' shape (a))
+    tb, ts, _, th, thkv, td, _ = BWD_SHAPES[0]
     flash = [check_flash(gen, True, PROMPT, PROMPT), check_flash(gen, True, 128, 640),
-             check_flash(gen, False, PROMPT, PROMPT)]
+             check_flash(gen, False, PROMPT, PROMPT),
+             check_flash(gen, True, ts, ts, h=th, hkv=thkv, b=tb, d=td)]
     decode = check_decode(gen)
     # K3: the main path's staged call first, then unstaged and windowed
     paged_decode = [check_paged_decode(gen, rng, staged=True),
@@ -3429,6 +3451,12 @@ def main() -> int:
         kernel_row("flash_attention_fwd", "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
                    "deepspeed_tpu/ops/pallas/flash_attention.py:593",
                    v1_launches["flash_attention_fwd"], flash[0]),
+        # K1-fwd again at the llama-1b training call, launches from the
+        # training main path
+        kernel_row("flash_attention_fwd_training_shape",
+                   "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu",
+                   "deepspeed_tpu/ops/pallas/flash_attention.py:593",
+                   train_launches["flash_attention_fwd"], flash[3]),
         kernel_row("decode_attention", "deepspeed_tpu_torch/csrc/decode_attention.cu",
                    "deepspeed_tpu/ops/pallas/decode_attention.py:103",
                    v1_launches["decode_attention"], decode),

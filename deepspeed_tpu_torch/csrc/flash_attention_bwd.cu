@@ -20,7 +20,8 @@
 //   * dv = sum_i p^T.dO. The TPU kernel keeps p in f32 for this product
 //     (:267); here p is rounded to bf16 for the tensor cores, which moves dv
 //     by about 2^-9 relative, well inside the 2e-2 bf16 tolerance against
-//     the plain version.
+//     the plain version;
+//   * D is 64 or 128; Sq and Sk are any, the ragged edges masked here.
 //
 // Bound on an H100: five products of 2*D operations each per live
 // (query, key) pair and head, 10*D in all (S and dP are computed in both
@@ -30,166 +31,154 @@
 // ~0.2 GB (0.06 ms at 3.35 TB/s): the tensor cores bound it.
 //
 // Design. Nothing is carried between blocks, so each kernel owns its
-// outputs outright: there is no (B,H,Sk,D) f32 intermediate and no atomic,
-// and the result is deterministic (remat re-runs the forward, and a run with
-// remat must match one without).
-//   * dq: one block per (q tile of 64 rows, head, batch), four warps of 16
-//     rows each. The block walks the KV tiles of 64 keys up to the causal
-//     stop (`hi` of :497); S = qs.K^T and dP = dO.V^T run on the tensor cores
-//     through WMMA bf16 16x16x16 fragments, p and ds are formed in shared
-//     memory, and dq accumulates in registers (f32 fragments) across tiles.
-//   * dk/dv: one block per (kv tile of 64 keys, KV head, batch), four warps
-//     of 16 keys each. The block loops over the n_rep query heads of its GQA
-//     group and, for each, over the q tiles from the causal start (`lo` of
-//     :523); it forms S^T = K.qs^T and dP^T = V.dO^T, then dV += P^T.dO and
-//     dK += dS^T.qs into f32 accumulators in shared memory, for the whole
-//     group, and writes dk and dv once.
-// The causal mask is evaluated only on tiles that cross the diagonal or the
-// sequence ends. mma.sync/wgmma with the accumulators in registers, TMA
-// loads and a deeper pipeline are left for a later change.
+// outputs outright: no f32 intermediate in device memory, no atomic, and
+// every sum is taken in a fixed order, so two calls on the same inputs give
+// the same bits (remat re-runs the forward, and a run with remat must match
+// one without).
+//   * Every product runs on the tensor cores as wgmma (m64nNk16, bf16 in,
+//     f32 accumulate in registers). S and dP are SS products (both operands
+//     K-major in shared memory); dq, dK and dV are RS products whose A
+//     operand is the previous accumulator, rounded to bf16 and packed in
+//     registers, and whose B operand (K, qs, dO) is read MN-major,
+//     transposed by the descriptor. Every tile is stored in wgmma's
+//     canonical 128-byte-swizzled layout, so one copy serves both uses.
+//   * dq (`DqCfg`): one block of two warpgroups per (q tile of 128 rows,
+//     head, batch). K and V tiles of 64 keys arrive by cp.async into a ring
+//     of three stages, the next tile's copy issued right after the barrier
+//     that opens the current one, and the wait on each tile's dq product
+//     deferred to the next tile. The block walks the KV tiles up to the
+//     causal stop (`hi` of :497); dq accumulates in registers and is
+//     written once. Blocks are numbered longest first.
+//   * dk/dv (`DkvCfg`): one block per (64 keys a warpgroup, KV head,
+//     batch), dk and dv in registers for the whole GQA group. The block
+//     walks the n_rep query heads of its group and, for each, the q tiles
+//     from the causal start (`lo` of :523); each step's q, dO, lse and delta
+//     arrive by cp.async into a ring of three stages. It scales q to qs in
+//     place, forms S^T = K.qs^T and dP^T = V.dO^T, then dV += P^T.dO and
+//     dK += dS^T.qs (waited at the next step), and writes dk and dv once.
+//     Blocks are numbered longest first (the first KV tile sees every q
+//     tile when causal).
+//   * The mask is evaluated only on tiles that cross the diagonal or the
+//     sequence ends; the shared-memory opt-in is set once per device.
+// What holds them: S and dP are computed in both kernels (14*D operations
+// a pair against 10*D); p and ds are formed on the warpgroups that issue
+// the products, so the tensor cores idle meanwhile; dk/dv rescales each q
+// tile in shared memory (one barrier more a step). TMA, warp
+// specialisation and one fused kernel (dq reduced in a fixed order) are
+// the next steps.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per tile
-constexpr int BK = 64;       // keys per tile
-constexpr int NWARPS = 4;    // each warp owns 16 rows of the block's tile
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = 3;       // ring depth
 constexpr float LN2 = 0.6931471805599453f;
 
-// Leading dimensions are padded against bank conflicts and keep every
-// 16-row fragment 32-byte aligned, as WMMA requires.
+// Tiles by head width. dq: NWG warpgroups of 64 query rows each, walking
+// KV tiles of BK keys. dk/dv: NWG warpgroups of 64 keys each, walking q
+// tiles of BQ rows. MINB is the number of blocks an SM should hold.
 template <int D>
-struct Pad {
-  static constexpr int LDQ = D + 8;   // bf16 tiles of q, dO, k and v
-  static constexpr int LDS = 64 + 4;  // f32 S and dP tiles
-  static constexpr int LDP = 64 + 8;  // bf16 p and ds tiles
-  static constexpr int LDA = D + 4;   // f32 dk/dv accumulators
-  static constexpr int TILE = 64 * LDQ * 2;
+struct DqCfg;
+template <>
+struct DqCfg<64> {
+  static constexpr int NWG = 2, BK = 64, MINB = 2;
+};
+template <>
+struct DqCfg<128> {
+  static constexpr int NWG = 2, BK = 64, MINB = 1;
+};
+template <int D>
+struct DkvCfg;
+template <>
+struct DkvCfg<64> {
+  static constexpr int NWG = 1, BQ = 64, MINB = 2;
+};
+template <>
+struct DkvCfg<128> {
+  static constexpr int NWG = 2, BQ = 32, MINB = 1;
 };
 
+// Shared memory in bytes, every bf16 tile in the swizzled layout of
+// `flash_attention_common.cuh` (read K-major, or MN-major through the
+// descriptor).
 template <int D>
-struct DqLayout : Pad<D> {
-  using P = Pad<D>;
+struct DqSmem {
+  using C = DqCfg<D>;
+  static constexpr int NTHREADS = C::NWG * 128;
+  static constexpr int BQ = C::NWG * 64;          // query rows per block
+  static constexpr int CB = D / 64;
+  static constexpr int QBLK = BQ * 128;           // one column block of q or dO
+  static constexpr int KBLK = C::BK * 128;        // one column block of K or V
   static constexpr int q = 0;
-  static constexpr int dout = q + P::TILE;
-  static constexpr int k = dout + P::TILE;
-  static constexpr int v = k + P::TILE;
-  static constexpr int s = v + P::TILE;
-  static constexpr int dp = s + 64 * P::LDS * 4;
-  static constexpr int ds = dp + 64 * P::LDS * 4;
-  static constexpr int lse = ds + 64 * P::LDP * 2;
-  static constexpr int delta = lse + 64 * 4;
-  static constexpr int bytes = delta + 64 * 4;
+  static constexpr int dout = CB * QBLK;
+  static constexpr int kv = 2 * CB * QBLK;        // stage s: K at kv + 2*s*CB*KBLK, V after it
+  static constexpr int bytes = kv + STAGES * 2 * CB * KBLK + 1024;
 };
 
 template <int D>
-struct DkvLayout : Pad<D> {
-  using P = Pad<D>;
+struct DkvSmem {
+  using C = DkvCfg<D>;
+  static constexpr int NTHREADS = C::NWG * 128;
+  static constexpr int BKV = C::NWG * 64;         // keys per block
+  static constexpr int BQ = C::BQ;
+  static constexpr int CB = D / 64;
+  static constexpr int KBLK = BKV * 128;          // one column block of K or V
+  static constexpr int QBLK = BQ * 128;           // one column block of q or dO
   static constexpr int k = 0;
-  static constexpr int v = k + P::TILE;
-  static constexpr int q = v + P::TILE;
-  static constexpr int dout = q + P::TILE;
-  static constexpr int s = dout + P::TILE;
-  static constexpr int dp = s + 64 * P::LDS * 4;
-  static constexpr int p = dp + 64 * P::LDS * 4;
-  static constexpr int ds = p + 64 * P::LDP * 2;
-  static constexpr int dk = ds + 64 * P::LDP * 2;
-  static constexpr int dv = dk + 64 * P::LDA * 4;
-  static constexpr int lse = dv + 64 * P::LDA * 4;
-  static constexpr int delta = lse + 64 * 4;
-  static constexpr int bytes = delta + 64 * 4;
+  static constexpr int v = CB * KBLK;
+  static constexpr int ring = 2 * CB * KBLK;
+  // one stage: q (scaled to qs in place), dO, lse and delta of one q tile
+  static constexpr int s_q = 0;
+  static constexpr int s_dout = CB * QBLK;
+  static constexpr int s_lse = 2 * CB * QBLK;
+  static constexpr int s_delta = s_lse + BQ * 4;
+  static constexpr int STAGE = ((s_delta + BQ * 4 + 1023) / 1024) * 1024;
+  static constexpr int bytes = ring + STAGES * STAGE + 1024;
 };
 
-// Copy rows [r0, r0+64) of a (rows, stride) bf16 matrix into shared memory
-// with 16-byte loads; rows at or past `nrows` are zero. With `scale` != 0
-// every element is multiplied by it in f32 and rounded back to bf16 (qs).
-template <int D, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int nrows, int stride, float scale) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride + c * 8);
-      if (scale != 0.f) {
-        bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
+// 4-byte asynchronous copy; with `pred` false the destination is zeroed
+// and nothing is read.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 
-// Rows [r0, r0+64) of one head's (B,H,Sq) f32 row vector; zero past `n`.
-__device__ __forceinline__ void load_vec(float* dst, const float* src, int r0, int n) {
-  for (int i = threadIdx.x; i < 64; i += NTHREADS) dst[i] = (r0 + i < n) ? src[r0 + i] : 0.f;
-}
-
-// acc[n] (16 x 16 f32) = A (16 x D, row-major bf16) . B^T, for the 64 rows
-// of B (64 x D, row-major bf16) taken as four column fragments.
-template <int D, int LD>
-__device__ __forceinline__ void rows_times_tile_t(
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[4],
-    const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + kk, LD);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      // B stored [row][d] is B^T in column-major order
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * LD + kk, LD);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
+// Start copying [r0, r0+ROWS) of one head's f32 row vector; zero past `n`.
+template <int ROWS, int NT>
+__device__ __forceinline__ void cp_vec(float* dst, const float* src, int r0, int n) {
+  for (int i = threadIdx.x; i < ROWS; i += NT) {
+    const bool ok = r0 + i < n;
+    cp_async4(dst + i, src + (ok ? r0 + i : 0), ok);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(DqSmem<D>::NTHREADS, DqCfg<D>::MINB)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hkv,
+                    bf16* __restrict__ dq, int BH, int Sq, int Sk, int H, int Hkv,
                     int causal, float qscale, float scale) {
-  using L = DqLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
+  using S = DqSmem<D>;
+  constexpr int BK = DqCfg<D>::BK, BQ = S::BQ, NT = S::NTHREADS, CB = S::CB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem + S::q;
+  unsigned char* sDO = smem + S::dout;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // longest first: the last q tile (most KV tiles when causal) comes first
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / BH)) * BQ;
+  const int h = bh % H, b = bh / H;
   const int hk = h / (H / Hkv);
   const int offset = Sk - Sq;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int cq = (lane % 4) * 2;
+  // this thread's rows: row0 and row0 + 8
+  const int row0 = q0 + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
 
-  const size_t row = (size_t)b * Sq * H + h;
-  load_rows<D, L::LDQ>(sQ, q + row * D, q0, Sq, H * D, qscale);
-  load_rows<D, L::LDQ>(sDO, dout + row * D, q0, Sq, H * D, 0.f);
-  load_vec(sLse, lse + ((size_t)b * H + h) * Sq, q0, Sq);
-  load_vec(sDelta, delta + ((size_t)b * H + h) * Sq, q0, Sq);
+  const size_t qrow = (size_t)b * Sq * H + h;
   const bf16* kb = k + ((size_t)b * Sk * Hkv + hk) * D;
   const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * D;
 
@@ -200,257 +189,253 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     n_tiles = min(n_tiles, last_key / BK + 1);
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+  auto stage = [&](int t) { return smem + S::kv + (t % STAGES) * 2 * CB * S::KBLK; };
+  auto issue_kv = [&](int t) {
+    cp_rows<BK, D, NT>(stage(t), kb, t * BK, Sk, Hkv * D);
+    cp_rows<BK, D, NT>(stage(t) + CB * S::KBLK, vb, t * BK, Sk, Hkv * D);
+  };
+  cp_rows<BQ, D, NT>(sQ, q + qrow * D, q0, Sq, H * D);
+  cp_rows<BQ, D, NT>(sDO, dout + qrow * D, q0, Sq, H * D);
+  issue_kv(0);
+  cp_async_commit();
+
+  float row_lse[2], row_delta[2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    const size_t at = ((size_t)b * H + h) * Sq + (row < Sq ? row : 0);
+    row_lse[i] = lse[at];
+    row_delta[i] = delta[at];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const unsigned char* sQw = sQ + wg * 64 * 128;
+  const unsigned char* sDOw = sDO + wg * 64 * 128;
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_rows<D, L::LDQ>(sK, kb, k0, Sk, Hkv * D, 0.f);
-    load_rows<D, L::LDQ>(sV, vb, k0, Sk, Hkv * D, 0.f);
-    __syncthreads();
-
-    // S = qs.K^T and dP = dO.V^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[4];
-      rows_times_tile_t<D, L::LDQ>(f, sQ + r0 * L::LDQ, sK);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        wmma::store_matrix_sync(sS + r0 * L::LDS + n * 16, f[n], L::LDS, wmma::mem_row_major);
-      rows_times_tile_t<D, L::LDQ>(f, sDO + r0 * L::LDQ, sV);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-        wmma::store_matrix_sync(sDP + r0 * L::LDS + n * 16, f[n], L::LDS, wmma::mem_row_major);
+    // tile t has landed, and every warpgroup is done with tile t - 2, whose
+    // stage takes tile t + 1: its copy runs while tile t's products do
+    cp_async_wait_all();
+    if (t == 0) {
+      __syncthreads();
+      scale_tile<CB * S::QBLK, NT>(sQ, qscale);
     }
-    __syncwarp();
+    fence_async_smem();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      issue_kv(t + 1);
+      cp_async_commit();
+    }
+    const unsigned char* sK = stage(t);
+    const unsigned char* sV = sK + CB * S::KBLK;
+    const int k0 = t * BK;
 
-    // p and ds, one row at a time; the mask only where the tile crosses the
+    // S = qs.K^T and dP = dO.V^T for this warpgroup's 64 rows (the wait
+    // also retires the previous tile's dq product)
+    float s[BK / 2], dp[BK / 2];
+    wg_fence();
+    ss_product<D, BK, S::QBLK, S::KBLK>(s, sQw, sK);
+    ss_product<D, BK, S::QBLK, S::KBLK>(dp, sDOw, sV);
+    wg_commit();
+    wg_wait_all();
+
+    // p and ds in registers; the mask only where the tile crosses the
     // diagonal or the end of the keys
     const bool masked = (causal && k0 + BK - 1 > q0 + offset) || k0 + BK > Sk;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int last = q0 + r + offset;  // last key this row may see
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const int kc = k0 + c;
-        float p = 0.f;
-        if (!masked || (kc < Sk && !(causal && kc > last)))
-          p = exp2f(sS[r * L::LDS + c] - sLse[r]);
-        sDS[r * L::LDP + c] = __float2bfloat16(p * (sDP[r * L::LDS + c] - sDelta[r]));
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + n * 8 + cq + (e % 2);
+        const int row = row0 + (e / 2) * 8;
+        float p = fast_exp2(s[4 * n + e] - row_lse[e / 2]);
+        if (masked && (col >= Sk || (causal && col > row + offset))) p = 0.f;
+        s[4 * n + e] = p * (dp[4 * n + e] - row_delta[e / 2]);  // ds
       }
-    }
-    __syncwarp();
 
-    // dq += ds.K for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(fa[kk], sDS + r0 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, sK + kk * 16 * L::LDQ + n * 16, L::LDQ);
-          wmma::mma_sync(acc[n], fa[kk], fb, acc[n]);
-        }
-      }
-    }
+    // dq += ds.K, K read MN-major; waited at the next tile
+    uint32_t ds[BK / 16][4];
+    pack_rows<BK>(ds, s);
+    wg_fence();
+    rs_product<D, BK, S::KBLK>(acc, ds, sK);
+    wg_commit();
   }
+  wg_wait_all();
 
-  // dq = acc * scale, staged 64 columns at a time through this warp's rows
-  // of the S tile
+  // dq = scale * acc, written once
 #pragma unroll
-  for (int c0 = 0; c0 < D; c0 += 64) {
-    __syncwarp();
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + i * 8;
+    if (row >= Sq) continue;
+    bf16* orow = dq + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      wmma::store_matrix_sync(sS + r0 * L::LDS + n * 16, acc[c0 / 16 + n], L::LDS,
-                              wmma::mem_row_major);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int qi = q0 + r0 + rr;
-      if (qi >= Sq) break;
-      bf16* out = dq + (((size_t)b * Sq + qi) * H + h) * D + c0;
-      for (int c = lane; c < 64; c += 32)
-        out[c] = __float2bfloat16(sS[(r0 + rr) * L::LDS + c] * scale);
-    }
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + cq) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(DkvSmem<D>::NTHREADS, DkvCfg<D>::MINB)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int BHkv, int Sq, int Sk,
                      int H, int Hkv, int causal, float qscale) {
-  using L = DkvLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::dout);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sDK = reinterpret_cast<float*>(smem + L::dk);
-  float* sDV = reinterpret_cast<float*>(smem + L::dv);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
+  using S = DkvSmem<D>;
+  constexpr int BQ = S::BQ, BKV = S::BKV, NT = S::NTHREADS, CB = S::CB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
 
-  const int k0 = blockIdx.x * BK;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  // longest first: the first KV tile sees every q tile when causal
+  const int bh = blockIdx.x % BHkv;
+  const int k0 = (int)(blockIdx.x / BHkv) * BKV;
+  const int hk = bh % Hkv, b = bh / Hkv;
   const int n_rep = H / Hkv;
   const int offset = Sk - Sq;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_rows<D, L::LDQ>(sK, k + ((size_t)b * Sk * Hkv + hk) * D, k0, Sk, Hkv * D, 0.f);
-  load_rows<D, L::LDQ>(sV, v + ((size_t)b * Sk * Hkv + hk) * D, k0, Sk, Hkv * D, 0.f);
-  for (int i = threadIdx.x; i < 64 * L::LDA; i += NTHREADS) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
-  }
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int cq = (lane % 4) * 2;
+  // this thread's keys: key0 and key0 + 8
+  const int key0 = k0 + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
 
   // the first q tile with a row that sees key k0 (`lo` of the TPU kernel)
   int lo = 0;
   if (causal && k0 - offset > 0) lo = (k0 - offset) / BQ;
-  const int nq = (Sq + BQ - 1) / BQ;
+  const int per_head = (Sq + BQ - 1) / BQ - lo;
+  const int n_steps = n_rep * per_head;  // (query head, q tile) steps, heads in order
 
-  for (int r = 0; r < n_rep; ++r) {
-    const int h = hk * n_rep + r;
-    const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
-    const bf16* dob = dout + ((size_t)b * Sq * H + h) * D;
-    const float* lseb = lse + ((size_t)b * H + h) * Sq;
-    const float* deltab = delta + ((size_t)b * H + h) * Sq;
-    for (int i = lo; i < nq; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();  // the previous tile's q and dO are no longer read
-      load_rows<D, L::LDQ>(sQ, qb, q0, Sq, H * D, qscale);
-      load_rows<D, L::LDQ>(sDO, dob, q0, Sq, H * D, 0.f);
-      load_vec(sLse, lseb, q0, Sq);
-      load_vec(sDelta, deltab, q0, Sq);
-      __syncthreads();
+  auto stage = [&](int it) { return smem + S::ring + (it % STAGES) * S::STAGE; };
+  auto issue = [&](int it) {
+    const int h = hk * n_rep + it / per_head;
+    const int q0 = (lo + it % per_head) * BQ;
+    unsigned char* st = stage(it);
+    const size_t qrow = (size_t)b * Sq * H + h;
+    cp_rows<BQ, D, NT>(st + S::s_q, q + qrow * D, q0, Sq, H * D);
+    cp_rows<BQ, D, NT>(st + S::s_dout, dout + qrow * D, q0, Sq, H * D);
+    cp_vec<BQ, NT>(reinterpret_cast<float*>(st + S::s_lse), lse + ((size_t)b * H + h) * Sq, q0,
+                   Sq);
+    cp_vec<BQ, NT>(reinterpret_cast<float*>(st + S::s_delta), delta + ((size_t)b * H + h) * Sq,
+                   q0, Sq);
+  };
+  const size_t kvrow = (size_t)b * Sk * Hkv + hk;
+  cp_rows<BKV, D, NT>(smem + S::k, k + kvrow * D, k0, Sk, Hkv * D);
+  cp_rows<BKV, D, NT>(smem + S::v, v + kvrow * D, k0, Sk, Hkv * D);
+  if (n_steps > 0) issue(0);
+  cp_async_commit();
 
-      // S^T = K.qs^T and dP^T = V.dO^T for this warp's 16 keys
-      {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[4];
-        rows_times_tile_t<D, L::LDQ>(f, sK + r0 * L::LDQ, sQ);
+  float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-          wmma::store_matrix_sync(sS + r0 * L::LDS + n * 16, f[n], L::LDS, wmma::mem_row_major);
-        rows_times_tile_t<D, L::LDQ>(f, sV + r0 * L::LDQ, sDO);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          wmma::store_matrix_sync(sDP + r0 * L::LDS + n * 16, f[n], L::LDS, wmma::mem_row_major);
-      }
-      __syncwarp();
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const unsigned char* sKw = smem + S::k + wg * 64 * 128;
+  const unsigned char* sVw = smem + S::v + wg * 64 * 128;
 
-      // p^T and ds^T, one key at a time; the mask only where the tile
-      // crosses the diagonal or the end of the keys or queries
-      const bool masked = (causal && k0 + BK - 1 > q0 + offset) || k0 + BK > Sk ||
-                          q0 + BQ > Sq;
-      for (int rr = 0; rr < 16; ++rr) {
-        const int j = r0 + rr;
-        const int kj = k0 + j;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const int qi = q0 + c;
-          float p = 0.f;
-          if (!masked || (kj < Sk && qi < Sq && !(causal && kj > qi + offset)))
-            p = exp2f(sS[j * L::LDS + c] - sLse[c]);
-          sP[j * L::LDP + c] = __float2bfloat16(p);
-          sDS[j * L::LDP + c] = __float2bfloat16(p * (sDP[j * L::LDS + c] - sDelta[c]));
-        }
-      }
-      __syncwarp();
+  for (int it = 0; it < n_steps; ++it) {
+    // step it has landed, and every warpgroup is done with step it - 2,
+    // whose stage takes step it + 1: its copy runs while step it's products do
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_steps) {
+      issue(it + 1);
+      cp_async_commit();
+    }
+    unsigned char* st = stage(it);
+    const float* sLse = reinterpret_cast<const float*>(st + S::s_lse);
+    const float* sDelta = reinterpret_cast<const float*>(st + S::s_delta);
+    scale_tile<CB * S::QBLK, NT>(st + S::s_q, qscale);
+    fence_async_smem();
+    __syncthreads();
+    const int q0 = (lo + it % per_head) * BQ;
 
-      // dV += p^T.dO and dK += ds^T.qs for this warp's 16 keys
-      {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp[BQ / 16], fd[BQ / 16];
+    // S^T = K.qs^T and dP^T = V.dO^T for this warpgroup's 64 keys (the wait
+    // also retires the previous step's dV and dK products)
+    float s[BQ / 2], dp[BQ / 2];
+    wg_fence();
+    ss_product<D, BQ, S::KBLK, S::QBLK>(s, sKw, st + S::s_q);
+    ss_product<D, BQ, S::KBLK, S::QBLK>(dp, sVw, st + S::s_dout);
+    wg_commit();
+    wg_wait_all();
+
+    // p^T and ds^T in registers; the mask only where the tile crosses the
+    // diagonal or the end of the keys or queries
+    const bool masked = (causal && k0 + BKV - 1 > q0 + offset) || k0 + BKV > Sk ||
+                        q0 + BQ > Sq;
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) {
-          wmma::load_matrix_sync(fp[kk], sP + r0 * L::LDP + kk * 16, L::LDP);
-          wmma::load_matrix_sync(fd[kk], sDS + r0 * L::LDP + kk * 16, L::LDP);
-        }
+    for (int n = 0; n < BQ / 8; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sLse + n * 8 + cq);
+      const float2 d2 = *reinterpret_cast<const float2*>(sDelta + n * 8 + cq);
 #pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          wmma::fragment<wmma::accumulator, 16, 16, 16, float> av, ak;
-          wmma::load_matrix_sync(av, sDV + r0 * L::LDA + n * 16, L::LDA, wmma::mem_row_major);
-          wmma::load_matrix_sync(ak, sDK + r0 * L::LDA + n * 16, L::LDA, wmma::mem_row_major);
-#pragma unroll
-          for (int kk = 0; kk < BQ / 16; ++kk) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, sDO + kk * 16 * L::LDQ + n * 16, L::LDQ);
-            wmma::mma_sync(av, fp[kk], fb, av);
-            wmma::load_matrix_sync(fb, sQ + kk * 16 * L::LDQ + n * 16, L::LDQ);
-            wmma::mma_sync(ak, fd[kk], fb, ak);
-          }
-          wmma::store_matrix_sync(sDV + r0 * L::LDA + n * 16, av, L::LDA, wmma::mem_row_major);
-          wmma::store_matrix_sync(sDK + r0 * L::LDA + n * 16, ak, L::LDA, wmma::mem_row_major);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + n * 8 + cq + (e % 2);
+        const int kj = key0 + (e / 2) * 8;
+        float p = fast_exp2(s[4 * n + e] - (e % 2 ? l2.y : l2.x));
+        if (masked && (kj >= Sk || qi >= Sq || (causal && kj > qi + offset))) p = 0.f;
+        s[4 * n + e] = p;
+        dp[4 * n + e] = p * (dp[4 * n + e] - (e % 2 ? d2.y : d2.x));  // ds
       }
     }
-  }
-  __syncwarp();
 
-  // dk = ln2 * acc, dv = acc, this warp's 16 keys, once
-  for (int rr = 0; rr < 16; ++rr) {
-    const int j = r0 + rr;
-    const int kj = k0 + j;
-    if (kj >= Sk) break;
-    const size_t o = (((size_t)b * Sk + kj) * Hkv + hk) * D;
-    for (int c = lane; c < D; c += 32) {
-      dk[o + c] = __float2bfloat16(sDK[j * L::LDA + c] * LN2);
-      dv[o + c] = __float2bfloat16(sDV[j * L::LDA + c]);
+    // dV += p^T.dO and dK += ds^T.qs, dO and qs read MN-major; waited at
+    // the next step
+    uint32_t pt[BQ / 16][4], dst[BQ / 16][4];
+    pack_rows<BQ>(pt, s);
+    pack_rows<BQ>(dst, dp);
+    wg_fence();
+    rs_product<D, BQ, S::QBLK>(dv_acc, pt, st + S::s_dout);
+    rs_product<D, BQ, S::QBLK>(dk_acc, dst, st + S::s_q);
+    wg_commit();
+  }
+  wg_wait_all();
+  cp_async_wait_all();  // K and V when there was no step
+
+  // dk = ln2 * acc, dv = acc, this thread's keys, once
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = key0 + i * 8;
+    if (kj >= Sk) continue;
+    const size_t o = (kvrow + (size_t)kj * Hkv) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + n * 8 + cq) =
+          __floats2bfloat162_rn(dk_acc[4 * n + 2 * i] * LN2, dk_acc[4 * n + 2 * i + 1] * LN2);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + n * 8 + cq) =
+          __floats2bfloat162_rn(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
     }
   }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int B, int Sq,
-                      int Sk, int H, int Hkv, int causal, float qscale, float scale,
+                      const void* lse, const void* delta, void* dq, int B, int Sq, int Sk,
+                      int H, int Hkv, int causal, float qscale, float scale,
                       cudaStream_t stream) {
-  constexpr int bytes = DqLayout<D>::bytes;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, bytes);
+  using S = DqSmem<D>;
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, S::bytes, done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), Sq, Sk, H, Hkv, causal, qscale, scale);
+  const int n_qt = (Sq + S::BQ - 1) / S::BQ;
+  flash_bwd_dq_kernel<D><<<n_qt * B * H, S::NTHREADS, S::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), B * H, Sq, Sk, H, Hkv, causal,
+      qscale, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv, int B,
-                       int Sq, int Sk, int H, int Hkv, int causal, float qscale,
-                       cudaStream_t stream) {
-  constexpr int bytes = DkvLayout<D>::bytes;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, bytes);
+                       const void* lse, const void* delta, void* dk, void* dv, int B, int Sq,
+                       int Sk, int H, int Hkv, int causal, float qscale, cudaStream_t stream) {
+  using S = DkvSmem<D>;
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, S::bytes, done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sk + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H, Hkv, causal, qscale);
+  const int n_kt = (Sk + S::BKV - 1) / S::BKV;
+  flash_bwd_dkv_kernel<D><<<n_kt * B * Hkv, S::NTHREADS, S::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      B * Hkv, Sq, Sk, H, Hkv, causal, qscale);
   return cudaGetLastError();
 }
 
@@ -458,17 +443,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* dout, const void* lse,
-                                         const void* delta, void* dq, int B, int Sq,
-                                         int Sk, int H, int Hkv, int D, int causal,
-                                         float qscale, float scale, void* stream) {
+                                         const void* delta, void* dq, int B, int Sq, int Sk,
+                                         int H, int Hkv, int D, int causal, float qscale,
+                                         float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
   switch (D) {
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal,
-                           qscale, scale, s);
+      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, qscale,
+                           scale, s);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal,
-                            qscale, scale, s);
+      return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, qscale,
+                            scale, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -477,9 +463,10 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
 extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dk, void* dv, int B,
-                                          int Sq, int Sk, int H, int Hkv, int D,
-                                          int causal, float qscale, void* stream) {
+                                          int Sq, int Sk, int H, int Hkv, int D, int causal,
+                                          float qscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sk == 0 || Hkv == 0) return cudaSuccess;
   switch (D) {
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal,

@@ -11,126 +11,111 @@
 //   * p is rounded to bf16 before P.V, the running sum l takes the f32 p;
 //   * causal masking is bottom-right aligned (key j is seen by query i when
 //     j <= i + Sk - Sq), masked logits are NEG_INF = -1e30, l == 0 is guarded;
-//   * GQA reads KV head h / (H/Hkv) directly, with no repeat_kv copy.
+//   * GQA reads KV head h / (H/Hkv) directly, with no repeat_kv copy;
+//   * D is 64 or 128; Sq and Sk are any, the ragged edges masked here.
 //
-// Bound on an H100: the work is 4*Sq*Sk*D operations per head (about half
-// of that when causal) against reading q, k, v and writing out and lse once.
-// At B=4, S=512, H=32, Hkv=8, D=128 causal that is ~8.6 GFLOP (8.7 us at
-// 989 TFLOP/s bf16) against ~42 MB (12.6 us at 3.35 TB/s): bytes bound it
-// there, and from about S=1k up the tensor cores do.
+// Bound on an H100: 4*D operations per live (query, key) pair and head
+// against reading q, k, v and writing out and lse once. At the v1 prefill
+// (B=4, S=512, H=32, Hkv=8, D=128, causal) that is 8.6 GFLOP (8.7 us at
+// 989 TFLOP/s bf16) against 42 MB (12.6 us at 3.35 TB/s): bytes bound it.
+// At the llama-1b training call (B=4, S=2048, H=32, Hkv=4, D=64, causal) it
+// is 6.9e10 operations (70 us) against 0.14 GB (41 us): operations bound it.
 //
-// Design: one thread block per (q tile of 64 rows, head, batch), four warps,
-// each warp owning 16 query rows from start to end. The block walks the KV
-// tiles of 64 keys in order; K and V tiles are staged in shared memory and
-// both products (Q.K^T and P.V) run on the tensor cores through WMMA bf16
-// 16x16x16 fragments with f32 accumulation. The running max, running sum and
-// the f32 output accumulator stay in shared memory (the accumulator fragment
-// layout is opaque, so the per-row rescale happens there). A causal q tile
-// stops at the tile that holds its last row's diagonal key: that is the GPU
-// form of the TPU kernel's triangular grid and clamped KV index map, and it
-// means a causal call reads and multiplies only the live half of the tiles.
-// wgmma, TMA and warp specialisation are left for a later change.
+// Design (`Cfg`): one block of two warpgroups per (q tile of 128 rows,
+// head, batch); each warpgroup owns 64 query rows from start to end.
+//   * Both products run on the tensor cores as wgmma (m64nNk16, bf16 in,
+//     f32 accumulate in registers): S = qs.K^T with both operands read from
+//     shared memory through descriptors (K-major), and O += P.V with P in
+//     registers and V read MN-major, transposed by the descriptor. Every
+//     tile is stored in wgmma's canonical 128-byte-swizzled layout (D/64
+//     column blocks of [rows][128 bytes]), so one copy of a K or V tile
+//     serves either major-ness.
+//   * S, P and O stay in registers. A thread holds two rows of its warp's
+//     16 (the accumulator layout), so the online softmax's row max comes
+//     from two shuffles within the quad that shares a row; O is rescaled by
+//     alpha in place; and S's f32 accumulator, rounded to bf16 and packed,
+//     is P's register operand.
+//   * K and V tiles (64 keys at D = 64, 128 at D = 128) arrive by cp.async
+//     into a ring of three stages: the copy of tile t + 1 is issued right
+//     after the barrier that opens tile t, and the wait on tile t's P.V is
+//     deferred to tile t + 1, so the tensor cores run P.V(t) and S(t + 1)
+//     back to back while the warps cross the barrier. Rows past Sk are
+//     zero-filled by the copy and masked.
+//   * The causal walk stops at the tile that holds the block's last
+//     diagonal key (the TPU kernel's triangular grid), and the mask is
+//     evaluated only on tiles that cross the diagonal or the sequence end.
+//   * Blocks are numbered longest first: the q tiles with the most KV tiles
+//     start in the first wave, so the last wave is not the longest.
+//   * The shared-memory opt-in is set once per device, not on every launch.
+// What holds it: the softmax runs on the warpgroups that issue the
+// products, so the tensor cores idle while it does (at the v1 shape each
+// block sees only 1-4 tiles, and its prologue load counts too). TMA loads,
+// warp specialisation (a producer warp; consumer warpgroups that ping-pong
+// softmax and products) and persistent blocks are the next steps.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per KV tile
-constexpr int NWARPS = 4;    // each warp owns BQ / NWARPS = 16 rows
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = 3;    // K/V ring depth
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Shared-memory layout; leading dimensions are padded against bank conflicts
-// and keep every 16-row fragment 32-byte aligned, as WMMA requires.
+// Tiles by head width: NWG warpgroups of 64 query rows each, KV tiles of
+// BK keys, MINB blocks an SM should hold (the register cap follows).
 template <int D>
-struct Layout {
-  static constexpr int LDQ = D + 8;   // bf16 rows of Q, K and V
-  static constexpr int LDS = BK + 4;  // f32 logits
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // f32 output accumulator
-  static constexpr int q = 0;
-  static constexpr int k = q + BQ * LDQ * 2;
-  static constexpr int v = k + BK * LDQ * 2;
-  static constexpr int s = v + BK * LDQ * 2;
-  static constexpr int p = s + BQ * LDS * 4;
-  static constexpr int o = p + BQ * LDP * 2;
-  static constexpr int m = o + BQ * LDO * 4;
-  static constexpr int l = m + BQ * 4;
-  static constexpr int bytes = l + BQ * 4;
+struct Cfg;
+template <>
+struct Cfg<64> {
+  static constexpr int NWG = 2, BK = 64, MINB = 2;
+};
+template <>
+struct Cfg<128> {
+  static constexpr int NWG = 2, BK = 128, MINB = 1;
 };
 
-// Copy rows [r0, r0+BK) of a (rows, stride) bf16 matrix into shared memory
-// with 16-byte loads; rows at or past `nrows` are zero.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
-                                          int nrows, int stride) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
+// Shared memory in bytes, every tile in the swizzled layout of
+// `flash_attention_common.cuh`: read K-major for Q and K, MN-major for V.
+template <int D>
+struct Smem {
+  using C = Cfg<D>;
+  static constexpr int NTHREADS = C::NWG * 128;
+  static constexpr int BQ = C::NWG * 64;
+  static constexpr int CB = D / 64;                 // column blocks
+  static constexpr int QBLK = BQ * 128;             // one column block of Q
+  static constexpr int KBLK = C::BK * 128;          // one column block of K or V
+  static constexpr int q = 0;
+  static constexpr int kv = CB * QBLK;              // stage s: K at kv + 2*s*CB*KBLK, V after it
+  static constexpr int bytes = kv + STAGES * 2 * CB * KBLK + 1024;  // + alignment slack
+};
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(Smem<D>::NTHREADS, Cfg<D>::MINB)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int Sq, int Sk, int H, int Hkv,
+                 float* __restrict__ lse, int BH, int Sq, int Sk, int H, int Hkv,
                  int causal, float qscale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sO = reinterpret_cast<float*>(smem + L::o);
-  float* sM = reinterpret_cast<float*>(smem + L::m);
-  float* sL = reinterpret_cast<float*>(smem + L::l);
+  using S = Smem<D>;
+  constexpr int BK = Cfg<D>::BK, BQ = S::BQ, NT = S::NTHREADS, CB = S::CB;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem + S::q;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // longest first: the last q tile (most KV tiles when causal) comes first
+  const int n_qt = (Sq + BQ - 1) / BQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x / BH)) * BQ;
+  const int h = bh % H, b = bh / H;
   const int hk = h / (H / Hkv);
   const int offset = Sk - Sq;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int cq = (lane % 4) * 2;
+  // this thread's rows: row0 and row0 + 8
+  const int row0 = q0 + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
 
   const bf16* qb = q + ((size_t)b * Sq * H + h) * D;
   const bf16* kb = k + ((size_t)b * Sk * Hkv + hk) * D;
   const bf16* vb = v + ((size_t)b * Sk * Hkv + hk) * D;
-
-  // Q tile, pre-scaled by softmax_scale*log2(e) and rounded to bf16
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < BQ * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < Sq) {
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * H * D + c * 8);
-      bf16* e = reinterpret_cast<bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16(__bfloat162float(e[j]) * qscale);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * L::LDQ + c * 8) = val;
-  }
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
 
   int n_tiles = (Sk + BK - 1) / BK;
   if (causal) {
@@ -138,131 +123,144 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int last_key = min(q0 + BQ, Sq) - 1 + offset;
     n_tiles = min(n_tiles, last_key / BK + 1);
   }
-  __syncthreads();
+
+  auto stage = [&](int t) { return smem + S::kv + (t % STAGES) * 2 * CB * S::KBLK; };
+  auto issue_kv = [&](int t) {
+    cp_rows<BK, D, NT>(stage(t), kb, t * BK, Sk, Hkv * D);
+    cp_rows<BK, D, NT>(stage(t) + CB * S::KBLK, vb, t * BK, Sk, Hkv * D);
+  };
+  cp_rows<BQ, D, NT>(sQ, qb, q0, Sq, H * D);
+  issue_kv(0);
+  cp_async_commit();
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    load_tile<D, L::LDQ>(sK, kb, k0, Sk, Hkv * D);
-    load_tile<D, L::LDQ>(sV, vb, k0, Sk, Hkv * D);
+    // tile t has landed, and every warpgroup is done with tile t - 1, whose
+    // stage takes tile t + 1: its copy runs while tile t's products do
+    cp_async_wait_all();
+    if (t == 0) {
+      __syncthreads();
+      scale_tile<CB * S::QBLK, NT>(sQ, qscale);  // qs, once, in place
+    }
+    fence_async_smem();
     __syncthreads();
+    if (t + 1 < n_tiles) {
+      issue_kv(t + 1);
+      cp_async_commit();
+    }
+    const unsigned char* sK = stage(t);
+    const unsigned char* sV = sK + CB * S::KBLK;
+    const int k0 = t * BK;
 
-    // S = Qs . K^T for this warp's 16 rows
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
+    // S = qs . K^T for this warpgroup's 64 rows, on the tensor cores
+    float s[BK / 2];
+    wg_fence();
+    ss_product<D, BK, S::QBLK, S::KBLK>(s, sQ + wg * 64 * 128, sK);
+    wg_commit();
+    wg_wait_all();
+
+    // the mask, only where the tile crosses the diagonal or the end of keys
+    if ((causal && k0 + BK - 1 > q0 + offset) || k0 + BK > Sk) {
 #pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+      for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sQ + r0 * L::LDQ + kk, L::LDQ);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          // K stored [key][d] is K^T in column-major order
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-          wmma::load_matrix_sync(bk, sK + n * 16 * L::LDQ + kk, L::LDQ);
-          wmma::mma_sync(acc[n], a, bk, acc[n]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + n * 8 + cq + (e % 2);
+          const int row = row0 + (e / 2) * 8;
+          if (col >= Sk || (causal && col > row + offset)) s[4 * n + e] = NEG_INF;
         }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(sS + r0 * L::LDS + n * 16, acc[n], L::LDS,
-                                wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // online softmax in base 2 over this tile, one row at a time
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int last = q0 + r + offset;  // last key this row may see
-      const int c0 = k0 + lane, c1 = k0 + lane + 32;
-      float s0 = sS[r * L::LDS + lane];
-      float s1 = sS[r * L::LDS + lane + 32];
-      if (c0 >= Sk || (causal && c0 > last)) s0 = NEG_INF;
-      if (c1 >= Sk || (causal && c1 > last)) s1 = NEG_INF;
-      float mx = fmaxf(s0, s1);
+    // online softmax in base 2, in registers; a row's four threads agree
+    float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = exp2f(s0 - m_new);
-      const float p1 = exp2f(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-      const float alpha = exp2f(m_prev - m_new);
-      sP[r * L::LDP + lane] = __float2bfloat16(p0);
-      sP[r * L::LDP + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-      }
+    for (int n = 0; n < BK / 8; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
     }
-    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+    }
+    const float alpha[2] = {fast_exp2(m_run[0] - mx[0]), fast_exp2(m_run[1] - mx[1])};
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * n + e] = fast_exp2(s[4 * n + e] - mx[e / 2]);
+        sum[e / 2] += s[4 * n + e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // this thread's columns only; the quad sums at the end
+      l_run[i] = l_run[i] * alpha[i] + sum[i];
+      m_run[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
 
-    // O += P . V for this warp's 16 rows
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(pa[kk], sP + r0 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, sO + r0 * L::LDO + n * 16, L::LDO,
-                               wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, sV + kk * 16 * L::LDQ + n * 16, L::LDQ);
-          wmma::mma_sync(acc, pa[kk], bv, acc);
-        }
-        wmma::store_matrix_sync(sO + r0 * L::LDO + n * 16, acc, L::LDO,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncthreads();  // K/V tiles are overwritten by the next iteration
+    // O += P . V: S's accumulator, rounded to bf16, is P's A operand; V is
+    // read MN-major (keys down, head dims across) by the descriptor
+    uint32_t p[BK / 16][4];
+    pack_rows<BK>(p, s);
+    wg_fence();
+    rs_product<D, BK, S::KBLK>(o, p, sV);
+    wg_commit();
   }
+  wg_wait_all();
 
   // out = O / l, lse2 = m + log2(l)
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr;
-    const int qi = q0 + r;
-    if (qi >= Sq) break;
-    const float l = sL[r];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(FULL, l, 1);
+    l += __shfl_xor_sync(FULL, l, 2);
+    const int row = row0 + i * 8;
+    if (row >= Sq) continue;
     const float safe_l = (l == 0.f) ? 1.f : l;
-    bf16* orow = out + (((size_t)b * Sq + qi) * H + h) * D;
-    for (int c = lane; c < D; c += 32)
-      orow[c] = __float2bfloat16(sO[r * L::LDO + c] / safe_l);
-    if (lane == 0) lse[((size_t)b * H + h) * Sq + qi] = sM[r] + log2f(safe_l);
+    bf16* orow = out + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + cq) =
+          __floats2bfloat162_rn(o[4 * n + 2 * i] / safe_l, o[4 * n + 2 * i + 1] / safe_l);
+    if (lane % 4 == 0) lse[((size_t)b * H + h) * Sq + row] = m_run[i] + log2f(safe_l);
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
-                   float qscale, cudaStream_t stream) {
-  constexpr int bytes = Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                   int Sq, int Sk, int H, int Hkv, int causal, float qscale,
+                   cudaStream_t stream) {
+  using S = Smem<D>;
+  static bool done[MAX_DEVICES] = {};
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, S::bytes, done);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, qscale);
+  const int n_qt = (Sq + S::BQ - 1) / S::BQ;
+  flash_fwd_kernel<D><<<n_qt * B * H, S::NTHREADS, S::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), B * H, Sq, Sk, H, Hkv, causal,
+      qscale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ds_flash_attention_fwd(const void* q, const void* k,
-                                      const void* v, void* out, void* lse,
-                                      int B, int Sq, int Sk, int H, int Hkv,
-                                      int D, int causal, float qscale,
-                                      void* stream) {
+extern "C" int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
+                                      void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
+                                      int causal, float qscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0 || H == 0) return cudaSuccess;
   switch (D) {
     case 64:
       return launch<64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, qscale, s);

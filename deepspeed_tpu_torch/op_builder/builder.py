@@ -3,9 +3,10 @@
 Each `deepspeed_tpu_torch/csrc/<name>.cu` is compiled at first use by `nvcc`
 for `sm_90a` into a shared library with a plain C interface, and loaded with
 `ctypes`. Nothing includes PyTorch's headers, so a build takes seconds. The
-library's file name carries the hash of its source and of the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Libraries
-go to `build/torch_kernels/` beside the package.
+library's file name carries the hash of its source, of the local headers the
+source includes (`#include "..."`, next to it) and of the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Libraries go to `build/torch_kernels/` beside the package.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `KernelLibrary.check` raises on a non-zero code.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -30,6 +32,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR.parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -61,7 +64,10 @@ class KernelLibrary:
         return self.source.stem
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes())
+        source = self.source.read_bytes()
+        digest = hashlib.sha256(source)
+        for name in _LOCAL_INCLUDE.findall(source):
+            digest.update((self.source.parent / name.decode()).read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 

@@ -6,8 +6,11 @@ JAX nor the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 Shapes are ragged on purpose (tiles cut by the sequence end, Sq < Sk, both
-head widths, every GQA group size; for the paged kernels, block tables with
--1 tails, a parked row, staged tokens and a sliding window); inputs are
+head widths, every GQA group size; for K1, sequences of one row, tiles
+cut one short of and one past their edges and a grid of several waves,
+its backward bitwise equal from call to call; for the paged kernels,
+block tables with -1 tails, a parked row, staged tokens and a sliding
+window); inputs are
 bf16, and outputs must agree to 2e-2 (p and the output round at 2^-8 and
 the outputs are O(1)); the backward's gradients are held to 2e-2 of their
 largest magnitude. A tiny `train_batch` in bf16 on the card is held against
@@ -103,13 +106,33 @@ def _bf16(x, device):
     return torch.from_numpy(x).to(device=device, dtype=torch.bfloat16)
 
 
+# K1's shapes (B, causal, Sq, Sk): sequences of one row and key, tiles cut
+# one short of and one past the 64-key tile and the 128-row block, a causal
+# offset (Sk > Sq), Sq > Sk without a mask, and one shape whose grids run
+# several waves of blocks on a 132-SM card
+FLASH_SHAPES = [(2, True, 1, 1), (2, True, 1, 63), (2, True, 63, 63), (2, True, 65, 65),
+                (2, True, 129, 129), (2, True, 200, 200), (2, True, 77, 300),
+                (2, True, 65, 200), (2, False, 1, 1), (2, False, 130, 90),
+                (2, False, 129, 65), (2, False, 63, 200), (2, False, 200, 1),
+                (32, True, 700, 700)]
+
+
+def _grad_err(g, r):
+    """Largest error relative to the largest reference magnitude; where the
+    gradient is zero up to rounding (a single key: ds = p*(dP - delta) with
+    dP = delta), relative to the tolerance itself."""
+    return ((g.float() - r.float()).abs().max()
+            / r.float().abs().max().clamp_min(BF16_TOL)).item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200), (True, 77, 300),
-                                          (False, 130, 90)])
-def test_flash_kernel_matches_plain_on_card(cuda_device, causal, sq, sk, d):
-    q, k, v = (_bf16(x, cuda_device) for x in
-               _qkv(np.random.default_rng(sq), 2, sq, sk, 8, 2, d))
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,causal,sq,sk", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, b, causal, sq, sk, n_rep, d):
+    hkv = 2
+    rng = np.random.default_rng([b, sq, sk, n_rep, d])
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, b, sq, sk, hkv * n_rep, hkv, d))
     out, lse = flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -215,14 +238,13 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
-@pytest.mark.parametrize("causal,sq,sk", [(True, 200, 200), (True, 77, 300),
-                                          (False, 130, 90)])
-def test_flash_bwd_kernels_match_plain_on_card(cuda_device, causal, sq, sk, n_rep, d):
+@pytest.mark.parametrize("b,causal,sq,sk", FLASH_SHAPES)
+def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, causal, sq, sk, n_rep, d):
     """K1-bwd: dq and dk/dv against the plain backward, each launching once;
     dk/dv sum the GQA group inside the kernel."""
     hkv = 2
-    rng = np.random.default_rng(sq + n_rep + d)
-    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, 2, sq, sk, hkv * n_rep, hkv, d))
+    rng = np.random.default_rng([b, sq, sk, n_rep, d, 1])
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, b, sq, sk, hkv * n_rep, hkv, d))
     do = _bf16(rng.standard_normal(q.shape).astype(np.float32), cuda_device)
     out, lse = flash_attention_fwd(q, k, v, causal=causal)
     launches = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
@@ -233,8 +255,27 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, causal, sq, sk, n_re
         (launches[0] + 1, launches[1] + 1)
     for name, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.shape == r.shape and g.dtype == torch.bfloat16, name
-        err = ((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        err = _grad_err(g, r)
         assert err <= BF16_TOL, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_is_deterministic_on_card(cuda_device, causal, d):
+    """K1-bwd gives the same bits on every call: dq and dk/dv each own their
+    outputs and sum in a fixed order, with no atomics (remat re-runs the
+    forward and must match a run without it)."""
+    rng = np.random.default_rng(d + causal)
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, 4, 1000, 1000, 16, 2, d))
+    do = _bf16(rng.standard_normal(q.shape).astype(np.float32), cuda_device)
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    for _ in range(3):
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        for name, a, g in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, g), name
+    assert torch.equal(flash_attention_fwd(q, k, v, causal=causal)[0], out)
 
 
 @pytest.mark.cuda
