@@ -12,12 +12,14 @@
    dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
    and two odd layouts; the int8 attention kernels on int8 caches, and with
    unit scales bitwise against their bf16 kernels; the grouped expert GEMM
-   K6 at the Qwen1.5-MoE prefill and decode calls, Mixtral-8x7B's w1/w2 and
-   odd layouts; K1-fwd and K2 at Qwen1.5-MoE's GQA group 1; K6's backward
-   kernels, dlhs and drhs, at the Qwen1.5-MoE training calls, Mixtral-8x7B's
-   w1 and odd layouts; the block-sparse attention K7 at the JAX kernel's
-   own shape, at Llama-3-8B's attention width over 16k tokens, on a
-   non-causal Fixed layout and with a fully masked causal row), and times
+   K6 at the Qwen1.5-MoE prefill and decode calls, Mixtral-8x7B's w1/w2, a
+   skewed Qwen routing and odd layouts; K1-fwd and K2 at Qwen1.5-MoE's GQA
+   group 1; K6's backward kernels, dlhs and drhs, at the Qwen1.5-MoE
+   training calls, Mixtral-8x7B's w1, the skewed routing (drhs's split) and
+   odd layouts, run twice and bitwise equal; the block-sparse attention K7
+   at the JAX kernel's own shape, at Llama-3-8B's attention width over 16k
+   tokens, on a non-causal Fixed layout and with a fully masked causal
+   row), and times
    the kernel, the plain version and one PyTorch library call for the same
    function with CUDA events; K3-alibi and K4-alibi at bloom-7b1's
    attention (H = Hkv = 32, D = 128; staged and unstaged, over int8 pools)
@@ -936,11 +938,21 @@ def check_gmm(gen, name, k, n, sizes):
     return row
 
 
+def skewed_sizes(gen, rows=8192, experts=60, hot=2048):
+    """Qwen1.5-MoE's `rows` over its `experts` with one expert (the eighth)
+    holding `hot` of them, the rest a top-4 draw: drhs splits that expert's
+    rows over several blocks."""
+    rest = routing_sizes(gen, (rows - hot) // 4, experts - 1, 4)
+    return torch.cat([rest[:7], torch.tensor([hot], dtype=torch.int32, device="cuda"),
+                      rest[7:]])
+
+
 def gmm_cases(gen):
     """K6 at the shapes the MoE paths give it: Qwen1.5-MoE prefill (B = 4 x
     512 tokens, top-4 of 60: M = 8192) gate/up and down, its decode-sized
     call (4 tokens: M = 16 over 60), Mixtral-8x7B w1 and w2 (2048 tokens,
-    top-2 of 8: M = 4096), and odd layouts."""
+    top-2 of 8: M = 4096), a skewed Qwen routing (one expert holds 2,048 of
+    the 8,192 rows), and odd layouts."""
     qwen = routing_sizes(gen, B * PROMPT, 60, 4)
     decode = routing_sizes(gen, B, 60, 4)
     mixtral = routing_sizes(gen, 2048, 8, 2)
@@ -953,6 +965,7 @@ def gmm_cases(gen):
             check_gmm(gen, "qwen decode down", 1408, 2048, decode),
             check_gmm(gen, "mixtral prefill w1", 4096, 14336, mixtral),
             check_gmm(gen, "mixtral prefill w2", 14336, 4096, mixtral),
+            check_gmm(gen, "qwen skewed gate/up", 2048, 1408, skewed_sizes(gen)),
             check_gmm(gen, "empty first and last groups", 1408, 2048,
                       sizes([0, 300, 0, 77, 211, 0])),
             check_gmm(gen, "one group holds every row", 2048, 1408, sizes([0, 0, 517, 0])),
@@ -3058,7 +3071,9 @@ def sparse_path(report):
 def check_gmm_bwd(gen, name, k, n, sizes):
     """K6-bwd: dlhs (M, K) = grad @ rhs[g]^T and drhs (G, K, N) = lhs^T @
     grad per group against their plain versions, relative to max |ref|; an
-    empty group's drhs slab must be exact zeros. Bounds: dlhs reads grad,
+    empty group's drhs slab must be exact zeros, and a second call on the
+    same inputs must give the same bits (no atomics; drhs's split ranges
+    are summed in a fixed order). Bounds: dlhs reads grad,
     the weights of the groups with rows and writes (M, K); drhs reads lhs
     and grad and writes the whole (G, K, N); each 2·M·K·N operations. The
     library: `torch._grouped_mm` on grad and rhs transposed (dlhs), and
@@ -3074,10 +3089,11 @@ def check_gmm_bwd(gen, name, k, n, sizes):
              (grad, rhs.transpose(-2, -1)), m * n * 2 + used * k * n * 2 + g * 4 + m * k * 2),
             ("drhs", gg.grouped_gemm_drhs, gg.grouped_gemm_drhs_plain, (lhs, grad, sizes),
              (lhs.t(), grad), m * k * 2 + m * n * 2 + g * 4 + g * k * n * 2)):
-        out, ref = fn(*args), plain(*args)
+        out, again, ref = fn(*args), fn(*args), plain(*args)
         torch.cuda.synchronize()
         err = rel_max_err(out, ref)
         assert torch.isfinite(out).all() and err <= KERNEL_TOL, (name, kind, err)
+        assert torch.equal(out, again), (name, kind, "two calls differ")
         if kind == "drhs":
             assert all((out[e] == 0).all() for e in (sizes == 0).nonzero().flatten().tolist())
         bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
@@ -3088,18 +3104,20 @@ def check_gmm_bwd(gen, name, k, n, sizes):
             plain_ms=cuda_ms(lambda: plain(*args), iters=3, warmup=1),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library,
             library_rel_max_err=library_err, library_note=library_note)
-        del out, ref
+        del out, again, ref
     del lhs, grad, rhs
     torch.cuda.empty_cache()
     return dict(shape=f"{name}: M={m} K={k} N={n} G={g} groups_with_rows={used} "
                       f"sizes_min={int(sizes.min())} sizes_max={int(sizes.max())}",
+                calls_bitwise_equal=True,
                 grouped_gemm_bwd_dlhs=rows["dlhs"], grouped_gemm_bwd_drhs=rows["drhs"])
 
 
 def gmm_bwd_cases(gen):
     """K6-bwd at the training shapes: Qwen1.5-MoE (one micro-batch of 2048
     tokens, top-4 of 60: M = 8192) gate/up and down, Mixtral-8x7B w1 (2048
-    tokens, top-2 of 8: M = 4096), and odd layouts."""
+    tokens, top-2 of 8: M = 4096), a skewed Qwen routing (one expert holds
+    2,048 of the 8,192 rows: drhs splits its rows), and odd layouts."""
     qwen = routing_sizes(gen, MOE_MBS * MOE_SEQ, 60, 4)
     mixtral = routing_sizes(gen, 2048, 8, 2)
 
@@ -3108,6 +3126,7 @@ def gmm_bwd_cases(gen):
     return [check_gmm_bwd(gen, "qwen train gate/up", 2048, 1408, qwen),
             check_gmm_bwd(gen, "qwen train down", 1408, 2048, qwen),
             check_gmm_bwd(gen, "mixtral w1", 4096, 14336, mixtral),
+            check_gmm_bwd(gen, "qwen skewed gate/up", 2048, 1408, skewed_sizes(gen)),
             check_gmm_bwd(gen, "empty first and last groups", 1408, 2048,
                           sizes([0, 300, 0, 77, 211, 0])),
             check_gmm_bwd(gen, "one group holds every row", 2048, 1408, sizes([0, 0, 517, 0])),
@@ -3118,7 +3137,7 @@ def kernel_shares(kernels, steps):
     """Device ms per step and share of the port's kernels in a profile
     (`device_kernels`), by the kernels' names."""
     def which(name):
-        if "tgmm_kernel" in name:
+        if "tgmm_kernel" in name or "drhs_reduce_kernel" in name:
             return "grouped_gemm_drhs"
         if "gmm_kernel" in name:
             return "grouped_gemm_dlhs" if ("true>" in name or "Lb1E" in name) \

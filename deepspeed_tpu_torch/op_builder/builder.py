@@ -4,8 +4,9 @@ Each `deepspeed_tpu_torch/csrc/<name>.cu` is compiled at first use by `nvcc`
 for `sm_90a` into a shared library with a plain C interface, and loaded with
 `ctypes`. Nothing includes PyTorch's headers, so a build takes seconds. The
 library's file name carries the hash of its source, of the local headers the
-source includes (`#include "..."`, next to it) and of the flags, so an edited
-source or header is rebuilt and an unchanged one is loaded as it is.
+source includes (`#include "..."`, next to it, and the ones those include)
+and of the flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is.
 Libraries go to `build/torch_kernels/` beside the package.
 
 Every C entry point launches on the stream it is given and returns
@@ -66,8 +67,15 @@ class KernelLibrary:
     def library_path(self) -> Path:
         source = self.source.read_bytes()
         digest = hashlib.sha256(source)
-        for name in _LOCAL_INCLUDE.findall(source):
-            digest.update((self.source.parent / name.decode()).read_bytes())
+        seen, todo = set(), list(_LOCAL_INCLUDE.findall(source))
+        while todo:     # the local headers, and the ones they include
+            name = todo.pop(0)
+            if name in seen:
+                continue
+            seen.add(name)
+            header = (self.source.parent / name.decode()).read_bytes()
+            digest.update(header)
+            todo += _LOCAL_INCLUDE.findall(header)
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 

@@ -36,6 +36,7 @@ under expert parallelism: the wrapper refuses grad mode.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -46,8 +47,9 @@ from deepspeed_tpu_torch.runtime.config_utils import unported
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("grouped_gemm.cu", {
     "ds_grouped_gemm": [_P] * 4 + [_I] * 6 + [_P],  # + group offset, local groups
-    **{name: [_P] * 4 + [_I] * 4 + [_P]
-       for name in ("ds_grouped_gemm_dlhs", "ds_grouped_gemm_drhs")},
+    "ds_grouped_gemm_dlhs": [_P] * 4 + [_I] * 4 + [_P],
+    "ds_grouped_gemm_drhs": [_P] * 5 + [_I] * 4 + [_P],  # + the split's f32 scratch
+    "ds_grouped_gemm_drhs_scratch": [_I] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
 })
 
 
@@ -107,13 +109,14 @@ def _check(what, a, b, group_sizes):
             raise ValueError(f"{what}: operands on {t.device} and {a.device}")
 
 
-def _launch(fn_name, what, a, b, group_sizes, out, m, k, n, span=()):
-    """`span` is the forward's (group offset, local groups)."""
+def _launch(fn_name, what, a, b, group_sizes, out, m, k, n, span=(), scratch=()):
+    """`span` is the forward's (group offset, local groups), `scratch`
+    drhs's f32 scratch pointer (None: no scratch)."""
     _check(what, a, b, group_sizes)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         code = getattr(LIBRARY.lib(), fn_name)(
-            a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+            a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), *scratch,
             m, k, n, group_sizes.shape[0], *span, stream)
     LIBRARY.check(code, what)
     return out
@@ -144,6 +147,17 @@ def grouped_gemm_dlhs(grad: torch.Tensor, rhs: torch.Tensor,
 grouped_gemm_dlhs.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def _drhs_scratch_floats(m: int, k: int, n: int, g: int) -> int:
+    """The f32 scratch drhs needs (the kernel's rule): the partials of the
+    row ranges a group with many more rows than the mean is split into, at
+    most about the size of the output; 0 when no group can be split."""
+    floats = ctypes.c_longlong(0)
+    LIBRARY.check(LIBRARY.lib().ds_grouped_gemm_drhs_scratch(m, k, n, g, ctypes.byref(floats)),
+                  "grouped_gemm_drhs")
+    return floats.value
+
+
 def grouped_gemm_drhs(lhs: torch.Tensor, grad: torch.Tensor,
                       group_sizes: torch.Tensor) -> torch.Tensor:
     """K6-bwd drhs. lhs (M, K) bf16, grad (M, N) bf16, group_sizes (G,)
@@ -153,8 +167,12 @@ def grouped_gemm_drhs(lhs: torch.Tensor, grad: torch.Tensor,
         return grouped_gemm_drhs_plain(lhs, grad, group_sizes)
     refuse_grad("grouped_gemm_drhs", lhs, grad)
     (m, k), n = lhs.shape, grad.shape[1]
-    out = torch.empty((group_sizes.shape[0], k, n), dtype=lhs.dtype, device=lhs.device)
-    _launch("ds_grouped_gemm_drhs", "grouped_gemm_drhs", lhs, grad, group_sizes, out, m, k, n)
+    g = group_sizes.shape[0]
+    out = torch.empty((g, k, n), dtype=lhs.dtype, device=lhs.device)
+    floats = _drhs_scratch_floats(m, k, n, g)
+    scratch = torch.empty(floats, dtype=torch.float32, device=lhs.device) if floats else None
+    _launch("ds_grouped_gemm_drhs", "grouped_gemm_drhs", lhs, grad, group_sizes, out, m, k, n,
+            scratch=(None if scratch is None else scratch.data_ptr(),))
     grouped_gemm_drhs.launches += 1
     return out
 

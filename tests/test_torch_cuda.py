@@ -534,10 +534,17 @@ def _sizes(rng, m, g):
     return np.bincount(rng.integers(0, g, m), minlength=g).astype(np.int32)
 
 
+def _skewed(rng):
+    """8,192 rows over 60 groups, the eighth holding 2,048 of them: more
+    than 4x the mean group, so drhs splits its rows over several blocks."""
+    return np.insert(_sizes(rng, 6144, 59), 7, 2048).astype(np.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "empty_first_middle_last", "one_group_all_rows", "m5_scalar_path",
-    "decode_60_groups", "prefill_8_groups", "rows_past_the_sizes"])
+    "decode_60_groups", "prefill_8_groups", "rows_past_the_sizes", "skewed_60_groups",
+    "group_over_256_rows", "k_not_multiple_of_64"])
 def test_grouped_gemm_matches_plain_on_card(cuda_device, case):
     """K6 against its plain version relative to max |ref|; one launch a call.
     Rows past the sum of the sizes are zero in both."""
@@ -549,6 +556,9 @@ def test_grouped_gemm_matches_plain_on_card(cuda_device, case):
         "decode_60_groups": (_sizes(rng, 16, 60), 2048, 1408),
         "prefill_8_groups": (_sizes(rng, 2048, 8), 512, 1408),
         "rows_past_the_sizes": ([10, 0, 20], 96, 72),
+        "skewed_60_groups": (_skewed(rng), 256, 192),
+        "group_over_256_rows": ([300, 600, 37], 128, 136),
+        "k_not_multiple_of_64": ([40, 0, 90, 33], 200, 72),
     }[case]
     m = 50 if case == "rows_past_the_sizes" else int(np.sum(sizes))
     lhs = _bf16(rng.standard_normal((m, k)).astype(np.float32), cuda_device)
@@ -589,6 +599,10 @@ BWD_CASES = {   # group sizes, K, N
     "m_not_multiple_of_16": ([7, 19, 0, 11], 1408, 96),
     "decode_60_groups": (None, 2048, 1408),
     "prefill_8_groups": (None, 512, 1408),
+    "skewed_60_groups": (None, 256, 192),   # drhs splits the hot group's rows
+    "group_over_256_rows": ([300, 600, 37], 128, 136),
+    "one_group_split_in_two": ([0, 0, 0, 700, 0, 0, 0, 0], 200, 136),
+    "k_not_multiple_of_64": ([40, 0, 90, 33], 200, 72),
 }
 
 
@@ -596,7 +610,9 @@ def _bwd_case(case, device):
     rng = np.random.default_rng(len(case) + 7)
     sizes, k, n = BWD_CASES[case]
     if sizes is None:
-        sizes = _sizes(rng, 16, 60) if case.startswith("decode") else _sizes(rng, 2048, 8)
+        sizes = {"decode_60_groups": lambda: _sizes(rng, 16, 60),
+                 "prefill_8_groups": lambda: _sizes(rng, 2048, 8),
+                 "skewed_60_groups": lambda: _skewed(rng)}[case]()
     m = int(np.sum(sizes))
     lhs = _bf16(rng.standard_normal((m, k)).astype(np.float32), device)
     rhs = _bf16(rng.standard_normal((len(sizes), k, n)).astype(np.float32), device)
@@ -625,6 +641,21 @@ def test_grouped_gemm_bwd_matches_plain_on_card(cuda_device, case):
     assert _rel_max_err(drhs, ref_drhs) <= BF16_TOL
     empty = (gs == 0).nonzero().flatten().tolist()
     assert all((drhs[g] == 0).all() for g in empty)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skewed_60_groups", "one_group_split_in_two",
+                                  "prefill_8_groups", "m5_scalar_path"])
+def test_grouped_gemm_bwd_is_deterministic_on_card(cuda_device, case):
+    """Two dlhs calls and two drhs calls on the same inputs give the same
+    bits: every output element has one owner, and drhs sums a split group's
+    ranges in a fixed order, with no atomics."""
+    lhs, rhs, grad, gs = _bwd_case(case, cuda_device)
+    dlhs = [grouped_gemm_dlhs(grad, rhs, gs) for _ in range(2)]
+    drhs = [grouped_gemm_drhs(lhs, grad, gs) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(dlhs[0], dlhs[1])
+    assert torch.equal(drhs[0], drhs[1])
 
 
 @pytest.mark.cuda

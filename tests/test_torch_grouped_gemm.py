@@ -5,8 +5,10 @@
 runs in Pallas interpret mode on the CPU, on the same numpy inputs in f32:
 1e-5. Layouts: empty groups first, in the middle and last, one group
 holding every row, M not a multiple of 16, with the 16-row tiling of the
-JAX tests and the default one. The megablox calls are few and small: each
-takes seconds in interpret mode.
+JAX tests and the default one, a skewed routing (one group of 60 holds a
+quarter of the rows: the card's drhs splits such a group) and a group of
+more than 256 rows (the card's forward row tile). The megablox calls are
+few and small: each takes seconds in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -18,6 +20,9 @@ from deepspeed_tpu.ops.pallas.grouped_gemm import grouped_gemm as jax_grouped_ge
 from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm, grouped_gemm_plain
 
 TOL = 1e-5
+# 2,048 rows over 60 groups, the eighth holding 512 of them
+SKEWED = np.insert(np.bincount(np.random.default_rng(0).integers(0, 59, 1536), minlength=59),
+                   7, 512).tolist()
 
 
 @pytest.mark.parametrize("sizes,k,n,tiling", [
@@ -25,6 +30,8 @@ TOL = 1e-5
     ([0, 13, 0, 40, 7, 0], 24, 40, None),
     ([0, 0, 37, 0], 16, 24, (16, 16, 16)),           # one group holds every row; M = 37
     ([5, 9, 1, 22], 32, 8, None),                   # M = 37, N narrower than a tile
+    (SKEWED, 16, 24, None),                         # skewed; M = 2048 over 60
+    ([300, 600, 37], 24, 16, (128, 128, 128)),      # a group of more than 256 rows
 ])
 def test_grouped_gemm_plain_matches_jax(sizes, k, n, tiling):
     rng = np.random.default_rng(sum(sizes) + k + n)

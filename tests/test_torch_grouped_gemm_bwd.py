@@ -11,7 +11,9 @@ f32: 1e-5. Layouts: empty groups first, in the middle and last (their drhs
 slab is zero), one group holding every row, M = 5, and M not a multiple of
 16, where the JAX wrapper pads M to its tile and hands the pad rows to the
 last group while the port masks: the gradients of the real rows must not
-change.
+change. Also a skewed routing (one group of 60 holds a quarter of the rows:
+the card's drhs splits such a group over row ranges) and a group of more
+than 256 rows.
 """
 
 import jax
@@ -31,12 +33,17 @@ from deepspeed_tpu_torch.ops.cuda.grouped_gemm import (
 )
 
 TOL = 1e-5
+# 2,048 rows over 60 groups, the eighth holding 512 of them
+SKEWED = np.insert(np.bincount(np.random.default_rng(0).integers(0, 59, 1536), minlength=59),
+                   7, 512).tolist()
 
 CASES = {   # group sizes, K, N, JAX tiling
     "empty_first_middle_last": ([0, 13, 0, 40, 7, 0], 24, 40, (16, 16, 16)),
     "one_group_all_rows": ([0, 0, 37, 0], 16, 24, (16, 16, 16)),
     "m5": ([2, 0, 3], 8, 12, None),
     "m_not_multiple_of_16": ([5, 9, 1, 22], 32, 8, None),
+    "skewed_60_groups": (SKEWED, 16, 24, None),
+    "group_over_256_rows": ([300, 600, 37], 24, 16, (128, 128, 128)),
 }
 
 
