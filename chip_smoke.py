@@ -10,8 +10,10 @@
    serving shapes (K1-fwd also at the llama-1b training call; the flash
    backward at the training shapes, run twice and bitwise equal; the fused
    dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
-   and two odd layouts; the int8 attention kernels on int8 caches, and with
-   unit scales bitwise against their bf16 kernels; the grouped expert GEMM
+   and two odd layouts, two calls bitwise equal (the decode path's split K);
+   the paged prefill K4, bf16 and int8, two calls bitwise equal; the int8
+   attention kernels on int8 caches, and with unit scales bitwise against
+   their bf16 kernels; the grouped expert GEMM
    K6 at the Qwen1.5-MoE prefill and decode calls, Mixtral-8x7B's w1/w2, a
    skewed Qwen routing and odd layouts; K1-fwd and K2 at Qwen1.5-MoE's GQA
    group 1; K6's backward kernels, dlhs and drhs, at the Qwen1.5-MoE
@@ -47,8 +49,8 @@
    counted) and a fork with copy-on-write;
 7. serves it with int8 weights through `serve_mode="layer_scan"` (K5 on
    every projection, counted): the same greedy `generate`, the last step
-   against the same int8 tree served by `dequant`, and a profile of the
-   decode step;
+   against the same int8 tree served by `dequant`, and profiles of the
+   prefill and the decode step with K5's share;
 8. holds a 2-layer model of the same width on the card in bf16 against the
    plain versions on the CPU in f32, through v1 and through v2, and with
    int8 weights through the layer scan;
@@ -585,7 +587,8 @@ def check_paged_decode(gen, rng, staged, window=None, int8=False, h=H, hkv=HKV, 
 
 def check_paged_prefill(gen, rng, window=None, int8=False, h=H, hkv=HKV, d=D, alibi=False):
     """K4 at the serving shape: 16 rows of S = 256 new tokens at starts 0,
-    256, 300 (unaligned), 512 and 768, and one parked row. With `int8`,
+    256, 300 (unaligned), 512 and 768, and one parked row; two calls must
+    give the same bits. With `int8`,
     K4-int8 on int8 pools, and unit scales held bitwise to the bf16 kernel.
     With `alibi`, K4-alibi with the model's slopes for `h` heads, beside the
     control (`control_err`)."""
@@ -611,10 +614,13 @@ def check_paged_prefill(gen, rng, window=None, int8=False, h=H, hkv=HKV, d=D, al
             pa.paged_prefill_attention(q, kb, kb, tables_t, starts, window=window))
         assert extra["unit_scales_bitwise_equal"], window
     out = pa.paged_prefill_attention(q, k_pool, v_pool, tables_t, starts, **kw)
+    extra["calls_bitwise_equal"] = torch.equal(
+        out, pa.paged_prefill_attention(q, k_pool, v_pool, tables_t, starts, **kw))
     ref = pa.paged_prefill_attention_plain(q, k_pool, v_pool, tables_t, starts, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL, (window, alibi, err)
+    assert extra["calls_bitwise_equal"], ("K4 is not bitwise repeatable", window, int8, alibi)
     if alibi:
         extra["control_no_alibi_max_abs_err"] = control_err(
             pa.paged_prefill_attention, ref, q=q, k_pool=k_pool, v_pool=v_pool,
@@ -649,8 +655,9 @@ def check_paged_prefill(gen, rng, window=None, int8=False, h=H, hkv=HKV, d=D, al
 
 def check_qmm(gen, m, k, n, block):
     """K5 at (M, K) x (K, N) with weights quantized in blocks of `block`,
-    against its plain version relative to max |ref|; the yardstick is
-    cuBLAS `F.linear` with a bf16 weight of the same shape."""
+    against its plain version relative to max |ref|, and two calls bitwise
+    equal (the decode path sums its K slices in a fixed order); the
+    yardstick is cuBLAS `F.linear` with a bf16 weight of the same shape."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
     from deepspeed_tpu_torch.ops.quantization import quantize_int8_blockwise
@@ -659,17 +666,20 @@ def check_qmm(gen, m, k, n, block):
     q, scales = quantize_int8_blockwise(w, block)
     del w
     out = qm.quantized_matmul(x, q, scales)
+    repeat = torch.equal(out, qm.quantized_matmul(x, q, scales))
     ref = qm.quantized_matmul_plain(x, q, scales)
     torch.cuda.synchronize()
     err = rel_max_err(out, ref)
     assert out.shape == (m, n) and torch.isfinite(out).all() and err <= KERNEL_TOL, \
         (m, k, n, block, err)
+    assert repeat, ("K5 is not bitwise repeatable", m, k, n, block)
     g = qm.scale_group_width(k, n, scales.numel())
     nbytes = m * k * 2 + k * n + scales.numel() * 4 + m * n * 2
     bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
     w_t = torch.randn((n, k), generator=gen, device="cuda").to(torch.bfloat16)
     return dict(shape=f"M={m} K={k} N={n} block={block} g={g}",
                 max_abs_err=(out.float() - ref.float()).abs().max().item(), rel_max_err=err,
+                calls_bitwise_equal=repeat,
                 ms=cuda_ms(lambda: qm.quantized_matmul(x, q, scales)),
                 plain_ms=cuda_ms(lambda: qm.quantized_matmul_plain(x, q, scales),
                                  iters=3, warmup=1),
@@ -1604,6 +1614,7 @@ def serve_int8(report, model):
     engine.generate(ids, max_new_tokens=1)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     profile = profile_generate(engine, ids)
+    prefill_profile = profile_prefill(engine, ids, kernel=("quantized_matmul", "qmm_"))
 
     # the same int8 tree served by dequant: `forward` dequantizes the whole
     # tree in every serve mode, then runs the module (cuBLAS, flash forward)
@@ -1623,11 +1634,11 @@ def serve_int8(report, model):
         engine_last_decode_tok_s=greedy_tok_s, generate_peak_memory_bytes=peak,
         quantized_matmul_per_model_call=per_call, launches=launches,
         last_step_vs_dequant_forward_rel_rms_err=err,
-        decode_profile=profile)
+        decode_profile=profile, prefill_profile=prefill_profile)
     return launches
 
 
-def profile_generate(engine, ids, steps: int = 8, kernel=("quantized_matmul", "qmm_kernel")):
+def profile_generate(engine, ids, steps: int = 8, kernel=("quantized_matmul", "qmm_")):
     """Device time by kernel over `steps` decode steps of the engine's own
     `generate`, from torch.profiler: a `generate` of steps + 1 tokens less
     a prefill-only one (one token). Adds the share of the device time of

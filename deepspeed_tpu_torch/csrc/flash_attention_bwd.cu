@@ -136,13 +136,6 @@ struct DkvSmem {
   static constexpr int bytes = ring + STAGES * STAGE + 1024;
 };
 
-// 4-byte asynchronous copy; with `pred` false the destination is zeroed
-// and nothing is read.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
-}
-
 // Start copying [r0, r0+ROWS) of one head's f32 row vector; zero past `n`.
 template <int ROWS, int NT>
 __device__ __forceinline__ void cp_vec(float* dst, const float* src, int r0, int n) {

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the port's wgmma kernels (the flash
-// attention kernels through `flash_attention_common.cuh`, and
-// `grouped_gemm.cu`): cp.async copies, wgmma's shared-memory descriptors
-// and the SS products, and the dynamic shared-memory opt-in.
+// Hopper building blocks shared by the port's wgmma kernels (the flash and
+// paged-prefill attention kernels through `flash_attention_common.cuh`,
+// `grouped_gemm.cu` and `quantized_matmul.cu`): cp.async copies, wgmma's
+// shared-memory descriptors and the SS products, the register fences around
+// products in flight, and the dynamic shared-memory opt-in.
 //
 // Every bf16 tile a product reads is stored in wgmma's canonical
 // 128-byte-swizzled layout: column blocks of 64 elements, each [rows][128
@@ -34,6 +35,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0));
+}
+// 4-byte asynchronous copy (through L1), zero-filled when `pred` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -151,6 +157,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
   else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, a, b, scale_d);
   else if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, a, b, scale_d);
   else wgmma_ss_n192<TA, TB>(d, a, b, scale_d);
+}
+
+// Keeps the compiler from touching accumulator registers while products
+// that write them are in flight: around each product's fence and commit,
+// as CUTLASS's warpgroup_fence_operand (ptxas would otherwise serialise the
+// products, C7515).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for a register A operand (wgmma reads it asynchronously too).
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -6,8 +6,9 @@ launches the hand-written kernel `csrc/quantized_matmul.cu` (K5), for CPU
 tensors it takes the plain version, `quantized_matmul_plain`. q is the
 (K, N) = (in, out) int8 kernel in the JAX package's layout and `scales` its
 flat blockwise f32 scales as `ops.quantization.quantize_int8_blockwise`
-makes them; `scale_group_width` and `_scales_t` are the JAX package's host
-helpers that relay them to one scale per (row k, column group j).
+makes them; `scale_group_width` is the JAX package's host helper, and
+`_scale_strides` reads them as its `_scales_t` does: one scale per (row k,
+column group j).
 
 Under tensor parallelism each rank holds its slice of the int8 weight and
 its scales (`utils/partitioning.shard_tree`), and
@@ -22,7 +23,8 @@ before the tree is cut (`inference/quantized_layer_scan.check_tp_flavors`).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,9 +34,12 @@ from deepspeed_tpu_torch.ops.quantization import dequantize_int8_blockwise
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("quantized_matmul.cu", {
-    "ds_quantized_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    # + the split K's f32 partials and its per-tile counts
+    "ds_quantized_matmul": [_P] * 6 + [_I] * 7 + [_P],
+    "ds_quantized_matmul_workspace": [_I] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                                 ctypes.POINTER(ctypes.c_int)],
 })
-GROUP_MULTIPLE = 32  # the kernel's narrowest N tile must divide a group
+GROUP_MULTIPLE = 32  # scale groups of whole 32 columns: no 16-column weight chunk spans two
 
 
 def scale_group_width(k: int, n: int, nblocks: int) -> Optional[int]:
@@ -51,10 +56,12 @@ def scale_group_width(k: int, n: int, nblocks: int) -> Optional[int]:
     return None
 
 
-def _scales_t(k: int, n: int, scales: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """Flat (nblocks,) scales → (G, K) f32, one row per column group of
-    width g = N / G, and g. Where blocks subdivide rows this is a strided
-    view of `scales` (no copy); where a block spans rows, one scale per row."""
+def _scale_strides(k: int, n: int, scales: torch.Tensor) -> Tuple[torch.Tensor, int, int, int, int]:
+    """The kernel's view of flat (nblocks,) scales, the JAX package's
+    `_scales_t` without building it: (st, G, g, sj, sk) with st[j*sj + k*sk]
+    the scale of row k in column group j, each g = N / G wide. Where blocks
+    subdivide rows st is `scales` itself (no copy); where a block spans
+    rows, one scale per row (G = 1)."""
     g = scale_group_width(k, n, scales.shape[0])
     if g is None:
         raise ValueError(
@@ -63,15 +70,54 @@ def _scales_t(k: int, n: int, scales: torch.Tensor) -> Tuple[torch.Tensor, int]:
     e = k * n // scales.shape[0]
     if g == n and e != n:
         # one scale per e // n rows → one per row, one group per row
-        return scales.repeat_interleave(e // n).reshape(1, k), g
-    return scales.reshape(k, n // g).t(), g
+        return scales.repeat_interleave(e // n), 1, g, k, 1
+    return scales.contiguous(), n // g, g, 1, n // g
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace(m: int, k: int, n: int) -> Tuple[int, int]:
+    """(f32 floats, column-tile counts) the kernel's split K needs for an
+    (m, k) x (k, n) call: both 0 when it does not split."""
+    floats, tiles = ctypes.c_longlong(0), ctypes.c_int(0)
+    LIBRARY.check(LIBRARY.lib().ds_quantized_matmul_workspace(
+        m, k, n, ctypes.byref(floats), ctypes.byref(tiles)), "quantized_matmul")
+    return floats.value, tiles.value
+
+
+_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_workspace(index: int, stream: int, floats: int, tiles: int) -> Tuple[int, int]:
+    """Pointers to the split K's f32 partials and its arrival counts (one
+    int32 a column tile) for calls on `stream` of device `index`: kept per
+    stream, since the calls on a stream run in order, and grown as needed;
+    the counts are zeroed once and every launch leaves them at 0."""
+    part, counts = _WORKSPACE.get((index, stream), (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=torch.device("cuda", index))
+    if counts is None or counts.numel() < tiles:
+        counts = torch.zeros(max(tiles, 256), dtype=torch.int32,
+                             device=torch.device("cuda", index))
+    _WORKSPACE[(index, stream)] = (part, counts)
+    return part.data_ptr(), counts.data_ptr()
+
+
+def _launch(index: int, ptrs: Tuple[int, ...], m: int, k: int, n: int,
+            layout: Tuple[int, ...]) -> int:
+    """`ds_quantized_matmul` (x, q, st, out at `ptrs`; the scale `layout`
+    G, g, sj, sk) on device `index`'s current stream, with the split K's
+    workspace where it splits."""
+    stream = torch._C._cuda_getCurrentRawStream(index)  # a Stream object costs ~3 us
+    floats, tiles = _workspace(m, k, n)
+    work = _split_workspace(index, stream, floats, tiles) if floats else (None, None)
+    return LIBRARY.lib().ds_quantized_matmul(*ptrs, *work, m, k, n, *layout, stream)
 
 
 def quantized_matmul_plain(x: torch.Tensor, q: torch.Tensor,
                            scales: torch.Tensor) -> torch.Tensor:
     """`x @ dequantize_int8_blockwise(q, scales)` in f32, cast to x's dtype.
     x (..., K), q (K, N) int8, scales (nblocks,) f32 → (..., N)."""
-    _scales_t(q.shape[0], q.shape[1], scales)  # the kernel's layout rule
+    _scale_strides(q.shape[0], q.shape[1], scales)  # the kernel's layout rule
     return (x.float() @ dequantize_int8_blockwise(q, scales)).to(x.dtype)
 
 
@@ -105,24 +151,25 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"quantized_matmul: unsupported device {x.device}")
     refuse_grad("quantized_matmul", x, scales)
     _check(x, q, scales)
-    st, g = _scales_t(k, n, scales)
-    groups = n // g
+    st, groups, g, sj, sk = _scale_strides(k, n, scales)
     if groups > 1 and g % GROUP_MULTIPLE:
         raise ValueError(f"quantized_matmul: group width {g} is not a multiple of "
-                         f"{GROUP_MULTIPLE}, the kernel's narrowest tile")
+                         f"{GROUP_MULTIPLE}, the column groups the kernel takes")
     m = 1
     for d in lead:
         m *= d
-    x2 = x.reshape(m, k).contiguous()
+    x2 = (x if len(lead) == 1 else x.reshape(m, k)).contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = LIBRARY.lib().ds_quantized_matmul(
-            x2.data_ptr(), q.data_ptr(), st.data_ptr(), out.data_ptr(),
-            m, k, n, groups, g, st.stride(0), st.stride(1), stream)
+    ptrs = (x2.data_ptr(), q.data_ptr(), st.data_ptr(), out.data_ptr())
+    index = x.device.index
+    if index == torch.cuda.current_device():  # a device guard costs ~3 us a call
+        code = _launch(index, ptrs, m, k, n, (groups, g, sj, sk))
+    else:
+        with torch.cuda.device(index):
+            code = _launch(index, ptrs, m, k, n, (groups, g, sj, sk))
     LIBRARY.check(code, "quantized_matmul")
     quantized_matmul.launches += 1
-    return out.reshape(*lead, n)
+    return out if len(lead) == 1 else out.reshape(*lead, n)
 
 
 quantized_matmul.launches = 0

@@ -15,9 +15,13 @@ bf16, and outputs must agree to 2e-2 (p and the output round at 2^-8 and
 the outputs are O(1)); the backward's gradients are held to 2e-2 of their
 largest magnitude. A tiny `train_batch` in bf16 on the card is held against
 the same steps in f32 on the CPU. The fused dequant-GEMM (K5) is held to
-2e-2 of its largest output at the Llama-3-8B projection shapes and the odd
-layouts; the int8 attention kernels to 2e-2 against their plain versions,
-and with unit scales to their bf16 kernels bit for bit. The grouped expert
+2e-2 of its largest output at the Llama-3-8B projection shapes, on either
+side of its decode/prefill boundary (M = 16, 17), at K = 7168 and at the odd
+layouts, and two calls give the same bits; the paged prefill kernel (K4)
+also at S = 300 over blocks of 16 (ragged 128-row tiles, a 128-key tile
+over eight blocks), bf16 and int8, two calls bitwise equal; the int8
+attention kernels to 2e-2 against their plain versions, and with unit
+scales to their bf16 kernels bit for bit. The grouped expert
 GEMM (K6) is held to 2e-2 of its largest output on ragged group layouts
 (empty groups first, in the middle and last, one group holding every row,
 decode-sized groups, M, K and N tails), and so are its backward kernels,
@@ -34,7 +38,8 @@ beside a control (the kernels without the slopes) that must miss; bad
 slopes raise before a launch. The per-shard calls of tensor parallelism
 (K8, tp = 2): each rank's slice of K2, K3 and K4 (bf16 and int8, staged
 and not) equals the same heads of the unsharded kernel bit for bit, K5 'n'
-on a column shard the unsharded columns, and K5 'k''s partial products sum
+on a column shard the unsharded columns (at M = 4, 100 and 2048: both of
+its paths), and K5 'k''s partial products sum
 to within 2e-2 of the unsharded product; a per-shard call on CPU tensors
 under a topology that serves the card raises. The grouped GEMM's
 expert-parallel flavour (K8-e, ep = 2 and 4): each rank's output equals the
@@ -199,6 +204,47 @@ def test_paged_prefill_kernel_matches_plain_on_card(cuda_device, n_rep, d, windo
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
 
 
+def _prefill_ragged_inputs(rng, device, n_rep, d, int8):
+    """K4 where its tiles end inside the data: chunks of S = 300 (a 128-row
+    tile is ragged at every group size) over blocks of BS = 16 (a 128-key
+    tile spans eight pool blocks), at starts 0, 16 and 37 and a parked row.
+    Returns q, the pools, tables, starts and the int8 scales (or {})."""
+    b, s, hkv, bs, t, nb = 4, 300, 2, 16, 24, 64
+    k, v, tables = _paged(rng, device, [19, 20, 22, 0], hkv, d, nb=nb, bs=bs, t=t)
+    scales = {}
+    if int8:
+        k, ks, v, vs = _int8_pools(rng, device, hkv, nb, bs, d)
+        scales = dict(k_scales=ks, v_scales=vs)
+    q = _bf16(rng.standard_normal((b, s, hkv * n_rep, d)).astype(np.float32), device)
+    starts = torch.tensor([0, 16, 37, t * bs], dtype=torch.int32, device=device)
+    return q, k, v, tables, starts, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+def test_paged_prefill_kernel_ragged_tiles_on_card(cuda_device, n_rep, d, int8, window):
+    """K4 and K4-int8 at S = 300 and BS = 16 (`_prefill_ragged_inputs`)."""
+    rng = np.random.default_rng(100 + 10 * n_rep + d + int8)
+    q, k, v, tables, starts, scales = _prefill_ragged_inputs(rng, cuda_device, n_rep, d, int8)
+    out = paged_prefill_attention(q, k, v, tables, starts, window=window, **scales)
+    ref = paged_prefill_attention_plain(q, k, v, tables, starts, window=window, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_prefill_kernel_is_deterministic_on_card(cuda_device, int8):
+    """Two K4 (or K4-int8) calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(130 + int8)
+    q, k, v, tables, starts, scales = _prefill_ragged_inputs(rng, cuda_device, 4, 128, int8)
+    assert torch.equal(paged_prefill_attention(q, k, v, tables, starts, **scales),
+                       paged_prefill_attention(q, k, v, tables, starts, **scales))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["head_dim", "group", "dtype"])
 def test_paged_kernels_refuse_other_shapes_on_card(cuda_device, bad):
@@ -359,6 +405,9 @@ def _rel_max_err(got, ref) -> float:
     # the Llama-3-8B projections at decode (M = 4) and prefill (M = 2048)
     (4, 4096, 4096, 256), (4, 4096, 1024, 256), (4, 4096, 14336, 256),
     (4, 14336, 4096, 256), (2048, 4096, 14336, 256), (2048, 14336, 4096, 256),
+    # either side of the decode/prefill boundary (M <= 16 splits K across
+    # blocks), and K = 7168, whose split-K count differs from 4096's
+    (16, 4096, 4096, 256), (17, 4096, 4096, 256), (4, 7168, 4096, 256),
     # blocks spanning rows; K, M and N remainders; groups of 64 and 96
     (4, 64, 128, 256), (16, 200, 384, 96), (5, 128, 384, 64), (40, 200, 384, 96),
     (77, 256, 200, 256 * 200 // 8),
@@ -375,6 +424,35 @@ def test_quantized_matmul_matches_plain_on_card(cuda_device, m, k, n, block):
     assert quantized_matmul.launches == launches + 1
     assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     assert _rel_max_err(out, ref) <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4, 14336, 4096), (16, 7168, 1024), (2048, 4096, 1024)])
+def test_quantized_matmul_is_deterministic_on_card(cuda_device, m, k, n):
+    """Two calls on the same inputs give the same bits: the decode path's
+    K slices are summed in slice order, with no atomics."""
+    rng = np.random.default_rng(m + k + n + 1)
+    x = _bf16(rng.standard_normal((m, k)).astype(np.float32), cuda_device)
+    w = torch.from_numpy(0.02 * rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    q, s = quantize_int8_blockwise(w, 256)
+    assert torch.equal(quantized_matmul(x, q, s), quantized_matmul(x, q, s))
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_prefill_tiles_keep_column_bits_on_card(cuda_device):
+    """At M = 2048 a (1024, 4096) weight takes 256-row tiles and each half
+    of its columns 128-row ones (fewer tiles than SMs); every column's bits
+    are the same either way."""
+    rng = np.random.default_rng(90)
+    x = _bf16(rng.standard_normal((2048, 1024)).astype(np.float32), cuda_device)
+    w = torch.from_numpy(0.02 * rng.standard_normal((1024, 4096)).astype(np.float32))
+    q, s = quantize_int8_blockwise(w.to(cuda_device), 256)
+    whole = quantized_matmul(x, q, s)
+    for half in range(2):
+        cols = slice(2048 * half, 2048 * (half + 1))
+        qh, sh = quantize_int8_blockwise(w[:, cols].contiguous().to(cuda_device), 256)
+        assert torch.equal(qh, q[:, cols])
+        assert torch.equal(quantized_matmul(x, qh, sh), whole[:, cols])
 
 
 @pytest.mark.cuda
@@ -966,7 +1044,7 @@ def test_sharded_paged_kernels_are_the_unsharded_heads_on_card(cuda_device, stag
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [4, 100])
+@pytest.mark.parametrize("m", [4, 100, 2048])
 def test_sharded_quantized_matmul_flavours_on_card(cuda_device, m):
     """K8-d: 'n' on a column shard equals the unsharded columns bit for bit;
     'k' partial products on row shards sum to within 2e-2 of the unsharded

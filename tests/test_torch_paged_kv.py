@@ -216,6 +216,29 @@ def test_paged_prefill_plain_matches_jax_kernel(n_rep, window):
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_paged_prefill_plain_matches_jax_kernel_ragged_tiles(n_rep, window):
+    """The CUDA kernel's ragged shapes: chunks of S = 300 (its 128-row tiles
+    end ragged at every group size) over blocks of BS = 16 (a 128-key tile
+    spans eight pool blocks), at starts 0, 16 and 37, and a parked row
+    compared when there is no window (as above)."""
+    b, s, hkv, d, bs, t, nb = 4, 300, 2, 16, 16, 24, 64
+    h = hkv * n_rep
+    rng = np.random.default_rng(30 * n_rep + (window or 0))
+    k_pool, v_pool = _pools(rng, nb, bs, hkv, d)
+    tables = _tables(rng, [19, 20, 22, 0], nb=nb, t=t)
+    starts = np.asarray([0, 16, 37, t * bs], np.int32)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    ref = jax_paged_prefill(jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+                            jnp.asarray(tables), jnp.asarray(starts), window=window)
+    got = paged_prefill_attention(torch.from_numpy(q), torch.from_numpy(k_pool),
+                                  torch.from_numpy(v_pool), torch.from_numpy(tables),
+                                  torch.from_numpy(starts), window=window)
+    rows = slice(None) if window is None else slice(0, 3)
+    np.testing.assert_allclose(got.numpy()[rows], np.asarray(ref)[rows], rtol=TOL, atol=TOL)
+
+
 def test_paged_attention_through_cached_attention_rejects_alibi():
     """The paged branch of `cached_attention` takes alibi slopes of shape
     (H,) and rejects any other shape (one slope would broadcast over every

@@ -211,6 +211,11 @@ def _case(m, k, n, block, seed=0, lead=None):
     ("m_and_n_remainders", 5, 128, 384, 64, (8, 64, 256), None),
     ("leading_batch_dims", None, 128, 256, 64, None, (2, 3)),
     ("bf16_activation", 8, 128, 256, 64, None, None),
+    # the CUDA kernel's shapes: either side of its decode/prefill boundary
+    # (M = 16, 17) and K = 7168, whose split-K count differs from 4096's
+    ("decode_m16", 16, 256, 256, 64, None, None),
+    ("prefill_m17", 17, 256, 256, 64, None, None),
+    ("k_7168", 4, 7168, 128, 256, (8, 1024, 128), None),
 ])
 def test_quantized_matmul_plain_matches_jax_kernel(name, m, k, n, block, tiling, lead):
     x, q, s = _case(m, k, n, block, seed=len(name), lead=lead)
