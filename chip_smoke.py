@@ -11,7 +11,9 @@
    backward at the training shapes, run twice and bitwise equal; the fused
    dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
    and two odd layouts, two calls bitwise equal (the decode path's split K);
-   the paged prefill K4, bf16 and int8, two calls bitwise equal; the int8
+   the paged prefill K4, bf16 and int8, two calls bitwise equal; the decode
+   kernels K2 and K3 in every form, two calls bitwise equal, each with its
+   device time from torch.profiler beside SDPA's; the int8
    attention kernels on int8 caches, and with unit scales bitwise against
    their bf16 kernels; the grouped expert GEMM
    K6 at the Qwen1.5-MoE prefill and decode calls, Mixtral-8x7B's w1/w2, a
@@ -206,6 +208,10 @@ TP_TIMEOUT_S = 600           # a rank waiting longer on a collective fails the r
 # dense model and 30 of the 60 experts of every layer.
 EP = 2
 EP_REFS = {}                 # `serve_moe`'s and `reference_moe`'s ep = 1 results
+# K2's and K3's report names and CUDA names in a profile ("::" keeps K5's
+# qmm_decode_kernel and K3's paged_decode_kernel out of K2's)
+K2_NAME = ("decode_attention", "::decode_kernel<")
+K3_NAME = ("paged_decode_attention", "::paged_decode_kernel<")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -292,6 +298,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of `fn`: torch.profiler's CUDA time of every
+    kernel the call launches, summed, over `iters` calls; the median of
+    three such windows, since a window can lose events. At a few
+    microseconds a kernel, `cuda_ms` (events around back-to-back calls)
+    reads the host path when it is the slower; this reads the device."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        windows.append(sum(us for us, _ in device_kernels(prof).values()))
+    return sorted(windows)[1] / iters / 1e3
 
 
 def bound(nbytes: float, flops: float):
@@ -431,10 +457,12 @@ def check_decode(gen, int8=False, h=H, hkv=HKV):
             da.decode_attention(q, kb, kb, lengths))
         assert extra["unit_scales_bitwise_equal"]
     out = da.decode_attention(q, k, v, lengths, **kw)
+    extra["calls_bitwise_equal"] = torch.equal(out, da.decode_attention(q, k, v, lengths, **kw))
     ref = da.decode_attention_plain(q, k, v, lengths, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL, err
+    assert extra["calls_bitwise_equal"], ("K2 is not bitwise repeatable", int8, h, hkv)
     n_kv = sum(DECODE_LENGTHS)
     nbytes = (q.numel() + out.numel()) * 2 + n_kv * hkv * elem * 2 + lengths.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4.0 * D * n_kv * h)
@@ -443,14 +471,19 @@ def check_decode(gen, int8=False, h=H, hkv=HKV):
     kd, vd = (dequantize_kv(k, ks, torch.bfloat16), dequantize_kv(v, vs, torch.bfloat16)) \
         if int8 else (k, v)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, kd, vd))
+
+    def kernel():
+        return da.decode_attention(q, k, v, lengths, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
     return dict(shape=f"B={B} M={m} H={h} Hkv={hkv} D={D} lengths={list(DECODE_LENGTHS)}"
                       f"{' int8' if int8 else ''}",
-                max_abs_err=err,
-                ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths, **kw)),
+                max_abs_err=err, ms=cuda_ms(kernel), device_ms=device_ms(kernel),
                 plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths, **kw)),
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True)), **extra)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(library),
+                library_device_ms=device_ms(library), **extra)
 
 
 def paged_pools(gen, int8, hkv=HKV, d=D):
@@ -543,10 +576,14 @@ def check_paged_decode(gen, rng, staged, window=None, int8=False, h=H, hkv=HKV, 
             pa.paged_decode_attention(q, kb, kb, tables_t, lengths, **unit))
         assert extra["unit_scales_bitwise_equal"], (staged, window)
     out = pa.paged_decode_attention(q, k_pool, v_pool, tables_t, lengths, **kw)
+    extra["calls_bitwise_equal"] = torch.equal(
+        out, pa.paged_decode_attention(q, k_pool, v_pool, tables_t, lengths, **kw))
     ref = pa.paged_decode_attention_plain(q, k_pool, v_pool, tables_t, lengths, **kw)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL, (staged, window, alibi, err)
+    assert extra["calls_bitwise_equal"], ("K3 is not bitwise repeatable", staged, window, int8,
+                                          alibi)
     if alibi:
         extra["control_no_alibi_max_abs_err"] = control_err(
             pa.paged_decode_attention, ref, q=q, k_pool=k_pool, v_pool=v_pool,
@@ -572,17 +609,21 @@ def check_paged_decode(gen, rng, staged, window=None, int8=False, h=H, hkv=HKV, 
         pos = torch.cat([pos, (lengths.long() - 1)[:, None]], dim=1)
     attn_mask = alibi_mask(slopes, mask, pos) if alibi else mask[:, None, None, :]
     qt = q.transpose(1, 2)
+
+    def kernel():
+        return pa.paged_decode_attention(q, k_pool, v_pool, tables_t, lengths, **kw)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, dk, dv, attn_mask=attn_mask, enable_gqa=True)
+
     return dict(shape=f"B={b} H={H} Hkv={HKV} D={D} BS={BS} T={T} NB={NB} staged={staged} "
                       f"window={window} keys={keys}{' int8' if int8 else ''}"
                       f"{' alibi' if alibi else ''}",
-                max_abs_err=err,
-                ms=cuda_ms(lambda: pa.paged_decode_attention(q, k_pool, v_pool, tables_t,
-                                                             lengths, **kw)),
+                max_abs_err=err, ms=cuda_ms(kernel), device_ms=device_ms(kernel),
                 plain_ms=cuda_ms(lambda: pa.paged_decode_attention_plain(
                     q, k_pool, v_pool, tables_t, lengths, **kw)),
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, dk, dv, attn_mask=attn_mask, enable_gqa=True)), **extra)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(library),
+                library_device_ms=device_ms(library), **extra)
 
 
 def check_paged_prefill(gen, rng, window=None, int8=False, h=H, hkv=HKV, d=D, alibi=False):
@@ -718,8 +759,10 @@ def shard_row(name, call, plain, whole, out_axis, nbytes, flops, library, relati
     bound_ms, bound_by = bound(nbytes, flops)
     return dict(bitwise_equal_to_unsharded=bitwise, max_abs_err=err,
                 **({"rel_max_err": gated} if relative else {}),
-                ms=cuda_ms(lambda: call(0)), plain_ms=cuda_ms(plain, iters=5, warmup=1),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(library))
+                ms=cuda_ms(lambda: call(0)), device_ms=device_ms(lambda: call(0)),
+                plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=cuda_ms(library),
+                library_device_ms=device_ms(library))
 
 
 def check_sharded_decode(gen):
@@ -1178,7 +1221,8 @@ def profile_decode(engine, ids, steps: int = 8):
                 tok = logits[:, -1].argmax(-1)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    return profile_summary(prof, steps, wall_us)
+    kernels = device_kernels(prof)
+    return add_share(profile_summary(prof, steps, wall_us, kernels), kernels, steps, K2_NAME)
 
 
 def device_kernels(prof) -> dict:
@@ -1378,8 +1422,10 @@ def profile_v2_decode(engine, rng, rows: int = 48, steps: int = 8):
             wall_us = (time.perf_counter() - t0) * 1e6
     for uid in uids:
         engine.flush(uid)
+    kernels = device_kernels(prof)
     return dict(live_rows=rows, max_batch=engine.max_batch,
-                **profile_summary(prof, steps, wall_us))
+                **add_share(profile_summary(prof, steps, wall_us, kernels), kernels, steps,
+                            K3_NAME))
 
 
 def serve_v2_shared(report, model):
@@ -1613,7 +1659,7 @@ def serve_int8(report, model):
     t0 = time.perf_counter()
     engine.generate(ids, max_new_tokens=1)
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    profile = profile_generate(engine, ids)
+    profile = profile_generate(engine, ids, kernels=(("quantized_matmul", "qmm_"), K2_NAME))
     prefill_profile = profile_prefill(engine, ids, kernel=("quantized_matmul", "qmm_"))
 
     # the same int8 tree served by dequant: `forward` dequantizes the whole
@@ -1638,12 +1684,12 @@ def serve_int8(report, model):
     return launches
 
 
-def profile_generate(engine, ids, steps: int = 8, kernel=("quantized_matmul", "qmm_")):
+def profile_generate(engine, ids, steps: int = 8, kernels=(("quantized_matmul", "qmm_"),)):
     """Device time by kernel over `steps` decode steps of the engine's own
     `generate`, from torch.profiler: a `generate` of steps + 1 tokens less
     a prefill-only one (one token). Adds the share of the device time of
-    `kernel` (its name in the report, a substring of its CUDA name), unless
-    it is None."""
+    each of `kernels` (its name in the report, a substring of its CUDA
+    name)."""
     from torch.profiler import ProfilerActivity, profile
     runs = []
     for new in (steps + 1, 1):
@@ -1658,7 +1704,9 @@ def profile_generate(engine, ids, steps: int = 8, kernel=("quantized_matmul", "q
     decode = {name: (us - prefill.get(name, (0.0, 0))[0], n - prefill.get(name, (0.0, 0))[1])
               for name, (us, n) in full.items()}
     summary = profile_summary(None, steps, wall - prefill_wall, decode)
-    return summary if kernel is None else add_share(summary, decode, steps, kernel)
+    for kernel in kernels:
+        add_share(summary, decode, steps, kernel)
+    return summary
 
 
 def add_share(summary, kernels, steps, kernel):
@@ -1838,7 +1886,7 @@ def serve_moe(report):
         and int(sampled.max()) < cfg.vocab_size
 
     prefill_profile = profile_prefill(engine, ids)
-    decode_profile = profile_generate(engine, ids, kernel=None)   # no K6 at decode
+    decode_profile = profile_generate(engine, ids, kernels=(K2_NAME,))   # no K6 at decode
     # the ragged decode's expert products: one layer's batched FFN over the
     # (E, C = B, D) buffer, by CUDA events, and its share of the profiled
     # decode step's device time
@@ -1863,7 +1911,7 @@ def serve_moe(report):
     t0 = time.perf_counter()
     engine.generate(ids, max_new_tokens=1)
     gmm_prefill_ms = (time.perf_counter() - t0) * 1e3
-    gmm_profile = profile_generate(engine, ids, kernel=("grouped_gemm", "gmm_kernel"))
+    gmm_profile = profile_generate(engine, ids, kernels=(("grouped_gemm", "gmm_kernel"),))
     for layer in module.layers:
         layer.mlp.dispatch_impl = cfg.dispatch_impl
     assert gmm_launches["grouped_gemm"] == 3 * L * NEW, gmm_launches
@@ -3337,7 +3385,8 @@ def kernel_row(name, source, replaces, launches, check):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches,
                 **{k: check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")})
+                                         "bound_by", "library_ms")},
+                **{k: check[k] for k in ("device_ms", "library_device_ms") if k in check})
 
 
 def main() -> int:

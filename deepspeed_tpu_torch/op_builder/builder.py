@@ -14,6 +14,9 @@ Every C entry point launches on the stream it is given and returns
 A kernel written through `ctypes` into a fresh tensor leaves that tensor
 with no `grad_fn`: a wrapper whose kernel has no backward calls
 `refuse_grad` first, so that grad mode raises instead of detaching.
+Wrappers launch through `on_current_stream` (the current stream's raw
+handle, a device guard only when needed), and a kernel whose blocks split a
+sum takes its partials and arrival counts from `split_workspace`.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -131,6 +134,36 @@ def refuse_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: the CUDA kernel has no backward; call it under "
                            "torch.no_grad() or on inputs that do not require grad")
+
+
+def on_current_stream(index: int, launch: Callable[[int], int]) -> int:
+    """`launch(stream)` on device `index`'s current stream, given as the raw
+    handle (a Stream object costs ~3 us), under a device guard only when
+    `index` is not the current device (a guard costs ~3 us a call)."""
+    if index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return launch(torch._C._cuda_getCurrentRawStream(index))
+
+
+_WORKSPACE: Dict[Tuple[str, int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def split_workspace(kind: str, index: int, stream: int, floats: int,
+                    counts: int) -> Tuple[int, int]:
+    """Pointers to the f32 partials and int32 arrival counts of `kind`, a
+    kernel whose blocks split a sum and whose last block to arrive adds
+    the partials, for calls on `stream` of device `index`: kept per stream,
+    since the calls on a stream run in order, and grown as needed; the
+    counts are zeroed once and every launch leaves them at 0."""
+    part, count = _WORKSPACE.get((kind, index, stream), (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=torch.device("cuda", index))
+    if count is None or count.numel() < counts:
+        count = torch.zeros(max(counts, 256), dtype=torch.int32,
+                            device=torch.device("cuda", index))
+    _WORKSPACE[(kind, index, stream)] = (part, count)
+    return part.data_ptr(), count.data_ptr()
 
 
 def build_all(libraries: Iterable[KernelLibrary]) -> List[KernelLibrary]:

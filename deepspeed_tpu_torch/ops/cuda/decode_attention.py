@@ -5,7 +5,10 @@ for CUDA tensors and takes the plain PyTorch version,
 `decode_attention_plain`, only for CPU tensors. One query per row attends the
 first `lengths[b]` slots of its cache row; slots past the length are never
 read. Natural-exp softmax in f32, probabilities in v's dtype before P.V, and
-an empty row gives zeros.
+an empty row gives zeros. The kernel cuts each row's cache into the chunks
+`decode_split.split_plan` picks from M alone, one thread block each, and
+merges their partials through a per-stream workspace
+(`op_builder.split_workspace`).
 
 An int8 cache (K2-int8) comes with `k_scales`/`v_scales` (B, M, Hkv) f32:
 the kernel folds the K scale into the logit columns and the V scale into the
@@ -20,8 +23,14 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.ops.cuda import decode_split
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
-from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
+from deepspeed_tpu_torch.op_builder import (
+    KernelLibrary,
+    on_current_stream,
+    refuse_grad,
+    split_workspace,
+)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -29,7 +38,8 @@ GROUP_SIZES = (1, 2, 4, 8)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("decode_attention.cu", {
-    "ds_decode_attention": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
+    # q, k, v, scales, lengths, out, the split's partials and counts
+    "ds_decode_attention": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
 })
 
 
@@ -64,44 +74,60 @@ def decode_attention_plain(q, k_cache, v_cache, lengths,
 
 
 def _check(q, k_cache, v_cache, lengths, k_scales, v_scales):
+    """Raise unless the kernel takes these CUDA tensors; each attribute is
+    read once (the checks run on every decode step)."""
     quant = k_scales is not None
     if quant != (v_scales is not None):
         raise ValueError("decode_attention: give both k_scales and v_scales or neither")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device:
+    index = q.get_device()
+    kv = torch.int8 if quant else torch.bfloat16
+    for name, t, want in (("q", q, torch.bfloat16), ("k_cache", k_cache, kv),
+                          ("v_cache", v_cache, kv)):
+        if t.get_device() != index:
             raise ValueError(f"decode_attention: {name} is on {t.device}, "
                              f"q on {q.device}")
-        want = torch.int8 if quant and name != "q" else torch.bfloat16
         if t.dtype != want:
             raise TypeError(f"decode_attention: {name} must be {want} on "
                             f"CUDA, got {t.dtype}")
-        if t.dim() != 4 or not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be a contiguous "
-                             "4-d tensor")
-    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ():
-        if t.device != q.device or t.dtype != torch.float32 \
-                or tuple(t.shape) != tuple(k_cache.shape[:3]) or not t.is_contiguous():
-            raise ValueError(f"decode_attention: {name} must be a contiguous f32 "
-                             f"{tuple(k_cache.shape[:3])} tensor on {q.device}")
+        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} must be a contiguous, "
+                             "16-byte aligned 4-d tensor")
     b, s, h, d = q.shape
+    shape = k_cache.shape
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ():
+        if t.get_device() != index or t.dtype != torch.float32 \
+                or t.shape != shape[:3] or not t.is_contiguous():
+            raise ValueError(f"decode_attention: {name} must be a contiguous f32 "
+                             f"{tuple(shape[:3])} tensor on {q.device}")
     if s != 1:
         raise ValueError("decode_attention is single-query; use flash "
                          "attention for prefill")
-    if k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
-            or k_cache.shape[3] != d:
+    if shape != v_cache.shape or shape[0] != b or shape[3] != d:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "
-                         f"caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)} "
+                         f"caches {tuple(shape)}/{tuple(v_cache.shape)} "
                          "do not match")
-    hkv = k_cache.shape[2]
+    hkv = shape[2]
     if h % hkv or h // hkv not in GROUP_SIZES:
         raise ValueError(f"decode_attention: H/Hkv = {h}/{hkv} is not one of "
                          f"the group sizes {GROUP_SIZES}")
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {d} not in {HEAD_DIMS}")
-    if lengths.device != q.device or lengths.dtype != torch.int32 \
+    if lengths.get_device() != index or lengths.dtype != torch.int32 \
             or lengths.shape != (b,) or not lengths.is_contiguous():
         raise ValueError("decode_attention: lengths must be a contiguous int32 "
                          f"(B,) tensor on {q.device}")
+
+
+def _launch(ptrs, b: int, m: int, h: int, hkv: int, d: int, scale: float, index: int,
+            stream: int) -> int:
+    """`ds_decode_attention` on `stream`, with the split's workspace where
+    the cache spans more than one chunk."""
+    chunk, chunks = decode_split.split_plan(m)
+    floats = decode_split.partial_floats(b, hkv, h // hkv, d, chunks)
+    work = split_workspace("decode_attention", index, stream, floats, b * hkv) if floats \
+        else (None, None)
+    return LIBRARY.lib().ds_decode_attention(*ptrs, *work, b, m, h, hkv, d, chunk, scale,
+                                             stream)
 
 
 def decode_attention(q, k_cache, v_cache, lengths,
@@ -113,25 +139,24 @@ def decode_attention(q, k_cache, v_cache, lengths,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, lengths, softmax_scale,
-                                      k_scales, v_scales)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return decode_attention_plain(q, k_cache, v_cache, lengths, softmax_scale,
+                                          k_scales, v_scales)
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     refuse_grad("decode_attention", q, k_cache, v_cache, k_scales, v_scales)
     _check(q, k_cache, v_cache, lengths, k_scales, v_scales)
     quant = k_scales is not None
     b, _, h, d = q.shape
-    m, hkv = k_cache.shape[1], k_cache.shape[2]
+    _, m, hkv, _ = k_cache.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = LIBRARY.lib().ds_decode_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None,
-            lengths.data_ptr(), out.data_ptr(), b, m, h, hkv, d,
-            _scale(d, softmax_scale), stream)
+    ptrs = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
+            lengths.data_ptr(), out.data_ptr())
+    index = q.get_device()
+    scale = _scale(d, softmax_scale)
+    code = on_current_stream(index, lambda stream: _launch(ptrs, b, m, h, hkv, d, scale, index,
+                                                           stream))
     LIBRARY.check(code, "decode_attention")
     if quant:
         decode_attention.launches_int8 += 1

@@ -15,7 +15,10 @@ and a row with no valid key gives zeros. The decode kernel folds a staged
 token (`k_new`/`v_new`, not yet in the pool) in last, as f32 p·v; the
 prefill kernel masks causally by absolute position start + i over a pool
 that already holds the chunk. `window` keeps only keys in
-(qpos − window, qpos].
+(qpos − window, qpos]. The decode kernel cuts each row's T·BS positions
+into the chunks `decode_split.split_plan` picks from T·BS alone, one thread
+block each, merged through a per-stream workspace
+(`op_builder.split_workspace`).
 
 `alibi` (H,) f32 slopes (K3-alibi, K4-alibi) add slopes[h]·key_position to
 the f32 logits before the mask; the decode kernel's staged column sits at
@@ -39,8 +42,14 @@ from typing import Optional
 
 import torch
 
+from deepspeed_tpu_torch.ops.cuda import decode_split
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
-from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
+from deepspeed_tpu_torch.op_builder import (
+    KernelLibrary,
+    on_current_stream,
+    refuse_grad,
+    split_workspace,
+)
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -48,7 +57,9 @@ GROUP_SIZES = (1, 2, 4, 8)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", {
-    "ds_paged_decode_attention": [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P],
+    # q, pools, scales, tables, lengths, staged token, slopes, out, the
+    # split's partials and counts
+    "ds_paged_decode_attention": [_P] * 13 + [_I] * 10 + [ctypes.c_float, _P],
 })
 PREFILL_LIBRARY = KernelLibrary("paged_prefill_attention.cu", {
     "ds_paged_prefill_attention": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
@@ -188,26 +199,31 @@ def _count(fn, quant: bool, alibi) -> None:
 
 def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
            extra=()):
+    """Raise unless the kernel takes these CUDA tensors; each attribute is
+    read once (the checks run on every step)."""
     quant = k_scales is not None
     if quant != (v_scales is not None):
         raise ValueError(f"{name}: give both k_scales and v_scales or neither")
+    index = q.get_device()
+    pools = torch.int8 if quant else torch.bfloat16
     for arg, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), *extra):
-        if x.device != q.device:
+        if x.get_device() != index:
             raise ValueError(f"{name}: {arg} is on {x.device}, q on {q.device}")
-        want = torch.int8 if quant and arg in ("k_pool", "v_pool") else torch.bfloat16
+        want = pools if arg in ("k_pool", "v_pool") else torch.bfloat16
         if x.dtype != want:
             raise TypeError(f"{name}: {arg} must be {want} on CUDA, got {x.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
     b, _, h, d = q.shape
-    hkv, nb, bs, dk = k_pool.shape
+    pool_shape = k_pool.shape
+    hkv, nb, bs, dk = pool_shape
     for arg, x in (("k_scales", k_scales), ("v_scales", v_scales)) if quant else ():
-        if x.device != q.device or x.dtype != torch.float32 \
-                or tuple(x.shape) != (hkv, nb, bs) or not x.is_contiguous():
+        if x.get_device() != index or x.dtype != torch.float32 \
+                or x.shape != pool_shape[:3] or not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous f32 {(hkv, nb, bs)} "
                              f"tensor on {q.device}")
-    if v_pool.shape != k_pool.shape or dk != d:
-        raise ValueError(f"{name}: q {tuple(q.shape)}, pools {tuple(k_pool.shape)}/"
+    if v_pool.shape != pool_shape or dk != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, pools {tuple(pool_shape)}/"
                          f"{tuple(v_pool.shape)} do not match")
     if h % hkv or h // hkv not in GROUP_SIZES:
         raise ValueError(f"{name}: H/Hkv = {h}/{hkv} is not one of the group "
@@ -216,7 +232,7 @@ def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
     for arg, x, shape in (("tables", tables, (b, tables.shape[-1])),
                           ("lengths/starts", per_row, (b,))):
-        if x.device != q.device or x.dtype != torch.int32 or tuple(x.shape) != shape \
+        if x.get_device() != index or x.dtype != torch.int32 or x.shape != shape \
                 or not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous int32 {shape} "
                              f"tensor on {q.device}")
@@ -239,11 +255,11 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     _check_alibi("paged_decode_attention", q, alibi)
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
-                                            softmax_scale, k_new, v_new, window,
-                                            k_scales, v_scales, alibi)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return paged_decode_attention_plain(q, k_pool, v_pool, tables, lengths,
+                                                softmax_scale, k_new, v_new, window,
+                                                k_scales, v_scales, alibi)
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     refuse_grad("paged_decode_attention", q, k_pool, v_pool, k_new, v_new, k_scales,
                 v_scales, alibi)
@@ -260,17 +276,24 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
     if staged and (k_new.shape != (b, hkv, d) or v_new.shape != (b, hkv, d)):
         raise ValueError(f"paged_decode_attention: k_new/v_new must be {(b, hkv, d)}")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = DECODE_LIBRARY.lib().ds_paged_decode_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None, tables.data_ptr(),
-            lengths.data_ptr(), k_new.data_ptr() if staged else None,
+    t = tables.shape[1]
+    chunk, chunks = decode_split.split_plan(t * bs)
+    floats = decode_split.partial_floats(b, hkv, h // hkv, d, chunks)
+    ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
+            tables.data_ptr(), lengths.data_ptr(), k_new.data_ptr() if staged else None,
             v_new.data_ptr() if staged else None,
-            alibi.data_ptr() if alibi is not None else None, out.data_ptr(),
-            b, h, hkv, d, nb, bs, tables.shape[1], int(staged), window or 0,
+            alibi.data_ptr() if alibi is not None else None, out.data_ptr())
+    index = q.get_device()
+
+    def launch(stream):
+        work = split_workspace("paged_decode_attention", index, stream, floats, b * hkv) \
+            if floats else (None, None)
+        return DECODE_LIBRARY.lib().ds_paged_decode_attention(
+            *ptrs, *work, b, h, hkv, d, nb, bs, t, int(staged), window or 0, chunk,
             _scale(d, softmax_scale), stream)
+
+    code = on_current_stream(index, launch)
     DECODE_LIBRARY.check(code, "paged_decode_attention")
     _count(paged_decode_attention, quant, alibi)
     return out
@@ -294,11 +317,11 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     _check_alibi("paged_prefill_attention", q, alibi)
-    if q.device.type == "cpu":
-        return paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
-                                             softmax_scale, window, k_scales, v_scales,
-                                             alibi)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
+        if q.device.type == "cpu":
+            return paged_prefill_attention_plain(q, k_pool, v_pool, tables, starts,
+                                                 softmax_scale, window, k_scales, v_scales,
+                                                 alibi)
         raise ValueError(f"paged_prefill_attention: unsupported device {q.device}")
     refuse_grad("paged_prefill_attention", q, k_pool, v_pool, k_scales, v_scales, alibi)
     quant = k_scales is not None
@@ -307,15 +330,13 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = PREFILL_LIBRARY.lib().ds_paged_prefill_attention(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scales.data_ptr() if quant else None,
-            v_scales.data_ptr() if quant else None, tables.data_ptr(),
-            starts.data_ptr(), alibi.data_ptr() if alibi is not None else None,
-            out.data_ptr(), b, s, h, hkv, d, nb, bs,
-            tables.shape[1], window or 0, _scale(d, softmax_scale), stream)
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
+            tables.data_ptr(), starts.data_ptr(),
+            alibi.data_ptr() if alibi is not None else None, out.data_ptr(),
+            b, s, h, hkv, d, nb, bs, tables.shape[1], window or 0, _scale(d, softmax_scale))
+    code = on_current_stream(q.get_device(), lambda stream: PREFILL_LIBRARY.lib()
+                             .ds_paged_prefill_attention(*args, stream))
     PREFILL_LIBRARY.check(code, "paged_prefill_attention")
     _count(paged_prefill_attention, quant, alibi)
     return out

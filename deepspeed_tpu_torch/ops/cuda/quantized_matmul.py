@@ -24,12 +24,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from deepspeed_tpu_torch import comm
-from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
+from deepspeed_tpu_torch.op_builder import (
+    KernelLibrary,
+    on_current_stream,
+    refuse_grad,
+    split_workspace,
+)
 from deepspeed_tpu_torch.ops.quantization import dequantize_int8_blockwise
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -84,32 +89,13 @@ def _workspace(m: int, k: int, n: int) -> Tuple[int, int]:
     return floats.value, tiles.value
 
 
-_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _split_workspace(index: int, stream: int, floats: int, tiles: int) -> Tuple[int, int]:
-    """Pointers to the split K's f32 partials and its arrival counts (one
-    int32 a column tile) for calls on `stream` of device `index`: kept per
-    stream, since the calls on a stream run in order, and grown as needed;
-    the counts are zeroed once and every launch leaves them at 0."""
-    part, counts = _WORKSPACE.get((index, stream), (None, None))
-    if part is None or part.numel() < floats:
-        part = torch.empty(floats, dtype=torch.float32, device=torch.device("cuda", index))
-    if counts is None or counts.numel() < tiles:
-        counts = torch.zeros(max(tiles, 256), dtype=torch.int32,
-                             device=torch.device("cuda", index))
-    _WORKSPACE[(index, stream)] = (part, counts)
-    return part.data_ptr(), counts.data_ptr()
-
-
-def _launch(index: int, ptrs: Tuple[int, ...], m: int, k: int, n: int,
-            layout: Tuple[int, ...]) -> int:
+def _launch(ptrs: Tuple[int, ...], m: int, k: int, n: int, layout: Tuple[int, ...],
+            index: int, stream: int) -> int:
     """`ds_quantized_matmul` (x, q, st, out at `ptrs`; the scale `layout`
-    G, g, sj, sk) on device `index`'s current stream, with the split K's
-    workspace where it splits."""
-    stream = torch._C._cuda_getCurrentRawStream(index)  # a Stream object costs ~3 us
+    G, g, sj, sk) on `stream`, with the split K's workspace where it splits."""
     floats, tiles = _workspace(m, k, n)
-    work = _split_workspace(index, stream, floats, tiles) if floats else (None, None)
+    work = split_workspace("quantized_matmul", index, stream, floats, tiles) if floats \
+        else (None, None)
     return LIBRARY.lib().ds_quantized_matmul(*ptrs, *work, m, k, n, *layout, stream)
 
 
@@ -162,11 +148,8 @@ def quantized_matmul(x: torch.Tensor, q: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     ptrs = (x2.data_ptr(), q.data_ptr(), st.data_ptr(), out.data_ptr())
     index = x.device.index
-    if index == torch.cuda.current_device():  # a device guard costs ~3 us a call
-        code = _launch(index, ptrs, m, k, n, (groups, g, sj, sk))
-    else:
-        with torch.cuda.device(index):
-            code = _launch(index, ptrs, m, k, n, (groups, g, sj, sk))
+    code = on_current_stream(index, lambda stream: _launch(ptrs, m, k, n, (groups, g, sj, sk),
+                                                           index, stream))
     LIBRARY.check(code, "quantized_matmul")
     quantized_matmul.launches += 1
     return out if len(lead) == 1 else out.reshape(*lead, n)

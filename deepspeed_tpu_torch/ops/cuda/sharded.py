@@ -91,7 +91,7 @@ def _check_shard(name: str, mesh, q: torch.Tensor, hkv_local: int,
     if (h_local, hkv_local) != (h // tp, hkv // tp):
         raise ValueError(f"{name}: local heads (H={h_local}, Hkv={hkv_local}) are not "
                          f"this rank's share of (H={h}, Hkv={hkv}) over model={tp}")
-    if mesh.device is not None and mesh.device.type == "cuda" and not q.is_cuda:
+    if not q.is_cuda and mesh.device is not None and mesh.device.type == "cuda":
         raise ValueError(f"{name}: the topology serves {mesh.device} and q is on "
                          f"{q.device}; a per-shard call runs on the rank's card")
 

@@ -10,7 +10,9 @@ head widths, every GQA group size; for K1, sequences of one row, tiles
 cut one short of and one past their edges and a grid of several waves,
 its backward bitwise equal from call to call; for the paged kernels,
 block tables with -1 tails, a parked row, staged tokens and a sliding
-window); inputs are
+window; for the decode kernels K2 and K3, which split the KV axis into
+chunks, lengths on and one past a chunk's edge and rows of 8,192 positions,
+two calls bitwise equal); inputs are
 bf16, and outputs must agree to 2e-2 (p and the output round at 2^-8 and
 the outputs are O(1)); the backward's gradients are held to 2e-2 of their
 largest magnitude. A tiny `train_batch` in bf16 on the card is held against
@@ -78,6 +80,7 @@ from deepspeed_tpu_torch.ops.cuda.grouped_gemm import (
     grouped_gemm_drhs_plain,
     grouped_gemm_plain,
 )
+from deepspeed_tpu_torch.ops.cuda.decode_split import split_plan
 from deepspeed_tpu_torch.ops.cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_plain,
@@ -158,29 +161,79 @@ def _paged(rng, device, blocks_per_row, hkv, d, nb=20, bs=16, t=4):
     return k, v, torch.from_numpy(tables).to(device)
 
 
+# K3's block tables (B, T) over blocks of BS and their row lengths: "ragged"
+# (a row whose only key may be the staged one, a parked row: cursor at the
+# capacity, table -1), "chunk_edges" (pool lengths 0, 1, one chunk and one
+# past it, staged or not) and "long" (T*BS = 8192: rows that split into many
+# chunks, one whole and the parked row)
+def _paged_case(case, staged):
+    if case == "ragged":
+        return 16, 4, 20, [1, 2, 3, 0], [1, 17, 40, 65]
+    if case == "chunk_edges":
+        chunk, _ = split_plan(16 * 32)
+        pool = [0, 1, chunk, chunk + 1]
+        return 16, 32, 64, [-(-n // 16) for n in pool], [n + int(staged) for n in pool]
+    return 256, 32, 56, [32, 20, 1, 0], [8192, 5000, 200, 32 * 256 + 1]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "chunk_edges", "long"])
 @pytest.mark.parametrize("window", [None, 20])
 @pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
-def test_paged_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d, staged, window):
-    """K3: ragged lengths over several blocks, a row whose only key may be
-    the staged one, and a parked row (cursor at the capacity, table -1)."""
-    b, hkv, bs, t = 4, 2, 16, 4
+def test_paged_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d, staged, window, case):
+    """K3 over the tables of `_paged_case`; two calls give the same bits."""
+    b, hkv = 4, 2
+    bs, t, nb, blocks, lens = _paged_case(case, staged)
     rng = np.random.default_rng(n_rep + d + staged)
-    k, v, tables = _paged(rng, cuda_device, [1, 2, 3, 0], hkv, d, bs=bs, t=t)
+    k, v, tables = _paged(rng, cuda_device, blocks, hkv, d, nb=nb, bs=bs, t=t)
     q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
-    lengths = torch.tensor([1, 17, 40, t * bs + 1], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     new = [_bf16(rng.standard_normal((b, hkv, d)).astype(np.float32), cuda_device)
            for _ in range(2)] if staged else [None, None]
     launches = paged_decode_attention.launches
     out = paged_decode_attention(q, k, v, tables, lengths, k_new=new[0], v_new=new[1],
                                  window=window)
+    again = paged_decode_attention(q, k, v, tables, lengths, k_new=new[0], v_new=new[1],
+                                   window=window)
     ref = paged_decode_attention_plain(q, k, v, tables, lengths, k_new=new[0],
                                        v_new=new[1], window=window)
     torch.cuda.synchronize()
-    assert paged_decode_attention.launches == launches + 1
+    assert paged_decode_attention.launches == launches + 2
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 300])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_decode_kernel_long_rows_on_card(cuda_device, int8, alibi, window):
+    """K3, K3-int8 and K3-alibi over T*BS = 8192 (`_paged_case`'s "long"
+    tables, staged): rows that split into many chunks, with and without a
+    window; two calls give the same bits."""
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+    b, hkv, n_rep, d = 4, 2, 4, 128
+    bs, t, nb, blocks, lens = _paged_case("long", True)
+    rng = np.random.default_rng(100 + 2 * int8 + alibi)
+    k, v, tables = _paged(rng, cuda_device, blocks, hkv, d, nb=nb, bs=bs, t=t)
+    scales = {}
+    if int8:
+        k, ks, v, vs = _int8_pools(rng, cuda_device, hkv, nb, bs, d)
+        scales = dict(k_scales=ks, v_scales=vs)
+    q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    kw = dict(k_new=_bf16(rng.standard_normal((b, hkv, d)).astype(np.float32), cuda_device),
+              v_new=_bf16(rng.standard_normal((b, hkv, d)).astype(np.float32), cuda_device),
+              window=window, alibi=alibi_slopes(hkv * n_rep, cuda_device) if alibi else None,
+              **scales)
+    out = paged_decode_attention(q, k, v, tables, lengths, **kw)
+    again = paged_decode_attention(q, k, v, tables, lengths, **kw)
+    ref = paged_decode_attention_plain(q, k, v, tables, lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -265,20 +318,36 @@ def test_paged_kernels_refuse_other_shapes_on_card(cuda_device, bad):
     assert (paged_decode_attention.launches, paged_prefill_attention.launches) == launches
 
 
+# K2's cache capacity M and row lengths: "ragged", "chunk_edges" (0, 1, one
+# chunk and one past it) and "long" (M = 8192: rows that split many times)
+def _dense_case(case):
+    if case == "ragged":
+        return 300, [0, 1, 129, 300]
+    if case == "chunk_edges":
+        chunk, _ = split_plan(300)
+        return 300, [0, 1, chunk, chunk + 1]
+    return 8192, [8192, 5000, 257, 1]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "chunk_edges", "long"])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
-def test_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d):
-    b, m, hkv = 4, 300, 2
+def test_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d, case):
+    """K2 over `_dense_case`'s rows; two calls give the same bits."""
+    b, hkv = 4, 2
+    m, lens = _dense_case(case)
     rng = np.random.default_rng(n_rep)
     q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
     k = _bf16(rng.standard_normal((b, m, hkv, d)).astype(np.float32), cuda_device)
     v = _bf16(rng.standard_normal((b, m, hkv, d)).astype(np.float32), cuda_device)
-    lengths = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     out = decode_attention(q, k, v, lengths)
+    again = decode_attention(q, k, v, lengths)
     ref = decode_attention_plain(q, k, v, lengths)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -508,19 +577,24 @@ def _int8_pools(rng, device, hkv, nb, bs, d, unit=False):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "chunk_edges", "long"])
 @pytest.mark.parametrize("n_rep", [1, 4, 8])
-def test_decode_int8_kernel_matches_plain_on_card(cuda_device, n_rep):
-    b, m, hkv, d = 4, 300, 2, 128
+def test_decode_int8_kernel_matches_plain_on_card(cuda_device, n_rep, case):
+    """K2-int8 over `_dense_case`'s rows; two calls give the same bits."""
+    b, hkv, d = 4, 2, 128
+    m, lens = _dense_case(case)
     rng = np.random.default_rng(40 + n_rep)
     q = _bf16(rng.standard_normal((b, 1, hkv * n_rep, d)).astype(np.float32), cuda_device)
     k, ks, v, vs = _int8_pools(rng, cuda_device, b, m, hkv, d)   # (B, M, Hkv, D)
-    lengths = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     launches = decode_attention.launches_int8
     out = decode_attention(q, k, v, lengths, k_scales=ks, v_scales=vs)
+    again = decode_attention(q, k, v, lengths, k_scales=ks, v_scales=vs)
     ref = decode_attention_plain(q, k, v, lengths, k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
-    assert decode_attention.launches_int8 == launches + 1
+    assert decode_attention.launches_int8 == launches + 2
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.cuda
@@ -1014,24 +1088,29 @@ def test_sharded_decode_attention_is_the_unsharded_heads_on_card(cuda_device, in
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [4, 32])
 @pytest.mark.parametrize("staged", [False, True])
-def test_sharded_paged_kernels_are_the_unsharded_heads_on_card(cuda_device, staged):
+def test_sharded_paged_kernels_are_the_unsharded_heads_on_card(cuda_device, staged, t):
     """K8-b/c: each rank's KV-head slice of the pools through K3 (staged or
-    not) and K4 equals the same heads of the unsharded kernels bit for bit."""
+    not) and K4 equals the same heads of the unsharded kernels bit for bit;
+    at T = 32 (T*BS = 512) K3's rows split into several chunks."""
     from deepspeed_tpu_torch.ops.cuda.sharded import (
         sharded_paged_decode_attention, sharded_paged_prefill_attention)
     rng = np.random.default_rng(81)
     h, hkv, d = 32, 8, 128
-    k_pool, v_pool, tables = _paged(rng, cuda_device, [3, 1, 4, 0], hkv, d)
+    blocks, lens, nb = ([3, 1, 4, 0], [40, 9, 64, 65], 20) if t == 4 else \
+        ([20, 3, 32, 0], [300, 40, 512, 513], 64)
+    k_pool, v_pool, tables = _paged(rng, cuda_device, blocks, hkv, d, nb=nb, t=t)
     q1 = _bf16(rng.standard_normal((4, 1, h, d)).astype(np.float32), cuda_device)
-    lengths = torch.tensor([40, 9, 64, 65], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
     stage = {}
     if staged:
         stage = {n: _bf16(rng.standard_normal((4, hkv, d)).astype(np.float32), cuda_device)
                  for n in ("k_new", "v_new")}
     whole = paged_decode_attention(q1, k_pool, v_pool, tables, lengths, **stage)
     q8 = _bf16(rng.standard_normal((4, 8, h, d)).astype(np.float32), cuda_device)
-    starts = torch.tensor([30, 0, 50, 64], dtype=torch.int32, device=cuda_device)
+    starts = torch.tensor([30, 0, 50, 64] if t == 4 else [280, 30, 500, 512],
+                          dtype=torch.int32, device=cuda_device)
     whole_prefill = paged_prefill_attention(q8, k_pool, v_pool, tables, starts)
     for r, topo in enumerate(_topologies()):
         kp, vp = _shard(k_pool, 0, r), _shard(v_pool, 0, r)
