@@ -300,24 +300,52 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call of `fn`: torch.profiler's CUDA time of every
-    kernel the call launches, summed, over `iters` calls; the median of
-    three such windows, since a window can lose events. At a few
+def window_us(kernels: dict, iters: int):
+    """Device us per call in one profiler window of `iters` calls, from
+    `device_kernels`'s {kernel: (us, events)}: each kernel's mean time over
+    the events the window kept, times its launches per call, its events over
+    `iters` rounded up (right while it loses fewer than `iters` events).
+    None when the window holds no kernel, or a kernel kept fewer than half
+    its launches."""
+    if not kernels:
+        return None
+    total = 0.0
+    for us, n in kernels.values():
+        per_call = -(-n // iters)
+        if 2 * n < per_call * iters:
+            return None
+        total += us / n * per_call
+    return total
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3, windows: int = 3, tries: int = 12) -> float:
+    """Device time per call of `fn`: the median over `windows` torch.profiler
+    windows of `iters` calls of `window_us`. A window can lose kernel events
+    (on an H100, 1 to 10 of 20 in a window), so each kernel is counted at
+    its mean time over the events kept, never at their sum; a window that
+    kept fewer than half is taken again, and after `tries` windows with
+    fewer than `windows` kept it raises. At a few
     microseconds a kernel, `cuda_ms` (events around back-to-back calls)
     reads the host path when it is the slower; this reads the device."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    windows = []
-    for _ in range(3):
+    kept, seen = [], []
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        windows.append(sum(us for us, _ in device_kernels(prof).values()))
-    return sorted(windows)[1] / iters / 1e3
+        kernels = device_kernels(prof)
+        seen.append(sorted(n for _, n in kernels.values()))
+        us = window_us(kernels, iters)
+        if us is not None:
+            kept.append(us)
+        if len(kept) == windows:
+            return sorted(kept)[windows // 2] / 1e3
+    raise RuntimeError(f"device_ms: {len(kept)} of {tries} profiler windows of {iters} calls "
+                       f"kept their kernel events (events by kernel: {seen})")
 
 
 def bound(nbytes: float, flops: float):

@@ -27,8 +27,8 @@
 // (int8: B*Hkv*len*(D+4)*2 bytes with the scales).
 //
 // Design: the split-KV core of `decode_split.cuh`. The grid is (chunk, KV
-// head, row) over the cache capacity M in chunks the wrapper picks from M
-// alone (`ops/cuda/decode_split.py`); each warp copies its 32 slots' rows,
+// head, row) over the cache capacity M in chunks of 128 positions, so the
+// split is a function of M alone; each warp copies its 32 slots' rows,
 // strided by Hkv*D in (B, M, Hkv, D), with 16-byte cp.async ahead of use,
 // and runs both products on mma.sync with the GQA group as the rows; slots
 // past a row's length are never read and chunks past it exit at once (what
@@ -43,7 +43,7 @@
 namespace {
 
 template <int D, int NREP, typename KV>
-__global__ void __launch_bounds__(dsplit::MAX_WARPS * 32)
+__global__ void __launch_bounds__(dsplit::THREADS)
 decode_kernel(const dsplit::Params p) {
   dsplit::split_decode<D, NREP, KV, false, false>(p);
 }
@@ -76,20 +76,27 @@ cudaError_t launch_kv(int D, const dsplit::Params& p, int B, cudaStream_t s) {
 
 }  // namespace
 
+// The split of a call over a cache of M slots (`dsplit::plan`): the
+// positions a chunk takes, the chunk count, and the workspace it takes,
+// f32 floats of partials and zeroed arrival counts (0 and 0 at one chunk).
+extern "C" int ds_decode_attention_workspace(int B, int M, int H, int Hkv, int D, int* chunk,
+                                             int* chunks, long long* floats, int* counts) {
+  if (Hkv <= 0 || H % Hkv) return cudaErrorInvalidValue;
+  return dsplit::plan(M, B, Hkv, H / Hkv, D, chunk, chunks, floats, counts);
+}
+
 // k_scales == v_scales == nullptr: a bf16 cache; both given: an int8 cache.
-// chunk: positions a block takes (a multiple of 32 up to 256); part, counts:
-// the split's f32 partials (B, Hkv, chunks, n_rep*D + 16) and its zeroed
-// (B*Hkv) arrival counts, null when M fits one chunk.
+// part, counts: ds_decode_attention_workspace's (null when it gives 0).
 extern "C" int ds_decode_attention(const void* q, const void* k, const void* v,
                                    const void* k_scales, const void* v_scales,
                                    const void* lengths, void* out, void* part, void* counts,
-                                   int B, int M, int H, int Hkv, int D, int chunk,
-                                   float scale, void* stream) {
+                                   int B, int M, int H, int Hkv, int D, float scale,
+                                   void* stream) {
   if (B == 0) return cudaSuccess;
   if ((k_scales == nullptr) != (v_scales == nullptr) || B < 0 || Hkv <= 0 || H % Hkv)
     return cudaErrorInvalidValue;
-  const int chunks = dsplit::plan_chunks(M, chunk, part, counts);
-  if (chunks == 0) return cudaErrorInvalidValue;
+  const int chunks = dsplit::plan_chunks(M);
+  if (chunks == 0 || !dsplit::has_workspace(chunks, part, counts)) return cudaErrorInvalidValue;
   dsplit::Params p{};
   p.q = static_cast<const bf16*>(q);
   p.k = k;
@@ -103,7 +110,6 @@ extern "C" int ds_decode_attention(const void* q, const void* k, const void* v,
   p.H = H;
   p.Hkv = Hkv;
   p.M = M;
-  p.chunk = chunk;
   p.chunks = chunks;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -11,18 +11,20 @@
 //
 // Design (flash-decoding):
 //   * Grid (chunk, KV head g, row b). The KV axis is cut into chunks of
-//     `chunk` positions, a multiple of 32 up to 256 that the wrapper picks
-//     from the cache capacity alone (M, or T*BS), so the plan never depends
-//     on B, H, Hkv or the card: a tensor-parallel shard runs the very same
-//     blocks on its heads, and two calls give the same bits. A block whose
-//     chunk lies wholly outside the row's live keys [lo, hi) exits at once.
+//     CHUNK positions, so the chunk count is a function of the cache
+//     capacity alone (M, or T*BS) and never of B, H, Hkv or the card: a
+//     tensor-parallel shard runs the very same blocks on its heads, and two
+//     calls give the same bits. A block whose chunk lies wholly outside the
+//     row's live keys [lo, hi) exits at once. On an H100, CHUNK = 128 (four
+//     warps, three blocks an SM) timed fastest at the v1, v2 and Bloom shapes
+//     and at M = 8192, against 64 and 256 (PERF.md section 6).
 //   * Each warp takes 32 consecutive positions of the chunk, resolves their
 //     cache rows (through the clamped table for K3) and issues every 16-byte
 //     cp.async of its K slice, then of its V slice, before it computes: a
-//     block has its whole chunk in flight at once (64 KB at the wrapper's
-//     128 positions, D = 128 in bf16; three such blocks an SM). Rows land in
-//     shared memory with their 16-byte pieces XOR-swizzled by the row, so
-//     ldmatrix reads them without bank conflicts.
+//     block has its whole chunk in flight at once (64 KB at D = 128 in
+//     bf16). Rows land in shared memory with their 16-byte pieces
+//     XOR-swizzled by the row, so ldmatrix reads them without bank
+//     conflicts.
 //   * Both products run on mma.sync.m16n8k16 (bf16 in, f32 out) with the GQA
 //     group as the 16 rows (n_rep <= 8 real, the rest zero): S = Q.K^T over
 //     the slice (K by ldmatrix), the logits scaled (and alibi-biased) in f32,
@@ -45,10 +47,12 @@
 namespace {
 namespace dsplit {
 
-constexpr int SLICE = 32;      // positions a warp takes
-constexpr int MAX_WARPS = 8;   // a chunk is at most 256 positions
-constexpr int OPAD = 8;        // f32 padding of a warp's O rows in shared memory
-constexpr int PEXTRA = 16;     // floats after a partial's O: n_rep m, n_rep l, padding
+constexpr int SLICE = 32;           // positions a warp takes
+constexpr int CHUNK = 128;          // positions a block takes
+constexpr int NW = CHUNK / SLICE;   // warps a block
+constexpr int THREADS = NW * 32;
+constexpr int OPAD = 8;             // f32 padding of a warp's O rows in shared memory
+constexpr int PEXTRA = 16;          // floats after a partial's O: n_rep m, n_rep l, padding
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -66,7 +70,7 @@ struct Params {
   bf16* out;                // (B, H, D)
   float* part;              // (B, Hkv, chunks, n_rep*D + PEXTRA) f32 when chunks > 1
   int* counts;              // (B*Hkv,) arrival counts, 0 between calls
-  int H, Hkv, M, NB, BS, T, staged, window, chunk, chunks;
+  int H, Hkv, M, NB, BS, T, staged, window, chunks;
   float scale;
 };
 
@@ -86,15 +90,15 @@ __device__ __forceinline__ int piece_at(int key, int pc) {
 
 // floats of the block's combine area (it reuses the K/V slices' bytes)
 template <int D, int NREP>
-constexpr int combine_floats(int nw) {
-  return nw * NREP * (D + OPAD) + NREP * D + nw * NREP * 3 + 4 * NREP + 4;
+constexpr int combine_floats() {
+  return NW * NREP * (D + OPAD) + NREP * D + NW * NREP * 3 + 4 * NREP + 4;
 }
 
 template <int D, int NREP, typename KV>
-constexpr int smem_bytes(int nw) {
-  return nw * 2 * Geo<D, KV>::SLICEB > combine_floats<D, NREP>(nw) * 4
-             ? nw * 2 * Geo<D, KV>::SLICEB
-             : combine_floats<D, NREP>(nw) * 4;
+constexpr int smem_bytes() {
+  return NW * 2 * Geo<D, KV>::SLICEB > combine_floats<D, NREP>() * 4
+             ? NW * 2 * Geo<D, KV>::SLICEB
+             : combine_floats<D, NREP>() * 4;
 }
 
 __device__ __forceinline__ void mma(float (&c)[4], uint32_t a_lo, uint32_t a_hi, uint32_t b0,
@@ -192,9 +196,8 @@ __device__ __forceinline__ void split_decode(const Params& p) {
 
   const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nt = blockDim.x, nw = nt >> 5;
   const int gr = lane >> 2, t = lane & 3;  // mma fragment row (head) and column pair
-  const int k0 = c * p.chunk + warp * SLICE;  // this warp's first position
+  const int k0 = c * CHUNK + warp * SLICE;  // this warp's first position
 
   // the row's live keys [lo, hi) and the chunks they touch; K3's table
   // entry for this lane's key is read beside the length, not after it
@@ -211,8 +214,8 @@ __device__ __forceinline__ void split_decode(const Params& p) {
     hi = min(max(length, 0), p.M);
   }
   const bool any = hi > lo;
-  const int first = any ? lo / p.chunk : 0;
-  const int n_live = any ? (hi + p.chunk - 1) / p.chunk - first : 1;
+  const int first = any ? lo / CHUNK : 0;
+  const int n_live = any ? (hi + CHUNK - 1) / CHUNK - first : 1;
   if (c < first || c >= first + n_live) return;
 
   const size_t bg = (size_t)b * p.Hkv + g;
@@ -322,11 +325,11 @@ __device__ __forceinline__ void split_decode(const Params& p) {
   }
 
   // the warps meet: (m, l, O) of each, summed in warp order
-  float* sO = reinterpret_cast<float*>(smem);  // [nw][NREP][D + OPAD]
-  float* sF = sO + nw * NREP * (D + OPAD);     // [NREP][D] the chunk's (then the row's) O
-  float* sML = sF + TOTAL;                     // [nw][NREP][2]
-  float* sW = sML + nw * NREP * 2;             // [nw][NREP] the warps' weights
-  float* sM = sW + nw * NREP;                  // [NREP] m, l, and the staged fold
+  float* sO = reinterpret_cast<float*>(smem);  // [NW][NREP][D + OPAD]
+  float* sF = sO + NW * NREP * (D + OPAD);     // [NREP][D] the chunk's (then the row's) O
+  float* sML = sF + TOTAL;                     // [NW][NREP][2]
+  float* sW = sML + NW * NREP * 2;             // [NW][NREP] the warps' weights
+  float* sM = sW + NW * NREP;                  // [NREP] m, l, and the staged fold
   float* sL = sM + NREP;
   float* sA = sL + NREP;
   float* sPn = sA + NREP;
@@ -345,8 +348,8 @@ __device__ __forceinline__ void split_decode(const Params& p) {
   __syncthreads();
   if (tid < NREP) {
     float m = NEG_INF, l = 0.f;
-    for (int w = 0; w < nw; ++w) m = fmaxf(m, sML[(w * NREP + tid) * 2]);
-    for (int w = 0; w < nw; ++w) {
+    for (int w = 0; w < NW; ++w) m = fmaxf(m, sML[(w * NREP + tid) * 2]);
+    for (int w = 0; w < NW; ++w) {
       const float e = expf(sML[(w * NREP + tid) * 2] - m);
       sW[w * NREP + tid] = e;
       l = fmaf(sML[(w * NREP + tid) * 2 + 1], e, l);
@@ -355,10 +358,10 @@ __device__ __forceinline__ void split_decode(const Params& p) {
     sL[tid] = l;
   }
   __syncthreads();
-  for (int i = tid * 4; i < TOTAL; i += nt * 4) {
+  for (int i = tid * 4; i < TOTAL; i += THREADS * 4) {
     const int r = i / D, d = i % D;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int w = 0; w < nw; ++w) {
+    for (int w = 0; w < NW; ++w) {
       const float e = sW[w * NREP + r];
       const float4 x = *reinterpret_cast<const float4*>(sO + (w * NREP + r) * (D + OPAD) + d);
       acc = make_float4(fmaf(x.x, e, acc.x), fmaf(x.y, e, acc.y), fmaf(x.z, e, acc.z),
@@ -372,7 +375,7 @@ __device__ __forceinline__ void split_decode(const Params& p) {
     float* part = p.part + bg * p.chunks * PSTRIDE;
     __syncthreads();
     float* mine = part + (size_t)c * PSTRIDE;
-    for (int i = tid * 4; i < TOTAL; i += nt * 4)
+    for (int i = tid * 4; i < TOTAL; i += THREADS * 4)
       *reinterpret_cast<float4*>(mine + i) = *reinterpret_cast<const float4*>(sF + i);
     if (tid < NREP) {
       mine[TOTAL + tid] = sM[tid];
@@ -396,7 +399,7 @@ __device__ __forceinline__ void split_decode(const Params& p) {
       sL[tid] = l;
     }
     __syncthreads();
-    for (int j = tid * 4; j < TOTAL; j += nt * 4) {
+    for (int j = tid * 4; j < TOTAL; j += THREADS * 4) {
       const int r = j / D;
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int i = 0; i < n_live; ++i) {
@@ -444,7 +447,7 @@ __device__ __forceinline__ void split_decode(const Params& p) {
   }
 
   bf16* og = p.out + ((size_t)b * p.H + (size_t)g * NREP) * D;
-  for (int i = tid; i < TOTAL; i += nt) {
+  for (int i = tid; i < TOTAL; i += THREADS) {
     const int r = i / D;
     float acc = sF[i];
     if constexpr (PAGED)
@@ -454,27 +457,42 @@ __device__ __forceinline__ void split_decode(const Params& p) {
   }
 }
 
-// Launch `kernel` over (chunks, Hkv, B) with chunk / 32 warps.
+// Launch `kernel` over (chunks, Hkv, B).
 template <int D, int NREP, typename KV, typename Kernel>
 cudaError_t launch_split(Kernel kernel, const Params& p, int B, bool (&done)[MAX_DEVICES],
                          cudaStream_t s) {
-  const int nw = p.chunk / SLICE;
-  cudaError_t err = allow_smem(kernel, smem_bytes<D, NREP, KV>(MAX_WARPS), done);
+  cudaError_t err = allow_smem(kernel, smem_bytes<D, NREP, KV>(), done);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.chunks, p.Hkv, B), nw * 32, smem_bytes<D, NREP, KV>(nw), s>>>(p);
+  kernel<<<dim3(p.chunks, p.Hkv, B), THREADS, smem_bytes<D, NREP, KV>(), s>>>(p);
   return cudaGetLastError();
 }
 
-// The chunk count of a call, or 0 when `chunk` is not one the kernel takes
-// or the call's workspace is missing.
-inline int plan_chunks(int capacity, int chunk, const void* part, const void* counts) {
-  if (chunk < SLICE || chunk > MAX_WARPS * SLICE || chunk % SLICE || capacity < 0) return 0;
-  const int chunks = capacity > 0 ? (capacity + chunk - 1) / chunk : 1;
-  if (chunks > 65535) return 0;
-  if (chunks > 1 && (part == nullptr || counts == nullptr ||
-                     reinterpret_cast<uintptr_t>(part) % 16))
-    return 0;
-  return chunks;
+// The chunk count of a call over a cache of `capacity` positions (chunk c
+// covers positions [c*CHUNK, (c+1)*CHUNK); a capacity of 0 still takes
+// one), or 0 when the grid cannot hold it.
+inline int plan_chunks(int capacity) {
+  if (capacity < 0) return 0;
+  const long long chunks = capacity > 0 ? (capacity + (long long)CHUNK - 1) / CHUNK : 1;
+  return chunks <= 65535 ? (int)chunks : 0;
+}
+
+// The split of a call: the positions a chunk takes, the chunk count, and the
+// workspace it takes when it has more than one chunk (else 0 and 0): the
+// partials, (B, Hkv, chunks, n_rep*D + PEXTRA) f32, and B*Hkv arrival counts.
+inline cudaError_t plan(int capacity, int B, int Hkv, int n_rep, int D, int* chunk, int* chunks,
+                        long long* floats, int* counts) {
+  *chunk = CHUNK;
+  *chunks = plan_chunks(capacity);
+  const bool split = *chunks > 1;
+  *floats = split ? (long long)B * Hkv * *chunks * (n_rep * D + PEXTRA) : 0;
+  *counts = split ? B * Hkv : 0;
+  return *chunks && B >= 0 && Hkv > 0 && n_rep > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Whether a call with `chunks` chunks has the workspace it needs.
+inline bool has_workspace(int chunks, const void* part, const void* counts) {
+  return chunks == 1 ||
+         (part != nullptr && counts != nullptr && reinterpret_cast<uintptr_t>(part) % 16 == 0);
 }
 
 }  // namespace dsplit

@@ -43,8 +43,8 @@
 // unchanged.
 //
 // Design: the split-KV core of `decode_split.cuh`. The grid is (chunk, KV
-// head, row) over the capacity T*BS in chunks the wrapper picks from T*BS
-// alone (`ops/cuda/decode_split.py`), chunks aligned to absolute positions;
+// head, row) over the capacity T*BS in chunks of 128 positions, so the
+// split is a function of T*BS alone, chunks aligned to absolute positions;
 // a chunk wholly outside the row's live keys (below the window's first key,
 // or at or past pool_len) exits at once. Each warp resolves its 32
 // positions through the clamped table (a pool block's rows for one KV head
@@ -61,7 +61,7 @@
 namespace {
 
 template <int D, int NREP, typename KV, bool ALIBI>
-__global__ void __launch_bounds__(dsplit::MAX_WARPS * 32)
+__global__ void __launch_bounds__(dsplit::THREADS)
 paged_decode_kernel(const dsplit::Params p) {
   dsplit::split_decode<D, NREP, KV, ALIBI, true>(p);
 }
@@ -95,24 +95,33 @@ cudaError_t launch_kv(int D, const dsplit::Params& p, int B, cudaStream_t s) {
 
 }  // namespace
 
+// The split of a call over block tables of T blocks of BS (`dsplit::plan`
+// over T*BS positions): the positions a chunk takes, the chunk count, and
+// the workspace it takes, f32 floats of partials and zeroed arrival counts
+// (0 and 0 at one chunk).
+extern "C" int ds_paged_decode_attention_workspace(int B, int H, int Hkv, int D, int BS, int T,
+                                                   int* chunk, int* chunks, long long* floats,
+                                                   int* counts) {
+  if (Hkv <= 0 || H % Hkv || BS <= 0 || T <= 0 || (long long)T * BS > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  return dsplit::plan(T * BS, B, Hkv, H / Hkv, D, chunk, chunks, floats, counts);
+}
+
 // k_scales == v_scales == nullptr: bf16 pools; both given: int8 pools.
-// alibi == nullptr: no bias; else the (H,) f32 slopes. chunk: positions a
-// block takes (a multiple of 32 up to 256); part, counts: the split's f32
-// partials (B, Hkv, chunks, n_rep*D + 16) and its zeroed (B*Hkv) arrival
-// counts, null when T*BS fits one chunk.
+// alibi == nullptr: no bias; else the (H,) f32 slopes. part, counts:
+// ds_paged_decode_attention_workspace's (null when it gives 0).
 extern "C" int ds_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
     const void* v_scales, const void* tables, const void* lengths, const void* k_new,
     const void* v_new, const void* alibi, void* out, void* part, void* counts, int B, int H,
-    int Hkv, int D, int NB, int BS, int T, int staged, int window, int chunk, float scale,
-    void* stream) {
+    int Hkv, int D, int NB, int BS, int T, int staged, int window, float scale, void* stream) {
   if (B == 0) return cudaSuccess;
   if (B < 0 || Hkv <= 0 || H % Hkv || NB <= 0 || BS <= 0 || T <= 0 ||
       (long long)T * BS > 0x7fffffff || (staged && (k_new == nullptr || v_new == nullptr)) ||
       (k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
-  const int chunks = dsplit::plan_chunks(T * BS, chunk, part, counts);
-  if (chunks == 0) return cudaErrorInvalidValue;
+  const int chunks = dsplit::plan_chunks(T * BS);
+  if (chunks == 0 || !dsplit::has_workspace(chunks, part, counts)) return cudaErrorInvalidValue;
   dsplit::Params p{};
   p.q = static_cast<const bf16*>(q);
   p.k = k_pool;
@@ -134,7 +143,6 @@ extern "C" int ds_paged_decode_attention(
   p.T = T;
   p.staged = staged;
   p.window = window;
-  p.chunk = chunk;
   p.chunks = chunks;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

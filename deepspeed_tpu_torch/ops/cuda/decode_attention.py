@@ -5,10 +5,10 @@ for CUDA tensors and takes the plain PyTorch version,
 `decode_attention_plain`, only for CPU tensors. One query per row attends the
 first `lengths[b]` slots of its cache row; slots past the length are never
 read. Natural-exp softmax in f32, probabilities in v's dtype before P.V, and
-an empty row gives zeros. The kernel cuts each row's cache into the chunks
-`decode_split.split_plan` picks from M alone, one thread block each, and
-merges their partials through a per-stream workspace
-(`op_builder.split_workspace`).
+an empty row gives zeros. The kernel cuts each row's cache into chunks of a
+length fixed in `csrc/decode_split.cuh`, one thread block each, so the split
+is a function of M alone (`split_plan`), and merges their partials through
+a per-stream workspace (`op_builder.split_workspace`).
 
 An int8 cache (K2-int8) comes with `k_scales`/`v_scales` (B, M, Hkv) f32:
 the kernel folds the K scale into the logit columns and the V scale into the
@@ -19,11 +19,11 @@ the same plain math. Its launches count in `decode_attention.launches_int8`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.cuda import decode_split
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
 from deepspeed_tpu_torch.op_builder import (
     KernelLibrary,
@@ -39,7 +39,9 @@ GROUP_SIZES = (1, 2, 4, 8)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("decode_attention.cu", {
     # q, k, v, scales, lengths, out, the split's partials and counts
-    "ds_decode_attention": [_P] * 9 + [_I] * 6 + [ctypes.c_float, _P],
+    "ds_decode_attention": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "ds_decode_attention_workspace": [_I] * 5 + [ctypes.POINTER(_I)] * 2 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_I)],
 })
 
 
@@ -118,16 +120,25 @@ def _check(q, k_cache, v_cache, lengths, k_scales, v_scales):
                          f"(B,) tensor on {q.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def split_plan(b: int, m: int, h: int, hkv: int, d: int) -> Tuple[int, int, int, int]:
+    """(positions a chunk takes, chunks, f32 floats of partials, arrival
+    counts) of a call over a cache of M slots, from
+    `ds_decode_attention_workspace`; the last two are 0 at one chunk."""
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()]
+    LIBRARY.check(LIBRARY.lib().ds_decode_attention_workspace(
+        b, m, h, hkv, d, *map(ctypes.byref, out)), "decode_attention")
+    return tuple(x.value for x in out)
+
+
 def _launch(ptrs, b: int, m: int, h: int, hkv: int, d: int, scale: float, index: int,
             stream: int) -> int:
     """`ds_decode_attention` on `stream`, with the split's workspace where
     the cache spans more than one chunk."""
-    chunk, chunks = decode_split.split_plan(m)
-    floats = decode_split.partial_floats(b, hkv, h // hkv, d, chunks)
-    work = split_workspace("decode_attention", index, stream, floats, b * hkv) if floats \
+    _, _, floats, counts = split_plan(b, m, h, hkv, d)
+    work = split_workspace("decode_attention", index, stream, floats, counts) if floats \
         else (None, None)
-    return LIBRARY.lib().ds_decode_attention(*ptrs, *work, b, m, h, hkv, d, chunk, scale,
-                                             stream)
+    return LIBRARY.lib().ds_decode_attention(*ptrs, *work, b, m, h, hkv, d, scale, stream)
 
 
 def decode_attention(q, k_cache, v_cache, lengths,

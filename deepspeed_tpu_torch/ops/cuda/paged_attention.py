@@ -16,9 +16,9 @@ token (`k_new`/`v_new`, not yet in the pool) in last, as f32 p·v; the
 prefill kernel masks causally by absolute position start + i over a pool
 that already holds the chunk. `window` keeps only keys in
 (qpos − window, qpos]. The decode kernel cuts each row's T·BS positions
-into the chunks `decode_split.split_plan` picks from T·BS alone, one thread
-block each, merged through a per-stream workspace
-(`op_builder.split_workspace`).
+into chunks of a length fixed in `csrc/decode_split.cuh`, one thread block
+each, so the split is a function of T·BS alone (`decode_split_plan`), and
+merges them through a per-stream workspace (`op_builder.split_workspace`).
 
 `alibi` (H,) f32 slopes (K3-alibi, K4-alibi) add slopes[h]·key_position to
 the f32 logits before the mask; the decode kernel's staged column sits at
@@ -38,11 +38,11 @@ folds in without a scale. int8 launches without alibi count in
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from deepspeed_tpu_torch.ops.cuda import decode_split
 from deepspeed_tpu_torch.ops.quantization import dequantize_kv
 from deepspeed_tpu_torch.op_builder import (
     KernelLibrary,
@@ -59,7 +59,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", {
     # q, pools, scales, tables, lengths, staged token, slopes, out, the
     # split's partials and counts
-    "ds_paged_decode_attention": [_P] * 13 + [_I] * 10 + [ctypes.c_float, _P],
+    "ds_paged_decode_attention": [_P] * 13 + [_I] * 9 + [ctypes.c_float, _P],
+    "ds_paged_decode_attention_workspace": [_I] * 6 + [ctypes.POINTER(_I)] * 2 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_I)],
 })
 PREFILL_LIBRARY = KernelLibrary("paged_prefill_attention.cu", {
     "ds_paged_prefill_attention": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
@@ -240,6 +242,18 @@ def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
         raise ValueError(f"{name}: window must be >= 1, got {window}")
 
 
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(b: int, h: int, hkv: int, d: int, bs: int,
+                      t: int) -> Tuple[int, int, int, int]:
+    """(positions a chunk takes, chunks, f32 floats of partials, arrival
+    counts) of a K3 call over tables of T blocks of BS, from
+    `ds_paged_decode_attention_workspace`; the last two are 0 at one chunk."""
+    out = [ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()]
+    DECODE_LIBRARY.check(DECODE_LIBRARY.lib().ds_paged_decode_attention_workspace(
+        b, h, hkv, d, bs, t, *map(ctypes.byref, out)), "paged_decode_attention")
+    return tuple(x.value for x in out)
+
+
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
                            softmax_scale: Optional[float] = None,
                            k_new=None, v_new=None,
@@ -277,8 +291,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
         raise ValueError(f"paged_decode_attention: k_new/v_new must be {(b, hkv, d)}")
     out = torch.empty_like(q)
     t = tables.shape[1]
-    chunk, chunks = decode_split.split_plan(t * bs)
-    floats = decode_split.partial_floats(b, hkv, h // hkv, d, chunks)
+    _, _, floats, counts = decode_split_plan(b, h, hkv, d, bs, t)
     ptrs = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
             tables.data_ptr(), lengths.data_ptr(), k_new.data_ptr() if staged else None,
@@ -287,10 +300,10 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
     index = q.get_device()
 
     def launch(stream):
-        work = split_workspace("paged_decode_attention", index, stream, floats, b * hkv) \
+        work = split_workspace("paged_decode_attention", index, stream, floats, counts) \
             if floats else (None, None)
         return DECODE_LIBRARY.lib().ds_paged_decode_attention(
-            *ptrs, *work, b, h, hkv, d, nb, bs, t, int(staged), window or 0, chunk,
+            *ptrs, *work, b, h, hkv, d, nb, bs, t, int(staged), window or 0,
             _scale(d, softmax_scale), stream)
 
     code = on_current_stream(index, launch)

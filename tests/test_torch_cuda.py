@@ -57,6 +57,7 @@ import torch
 from deepspeed_tpu_torch.ops.cuda.decode_attention import (
     decode_attention,
     decode_attention_plain,
+    split_plan,
 )
 from deepspeed_tpu_torch.ops.cuda.flash_attention import (
     FlashAttention,
@@ -80,8 +81,8 @@ from deepspeed_tpu_torch.ops.cuda.grouped_gemm import (
     grouped_gemm_drhs_plain,
     grouped_gemm_plain,
 )
-from deepspeed_tpu_torch.ops.cuda.decode_split import split_plan
 from deepspeed_tpu_torch.ops.cuda.paged_attention import (
+    decode_split_plan,
     paged_decode_attention,
     paged_decode_attention_plain,
     paged_prefill_attention,
@@ -170,7 +171,7 @@ def _paged_case(case, staged):
     if case == "ragged":
         return 16, 4, 20, [1, 2, 3, 0], [1, 17, 40, 65]
     if case == "chunk_edges":
-        chunk, _ = split_plan(16 * 32)
+        chunk = decode_split_plan(4, 8, 2, 128, 16, 32)[0]
         pool = [0, 1, chunk, chunk + 1]
         return 16, 32, 64, [-(-n // 16) for n in pool], [n + int(staged) for n in pool]
     return 256, 32, 56, [32, 20, 1, 0], [8192, 5000, 200, 32 * 256 + 1]
@@ -324,9 +325,44 @@ def _dense_case(case):
     if case == "ragged":
         return 300, [0, 1, 129, 300]
     if case == "chunk_edges":
-        chunk, _ = split_plan(300)
+        chunk = split_plan(4, 300, 8, 2, 128)[0]
         return 300, [0, 1, chunk, chunk + 1]
     return 8192, [8192, 5000, 257, 1]
+
+
+# (kernel, B, H, Hkv, D, BS, T): K2 (BS = 1, T = M) and K3 at the shapes
+# they serve: Llama-3-8B v1, a long row, Llama-3-8B v2 traffic A,
+# bloom-7b1 and bloom-560m v2
+SERVING_SPLITS = [("k2", 4, 32, 8, 128, 1, 640), ("k2", 4, 64, 8, 128, 1, 8192),
+                  ("k3", 64, 32, 8, 128, 256, 4), ("k3", 64, 32, 32, 128, 256, 4),
+                  ("k3", 64, 16, 16, 64, 256, 4)]
+
+
+def _split_plan(kernel, b, h, hkv, d, bs, t):
+    return split_plan(b, bs * t, h, hkv, d) if kernel == "k2" else \
+        decode_split_plan(b, h, hkv, d, bs, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", SERVING_SPLITS + [
+    ("k2", 4, 8, 2, 64, 1, 0), ("k2", 4, 8, 2, 64, 1, 127), ("k2", 4, 8, 2, 64, 1, 128),
+    ("k2", 4, 8, 2, 64, 1, 129), ("k3", 4, 8, 2, 64, 1, 1), ("k3", 4, 8, 2, 64, 16, 9)])
+def test_decode_split_plan_on_card(cuda_device, split):
+    """K2's and K3's split of the KV axis, from `ds_*_workspace`: its
+    chunks cover every position once, it is the same for a tp = 2 shard
+    (which needs half the workspace), and its workspace, at most 32 MiB at
+    the serving shapes, is none at one chunk."""
+    kernel, b, h, hkv, d, bs, t = split
+    capacity = bs * t
+    chunk, chunks, floats, counts = _split_plan(*split)
+    assert chunks == max(1, -(-capacity // chunk))
+    assert (chunks - 1) * chunk < max(capacity, 1) <= chunks * chunk
+    half = _split_plan(kernel, b, h // 2, hkv // 2, d, bs, t)
+    assert half == (chunk, chunks, floats // 2, counts // 2) and half[2] * 2 == floats
+    assert (floats == 0 and counts == 0) == (chunks == 1)
+    assert floats * 4 <= 32 << 20
+    if split in SERVING_SPLITS:
+        assert chunks > 1 and counts == b * hkv and floats >= b * hkv * chunks * h // hkv * d
 
 
 @pytest.mark.cuda

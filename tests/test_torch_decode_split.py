@@ -1,15 +1,16 @@
-"""The split of the decode kernels' KV axis (K2, K3) on the CPU.
+"""The decode kernels' function at the lengths their split of the KV axis turns on, on the CPU.
 
-`ops/cuda/decode_split.split_plan` cuts a cache of `capacity` positions into
-the chunks the kernels take one block each; it must cover every position
-once, depend on the capacity alone (a tensor-parallel shard runs the very
-blocks of the unsharded heads), and its workspace must fit the serving
-shapes. The kernels' arithmetic, emulated here in f32 (each 32-key warp
-slice with its own max, the warps merged in order, then the chunks in
-order), is held against the JAX decode kernel in interpret mode to 1e-5.
+On the card, K2 and K3 cut each row's cache positions into chunks of 128
+(`csrc/decode_split.cuh`), one thread block each, and merge the chunks'
+partials; the card tests hold them to their plain versions at these
+lengths. Here the plain versions, which the wrappers take for CPU tensors,
+are held against the JAX kernels in Pallas interpret mode to 1e-5 at the
+same lengths: rows of 0 and 1 keys, of one chunk and one past it
+("edges"), and rows of many chunks beside a short one and, for K3, a
+parked row ("long"); K2 over bf16-free f32 and int8 caches, K3 over f32
+and int8 pools and with alibi, staged and not, with and without a window.
 """
 
-import inspect
 import os
 
 os.environ.setdefault("DS_TPU_PALLAS_INTERPRET", "1")
@@ -20,116 +21,84 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from deepspeed_tpu.ops.pallas.decode_attention import decode_attention as jax_decode  # noqa: E402
-from deepspeed_tpu_torch.ops.cuda import decode_split  # noqa: E402
-from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention  # noqa: E402
-from deepspeed_tpu_torch.ops.cuda.decode_split import (  # noqa: E402
-    MAX_CHUNK,
-    SLICE,
-    partial_floats,
-    split_plan,
+from deepspeed_tpu.ops.pallas.paged_attention import (  # noqa: E402
+    paged_decode_attention as jax_paged_decode,
 )
+from deepspeed_tpu_torch.ops.attention import alibi_slopes  # noqa: E402
+from deepspeed_tpu_torch.ops.cuda.decode_attention import decode_attention  # noqa: E402
+from deepspeed_tpu_torch.ops.cuda.paged_attention import paged_decode_attention  # noqa: E402
+from deepspeed_tpu_torch.ops.quantization import quantize_kv_tokens  # noqa: E402
 
 TOL = 1e-5
-CAPACITIES = [0, 1, 31, 32, 33, 127, 128, 129, 300, 640, 1024, 4095, 4096, 4097, 8192]
-# (name, B, Hkv, n_rep, D, capacity) the kernels serve: Llama-3-8B v1 (K2),
-# v2 traffic A (K3), bloom-7b1 and bloom-560m v2 (K3-alibi), and a long row
-SERVING = [("k2_llama3_8b_v1", 4, 8, 4, 128, 640), ("k3_llama3_8b_v2", 64, 8, 4, 128, 1024),
-           ("k3_bloom_7b1_v2", 64, 32, 1, 128, 1024), ("k3_bloom_560m_v2", 64, 16, 1, 64, 1024),
-           ("k2_long_row", 4, 8, 8, 128, 8192)]
+CHUNK = 128  # positions a block of the card's split takes
+# K2: cache capacity M and row lengths
+DENSE = {"edges": (300, [0, 1, CHUNK, CHUNK + 1]), "long": (1024, [1024, 700, 257, 1])}
+# K3: BS, T, NB, blocks per row and pool lengths (the keys in the pool; a
+# staged row's length is one more); None is a parked row (cursor at the
+# capacity, table all -1)
+PAGED = {"edges": (16, 16, 24, [0, 1, 8, 9], [0, 1, CHUNK, CHUNK + 1]),
+         "long": (64, 16, 40, [16, 11, 5, 0], [1024, 700, 257, None])}
 
 
-@pytest.mark.parametrize("capacity", CAPACITIES)
-def test_split_plan_covers_every_position_once(capacity):
-    chunk, chunks = split_plan(capacity)
-    assert chunk % SLICE == 0 and SLICE <= chunk <= MAX_CHUNK
-    seen = np.zeros(capacity, np.int64)
-    for c in range(chunks):
-        seen[c * chunk:(c + 1) * chunk] += 1
-    assert (seen == 1).all()
-    assert chunks == 1 or (chunks - 1) * chunk < capacity   # no chunk wholly past the end
+def _cache(rng, shape, int8):
+    """f32 K and V of `shape`, or int8 ones with their scales (None for f32)."""
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    if not int8:
+        return k, v, None, None
+    (kq, ks), (vq, vs) = (quantize_kv_tokens(torch.from_numpy(x)) for x in (k, v))
+    return kq.numpy(), vq.numpy(), ks.numpy(), vs.numpy()
 
 
-def test_split_plan_takes_the_capacity_alone():
-    """The plan reads no batch, head count or device: a tensor-parallel
-    shard (H/tp, Hkv/tp) gets the unsharded call's chunks."""
-    assert list(inspect.signature(split_plan).parameters) == ["capacity"]
+def _j(x):
+    return None if x is None else jnp.asarray(x)
 
 
-@pytest.mark.parametrize("name,b,hkv,n_rep,d,capacity", SERVING)
-def test_workspace_fits_the_serving_shapes(name, b, hkv, n_rep, d, capacity):
-    """Each (row, KV head, chunk) gets n_rep*D floats of O and its n_rep m
-    and l, 16-byte aligned; a tp = 2 shard needs half the whole's."""
-    chunk, chunks = split_plan(capacity)
-    floats = partial_floats(b, hkv, n_rep, d, chunks)
-    stride = n_rep * d + decode_split.PEXTRA
-    assert chunks > 1 and floats == b * hkv * chunks * stride
-    assert stride >= n_rep * (d + 2) and stride % 4 == 0
-    assert floats * 4 <= 32 << 20                           # at most 32 MiB
-    assert partial_floats(b, hkv // 2, n_rep, d, chunks) * 2 == floats
-    assert partial_floats(b, hkv, n_rep, d, 1) == 0         # one chunk: no workspace
+def _t(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
 
 
-def _merge(states):
-    """(m, l, o) of several parts, summed in order, each scaled by
-    exp(m_i - m) as the kernels' warp and chunk merges do."""
-    m = torch.stack([s[0] for s in states]).amax(0)
-    l, o = torch.zeros_like(m), torch.zeros_like(states[0][2])
-    for mi, li, oi in states:
-        w = torch.exp(mi - m)
-        l, o = l + li * w, o + oi * w[:, None]
-    return m, l, o
-
-
-def _split_emulation(q, k, v, lengths, scale):
-    """K2's function computed as the kernel splits it: chunks of the plan,
-    32-key warp slices with their own max, p in v's dtype before P.V."""
-    b, _, h, d = q.shape
-    m_cap, hkv = k.shape[1], k.shape[2]
-    n_rep = h // hkv
-    chunk, chunks = split_plan(m_cap)
-    out = torch.zeros(b, h, d)
-    for bi in range(b):
-        hi = min(max(int(lengths[bi]), 0), m_cap)
-        for g in range(hkv):
-            qg = q[bi, 0, g * n_rep:(g + 1) * n_rep]
-            parts = []
-            for c in range(chunks):
-                warps = []
-                for w0 in range(c * chunk, min((c + 1) * chunk, hi), SLICE):
-                    keys = slice(w0, min(w0 + SLICE, hi))
-                    s = qg @ k[bi, keys, g].T * scale
-                    mw = s.amax(-1)
-                    p = torch.exp(s - mw[:, None])
-                    warps.append((mw, p.sum(-1), p.to(v.dtype) @ v[bi, keys, g]))
-                if warps:
-                    parts.append(_merge(warps))
-            if parts:
-                _, l, o = _merge(parts)
-                out[bi, g * n_rep:(g + 1) * n_rep] = o / torch.where(l == 0, 1.0, l)[:, None]
-    return out[:, None]
-
-
-@pytest.mark.parametrize("m,lengths", [(300, "edges"), (640, [513, 544, 575, 640]),
-                                       (4500, "edges"), (4500, [4500, 4097, 33, 0])])
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("hkv", [2, 1])
-def test_split_arithmetic_matches_jax_kernel(m, lengths, hkv):
-    """The split's chunks, slices and merges compute the JAX kernel's
-    function: rows of 0, 1, one chunk and one past it ("edges"), and rows
-    that split into many chunks."""
+@pytest.mark.parametrize("case", ["edges", "long"])
+def test_decode_plain_matches_jax_kernel_at_chunk_edges(case, hkv, int8):
     b, h, d = 4, 4, 32
-    if lengths == "edges":
-        chunk, _ = split_plan(m)
-        lengths = [0, 1, chunk, chunk + 1]
-    rng = np.random.default_rng([m, hkv])
+    m, lens = DENSE[case]
+    rng = np.random.default_rng([m, hkv, int8])
     q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
-    k = rng.standard_normal((b, m, hkv, d)).astype(np.float32)
-    v = rng.standard_normal((b, m, hkv, d)).astype(np.float32)
-    lengths = np.asarray(lengths, np.int32)
-    ref = jax_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
-                     block_k=128)
-    got = _split_emulation(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                           lengths, 1.0 / d ** 0.5)
+    k, v, ks, vs = _cache(rng, (b, m, hkv, d), int8)
+    lengths = np.asarray(lens, np.int32)
+    ref = jax_decode(_j(q), _j(k), _j(v), _j(lengths), block_k=128, k_scales=_j(ks),
+                     v_scales=_j(vs))
+    got = decode_attention(_t(q), _t(k), _t(v), _t(lengths), k_scales=_t(ks), v_scales=_t(vs))
+    assert got.shape == (b, 1, h, d) and not got[lengths == 0].any()  # an empty row: zeros
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)
-    plain = decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                             torch.from_numpy(lengths))
-    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("variant", ["f32", "int8", "alibi"])
+@pytest.mark.parametrize("case", ["edges", "long"])
+def test_paged_decode_plain_matches_jax_kernel_at_chunk_edges(case, variant, staged, window):
+    b, hkv, n_rep, d = 4, 2, 4, 32
+    h = hkv * n_rep
+    bs, t, nb, blocks, pool = PAGED[case]
+    rng = np.random.default_rng([bs, staged, window or 0, len(variant)])
+    k_pool, v_pool, ks, vs = _cache(rng, (hkv, nb, bs, d), variant == "int8")
+    perm = rng.permutation(nb)
+    tables = np.full((b, t), -1, np.int32)
+    for row, n in enumerate(blocks):
+        tables[row, :n] = perm[sum(blocks[:row]):sum(blocks[:row]) + n]
+    lengths = np.asarray([t * bs + 1 if n is None else n + staged for n in pool], np.int32)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k_new, v_new = ((rng.standard_normal((b, hkv, d)).astype(np.float32) for _ in range(2))
+                    if staged else (None, None))
+    slopes = alibi_slopes(h) if variant == "alibi" else None
+    ref = jax_paged_decode(_j(q), _j(k_pool), _j(v_pool), _j(tables), _j(lengths),
+                           k_new=_j(k_new), v_new=_j(v_new), window=window,
+                           alibi=None if slopes is None else _j(slopes.numpy()),
+                           k_scales=_j(ks), v_scales=_j(vs))
+    got = paged_decode_attention(_t(q), _t(k_pool), _t(v_pool), _t(tables), _t(lengths),
+                                 k_new=_t(k_new), v_new=_t(v_new), window=window,
+                                 k_scales=_t(ks), v_scales=_t(vs), alibi=slopes)
+    assert got.shape == (b, 1, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL, atol=TOL)

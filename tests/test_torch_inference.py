@@ -128,7 +128,7 @@ def _imported_modules(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "deepspeed_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tests" / "torch_tp_ranks.py"]
+        REPO / "chip_smoke.py", REPO / "chip_ab.py", REPO / "tests" / "torch_tp_ranks.py"]
     assert len(files) > 10
     bad = [(f.relative_to(REPO).as_posix(), mod) for f in files
            for mod in _imported_modules(f)
