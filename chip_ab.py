@@ -1,6 +1,6 @@
 """One family of kernels of two or more trees, in turns, on one card.
 
-    python3 chip_ab.py {gmm,decode} [ROOT ...]
+    python3 chip_ab.py {gmm,decode,sparse} [ROOT ...]
 
 `gmm`: the grouped expert GEMM (K6, K6-bwd dlhs and drhs, K8-e) through
 each tree's `check_gmm`, `check_gmm_bwd` and `check_sharded_gmm`, beside
@@ -13,6 +13,9 @@ K8-a, K8-b) through each tree's `check_decode`, `check_paged_decode`,
 rows of `chip_smoke.py`'s kernel phase and `PERF.md`'s table, then K3 as a
 v2 decode step calls it (idle rows parked or empty) and over twice the
 table width.
+`sparse`: the block-sparse attention kernel (K7) through each tree's
+`check_sparse` over this checkout's `SPARSE_SHAPES` and `sparse_layout`
+(so every tree sees the same layouts), beside its SDPA yardstick.
 
 Each ROOT is a checkout of this repository (default: this one). In the
 order given, each runs in a process of its own that imports that tree's
@@ -21,8 +24,9 @@ kernel held against its plain version and timed with CUDA events. Every
 timed call is also read by `device_ms` (torch.profiler's CUDA time of every
 kernel a call launches), since at a few microseconds a call the events read
 the host's launch path as soon as it is the slower: the tree's own where
-its `chip_smoke` has one, else this checkout's. Every case draws its inputs
-from its own seed, so every tree sees the same data. Give roots as
+its `chip_smoke` has one, else this checkout's (`sparse`'s checks free
+their inputs, so its calls are read as they are timed). Every case draws
+its inputs from its own seed, so every tree sees the same data. Give roots as
 `A B B A` to compare two trees on one card; the rows go to
 `chiprun_out/<family>_ab.json` and a table of kernel and library times by
 case and tree to the standard output, after the card's name and power
@@ -171,7 +175,33 @@ def decode_cases(cs, torch):
     return [(name, run(call)) for name, call in calls]
 
 
-FAMILIES = {"gmm": gmm_cases, "decode": decode_cases}
+def own_smoke():
+    """This checkout's `chip_smoke`, loaded beside the tree's."""
+    spec = importlib.util.spec_from_file_location("chip_ab_own", HERE / "chip_smoke.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    return own
+
+
+def sparse_cases(cs, torch):
+    """(name, run(gen, rng) -> (shape, {kind: row})) for every K7 case, `cs`
+    the tree's chip_smoke, whose layouts become this checkout's."""
+    own = own_smoke()
+    cs.sparse_layout = own.sparse_layout
+
+    def run(shape):
+        def go(gen, rng):
+            row = cs.check_sparse(gen, *shape)
+            return row["shape"], {"block_sparse_attention": row}
+        return go
+    return [(shape[0], run(shape)) for shape in own.SPARSE_SHAPES]
+
+
+FAMILIES = {"gmm": gmm_cases, "decode": decode_cases, "sparse": sparse_cases}
+# families whose checks free their inputs before they return: each call
+# timed with the default count (the kernel's and the library's, not the
+# slow plain versions') is read by `device_ms` as it is timed
+EAGER = ("sparse",)
 
 
 def one(family: str, root: str) -> None:
@@ -183,16 +213,14 @@ def one(family: str, root: str) -> None:
     import chip_smoke as cs
     timer = getattr(cs, "device_ms", None)
     if timer is None:  # a tree from before `device_ms`: this checkout's
-        spec = importlib.util.spec_from_file_location("chip_ab_timer", HERE / "chip_smoke.py")
-        own = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(own)
-        timer = own.device_ms
-    timed = {}  # event ms -> the call it timed
+        timer = own_smoke().device_ms
+    timed = {}  # event ms -> the call it timed, or that call's device ms
     event_ms = cs.cuda_ms
+    eager = family in EAGER
 
     def cuda_ms(fn, iters=20, warmup=3):  # the tree's timer, keeping the call
         ms = event_ms(fn, iters, warmup)
-        timed[ms] = fn
+        timed[ms] = timer(fn) if eager and iters >= 20 else fn
         return ms
     cs.cuda_ms = cuda_ms
     for seed, (name, run) in enumerate(FAMILIES[family](cs, torch)):
@@ -202,7 +230,8 @@ def one(family: str, root: str) -> None:
         for r in parts.values():  # device times the tree's check did not take
             for key in ("", "library_"):
                 if f"{key}device_ms" not in r and r.get(f"{key}ms") in timed:
-                    r[f"{key}device_ms"] = timer(timed[r[f"{key}ms"]])
+                    got = timed[r[f"{key}ms"]]
+                    r[f"{key}device_ms"] = got if isinstance(got, float) else timer(got)
         print(json.dumps({"tree": root, "case": name, "shape": shape, **parts}), flush=True)
 
 

@@ -22,8 +22,8 @@
    training calls, Mixtral-8x7B's w1, the skewed routing (drhs's split) and
    odd layouts, run twice and bitwise equal; the block-sparse attention K7
    at the JAX kernel's own shape, at Llama-3-8B's attention width over 16k
-   tokens, on a non-causal Fixed layout and with a fully masked causal
-   row), and times
+   tokens, on a non-causal Fixed layout, with a fully masked causal row,
+   and on BSLongformer at block 128), and times
    the kernel, the plain version and one PyTorch library call for the same
    function with CUDA events; K3-alibi and K4-alibi at bloom-7b1's
    attention (H = Hkv = 32, D = 128; staged and unstaged, over int8 pools)
@@ -251,12 +251,15 @@ GRAD_KEYS = ("embed_tokens", "layers.0.self_attn.q_proj.weight",
 # JAX kernel's docstring shape, causal BigBird; (b) Llama-3-8B's attention
 # width at 16k context, causal BigBird (its Kmax stays small, so the plain
 # gather fits); (c) non-causal Fixed; (d) a causal row whose only live block
-# lies above it (zeros), at block 32 and D 64
+# lies above it (zeros), at block 32 and D 64; (e) BSLongformer at block 128,
+# not causal: block 0 is global, so one query block a head walks all 64
+# blocks and the rest about 4 (where the longest-first order shows)
 SPARSE_SHAPES = [("a: bigbird causal", 1, 4096, 8, 128, 64, "bigbird", True),
                  ("b: llama3-8b width, 16k, bigbird causal", 1, 16384, 32, 128, 64, "bigbird",
                   True),
                  ("c: fixed, not causal", 1, 4096, 8, 128, 64, "fixed", False),
-                 ("d: fully masked causal row", 2, 1024, 4, 64, 32, "masked_row", True)]
+                 ("d: fully masked causal row", 2, 1024, 4, 64, 32, "masked_row", True),
+                 ("e: bslongformer, block 128", 1, 8192, 16, 128, 128, "bslongformer", False)]
 # MoE training, Qwen1.5-MoE-A2.7B at full width and 4 of its 24 layers: the
 # engine keeps ~20 bytes a parameter (bf16 param and grad, f32 master, two
 # Adam moments, f32 accumulation), 2.905e9 parameters at 4 layers, ~58 GB
@@ -3041,7 +3044,9 @@ def sparse_layout(kind, h, s, block):
     """The layouts of SPARSE_SHAPES, from the port's sparsity configs (a
     seeded numpy draw for the masked-row case)."""
     from deepspeed_tpu_torch.ops.sparse_attention import (
-        BigBirdSparsityConfig, FixedSparsityConfig)
+        BigBirdSparsityConfig, BSLongformerSparsityConfig, FixedSparsityConfig)
+    if kind == "bslongformer":
+        return BSLongformerSparsityConfig(num_heads=h, block=block).make_layout(s)
     if kind == "bigbird":
         return BigBirdSparsityConfig(num_heads=h, block=block,
                                      attention="unidirectional").make_layout(s)
@@ -3071,15 +3076,17 @@ def check_sparse(gen, name, b, s, h, d, block, kind, causal):
     """K7 against its plain version (bf16, KERNEL_TOL); its bound reads q,
     the live K and V blocks once and writes out, against 4·blk²·D
     operations per live block pair; the library yardstick is SDPA with the
-    dense boolean mask, or at 16k (where that mask would take 8.6 GB) SDPA
-    causal without a mask, the dense work the sparsity avoids."""
+    dense boolean mask (one (S, S) plane when the heads share the layout:
+    67 MB at 8k), or at 16k (where that mask would take 8.6 GB) SDPA causal
+    without a mask, the dense work the sparsity avoids. K7 takes the
+    layout's cached longest-first order, as `sparse_attention` does."""
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.cuda import block_sparse_attention as bs
     from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import layout_tensors
     layout = sparse_layout(kind, h, s, block)
-    idx, nlive, _ = layout_tensors(layout, "cuda")
+    idx, nlive, _, order = layout_tensors(layout, "cuda", block)
     q, k, v = (randn((b, s, h, d), gen) for _ in range(3))
-    out = bs.block_sparse_attention(q, k, v, idx, nlive, block, causal)
+    out = bs.block_sparse_attention(q, k, v, idx, nlive, block, causal, order=order)
     ref = bs.block_sparse_attention_plain(q, k, v, idx, nlive, block, causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -3090,8 +3097,9 @@ def check_sparse(gen, name, b, s, h, d, block, kind, causal):
     nbytes = (q.numel() + out.numel()) * 2 + b * distinct * block * d * 2 * 2
     bound_ms, bound_by = bound(nbytes, 4.0 * block * block * d * pairs * b)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if s <= 4096:
-        mask = torch.from_numpy(np.kron(layout, np.ones((block, block), bool))).cuda()
+    if s <= 8192:  # one plane when every head shares the layout, else one a head
+        planes = layout[:1] if (layout == layout[:1]).all() else layout
+        mask = torch.from_numpy(np.kron(planes, np.ones((block, block), bool))).cuda()
         if causal:
             mask &= torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
         library = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[None]))
@@ -3103,7 +3111,7 @@ def check_sparse(gen, name, b, s, h, d, block, kind, causal):
     row = dict(shape=f"{name}: B={b} S={s} H={h} D={d} block={block} Kmax={idx.shape[-1]} "
                      f"live_pairs={pairs * b} density={layout.mean():.4f}",
                max_abs_err=err, ms=cuda_ms(lambda: bs.block_sparse_attention(
-                   q, k, v, idx, nlive, block, causal)),
+                   q, k, v, idx, nlive, block, causal, order=order)),
                plain_ms=cuda_ms(lambda: bs.block_sparse_attention_plain(
                    q, k, v, idx, nlive, block, causal), iters=3, warmup=1),
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library,

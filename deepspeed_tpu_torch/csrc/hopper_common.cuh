@@ -1,8 +1,10 @@
-// Hopper building blocks shared by the port's wgmma kernels (the flash and
-// paged-prefill attention kernels through `flash_attention_common.cuh`,
-// `grouped_gemm.cu` and `quantized_matmul.cu`): cp.async copies, wgmma's
-// shared-memory descriptors and the SS products, the register fences around
-// products in flight, and the dynamic shared-memory opt-in.
+// Hopper building blocks shared by the port's wgmma kernels (the flash,
+// paged-prefill and block-sparse attention kernels through
+// `flash_attention_common.cuh`, `grouped_gemm.cu` and `quantized_matmul.cu`):
+// cp.async copies, wgmma's shared-memory descriptors and the SS products,
+// the register fences around products in flight, the dynamic shared-memory
+// opt-in, and TMA: mbarriers, tensor-map copies in and out, and the tensor
+// maps themselves.
 //
 // Every bf16 tile a product reads is stored in wgmma's canonical
 // 128-byte-swizzled layout: column blocks of 64 elements, each [rows][128
@@ -16,6 +18,7 @@
 //     1024; a k16 step is +16 rows, 2048 bytes.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder itself is looked up at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -198,6 +201,123 @@ cudaError_t allow_smem(Kernel kernel, int bytes, bool (&done)[MAX_DEVICES]) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
+}
+
+// ---------------------------------------------------------------- TMA
+
+__device__ __forceinline__ void mbar_init(void* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// one arrival that also expects `bytes` of asynchronous copies
+__device__ __forceinline__ void mbar_expect(void* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// one arrival with no copies (it releases the thread's earlier writes)
+__device__ __forceinline__ void mbar_arrive(void* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// until the phase of parity `phase` has completed
+__device__ __forceinline__ void mbar_wait(void* bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+// the (c0, c1) box of a 2D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            void* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+// the (c0, c1, c2) box of a 3D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, void* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+// shared memory into the (c0, c1, c2) box of a 3D tensor map (the parts of
+// the box outside the tensor are not written); after the writers' generic
+// stores, a fence_async_smem and a barrier
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(src))
+      : "memory");
+}
+// this thread's stores so far have read their shared memory (it may be
+// reused, or the block may exit)
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// A tensor map of `rank` dimensions over `base`: dims[0] (innermost) to
+// dims[rank - 1] in elements, strides[i] the bytes between steps of
+// dimension i + 1, boxes of box[] elements; the driver's encoder is looked
+// up once.
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The same map over another base address (of the same alignment), without
+// encoding it anew; the driver's entry point is looked up once.
+cudaError_t tensor_map_address(CUtensorMap* map, const void* base) {
+  typedef CUresult (*Replace)(CUtensorMap*, void*);
+  static Replace replace = nullptr;
+  if (replace == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapReplaceAddress", &fn,
+                                              cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    replace = reinterpret_cast<Replace>(fn);
+  }
+  return replace(map, const_cast<void*>(base)) == CUDA_SUCCESS ? cudaSuccess
+                                                                : cudaErrorInvalidValue;
+}
+
+// A 2D tensor map over `base` (outer rows of `inner` elements, `stride`
+// bytes apart) in boxes of box_inner x box_outer.
+cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                          long long inner, long long outer, long long stride, int box_inner,
+                          int box_outer, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  return tensor_map(map, type, 2, base, dims, strides, box, swizzle);
 }
 
 }  // namespace

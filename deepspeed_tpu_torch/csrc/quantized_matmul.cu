@@ -91,8 +91,6 @@
 // converting warps to keep up (one warpgroup converting for two
 // multiplying is too few), clusters that multicast the x tile, and fp8.
 
-#include <cuda.h>  // CUtensorMap; the encoder itself is looked up at run time
-
 #include "hopper_common.cuh"
 
 namespace {
@@ -406,34 +404,6 @@ struct Pre {
   static_assert(STAGE % 1024 == 0 && B_BYTES % 1024 == 0 && CH >= 1 && NT >= BK, "tiles");
 };
 
-__device__ __forceinline__ void mbar_init(void* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-// one arrival that also expects `bytes` of asynchronous copies
-__device__ __forceinline__ void mbar_expect(void* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `phase` has completed
-__device__ __forceinline__ void mbar_wait(void* bar, int phase) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(phase)
-      : "memory");
-}
-// the (c0, c1) box of a 2D tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            void* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // A block of NWG warpgroups computes a (64 NWG) x 128 tile of out, each
 // warpgroup 64 rows (m64n128, f32 accumulators in registers). TMA: x and
 // the int8 tile arrive by TMA through `xmap` (whose 128-byte swizzle is the
@@ -600,36 +570,6 @@ qmm_prefill_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_consta
       }
     }
   }
-}
-
-// A 2D tensor map over `base` (outer rows of `inner` elements, `stride`
-// bytes apart) in boxes of box_inner x box_outer; the driver's encoder is
-// looked up once.
-cudaError_t tensor_map_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                          long long inner, long long outer, long long stride, int box_inner,
-                          int box_outer, CUtensorMapSwizzle swizzle) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                              &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int NWG>

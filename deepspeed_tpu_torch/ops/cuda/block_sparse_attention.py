@@ -13,8 +13,11 @@ layout). A query row that sees no key (no live block, or a causal row whose
 every live block lies above it) outputs zeros.
 
 The kernel takes bf16 q/k/v (B, S, H, D) with block in `BLOCKS` and D in
-`HEAD_DIMS`; anything else on CUDA raises. It has no backward: the JAX
-package differentiates it through the gather path, and so does the port
+`HEAD_DIMS`; anything else on CUDA raises. Its tiles are 64 query rows a
+warpgroup (two query blocks at block 32, `tile_blocks`), run longest first
+when the call passes `order` (`tile_order`, which the layout cache keeps
+beside idx and nlive). It has no backward: the JAX package differentiates
+it through the gather path, and so does the port
 (`sparse_self_attention.BlockSparseAttention`); the wrapper refuses grad
 mode.
 """
@@ -28,16 +31,21 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.op_builder import KernelLibrary, refuse_grad
+from deepspeed_tpu_torch.op_builder import KernelLibrary, on_current_stream, refuse_grad
 
 BLOCKS = (32, 64, 128)
 HEAD_DIMS = (64, 128)
-LOG2E = 1.4426950408889634
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("block_sparse_attention.cu", {
-    "ds_block_sparse_attention": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
+    "ds_block_sparse_attention": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
 })
+
+
+def tile_blocks(block: int) -> int:
+    """Query blocks in one of the kernel's tiles: two at block 32 (a
+    64-row warpgroup tile), else one."""
+    return 2 if block == 32 else 1
 
 
 def padded_layout_indices(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -56,6 +64,20 @@ def padded_layout_indices(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
                 idx[hh, qi, :len(act)] = act
                 idx[hh, qi, len(act):] = act[-1]
     return idx, nlive
+
+
+def tile_order(layout: np.ndarray, block: int) -> np.ndarray:
+    """The kernel's tiles of `layout` (H, n, n), longest first: (H * t,)
+    int32 tile numbers h * t + j, t = ceil(n / tile_blocks(block)), sorted
+    by the live blocks tile j walks (the union of its query blocks' rows),
+    most first, ties in their natural order."""
+    layout = np.asarray(layout, bool)
+    h, n, _ = layout.shape
+    per = tile_blocks(block)
+    rows = np.zeros((h, -(-n // per) * per, n), bool)
+    rows[:, :n] = layout
+    counts = rows.reshape(h, -1, per, n).any(axis=2).sum(-1).reshape(-1)
+    return np.argsort(-counts, kind="stable").astype(np.int32)
 
 
 def _scale(d: int, softmax_scale: Optional[float]) -> float:
@@ -99,55 +121,80 @@ def block_sparse_attention_plain(q, k, v, idx, nlive, block: int, causal: bool =
     return out
 
 
-def _check(q, k, v, idx, nlive, block):
+def _refuse(q, k, v, idx, nlive, order, block):
+    """Raise on what the kernel does not take, naming it."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"block_sparse_attention: {name} must be bfloat16 on CUDA, "
                             f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"block_sparse_attention: {name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"block_sparse_attention: {name} must be contiguous and "
+                             "16-byte aligned")
         if t.device != q.device:
             raise ValueError(f"block_sparse_attention: {name} is on {t.device}, q on {q.device}")
     if block not in BLOCKS:
         raise ValueError(f"block_sparse_attention: block {block} not in {BLOCKS}")
     if d not in HEAD_DIMS:
         raise ValueError(f"block_sparse_attention: head dim {d} not in {HEAD_DIMS}")
-    for name, t, shape in (("idx", idx, (h, s // block, idx.shape[-1])),
-                           ("nlive", nlive, (h, s // block))):
+    n = s // block
+    tensors = [("idx", idx, (h, n, idx.shape[-1])), ("nlive", nlive, (h, n))]
+    if order is not None:
+        tensors.append(("order", order, (h * -(-n // tile_blocks(block)),)))
+    for name, t, shape in tensors:
         if t.device != q.device or t.dtype != torch.int32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"block_sparse_attention: {name} must be a contiguous int32 "
                              f"{shape} tensor on {q.device}")
+    raise ValueError("block_sparse_attention: unsupported arguments")
 
 
 def block_sparse_attention(q, k, v, idx, nlive, block: int, causal: bool = False,
-                           softmax_scale: Optional[float] = None) -> torch.Tensor:
+                           softmax_scale: Optional[float] = None,
+                           order: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7. q/k/v (B, S, H, D); idx (H, n, Kmax), nlive (H, n) int32 on q's
-    device (`padded_layout_indices`); S a multiple of `block`. Returns
-    (B, S, H, D).
+    device (`padded_layout_indices`); S a multiple of `block`; `order`, the
+    layout's `tile_order` on q's device, or None for the tiles' natural
+    order (the output is the same either way). Returns (B, S, H, D).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+    raise. The checks of a CUDA call are one expression of cheap reads
+    (this path is host-bound at small shapes); `_refuse` names what failed."""
+    shape = q.shape
+    if len(shape) != 4 or k.shape != shape or v.shape != shape:
         raise ValueError(f"block_sparse_attention: q/k/v must share one (B, S, H, D) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    b, s, h, d = q.shape
+    b, s, h, d = shape
     if s % block:
         raise ValueError(f"block_sparse_attention: S={s} is not a multiple of block {block}")
-    if q.device.type == "cpu":
+    kind = q.device.type
+    if kind == "cpu":
         return block_sparse_attention_plain(q, k, v, idx, nlive, block, causal, softmax_scale)
-    if q.device.type != "cuda":
+    if kind != "cuda":
         raise ValueError(f"block_sparse_attention: unsupported device {q.device}")
     refuse_grad("block_sparse_attention", q, k, v)
-    _check(q, k, v, idx, nlive, block)
+    index, n = q.get_device(), s // block
+    bf16, i32 = torch.bfloat16, torch.int32
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if not (block in BLOCKS and d in HEAD_DIMS
+            and q.dtype == bf16 and k.dtype == bf16 and v.dtype == bf16
+            and k.get_device() == index and v.get_device() == index
+            and q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and not (ptrs[0] | ptrs[1] | ptrs[2]) % 16
+            and idx.dtype == i32 and nlive.dtype == i32 and idx.dim() == 3
+            and idx.shape[:2] == (h, n) and nlive.shape == (h, n)
+            and idx.get_device() == index and nlive.get_device() == index
+            and idx.is_contiguous() and nlive.is_contiguous()
+            and (order is None or (order.dtype == i32 and order.get_device() == index
+                                   and order.shape == (h * -(-n // tile_blocks(block)),)
+                                   and order.is_contiguous()))):
+        _refuse(q, k, v, idx, nlive, order, block)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = LIBRARY.lib().ds_block_sparse_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), idx.data_ptr(), nlive.data_ptr(),
-            out.data_ptr(), b, s, h, d, block, idx.shape[-1], int(causal),
-            _scale(d, softmax_scale) * LOG2E, stream)
+    args = (*ptrs, idx.data_ptr(), nlive.data_ptr(), None if order is None else order.data_ptr(),
+            out.data_ptr(), b, s, h, d, block, idx.shape[2], int(causal),
+            _scale(d, softmax_scale))
+    code = on_current_stream(index, lambda stream: LIBRARY.lib()
+                             .ds_block_sparse_attention(*args, stream))
     LIBRARY.check(code, "block_sparse_attention")
     block_sparse_attention.launches += 1
     return out

@@ -17,9 +17,10 @@ row (H, S/block, S/block) marks. Two routes, as in the JAX package:
   on any other; the JAX rule "block >= 64 and D >= 128" is a TPU tile
   limit, not the function's.
 
-A layout's padded indices (idx, nlive, and the valid mask of the gather
-path) go to a device once: they are cached per (layout digest, device) in a
-small LRU, as the JAX package caches its kernel per layout digest.
+A layout's padded indices (idx, nlive, the valid mask of the gather path,
+and K7's tiles longest first, `tile_order`) go to a device once: they are
+cached per (layout digest, block, device) in a small LRU, as the JAX
+package caches its kernel per layout digest.
 `SparseSelfAttention` keeps one layout per sequence length.
 """
 
@@ -37,6 +38,7 @@ from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
     _scale,
     block_sparse_attention,
     padded_layout_indices,
+    tile_order,
 )
 
 IMPLS = ("auto", "reference")
@@ -44,20 +46,22 @@ _LAYOUT_CACHE: "OrderedDict" = OrderedDict()
 _LAYOUT_CACHE_SIZE = 32
 
 
-def layout_tensors(layout: np.ndarray, device):
-    """(idx, nlive, valid) of `layout` on `device`: idx (H, n, Kmax) and
-    nlive (H, n) int32, valid (H, n, Kmax) bool. Uploaded once per layout
-    and device; a hit refreshes the entry."""
+def layout_tensors(layout: np.ndarray, device, block: int):
+    """(idx, nlive, valid, order) of `layout` on `device`: idx (H, n, Kmax)
+    and nlive (H, n) int32, valid (H, n, Kmax) bool, order K7's tiles at
+    `block` longest first (`tile_order`, int32). Uploaded once per layout,
+    block and device; a hit refreshes the entry."""
     layout = np.asarray(layout, bool)
     device = torch.device(device)
-    key = (hashlib.sha1(layout.tobytes()).hexdigest(), layout.shape, str(device))
+    key = (hashlib.sha1(layout.tobytes()).hexdigest(), layout.shape, block, str(device))
     hit = _LAYOUT_CACHE.get(key)
     if hit is not None:
         _LAYOUT_CACHE.move_to_end(key)
         return hit
     idx, nlive = padded_layout_indices(layout)
     valid = np.arange(idx.shape[-1])[None, None, :] < nlive[..., None]
-    entry = tuple(torch.from_numpy(a).to(device) for a in (idx, nlive, valid))
+    entry = tuple(torch.from_numpy(a).to(device)
+                  for a in (idx, nlive, valid, tile_order(layout, block)))
     if len(_LAYOUT_CACHE) >= _LAYOUT_CACHE_SIZE:
         _LAYOUT_CACHE.popitem(last=False)
     _LAYOUT_CACHE[key] = entry
@@ -94,10 +98,10 @@ class BlockSparseAttention(torch.autograd.Function):
     """Forward: K7. Backward: the gather path's gradient, recomputed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, idx, nlive, valid, block, causal, scale):
+    def forward(ctx, q, k, v, idx, nlive, valid, order, block, causal, scale):
         ctx.save_for_backward(q, k, v, idx, valid)
         ctx.block, ctx.causal, ctx.scale = block, causal, scale
-        return block_sparse_attention(q, k, v, idx, nlive, block, causal, scale)
+        return block_sparse_attention(q, k, v, idx, nlive, block, causal, scale, order)
 
     @staticmethod
     def backward(ctx, g):
@@ -109,7 +113,7 @@ class BlockSparseAttention(torch.autograd.Function):
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, g))
         return (*(next(grads) if t.requires_grad else None for t in inputs),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def sparse_attention(q, k, v, layout: np.ndarray, block: int = 64, causal: bool = False,
@@ -126,12 +130,13 @@ def sparse_attention(q, k, v, layout: np.ndarray, block: int = 64, causal: bool 
     if tuple(layout.shape) != (h, n, n):
         raise ValueError(f"sparse_attention: layout {tuple(layout.shape)} != {(h, n, n)}")
     scale = _scale(d, softmax_scale)
-    idx, nlive, valid = layout_tensors(layout, q.device)
+    idx, nlive, valid, order = layout_tensors(layout, q.device, block)
     if impl == "reference":
         return gather_attention(q, k, v, idx, valid, block, causal, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return BlockSparseAttention.apply(q, k, v, idx, nlive, valid, block, causal, scale)
-    return block_sparse_attention(q, k, v, idx, nlive, block, causal, scale)
+        return BlockSparseAttention.apply(q, k, v, idx, nlive, valid, order, block, causal,
+                                          scale)
+    return block_sparse_attention(q, k, v, idx, nlive, block, causal, scale, order)
 
 
 class SparseSelfAttention(nn.Module):

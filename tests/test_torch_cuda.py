@@ -32,7 +32,11 @@ mode K6's gradients equal plain autograd's to the same 2e-2, while the
 kernels without a backward (K2-K5, K7 alone) refuse grad mode. The
 block-sparse attention kernel (K7) is held to 2e-2 against its plain
 version on causal and non-causal layouts, every block and head width, and
-a causal row with no visible key (zeros); its autograd path's gradients
+a causal row with no visible key (zeros); on rows whose lists cross the
+diagonal mid-list, on a query block that walks every key block, on block
+32's paired query blocks (different lists, a masked row beside a live
+one, a tile past the sequence end), with its bits the same from call to
+call and in either tile order; its autograd path's gradients
 are held to 2e-2 of their largest magnitude against autograd of the gather
 path. The paged kernels' alibi forms (K3-alibi, K4-alibi) are held to 2e-2
 against their plain versions over bf16 and int8 pools at both head widths,
@@ -939,6 +943,98 @@ def test_block_sparse_attention_matches_plain_on_card(cuda_device, causal, block
     torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
     if causal:
         assert (out[:, :block, 0] == 0).all()
+
+
+def _sparse_run(layout, block, d, causal, device, seed, b=2):
+    """K7 with and without the layout's tile order, and its plain version,
+    on seeded bf16 inputs; the launches counted."""
+    from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import tile_order
+    rng = np.random.default_rng(seed)
+    h, n = layout.shape[:2]
+    idx, nlive = (torch.from_numpy(a).to(device) for a in padded_layout_indices(layout))
+    order = torch.from_numpy(tile_order(layout, block)).to(device)
+    q, k, v = (_bf16(rng.standard_normal((b, n * block, h, d)).astype(np.float32), device)
+               for _ in range(3))
+    launches = block_sparse_attention.launches
+    outs = [block_sparse_attention(q, k, v, idx, nlive, block, causal, order=order),
+            block_sparse_attention(q, k, v, idx, nlive, block, causal, order=order),
+            block_sparse_attention(q, k, v, idx, nlive, block, causal)]
+    ref = block_sparse_attention_plain(q, k, v, idx, nlive, block, causal)
+    torch.cuda.synchronize()
+    assert block_sparse_attention.launches == launches + 3
+    for out in outs:
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block", [32, 64, 128])
+def test_block_sparse_attention_is_deterministic_on_card(cuda_device, block, d):
+    """Each tile walks its live blocks in order in one thread block: two
+    calls give the same bits, and so does the natural tile order."""
+    rng = np.random.default_rng(40 + block + d)
+    outs = _sparse_run(_sparse_layout(rng, 3, 6, True, masked_row=True), block, d, True,
+                       cuda_device, 41)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("block", [32, 64, 128])
+def test_block_sparse_attention_crosses_the_diagonal_mid_list_on_card(cuda_device, block, d):
+    """Causal rows whose live lists run past their own block: entries below,
+    the diagonal (masked inside), then entries above it, which the walk
+    stops at; and a row whose list starts above it (zeros)."""
+    n = 8
+    layout = np.zeros((2, n, n), bool)
+    for qi in range(n):
+        layout[:, qi, [0, max(qi - 2, 0), qi, min(qi + 1, n - 1), n - 1]] = True
+    layout[1, 3, :] = False
+    layout[1, 3, [5, 6]] = True   # head 1's block 3 sees nothing
+    outs = _sparse_run(layout, block, d, True, cuda_device, 50 + block + d)
+    assert (outs[0][:, 3 * block:4 * block, 1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block,d", [(32, 64), (64, 128), (128, 128), (128, 64)])
+def test_block_sparse_attention_long_row_on_card(cuda_device, block, d, causal):
+    """A skewed layout: one query block a head holds every key block (the
+    ring wraps many times in one tile, which runs first), the rest one or
+    two."""
+    n = 24 if block < 128 else 16
+    layout = np.eye(n, dtype=bool)[None].repeat(2, 0)
+    layout[:, :, 0] = True
+    layout[0, n - 1, :] = True
+    layout[1, n // 2, :] = True
+    outs = _sparse_run(layout, block, d, causal, cuda_device, 60 + block + d, b=1)
+    assert torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 7])
+@pytest.mark.parametrize("d", [64, 128])
+def test_block_sparse_attention_block32_pairs_on_card(cuda_device, d, n):
+    """Block 32 tiles two query blocks: adjacent blocks with different live
+    lists, one of them the fully masked row (exact zeros) beside a row that
+    sees keys, one pair with disjoint lists; with n = 7 the last tile runs
+    past the sequence."""
+    layout = np.zeros((2, n, n), bool)
+    layout[:, :, 0] = True
+    layout[0, 0, :] = False
+    layout[0, 0, n - 1] = True            # block 0 sees only a block above it
+    layout[0, 1, [0, 1]] = True
+    layout[0, 2, :] = False
+    layout[0, 2, [1, 2]] = True           # blocks 2 and 3: disjoint lists
+    layout[0, 3, [0, 3]] = True
+    layout[1] |= np.tril(np.ones((n, n), bool))
+    for causal in (True, False):
+        outs = _sparse_run(layout, 32, d, causal, cuda_device, 70 + d + n)
+        if causal:
+            assert (outs[0][:, :32, 0] == 0).all()
+            assert (outs[0][:, 32:64, 0] != 0).any()
 
 
 @pytest.mark.cuda

@@ -13,6 +13,8 @@
   forward, the gather path's gradient; `impl="reference"`: the gather path)
   and `SparseSelfAttention`, outputs and q/k/v gradients against
   `jax.vjp` of the JAX `sparse_attention(impl="reference")`: 1e-5 in f32.
+* The layout cache: one upload per layout, and K7's tile order, a
+  permutation of the kernel's tiles, longest first.
 """
 
 import jax
@@ -31,6 +33,8 @@ from deepspeed_tpu_torch.ops.cuda.block_sparse_attention import (
     block_sparse_attention,
     block_sparse_attention_plain,
     padded_layout_indices,
+    tile_blocks,
+    tile_order,
 )
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import layout_tensors
 
@@ -161,14 +165,48 @@ def test_sparse_self_attention_module_matches_jax():
 
 
 def test_layout_tensors_are_uploaded_once_per_layout():
-    """The padded indices of one layout are one cached set of tensors: a
-    second call (and an equal layout built anew) returns the same objects."""
+    """The padded indices of one layout and K7's tile order are one cached
+    set of tensors: a second call (and an equal layout built anew) returns
+    the same objects."""
     layout = sa.FixedSparsityConfig(num_heads=2, block=16).make_layout(128)
-    first = layout_tensors(layout, "cpu")
-    assert all(a is b for a, b in zip(first, layout_tensors(layout.copy(), "cpu")))
-    idx, nlive, valid = first
-    assert idx.dtype == nlive.dtype == torch.int32 and valid.dtype == torch.bool
+    first = layout_tensors(layout, "cpu", 16)
+    assert all(a is b for a, b in zip(first, layout_tensors(layout.copy(), "cpu", 16)))
+    idx, nlive, valid, order = first
+    assert idx.dtype == nlive.dtype == order.dtype == torch.int32 and valid.dtype == torch.bool
     assert tuple(valid.shape) == tuple(idx.shape)
+    assert np.array_equal(order.numpy(), tile_order(layout, 16))
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["random", "odd", "longformer"])
+def test_tile_order_is_a_permutation_longest_first(block, kind):
+    """K7's cached order holds each tile of the kernel's grid once (two
+    query blocks a tile at block 32, one otherwise), sorted by the live
+    blocks its walk visits, the union of its query blocks' rows, most
+    first, ties in their natural order."""
+    rng = np.random.default_rng(block)
+    n = 7 if kind == "odd" else 8
+    if kind == "longformer":
+        layout = sa.BSLongformerSparsityConfig(num_heads=3, block=block).make_layout(n * block)
+    else:
+        layout = _layout(rng, 3, n, causal=True)
+    idx, nlive, _, order = layout_tensors(layout, "cpu", block)
+    per = tile_blocks(block)
+    tiles = -(-n // per)
+    order = order.numpy()
+    assert order.dtype == np.int32 and sorted(order) == list(range(3 * tiles))
+    idx, nlive = idx.numpy(), nlive.numpy()
+
+    def steps(t):   # the merged walk of tile t, as the kernel's thread 0 takes it
+        h, j = divmod(int(t), tiles)
+        rows = range(j * per, min((j + 1) * per, n))
+        return len(set().union(*(idx[h, r, :nlive[h, r]] for r in rows)))
+    counts = [steps(t) for t in order]
+    assert counts == sorted(counts, reverse=True)
+    for a, b, ca, cb in zip(order, order[1:], counts, counts[1:]):
+        assert ca > cb or a < b
+    if kind == "longformer":   # block 0 is global: its tile walks every block, first
+        assert counts[0] == n and order[0] == 0
 
 
 def test_sparse_attention_refuses_bad_arguments():
