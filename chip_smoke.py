@@ -130,6 +130,22 @@
    2-layer models of 8b at ep = 2 against 8b's CPU f32 logits. The kernel
    phase holds each rank's share of K8-e bit for bit to K6's rows of its
    experts (zeros elsewhere) and the ranks' sum to K6's output;
+9e. trains llama-1b at full width and depth data-parallel over dp = 2
+   (`train_zero`): two ranks on the one card over gloo, as 9c (so the
+   collectives stage through the host and the times are not a
+   data-parallel speed), each building the weights of 9 (seed 30) and
+   taking its half of 9's batch (micro-batch 2 a rank, GAS 2: the same
+   global batch), through `initialize` → `train_batch` under ZeRO stages
+   0, 1, 2 and 3 in turn (bf16, clipping 1.0, FusedAdam, remat on), two
+   steps each: after every step both ranks' parameters (stage 3: gathered)
+   have the same SHA-256; the first step's loss and pre-clip grad norm
+   match 9's first `train_batch` within TRAIN_REF_LOSS_RTOL and
+   TRAIN_REF_NORM_RTOL, and a control (one rank on rank 0's rows alone)
+   must miss the norm bound; the loss falls; each rank's K1 launches
+   equal 9's per step and no other kernel launches; the peak memory per
+   rank orders stage 3 < stage 1 <= stage 0 and stage 3 <= 0.6 x stage 0.
+   Step seconds, tokens/s, and gloo's seconds and bytes a step by
+   collective kind are reported;
 10. prints one JSON line of kernels, then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
@@ -244,6 +260,15 @@ TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": MBS, "gradient_accumulation_st
 # the K1 kernels (layer 0's q_proj through its dq; its down_proj and the
 # embedding through layer 1's dq, dk and dv).
 TRAIN_REF_LOSS_RTOL, TRAIN_REF_NORM_RTOL, TRAIN_REF_GRAD_RTOL = 1e-3, 5e-2, 0.05
+# data-parallel training (`train_zero`): dp = 2 ranks on the one card over
+# gloo, each with ZERO_MBS rows a micro, so that GAS x ZERO_MBS x dp is the
+# `train` phase's batch; its first step is held to `train`'s (TRAIN_REFS)
+DP = 2
+ZERO_MBS = 2
+ZERO_STAGES = (0, 1, 2, 3)
+ZERO_STEPS = 2
+ZERO_PEAK_RATIO = 0.6        # stage 3's peak over stage 0's, at most
+TRAIN_REFS = {}              # `train`'s first train_batch: loss and pre-clip grad norm
 REMAT_RTOL = 1e-3
 GRAD_KEYS = ("embed_tokens", "layers.0.self_attn.q_proj.weight",
              "layers.0.mlp.down_proj.weight", "lm_head.weight")
@@ -2908,11 +2933,10 @@ def train(report):
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
                                                 loss_fn=llama_loss_fn(model))
     acc = engine.accelerator
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
-    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (GAS * MBS, SEQ), generator=gen,
-                                        device="cuda")}
+    batch = {"input_ids": train_rows(cfg)}
     t0 = time.perf_counter()
-    engine.train_batch(batch=batch)                      # warm-up
+    loss = engine.train_batch(batch=batch)               # warm-up
+    TRAIN_REFS.update(loss=float(loss), grad_norm=engine.get_global_grad_norm())
     acc.synchronize()
     warmup_s = time.perf_counter() - t0
 
@@ -2954,6 +2978,200 @@ def train(report):
         allocated_before_bytes=allocated_before,
         launches=launches, launches_per_train_batch=per_step)
     return launches
+
+
+def train_rows(cfg):
+    """The training phases' fixed batch: GAS x MBS rows of SEQ tokens."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    return torch.randint(0, cfg.vocab_size, (GAS * MBS, SEQ), generator=gen, device="cuda")
+
+
+def rank_rows(rows, rank):
+    """Data rank `rank`'s rows of a global batch of GAS micros: of each
+    micro, rows [rank * ZERO_MBS, (rank + 1) * ZERO_MBS), as the JAX
+    engine's `data`-sharded batch gives them."""
+    micros = rows.reshape(GAS, DP, ZERO_MBS, -1)
+    return micros[:, rank].reshape(GAS * ZERO_MBS, -1)
+
+
+def train_zero(report):
+    """llama-1b at full width and depth trained over dp = 2 under ZeRO
+    stages 0-3: two ranks (spawned processes) on the one card, joined by
+    gloo (module docstring, 9e). Then the control, in this process: one
+    rank on rank 0's rows alone, whose first-step grad norm must miss
+    TRAIN_REF_NORM_RTOL."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(zero_rank, args=(free_port(), tmp), nprocs=DP, start_method="spawn")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP)]
+    from deepspeed_tpu_torch.models.llama import llama_config
+    L = llama_config("llama-1b").num_hidden_layers
+    per_step = {"flash_attention_fwd": 2 * L * GAS,     # remat runs each forward again
+                "flash_attention_bwd_dq": L * GAS, "flash_attention_bwd_dkv": L * GAS}
+    ref_loss, ref_norm = TRAIN_REFS["loss"], TRAIN_REFS["grad_norm"]
+    stages = {}
+    for stage in ZERO_STAGES:
+        r0, r1 = (r["stages"][stage] for r in ranks)
+        assert r0["digests"] == r1["digests"], (stage, r0["digests"], r1["digests"])
+        first = r0["steps"][0]
+        loss_err = abs(first["loss"] - ref_loss) / abs(ref_loss)
+        norm_err = abs(first["grad_norm"] - ref_norm) / abs(ref_norm)
+        assert loss_err <= TRAIN_REF_LOSS_RTOL and norm_err <= TRAIN_REF_NORM_RTOL, \
+            (stage, loss_err, norm_err)
+        for r in (r0, r1):
+            losses = [st["loss"] for st in r["steps"]]
+            assert all(np.isfinite(losses)) and losses[-1] < losses[0], (stage, losses)
+            assert r["launches"] == only(**{k: n * ZERO_STEPS for k, n in per_step.items()}), \
+                (stage, r["launches"])
+        stages[stage] = dict(first_step_loss_rel_err=loss_err,
+                             first_step_grad_norm_rel_err=norm_err)
+    for r in ranks:
+        assert r["kernel_fallbacks"] == [], r["kernel_fallbacks"]
+    peak = {s: max(r["stages"][s]["peak_memory_bytes"] for r in ranks) for s in ZERO_STAGES}
+    assert peak[3] <= ZERO_PEAK_RATIO * peak[0] and peak[3] < peak[1] <= peak[0], peak
+    control = zero_control()
+    control_err = abs(control["grad_norm"] - ref_norm) / abs(ref_norm)
+    assert control_err > TRAIN_REF_NORM_RTOL, control
+    tokens = GAS * ZERO_MBS * SEQ                      # a rank's tokens a step
+    for stage in ZERO_STAGES:
+        r0 = ranks[0]["stages"][stage]
+        step_s = max(r["stages"][stage]["steps"][-1]["step_s"] for r in ranks)
+        stages[stage].update(
+            peak_memory_bytes_per_rank=[r["stages"][stage]["peak_memory_bytes"] for r in ranks],
+            steps=r0["steps"], last_step_s=step_s, tokens_per_s_per_rank=tokens / step_s,
+            tokens_per_s_total=DP * tokens / step_s,
+            gloo_per_step={k: {f: v[f] / ZERO_STEPS for f in ("calls", "bytes", "seconds")}
+                           for k, v in r0["comm"].items()},
+            state_elements_per_rank=r0["state_elements"])
+    report["train_zero"] = dict(
+        card=report["card"], model=f"llama-1b (random bf16 weights, seed {SEED + 30}) over "
+                                   f"dp={DP}, full depth at every stage",
+        setup=f"{DP} ranks, one process each, sharing one card over gloo: the collectives "
+              "stage through the host and the ranks share the card's compute, so these "
+              "times are not a data-parallel speed",
+        config=dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS), seq=SEQ,
+        steps_per_stage=ZERO_STEPS, train_first_step=dict(TRAIN_REFS), wall_s=wall_s,
+        stages=stages, peak_memory_bytes=peak,
+        peak_stage3_over_stage0=peak[3] / peak[0],
+        control=dict(control, grad_norm_rel_err=control_err,
+                     what="one rank trained on rank 0's rows alone"),
+        launches_per_rank_per_train_batch=per_step,
+        ranks=[dict(rank=r["rank"], device=r["device"], backend=r["backend"]) for r in ranks])
+    log(f"train_zero: {DP} ranks sharing one card over gloo ({report['card']}): " + "; ".join(
+        f"stage {s}: peak {peak[s] / 2**30:.2f} GiB a rank, step "
+        f"{stages[s]['last_step_s']:.1f} s, gloo "
+        f"{sum(v['seconds'] for v in stages[s]['gloo_per_step'].values()):.1f} s a step"
+        for s in ZERO_STAGES) + f"; control norm err {control_err:.3f}")
+
+
+def zero_rank(rank, port, tmp):
+    """One rank of `train_zero`: joins the gloo group and trains under each
+    ZeRO stage in turn (`zero_stage`)."""
+    import datetime
+    import logging
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils.logging import logger
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=DP,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    fallbacks = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: fallbacks.append(rec.getMessage()) \
+        if "kernel_fallback" in rec.getMessage() else None
+    logger.addHandler(handler)
+    try:
+        from deepspeed_tpu_torch.accelerator import get_accelerator
+        out = dict(rank=rank, device=str(get_accelerator().device),
+                   backend=comm.get_backend(), stages={})
+        for stage in ZERO_STAGES:
+            out["stages"][stage] = zero_stage(rank, stage)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["kernel_fallbacks"] = fallbacks
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        comm.barrier()
+    finally:
+        logger.removeHandler(handler)
+        comm.destroy_process_group()
+
+
+def param_digest(params) -> str:
+    """SHA-256 of the parameters' names and bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in params.items():
+        h.update(name.encode())
+        h.update(p.detach().contiguous().cpu().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def zero_stage(rank, stage):
+    """ZERO_STEPS `train_batch` calls of llama-1b under one ZeRO stage on
+    this rank's rows: losses, grad norms, step seconds, the parameters'
+    digest after each step, the peak memory inside the steps, launches,
+    gloo's calls, bytes and seconds, and the elements of the rank's state."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
+    cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS,
+                  zero_optimization={"stage": stage})
+    model = llama(cfg, SEED + 30)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                loss_fn=llama_loss_fn(model))
+    del model
+    batch = {"input_ids": rank_rows(train_rows(cfg), rank)}
+    st = engine.state
+    state_elements = {k: sum(t.numel() for t in tree.values()) for k, tree in (
+        ("params", st.params), ("master", st.master), ("exp_avg", st.opt_state.exp_avg),
+        ("grad_acc", st.grad_acc))}
+    steps, digests, peak, gloo = [], [], 0, {}
+    zero_launches()
+    for _ in range(ZERO_STEPS):
+        comm.reset_comm_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        steps.append(dict(loss=loss, grad_norm=engine.get_global_grad_norm(),
+                          step_s=time.perf_counter() - t0))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        for kind, v in comm.comm_stats().items():
+            acc = gloo.setdefault(kind, dict.fromkeys(v, 0))
+            for f in v:
+                acc[f] += v[f]
+        digests.append(param_digest(engine.gathered_params()))
+    launches = read_launches()
+    del engine, batch
+    return dict(steps=steps, digests=digests, peak_memory_bytes=peak, launches=launches,
+                comm=gloo, state_elements=state_elements)
+
+
+def zero_control():
+    """The control of `train_zero`: one rank (this process, dp = 1) trained
+    on rank 0's rows alone, with the same config and weights; its first
+    step's loss and pre-clip grad norm."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
+    cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
+    model = llama(cfg, SEED + 30)
+    engine, *_ = deepspeed_tpu_torch.initialize(
+        model=model, loss_fn=llama_loss_fn(model),
+        config=dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS))
+    loss = float(engine.train_batch(batch={"input_ids": rank_rows(train_rows(cfg), 0)}))
+    out = dict(loss=loss, grad_norm=engine.get_global_grad_norm())
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_train(engine, batch):
@@ -3551,6 +3769,7 @@ def main() -> int:
     ep = serve_ep(report)
     train_launches = train(report)
     train_reference(report)
+    train_zero(report)
     moe_train_launches = train_moe(report)
     train_moe_reference(report)
     report["wall_s"] = time.perf_counter() - t_start
@@ -3559,7 +3778,7 @@ def main() -> int:
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
-                "serve_ep", "reference_ep"):
+                "serve_ep", "reference_ep", "train_zero"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [

@@ -10,7 +10,9 @@ serves through both engines; the MoE families (`models/qwen2_moe.py`,
 block-sparse attention. Hand-written kernels: flash attention (forward and
 backward), decode and paged attention (the paged kernels with alibi too),
 the int8 dequant-GEMM, the grouped expert GEMM (forward and backward) and
-block-sparse attention. Llama serves tensor-parallel over several ranks
+block-sparse attention. Llama trains data-parallel over several ranks
+with ZeRO stages 0-3 (`init_distributed`, then `initialize`). Llama
+serves tensor-parallel over several ranks
 (`init_distributed`, `tensor_parallel={"tp_size": N}`), each rank running
 the kernels on its shard, and the MoE families serve expert-parallel
 (`init_distributed`, `groups.initialize(MeshTopology(ep=N))`), each rank
@@ -34,6 +36,12 @@ def initialize(model: Any = None, model_parameters: Any = None, config: Any = No
     """Build a training engine (counterpart of `deepspeed_tpu.initialize`):
     returns `(engine, optimizer, dataloader, lr_scheduler)`.
 
+    The topology is the installed one, or else the process group's: every
+    rank on the `data` axis (`MeshTopology()`, dp = the world size), one
+    process a rank (`torchrun`, or `init_distributed` in each), each on its
+    local rank's card. ZeRO (`zero_optimization.stage` 0-3) then shards
+    the state over the data ranks (`runtime/zero/partition.py`).
+
     `model` is an `nn.Module`; `model_parameters` is a JAX parameter tree of
     numpy arrays copied into it by the module's own `load_jax_params(tree)`,
     or None to keep the module's own weights. `config` is a DeepSpeed config dict, a JSON path
@@ -44,8 +52,9 @@ def initialize(model: Any = None, model_parameters: Any = None, config: Any = No
     """
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.utils import groups
     if not isinstance(config, DeepSpeedConfig):
-        config = DeepSpeedConfig(config)
+        config = DeepSpeedConfig(config, world_size=groups.get_topology().world_size)
     engine = DeepSpeedEngine(model=model, loss_fn=loss_fn, config=config,
                              model_parameters=model_parameters,
                              training_data=training_data, collate_fn=collate_fn,

@@ -1,14 +1,23 @@
 """Collectives over `torch.distributed` (counterpart of ``deepspeed_tpu/comm/comm.py``).
 
 A group is named by its mesh axis (`"model"` or `"tp"`, `"expert"` or
-`"ep"`), as in the JAX package; its size and this rank's index on it come
-from the installed topology (`utils/groups.py`), whose only nontrivial
-axis spans every rank, so its process group is the default one and a
-trivial axis's collectives are the identity. None means every rank.
-Where the JAX package's collectives are traced inside a `shard_map`
-region, these run eagerly, one call per collective, on the rank's own
-tensors. In one process (no process group) every collective is
+`"ep"`, `"data"` or `"dp"`), as in the JAX package; its size and this
+rank's index on it come from the installed topology (`utils/groups.py`),
+whose only nontrivial axis spans every rank, so its process group is the
+default one and a trivial axis's collectives are the identity. None means
+every rank. Where the JAX package's collectives are traced inside a
+`shard_map` region, these run eagerly, one call per collective, on the
+rank's own tensors. In one process (no process group) every collective is
 the identity.
+
+The ops: `all_reduce` (`ReduceOp` SUM, AVG, MAX, MIN), `all_gather`
+(concatenated along an axis), `all_gather_into` (a shard into one
+preallocated tensor), `reduce_scatter` (tiled), `broadcast`, `barrier`.
+Each calls the backend's own op on the rank's tensor, CUDA or not: NCCL
+runs it on the card; gloo takes CUDA tensors for every one of these ops
+and stages them through the host itself (torch 2.11 on an H100; the
+`cuda` tests hold each against the CPU), so there is one route per op and
+backend and no copy here.
 
 `init_distributed` brings the process group up from its arguments or from
 the variables `torchrun` sets (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
@@ -17,11 +26,17 @@ for `gloo`. NCCL rejects two ranks on one card, so `nccl` with more ranks on
 a host than it has cards raises. `gloo` stages CUDA tensors through the
 host: it lets two ranks share one card, at a collective cost no multi-card
 deployment pays.
+
+`comm_stats()` counts, by kind, the calls that moved data, their bytes
+(the rank's input) and the host seconds spent inside them: on gloo the
+whole collective, on NCCL only its launch.
 """
 
 from __future__ import annotations
 
 import os
+import time
+from collections import defaultdict
 from datetime import timedelta
 from typing import Optional
 
@@ -31,8 +46,19 @@ import torch.distributed as dist
 from deepspeed_tpu_torch.utils.logging import logger
 
 _LOCAL_RANK: Optional[int] = None  # set by init_distributed when no LOCAL_RANK is set
+_STATS = defaultdict(lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
 
 
+class ReduceOp:
+    """The reductions of `all_reduce`, by the JAX package's names."""
+    SUM = "sum"
+    AVG = "avg"
+    MAX = "max"
+    MIN = "min"
+
+
+_DIST_OPS = {ReduceOp.SUM: "SUM", ReduceOp.AVG: "AVG", ReduceOp.MAX: "MAX",
+             ReduceOp.MIN: "MIN"}
 
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
@@ -117,28 +143,79 @@ def _trivial(group) -> bool:
     return not is_initialized() or get_world_size(group) == 1
 
 
-def all_reduce(tensor: torch.Tensor, group: Optional[str] = "model") -> torch.Tensor:
-    """Sum `tensor` over the group, in place; returns it."""
+def _timed(kind: str, tensor: torch.Tensor, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    entry = _STATS[kind]
+    entry["calls"] += 1
+    entry["bytes"] += tensor.numel() * tensor.element_size()
+    entry["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def comm_stats() -> dict:
+    """{kind: {"calls", "bytes", "seconds"}} since the last reset."""
+    return {k: dict(v) for k, v in _STATS.items()}
+
+
+def reset_comm_stats() -> None:
+    _STATS.clear()
+
+
+def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
+               group: Optional[str] = "data") -> torch.Tensor:
+    """Reduce `tensor` over the group with `op` (`ReduceOp`), in place;
+    returns it."""
+    if op not in _DIST_OPS:
+        raise ValueError(f"unsupported reduce op {op!r}; expected one of {sorted(_DIST_OPS)}")
     if not _trivial(group):
-        dist.all_reduce(tensor)
+        _timed("all_reduce", tensor,
+               lambda: dist.all_reduce(tensor, op=getattr(dist.ReduceOp, _DIST_OPS[op])))
     return tensor
 
 
-def all_gather(tensor: torch.Tensor, group: Optional[str] = "model",
+def all_gather(tensor: torch.Tensor, group: Optional[str] = "data",
                axis: int = 0) -> torch.Tensor:
     """Every rank's `tensor` in rank order, concatenated along `axis`."""
     if _trivial(group):
         return tensor
     parts = [torch.empty_like(tensor) for _ in range(get_world_size(group))]
-    dist.all_gather(parts, tensor.contiguous())
+    _timed("all_gather", tensor, lambda: dist.all_gather(parts, tensor.contiguous()))
     return torch.cat(parts, dim=axis)
+
+
+def all_gather_into(out: torch.Tensor, shard: torch.Tensor,
+                    group: Optional[str] = "data") -> torch.Tensor:
+    """Every rank's `shard` in rank order, written along dim 0 of the
+    preallocated `out` (n times the shard's rows); returns `out`."""
+    if _trivial(group):
+        return out.copy_(shard.reshape(out.shape))
+    _timed("all_gather", shard,
+           lambda: dist.all_gather_into_tensor(out, shard.contiguous()))
+    return out
+
+
+def reduce_scatter(tensor: torch.Tensor, group: Optional[str] = "data",
+                   scatter_dim: int = 0) -> torch.Tensor:
+    """The sum over the group of `tensor`, cut into n tiles along
+    `scatter_dim`: rank r gets tile r (`lax.psum_scatter(tiled=True)`)."""
+    if _trivial(group):
+        return tensor
+    n = get_world_size(group)
+    if tensor.shape[scatter_dim] % n:
+        raise ValueError(f"reduce_scatter: dim {scatter_dim} of {tuple(tensor.shape)} is "
+                         f"not divisible by the group's {n} ranks")
+    moved = tensor.movedim(scatter_dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
+    _timed("reduce_scatter", tensor, lambda: dist.reduce_scatter_tensor(out, moved))
+    return out.movedim(0, scatter_dim)
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0,
               group: Optional[str] = None) -> torch.Tensor:
     """`tensor` from global rank `src` to every rank of the group, in place."""
     if not _trivial(group):
-        dist.broadcast(tensor, src=src)
+        _timed("broadcast", tensor, lambda: dist.broadcast(tensor, src=src))
     return tensor
 
 

@@ -7,7 +7,11 @@ shard was cut for: with fewer, its collective would be the identity and the
 result a partial sum.
 
 The loss is computed in f32, with `IGNORE_INDEX` labels left out of the
-mean, as in the JAX package. A loss function for the engine has the
+mean, as in the JAX package. Over dp > 1 data ranks the mean is the
+global batch's: each rank divides its own tokens' sum by the ranks'
+count of labels (one all-reduce) and multiplies by dp, so the ranks'
+losses and gradients average to the global ones even when the ranks hold
+different numbers of labels. A loss function for the engine has the
 signature `loss_fn(module, batch)` and returns the loss or `(loss, aux)`.
 """
 
@@ -111,7 +115,8 @@ class LayerNorm(nn.Module):
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_index: int = IGNORE_INDEX,
                        z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token CE in f32. logits (B, S, V), labels (B, S)."""
+    """Mean token CE in f32. logits (B, S, V), labels (B, S); over dp data
+    ranks, this rank's share (module docstring)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     idx = labels.clamp(0, logits.shape[-1] - 1).long()
@@ -120,7 +125,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if z_loss > 0.0:
         token_loss = token_loss + z_loss * lse.square()
     mask = (labels != ignore_index).float()
-    return (token_loss * mask).sum() / mask.sum().clamp(min=1.0)
+    count = mask.sum()
+    dp = comm.get_world_size("data") if comm.is_initialized() else 1
+    if dp > 1:
+        count = comm.all_reduce(count.detach().clone(), group="data") / dp
+    return (token_loss * mask).sum() / count.clamp(min=1.0 / dp)
 
 
 def shift_labels(input_ids: torch.Tensor, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:

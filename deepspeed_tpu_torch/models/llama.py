@@ -7,7 +7,12 @@ RMSNorm + RoPE + GQA attention + SwiGLU MLP, pre-norm decoder, as
 
 `forward(input_ids, labels=...)` returns `(loss, {})` for training, with
 each block under `torch.utils.checkpoint` when `remat` is on (the JAX
-`remat_policy="nothing"`: the whole block is recomputed in backward). The
+`remat_policy="nothing"`: the whole block is recomputed in backward).
+Under ZeRO stage 3 across data ranks (`runtime/zero/partition.py`) a
+block's parameters are gathered inside its checkpointed function, so the
+recompute gathers them again and the checkpoint holds only the rank's
+pieces, and the root's (embedding, final norm, head) around the whole
+forward: at most one block's gathered weights live beside the root's. The
 other remat policies, domino, ring attention and loss or MLP chunking are
 not ported and raise. `load_jax_params` turns a JAX parameter tree into this
 module's weights and `to_jax_params` turns them back.
@@ -49,6 +54,7 @@ from deepspeed_tpu_torch.ops.attention import (
     rope_cos_sin,
 )
 from deepspeed_tpu_torch.runtime.config_utils import unported
+from deepspeed_tpu_torch.runtime.zero.partition import gathered
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +218,12 @@ class LlamaBlock(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
+def _block(layer: LlamaBlock, h, cos_sin):
+    """One decoder block on its whole parameters (gathered at stage 3)."""
+    with gathered(layer):
+        return layer(h, cos_sin)
+
+
 class LlamaForCausalLM(nn.Module):
     """`forward(input_ids)` → logits (B, S, V); `forward(input_ids,
     labels=labels)` → (causal-LM loss, {}); `forward(input_ids,
@@ -219,6 +231,8 @@ class LlamaForCausalLM(nn.Module):
     cache at its cursors and the cursors advanced.
 
     `tp_size`/`tp_rank` build one rank's shard (module docstring)."""
+
+    zero3_gathers = True    # the forward gathers ZeRO-3 units (`gathered`)
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=torch.float32,
                  tp_size: int = 1, tp_rank: int = 0):
@@ -245,6 +259,10 @@ class LlamaForCausalLM(nn.Module):
         cache each layer gets `PagedLayer` views that alias the stacked
         pools. `logits_at` (B,) picks one position per row, and the LM head
         then runs on those rows only: logits (B, V) instead of (B, S, V)."""
+        with gathered(self):
+            return self._forward(input_ids, cache, logits_at, labels)
+
+    def _forward(self, input_ids, cache, logits_at, labels):
         cfg = self.cfg
         if labels is not None and self.tp_size > 1:
             raise unported(f"training under tensor parallelism (tp={self.tp_size})",
@@ -273,8 +291,8 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = checkpoint(layer, h, (cos, sin), use_reentrant=False) if remat \
-                else layer(h, (cos, sin))
+            h = checkpoint(_block, layer, h, (cos, sin), use_reentrant=False) if remat \
+                else _block(layer, h, (cos, sin))
         logits = self._lm_head(self.norm(h))
         if labels is None:
             return logits

@@ -2,8 +2,10 @@
 
 Same key schema as the JAX package's `DeepSpeedConfig`, including the
 train_batch_size / train_micro_batch_size_per_gpu /
-gradient_accumulation_steps triangulation. The port trains in one process
-on one device, so the data-parallel size is 1. Any enabled block the port
+gradient_accumulation_steps triangulation: train_batch = micro x gas x dp,
+where the data-parallel size dp is the world size (one process a rank)
+over the tensor, pipeline and sequence degrees, as in the JAX package.
+Any enabled block the port
 does not run raises `NotImplementedError` naming its ROADMAP.md item:
 offload and ZeRO++ (`runtime/zero/config.py`), parallel sizes above 1,
 pipeline, curriculum, telemetry, the monitors, the flops profiler, the
@@ -95,7 +97,7 @@ def _check_ported(pd: Dict[str, Any]) -> None:
 class DeepSpeedConfig:
     """Parse and validate a DeepSpeed-schema config dict or JSON path."""
 
-    def __init__(self, config: Any):
+    def __init__(self, config: Any, world_size: Optional[int] = None):
         if isinstance(config, (str, os.PathLike)):
             if not os.path.exists(config):
                 raise DeepSpeedConfigError(f"config path does not exist: {config}")
@@ -131,12 +133,23 @@ class DeepSpeedConfig:
         self.gradient_clipping = float(pd.get(C.GRADIENT_CLIPPING, 0.0))
         self.seed = int(pd.get(C.SEED, 1234))
         self.dataloader_drop_last = bool(pd.get(C.DATALOADER_DROP_LAST, False))
-        self._resolve_batch_sizes()
+        self._resolve_batch_sizes(world_size)
 
-    def _resolve_batch_sizes(self):
-        """The reference's triangulation (runtime/config.py:768-794) at a
-        data-parallel size of 1: one process on one device."""
+    def _resolve_batch_sizes(self, world_size: Optional[int] = None):
+        """The reference's triangulation (runtime/config.py:768-794), as the
+        JAX package's `_resolve_batch_sizes(world_size)`: `world_size`
+        defaults to the process group's, and the data-parallel size is it
+        over the tensor, pipeline and sequence degrees."""
         pd = self._param_dict
+        if world_size is None:
+            from deepspeed_tpu_torch import comm
+            world_size = comm.get_world_size()
+        tp = int((pd.get(C.TENSOR_PARALLEL) or {}).get("tp_size", 1) or 1)
+        pp = int((pd.get(C.PIPELINE) or {}).get(C.PIPELINE_PARALLEL_SIZE, 1) or 1)
+        sp = int(pd.get(C.SEQUENCE_PARALLEL_SIZE, 1) or 1)
+        self.world_size = int(world_size)
+        dp = max(1, self.world_size // max(1, tp * pp * sp))
+        self.data_parallel_size = dp
         train_batch = pd.get(C.TRAIN_BATCH_SIZE)
         micro_batch = pd.get(C.TRAIN_MICRO_BATCH_SIZE_PER_GPU)
         grad_acc = pd.get(C.GRADIENT_ACCUMULATION_STEPS)
@@ -145,27 +158,28 @@ class DeepSpeedConfig:
         grad_acc = None if grad_acc == "auto" else grad_acc
 
         if train_batch is not None and micro_batch is not None and grad_acc is not None:
-            if train_batch != micro_batch * grad_acc:
+            if train_batch != micro_batch * grad_acc * dp:
                 raise DeepSpeedConfigError(
                     f"train_batch_size ({train_batch}) != micro_batch "
-                    f"({micro_batch}) * gas ({grad_acc})")
+                    f"({micro_batch}) * gas ({grad_acc}) * dp ({dp})")
         elif train_batch is not None and micro_batch is not None:
-            grad_acc = train_batch // micro_batch
-            if grad_acc == 0 or train_batch % micro_batch != 0:
+            grad_acc = train_batch // (micro_batch * dp)
+            if grad_acc == 0 or train_batch % (micro_batch * dp) != 0:
                 raise DeepSpeedConfigError(
-                    f"train_batch_size {train_batch} not divisible by micro_batch "
-                    f"{micro_batch}")
+                    f"train_batch_size {train_batch} not divisible by micro_batch*dp "
+                    f"{micro_batch * dp}")
         elif train_batch is not None and grad_acc is not None:
-            micro_batch = train_batch // grad_acc
-            if micro_batch == 0 or train_batch % grad_acc != 0:
+            micro_batch = train_batch // (grad_acc * dp)
+            if micro_batch == 0 or train_batch % (grad_acc * dp) != 0:
                 raise DeepSpeedConfigError("cannot infer micro batch size")
         elif train_batch is not None:
-            grad_acc, micro_batch = 1, train_batch
-            if micro_batch == 0:
+            grad_acc = 1
+            micro_batch = train_batch // dp
+            if micro_batch == 0 or train_batch % dp != 0:
                 raise DeepSpeedConfigError("cannot infer micro batch size")
         elif micro_batch is not None:
             grad_acc = grad_acc or 1
-            train_batch = micro_batch * grad_acc
+            train_batch = micro_batch * grad_acc * dp
         else:
             raise DeepSpeedConfigError(
                 "Either train_batch_size or train_micro_batch_size_per_gpu must be provided")

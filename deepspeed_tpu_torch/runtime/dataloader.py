@@ -2,7 +2,11 @@
 
 Works over numpy-array datasets, dicts of arrays, or any indexable dataset
 of dicts or arrays; batches are host numpy, and the engine moves them to
-its device.
+its device. Over dp data ranks the loader walks global batches of
+`batch_size * dp` rows and yields part r of each, cut into dp parts
+(`np.array_split`: `batch_size` rows of a whole batch), the rows the JAX
+engine's `data`-sharded batch gives coordinate r; a rank reads only its
+own rows.
 """
 
 from __future__ import annotations
@@ -33,9 +37,14 @@ class RepeatingLoader:
 class DeepSpeedDataLoader:
     def __init__(self, dataset: Any, batch_size: int,
                  collate_fn: Optional[Callable] = None, drop_last: bool = True,
-                 shuffle: bool = True, seed: int = 0):
+                 shuffle: bool = True, seed: int = 0, data_parallel_size: int = 1,
+                 data_parallel_rank: int = 0):
+        if not 0 <= data_parallel_rank < data_parallel_size:
+            raise ValueError(f"data_parallel_rank {data_parallel_rank} outside "
+                             f"data_parallel_size {data_parallel_size}")
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.data_parallel_size, self.data_parallel_rank = data_parallel_size, data_parallel_rank
+        self.batch_size = batch_size * data_parallel_size     # the global batch
         self.collate_fn = collate_fn
         self.drop_last = drop_last
         self.shuffle = shuffle
@@ -60,7 +69,8 @@ class DeepSpeedDataLoader:
         self.epoch += 1
         for start in range(0, n - (self.batch_size - 1 if self.drop_last else 0),
                            self.batch_size):
-            sel = idx[start:start + self.batch_size]
+            sel = np.array_split(idx[start:start + self.batch_size],
+                                 self.data_parallel_size)[self.data_parallel_rank]
             if isinstance(self.dataset, dict):
                 yield {k: np.asarray(v)[sel] for k, v in self.dataset.items()}
                 continue

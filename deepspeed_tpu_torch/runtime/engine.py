@@ -1,5 +1,6 @@
 """DeepSpeedEngine, the training engine (counterpart of
-``deepspeed_tpu/runtime/engine.py``), for one process on one device.
+``deepspeed_tpu/runtime/engine.py``): one process a rank, one device each,
+over the `data` axis of the installed topology (`utils/groups.py`).
 
 The JAX engine compiles a pure train step over an explicit `TrainState`;
 this engine runs the same step eagerly on an `nn.Module` and keeps the same
@@ -20,9 +21,26 @@ argument, `loss_fn(module, batch, rng)`: the engine then hands it a
 stream for each micro-batch (the JAX engine's `_next_rng`; the draws are
 not JAX's). The MoE loss functions route the noisy gate's draws from it.
 
-ZeRO stages 0-3 are accepted: partitioning over one rank is the identity.
-The state is updated in place; where the JAX step selects the old target
-and optimizer state on an overflow, this one does not call the optimizer.
+Over dp > 1 data ranks each rank takes its own rows of the global batch
+(`train_batch(batch=...)` gets the rank's micro x GAS rows), and ZeRO
+partitions the state as `runtime/zero/partition.py` lays it out. At every
+micro the gradients are reduced over `data` in f32 and averaged: stage 0
+all-reduces them whole; stage 1 and up reduce-scatter them into this
+rank's pieces of `grad_acc` (stage 2 is stage 1, as in the JAX package),
+and stage 3 reduce-scatters a gathered unit's gradient in its gather's
+backward. The update runs on the rank's pieces of the master and the
+moments, the pre-clip norm and the fp16 overflow flag are global (one
+all-reduce each), and stages 1-2 all-gather the updated model-dtype
+parameters. The state keeps the field names, with a sharded leaf's
+tensors as the rank's flat pieces; `materialized_state()` gathers it
+whole. The causal-LM loss is the global batch's token mean
+(`models/common.cross_entropy_loss` counts the ranks' labels), and
+`train_batch` returns it on every rank. Over one rank every stage is the
+identity and the engine keeps whole tensors. The state is updated in
+place; where the JAX step selects the old target and optimizer state on
+an overflow, this one does not call the optimizer. MoE models and
+tensor- or expert-parallel topologies do not train across data ranks yet
+(ROADMAP.md, Queue 1, 'Multi-GPU').
 Checkpointing, the telemetry `MetricsState`, the flops profiler, curriculum
 and offload are not ported; their config keys raise (`runtime/config.py`).
 """
@@ -36,9 +54,11 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops.optimizers import GradientTransformation, build_optimizer
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+from deepspeed_tpu_torch.runtime.config_utils import unported
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import LRScheduler, build_lr_schedule
 from deepspeed_tpu_torch.runtime.precision import (
@@ -48,6 +68,8 @@ from deepspeed_tpu_torch.runtime.precision import (
     clip_factor,
     global_grad_norm,
 )
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroShardingPlan, ZeroUnit, model_units
+from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import logger
 
 Tree = Dict[str, torch.Tensor]
@@ -55,7 +77,9 @@ Tree = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    """The whole training state, under the JAX `TrainState`'s field names."""
+    """The whole training state, under the JAX `TrainState`'s field names.
+    Over dp data ranks a sharded leaf's tensors are this rank's flat
+    pieces (`runtime/zero/partition.py`)."""
     global_step: int                  # optimizer steps taken (not skipped ones)
     params: Tree                      # the module's parameters, model dtype
     master: Optional[Tree]            # f32 master copy (None when pure f32)
@@ -81,6 +105,9 @@ class DeepSpeedEngine:
         self.accelerator = get_accelerator(device)
         self.device = self.accelerator.device
         self.module = model
+        self.topology = groups.get_topology()
+        self.dp = self.topology.dp_size
+        self._check_data_parallel(model)
         self.model_dtype = config.model_dtype
         self.mixed_precision = self.model_dtype != torch.float32
         self.loss_scaler = LossScaler(config.fp16)
@@ -110,9 +137,28 @@ class DeepSpeedEngine:
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data, batch_size=config.train_micro_batch_size_per_gpu,
                 collate_fn=collate_fn, drop_last=config.dataloader_drop_last,
-                seed=config.seed)
+                seed=config.seed, data_parallel_size=self.dp,
+                data_parallel_rank=self.topology.coord("data"))
         self.state: Optional[TrainState] = None
+        self.units = None            # the ZeRO units over dp > 1 data ranks
         self.initialize_state(model_parameters)
+
+    def _check_data_parallel(self, model) -> None:
+        topo, cfg = self.topology, self.config
+        if topo.tp_size > 1 or topo.ep_size > 1:
+            raise unported(f"training under a {topo!r}", "Multi-GPU")
+        if cfg.data_parallel_size != self.dp:
+            raise ValueError(f"the config's data-parallel size {cfg.data_parallel_size} "
+                             f"(world size {cfg.world_size}) is not the topology's "
+                             f"data={self.dp}")
+        if self.dp == 1:
+            return
+        from deepspeed_tpu_torch.moe.layer import MoE
+        if any(isinstance(m, MoE) for m in model.modules()):
+            raise unported(f"MoE training under data parallelism (dp={self.dp})", "Multi-GPU")
+        if cfg.zero_config.stage == 3 and not getattr(model, "zero3_gathers", False):
+            raise unported(f"ZeRO stage 3 across data ranks with {type(model).__name__}",
+                           "Multi-GPU")
 
     # ------------------------------------------------------------------ state
     @torch.no_grad()
@@ -129,6 +175,9 @@ class DeepSpeedEngine:
             self.module.load_jax_params(model_parameters)
         self.module.to(device=self.device, dtype=self.model_dtype)
         params = dict(self.module.named_parameters())
+        self.total_params = sum(p.numel() for p in params.values())
+        if self.dp > 1:
+            return self._initialize_sharded(params)
         master = cast_tree({k: p.detach() for k, p in params.items()}, torch.float32) \
             if self.mixed_precision else None
         grad_acc = None if self._elide_grad_acc else \
@@ -137,11 +186,126 @@ class DeepSpeedEngine:
                                 opt_state=self.opt.init(master if self.mixed_precision
                                                         else params),
                                 grad_acc=grad_acc, scaler=self.loss_scaler.init_state())
-        self.total_params = sum(p.numel() for p in params.values())
-        logger.info(f"engine initialized: {self.total_params / 1e6:.1f}M params on "
-                    f"{self.accelerator.device_name()}, "
-                    f"zero_stage={self.zero_optimization_stage()}, dtype={self.model_dtype}")
+        self._log_initialized()
         return self.state
+
+    def _log_initialized(self):
+        logger.info(f"engine initialized: {self.total_params / 1e6:.1f}M params on "
+                    f"{self.accelerator.device_name()}, data={self.dp}, "
+                    f"zero_stage={self.zero_optimization_stage()}, dtype={self.model_dtype}")
+
+    def _flat_units(self):
+        return [f for u in self.units for f in u.flat]
+
+    def _whole_names(self):
+        return [n for u in self.units for n in u.whole]
+
+    def _initialize_sharded(self, params: Tree) -> TrainState:
+        """The state over dp data ranks: this rank's pieces of each
+        sharded leaf, whole tensors of the rest (module docstring)."""
+        plan = ZeroShardingPlan(self.dp, self.config.zero_config)
+        self.units = model_units(self.module, plan, self.topology.coord("data"))
+        self._module_params = params
+        mixed = self.mixed_precision
+        state_params, master = {}, {}
+        for u in self.units:
+            g, s = u.gathered, u.sharded
+            if g is not None:
+                g.stash = self.loss_scaler.enabled
+                g.shard = torch.nn.Parameter(g.piece_of([params[n] for n in g.names]))
+                for n in g.names:       # the module keeps an empty placeholder
+                    params[n].data = params[n].new_empty(0)
+                u.module.zero_unit = g
+                state_params.update(g.views(g.shard))
+                if mixed:
+                    g.master = g.shard.detach().float()
+            if s is not None:
+                state_params.update({n: params[n] for n in s.names})
+                if mixed:
+                    s.master = s.piece_of([params[n] for n in s.names], torch.float32)
+            state_params.update({n: params[n] for n in u.whole})
+            if mixed:
+                master.update({n: params[n].detach().float() for n in u.whole})
+        if mixed:
+            for f in self._flat_units():
+                master.update(f.views(f.master))
+            master = {n: master[n] for n in state_params}
+        for f in self._flat_units():
+            f.grad_acc = None if self._elide_grad_acc else \
+                torch.zeros(f.size, dtype=torch.float32, device=self.device)
+        self._whole_acc = None if self._elide_grad_acc else \
+            {n: torch.zeros_like(params[n], dtype=torch.float32) for n in self._whole_names()}
+        self.state = TrainState(global_step=0, params=state_params,
+                                master=master if mixed else None, opt_state=None,
+                                grad_acc=self._grad_tree(), scaler=self.loss_scaler.init_state())
+        self.state.opt_state = self.opt.init(self._update_target())
+        self._log_initialized()
+        return self.state
+
+    def _update_target(self) -> Tree:
+        """What the optimizer updates: the master, or in f32 the params,
+        a `sharded` unit's pieces copied out of its whole params (into the
+        unit's `master`, which the update's all-gather then reads)."""
+        if self.mixed_precision:
+            return self.state.master
+        target = {}
+        for u in self.units:
+            if u.gathered is not None:
+                target.update(u.gathered.views(u.gathered.shard.detach()))
+            if u.sharded is not None:
+                s = u.sharded
+                s.master = s.piece_of([self._module_params[n] for n in s.names])
+                target.update(s.views(s.master))
+            target.update({n: self._module_params[n].detach() for n in u.whole})
+        return target
+
+    def _grad_tree(self) -> Optional[Tree]:
+        """`grad_acc` by name: views of the units' flat pieces, and the
+        whole leaves' buffers."""
+        if self._whole_acc is None and all(f.grad_acc is None for f in self._flat_units()):
+            return None
+        tree = {}
+        for f in self._flat_units():
+            if f.grad_acc is not None:
+                tree.update(f.views(f.grad_acc))
+        tree.update(self._whole_acc or {})
+        return tree
+
+    @torch.no_grad()
+    def gathered_params(self) -> Tree:
+        """The model-dtype parameters whole, by name, on every rank: stage
+        3's pieces all-gathered (a collective, so every rank calls it), the
+        module's own tensors otherwise."""
+        if self.units is None:
+            return dict(self.state.params)
+        params = {n: p.detach() for n, p in self._module_params.items()}
+        for g in (u.gathered for u in self.units if u.gathered is not None):
+            params.update(zip(g.names, g.all_gather(g.shard.detach())))
+        return params
+
+    @torch.no_grad()
+    def materialized_state(self) -> TrainState:
+        """The state with every sharded leaf gathered whole on every rank
+        (the JAX engine's `materialized_state`; a collective, so every rank
+        calls it). Over one rank, the state itself."""
+        st = self.state
+        if self.units is None:
+            return st
+
+        def whole(tree):
+            out = {n: tree[n] for n in self._whole_names()}
+            for f in self._flat_units():
+                flat = torch.cat([tree[n].reshape(-1) for n in f.names])
+                out.update(zip(f.names, f.all_gather(flat)))
+            return {n: out[n] for n in st.params}
+
+        opt = st.opt_state
+        opt = type(opt)(*[whole(x) if isinstance(x, dict) else x for x in opt])
+        return TrainState(global_step=st.global_step, params=self.gathered_params(),
+                          master=None if st.master is None else whole(st.master),
+                          opt_state=opt,
+                          grad_acc=None if st.grad_acc is None else whole(st.grad_acc),
+                          scaler=st.scaler)
 
     def _put_batch(self, batch):
         if isinstance(batch, dict):
@@ -154,6 +318,8 @@ class DeepSpeedEngine:
         """Fold the module's gradients (of the scaled loss / GAS) into the
         f32 `grad_acc`; under fp16 an overflowing micro adds nothing and is
         recorded in the scaler. Returns the micro's overflow flag."""
+        if self.units is not None:
+            return self._accumulate_sharded()
         st = self.state
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in st.params.items()}
@@ -173,19 +339,94 @@ class DeepSpeedEngine:
         return ovf
 
     @torch.no_grad()
+    def _accumulate_sharded(self) -> bool:
+        """`_accumulate` over dp data ranks: the micro's gradients reduced
+        over `data` in f32 and averaged (stage 3's gathered units already
+        reduced theirs in backward), checked for an overflow on every
+        rank at once, then added to this rank's `grad_acc`."""
+        st, params = self.state, self._module_params
+        micro = []          # (ZeroUnit or leaf name, the micro's mean gradient)
+        for u in self.units:
+            g, s = u.gathered, u.sharded
+            if g is not None and g.stash:
+                micro.append((g, g.pending if g.pending is not None else
+                              torch.zeros(g.size, dtype=torch.float32, device=self.device)))
+                g.pending = None
+            elif g is not None and g.grad_acc is None:   # a unit the loss did not use
+                g.grad_acc = torch.zeros(g.size, dtype=torch.float32, device=self.device)
+            if s is not None:
+                micro.append((s, s.reduce_scatter([params[n].grad for n in s.names],
+                                                  self.device)))
+            if u.whole:
+                flat = torch.cat([(params[n].grad if params[n].grad is not None
+                                   else torch.zeros_like(params[n])).float().reshape(-1)
+                                  for n in u.whole])
+                comm.all_reduce(flat, group="data").mul_(1.0 / self.dp)
+                micro += [(n, t.view_as(params[n])) for n, t in
+                          zip(u.whole, flat.split([params[n].numel() for n in u.whole]))]
+        ovf = False
+        if self.loss_scaler.enabled:
+            ovf = self.loss_scaler.check_overflow([t for _, t in micro], group="data")
+            st.scaler = self.loss_scaler.track_micro(st.scaler, ovf)
+        if self._whole_acc is None:
+            self._whole_acc = {}
+        for key, grad in micro:
+            if ovf:
+                grad.zero_()
+            if isinstance(key, ZeroUnit):
+                key.grad_acc = grad if key.grad_acc is None else key.grad_acc.add_(grad)
+            elif key in self._whole_acc:
+                self._whole_acc[key].add_(grad)
+            else:
+                self._whole_acc[key] = grad
+        for p in params.values():
+            p.grad = None
+        st.grad_acc = self._grad_tree()
+        return ovf
+
+    @torch.no_grad()
+    def _sharded_update(self, lr) -> None:
+        """The optimizer on this rank's pieces, then the model-dtype
+        parameters from them: stage 3's pieces in place, a whole-parameter
+        unit's by one all-gather."""
+        st, dt = self.state, self.model_dtype
+        target = self._update_target()
+        _, st.opt_state = self.opt.update(st.grad_acc, st.opt_state, target, lr)
+        for u in self.units:
+            g, s = u.gathered, u.sharded
+            if g is not None and self.mixed_precision:
+                g.shard.copy_(g.master)
+            if s is not None:
+                for n, w in zip(s.names, s.all_gather(s.master.to(dt))):
+                    self._module_params[n].copy_(w)
+            if self.mixed_precision:
+                for n in u.whole:
+                    self._module_params[n].copy_(st.master[n])
+
+    def _grad_lists(self):
+        """The accumulated gradients as (whole on every rank, this rank's
+        pieces)."""
+        if self.units is None:
+            return list(self.state.grad_acc.values()), []
+        return (list((self._whole_acc or {}).values()),
+                [f.grad_acc for f in self._flat_units()])
+
+    @torch.no_grad()
     def _take_model_step(self) -> torch.Tensor:
         """Unscale, clip, optimizer update, loss-scale update. Returns the
         pre-clip global grad norm (a 0-d device tensor)."""
         cfg, st = self.config, self.state
         if st.grad_acc is None:
             raise RuntimeError("step() before any forward(): no accumulated gradients")
-        grads = list(st.grad_acc.values())
+        whole, sharded = self._grad_lists()
+        grads = whole + sharded
+        group = None if self.units is None else "data"
         overflow = scale_overflow = False
         if self.loss_scaler.enabled:
             # bad micros were zeroed on arrival; the boundary check guards
             # the accumulation itself
             window_ovf = st.scaler.window_overflow > 0
-            boundary_ovf = self.loss_scaler.check_overflow(grads)
+            boundary_ovf = self.loss_scaler.check_overflow(grads, group)
             if cfg.fp16.per_micro_overflow_skip:
                 good = st.scaler.good_micros
                 overflow = boundary_ovf or good == 0
@@ -195,11 +436,14 @@ class DeepSpeedEngine:
                 overflow = scale_overflow = window_ovf or boundary_ovf
                 renorm = 1.0
             torch._foreach_mul_(grads, renorm / st.scaler.scale)
-        grad_norm = global_grad_norm(grads)
+        grad_norm = global_grad_norm(whole, sharded)
         if cfg.gradient_clipping > 0.0:
             torch._foreach_mul_(grads, clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_fn(st.global_step)
-        if not overflow:
+        if not overflow and self.units is not None:
+            self._sharded_update(lr)
+            st.global_step += 1
+        elif not overflow:
             target = st.master if self.mixed_precision else st.params
             _, st.opt_state = self.opt.update(st.grad_acc, st.opt_state, target, lr)
             if self.mixed_precision:
@@ -208,6 +452,10 @@ class DeepSpeedEngine:
             st.global_step += 1
         if self._elide_grad_acc:
             st.grad_acc = None
+            if self.units is not None:
+                self._whole_acc = None
+                for f in self._flat_units():
+                    f.grad_acc = None
         else:
             torch._foreach_zero_(grads)
         if self.loss_scaler.enabled:
@@ -245,7 +493,7 @@ class DeepSpeedEngine:
             retain_graph=retain_graph)
         ovf = self._accumulate()
         self.micro_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu()
+        self.global_samples += self.train_micro_batch_size_per_gpu() * self.dp
         return ovf
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -270,7 +518,7 @@ class DeepSpeedEngine:
                  for k, v in batch.items()}
         leaf0 = next(iter(batch.values()))
         lead = leaf0.shape[0]
-        local_rows = self.config.train_batch_size
+        local_rows = self.config.train_batch_size // self.dp   # this rank's rows
         micro_rows = max(1, local_rows // gas)
         fold = True
         if lead == gas:
@@ -304,6 +552,8 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self.lr_scheduler.step()
         losses = torch.stack(losses)
+        if self.dp > 1:     # each rank's share of the global loss
+            comm.all_reduce(losses, op=comm.ReduceOp.AVG, group="data")
         if self.loss_scaler.enabled and self.config.fp16.per_micro_overflow_skip:
             good = torch.isfinite(losses) & ~torch.tensor(ovfs, device=losses.device)
             loss = torch.where(good, losses, 0.0).sum() / good.float().sum().clamp(min=1.0)
@@ -313,7 +563,12 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def eval_batch(self, batch) -> torch.Tensor:
-        return self._loss(batch)[0]
+        """The loss of this rank's rows of one batch, over dp data ranks
+        averaged into the global batch's."""
+        loss = self._loss(batch)[0]
+        if self.dp > 1:
+            comm.all_reduce(loss, op=comm.ReduceOp.AVG, group="data")
+        return loss
 
     # ---------------------------------------------------------------- accessors
     def train_batch_size(self) -> int:
@@ -351,4 +606,4 @@ class DeepSpeedEngine:
             return float(self._grad_norm)
         if self.state.grad_acc is None:
             return 0.0
-        return float(global_grad_norm(self.state.grad_acc.values()))
+        return float(global_grad_norm(*self._grad_lists()))

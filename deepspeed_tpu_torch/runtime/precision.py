@@ -51,10 +51,16 @@ class LossScaler:
         return loss * torch.tensor(state.scale, dtype=loss.dtype, device=loss.device)
 
     @staticmethod
-    def check_overflow(grads: Iterable[torch.Tensor]) -> bool:
-        """True if any gradient holds an inf or a nan (one host read)."""
+    def check_overflow(grads: Iterable[torch.Tensor], group: Optional[str] = None) -> bool:
+        """True if any gradient holds an inf or a nan (one host read). With
+        a `group` the flag is all-reduced with MAX over it, so one rank's
+        inf is every rank's overflow."""
         finite = [torch.isfinite(g).all() for g in grads]
-        return bool(finite) and not bool(torch.stack(finite).all())
+        if group is None:
+            return bool(finite) and not bool(torch.stack(finite).all())
+        from deepspeed_tpu_torch import comm
+        flag = (~torch.stack(finite).all()).float() if finite else torch.zeros([])
+        return bool(comm.all_reduce(flag, op=comm.ReduceOp.MAX, group=group))
 
     @staticmethod
     def track_micro(state: LossScaleState, overflow: bool) -> LossScaleState:
@@ -97,9 +103,16 @@ def cast_tree(tree: Dict[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, to
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
 
 
-def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
-    """The global L2 norm, sqrt(sum of squares) in f32, as a 0-d tensor."""
+def global_grad_norm(grads: Iterable[torch.Tensor], sharded: Iterable[torch.Tensor] = (),
+                     group: str = "data") -> torch.Tensor:
+    """The global L2 norm, sqrt(sum of squares) in f32, as a 0-d tensor.
+    `grads` are whole on every rank and counted once; the squares of the
+    rank's pieces of `sharded` leaves are summed over `group` first."""
     sums = [g.float().square().sum() for g in grads]
+    pieces = [g.float().square().sum() for g in sharded]
+    if pieces:
+        from deepspeed_tpu_torch import comm
+        sums.append(comm.all_reduce(torch.stack(pieces).sum(), group=group))
     if not sums:
         return torch.zeros([], dtype=torch.float32)
     return torch.stack(sums).sum().sqrt()

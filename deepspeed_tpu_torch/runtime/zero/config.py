@@ -1,9 +1,16 @@
 """ZeRO configuration (counterpart of ``deepspeed_tpu/runtime/zero/config.py``).
 
-The port trains in one process on one device, where ZeRO stages 0-3 all
-partition over one rank, which is the identity: every stage is accepted and
-computes the same step. Offload and the ZeRO++ quantized collectives are not
-ported and raise; the remaining keys of the block are accepted and ignored.
+Stages 0-3 partition the training state over the `data` axis
+(`runtime/zero/partition.py`): stage 0 replicates everything and
+all-reduces the gradients; stage 1 and up shard the f32 master, the
+optimizer moments and the f32 gradient accumulation, and reduce-scatter the
+gradients (the JAX package shards the accumulation from stage 1 too, so
+stage 2 computes what stage 1 does); stage 3 also shards the parameters,
+except leaves under `param_persistence_threshold` elements
+(`stage3_param_persistence_threshold`), and gathers them where they are
+used. Over one rank every stage is the identity. Offload and the ZeRO++
+quantized collectives are not ported and raise; the other keys of the
+block are accepted and ignored.
 """
 
 from __future__ import annotations
@@ -13,10 +20,14 @@ from typing import Optional
 
 from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError, from_dict, unported
 
+# the JAX block's aliases of the keys the plan reads
+_ALIASES = {"stage3_param_persistence_threshold": "param_persistence_threshold"}
+
 
 @dataclasses.dataclass
 class DeepSpeedZeroConfig:
     stage: int = 0
+    param_persistence_threshold: int = int(1e5)
     offload_param: Optional[dict] = None
     offload_optimizer: Optional[dict] = None
     zero_quantized_weights: bool = False
@@ -27,10 +38,14 @@ class DeepSpeedZeroConfig:
 
     @classmethod
     def from_dict(cls, values: Optional[dict]) -> "DeepSpeedZeroConfig":
+        values = {_ALIASES.get(k, k): v for k, v in (values or {}).items()}
         cfg = from_dict(cls, values)
         if not 0 <= int(cfg.stage) <= 3:
             raise DeepSpeedConfigError(f"zero_optimization.stage must be 0..3, "
                                        f"got {cfg.stage}")
+        if int(cfg.param_persistence_threshold) < 0:
+            raise DeepSpeedConfigError("zero_optimization.stage3_param_persistence_threshold "
+                                       f"must be >= 0, got {cfg.param_persistence_threshold}")
         for name in ("offload_param", "offload_optimizer"):
             block = getattr(cfg, name) or {}
             if block.get("device", "none") not in (None, "none"):

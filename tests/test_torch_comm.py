@@ -1,12 +1,17 @@
 """The port's collectives and process topology on the CPU.
 
-Two `gloo` ranks (`tests/torch_tp_ranks.py`, spawned once for the file)
-run `comm`'s collectives by axis name. The topology's sizes and this
-rank's coordinates are held against the JAX `MeshTopology` on the virtual
-CPU mesh. Refusals: `nccl` with more ranks than cards on the host, any
-axis but `model` over one rank, a tp that the world does not hold, and
-tensor parallelism for BLOOM, the MoE families, training, a sliding window
-and ring attention.
+Two `gloo` ranks (`tests/torch_tp_ranks.py`, spawned once under a tp = 2
+topology and once under dp = 2 by `tests/torch_dp_ranks.py`) run `comm`'s
+collectives by axis name: sum all-reduce, gathers and broadcast over
+`model`; every reduction of `all_reduce` (SUM, AVG, MAX, MIN), the tiled
+`reduce_scatter` and `all_gather_into` over `data`, against numpy, in f32
+and bf16. The topology's sizes and this rank's coordinates are held
+against the JAX `MeshTopology` on the virtual CPU mesh, for the `model`
+axis and the `data` axis (given, or taking what the world leaves).
+Refusals: `nccl` with more ranks than cards on the host, two nontrivial
+axes or any axis but `data`, `model` and `expert`, a tp that the world
+does not hold, and tensor parallelism for BLOOM, the MoE families,
+training, a sliding window and ring attention.
 """
 
 import jax
@@ -19,6 +24,7 @@ from deepspeed_tpu.utils.groups import MeshTopology as JaxTopology
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.groups import MESH_AXES, MeshTopology
+from tests import torch_dp_ranks as dp_ranks
 from tests import torch_tp_ranks as ranks
 
 TP = ranks.TP
@@ -27,6 +33,11 @@ TP = ranks.TP
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     return ranks.spawn(ranks.collectives, tmp_path=tmp_path_factory.mktemp("comm"))
+
+
+@pytest.fixture(scope="module")
+def data_results(tmp_path_factory):
+    return ranks.spawn(dp_ranks.data_collectives, tmp_path=tmp_path_factory.mktemp("data"))
 
 
 def test_collectives_by_axis_name(results):
@@ -42,33 +53,69 @@ def test_collectives_by_axis_name(results):
         torch.testing.assert_close(got["broadcast"], x[1], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_data_collectives_match_numpy(data_results, dtype):
+    """Each reduction of `all_reduce`, `reduce_scatter` along either dim
+    and `all_gather_into` over `data`, against numpy on both ranks' inputs
+    (the inputs are small integers and halves, exact in bf16 too)."""
+    key = str(dtype).split(".")[-1]
+    x = [(np.arange(24, dtype=np.float32).reshape(4, 6) * (r + 1) - 5 * r) for r in range(2)]
+    want = {"sum": x[0] + x[1], "avg": (x[0] + x[1]) / 2, "max": np.maximum(*x),
+            "min": np.minimum(*x)}
+    for rank, got in enumerate(data_results):
+        assert (got["dp"], got["coord"]) == (2, rank)
+        assert got["sizes"] == {a: 2 if a == "data" else 1 for a in MESH_AXES}
+        for op, w in want.items():
+            assert got[f"{op}_{key}"].dtype == dtype
+            np.testing.assert_array_equal(got[f"{op}_{key}"].float().numpy(), w, err_msg=op)
+        np.testing.assert_array_equal(got[f"scatter0_{key}"].float().numpy(),
+                                      want["sum"][2 * rank:2 * rank + 2])
+        np.testing.assert_array_equal(got[f"scatter1_{key}"].float().numpy(),
+                                      want["sum"][:, 3 * rank:3 * rank + 3])
+        same, gathered = got[f"gather_into_{key}"]
+        assert same
+        np.testing.assert_array_equal(gathered.float().numpy(), np.concatenate(x))
+        stats = got["stats"]
+        assert stats["all_reduce"]["calls"] == 8 and stats["reduce_scatter"]["calls"] == 4
+        assert stats["all_gather"]["bytes"] == 24 * 4 + 24 * 2
+
+
 def test_one_process_collectives_are_the_identity():
     x = torch.ones(3)
     assert not comm.is_initialized()
     assert comm.all_reduce(x, group="model") is x
     assert comm.all_gather(x, group="model", axis=0) is x
+    assert comm.all_reduce(x, op=comm.ReduceOp.MAX) is x
+    assert comm.reduce_scatter(x, group="data") is x
+    out = torch.zeros(3)
+    assert comm.all_gather_into(out, x) is out and torch.equal(out, x)
+    with pytest.raises(ValueError, match="reduce op"):
+        comm.all_reduce(x, op="prod")
     assert comm.get_rank("model") == 0 and comm.get_world_size() == 1
     comm.init_distributed(dist_backend="gloo")   # one process: a no-op
     assert not comm.is_initialized()
 
 
-@pytest.mark.parametrize("kw,n", [(dict(tp=2), 2), (dict(tp=1), 1), (dict(tp=4), 4)])
+@pytest.mark.parametrize("kw,n", [(dict(tp=2), 2), (dict(tp=1), 1), (dict(tp=4), 4),
+                                  (dict(dp=2), 2), (dict(tp=1), 2)])
 def test_topology_matches_jax(kw, n):
     jax_topo = JaxTopology(devices=jax.devices()[:n], **kw)
     devices = list(jax.devices()[:n])
     for rank in range(n):
         topo = MeshTopology(world_size=n, rank=rank, **kw)
         assert topo.sizes == {a: int(jax_topo.sizes[a]) for a in MESH_AXES}
-        assert (topo.world_size, topo.tp_size) == (jax_topo.world_size, jax_topo.tp_size)
+        assert (topo.world_size, topo.tp_size, topo.dp_size) == \
+            (jax_topo.world_size, jax_topo.tp_size, jax_topo.dp_size)
+        assert topo.zero_axes() == jax_topo.zero_axes() and \
+            topo.zero_axes(True) == jax_topo.zero_axes(True)
         where = np.argwhere(np.asarray(jax_topo.mesh.devices) == devices[rank])[0]
         assert tuple(topo.coords[a] for a in MESH_AXES) == tuple(int(c) for c in where)
 
 
-@pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2, ep=2), dict(sp=2), dict(pp=2),
-                                dict(tp=1)])
+@pytest.mark.parametrize("kw", [dict(tp=2, ep=2), dict(sp=2), dict(pp=2)])
 def test_axes_other_than_model_raise(kw):
-    # `expert` alone is ported (tests/test_torch_ep_serving.py); with `model`
-    # it is not
+    # `expert` alone (tests/test_torch_ep_serving.py) and `data` alone
+    # (test_topology_matches_jax) are ported; with `model` they are not
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         MeshTopology(world_size=2, rank=0, **kw)
 

@@ -51,7 +51,10 @@ under a topology that serves the card raises. The grouped GEMM's
 expert-parallel flavour (K8-e, ep = 2 and 4): each rank's output equals the
 unsharded K6's rows of its experts bit for bit and is zero elsewhere, the
 ranks' sum equals K6's output bit for bit, and each is held to 2e-2 of its
-largest output against its plain version.
+largest output against its plain version. The data axis's collectives
+(`reduce_scatter`, `all_gather_into`, `all_reduce` with SUM, AVG, MAX and
+MIN) on CUDA tensors, from two gloo ranks sharing the card, equal the same
+calls on CPU tensors.
 """
 
 import numpy as np
@@ -1358,3 +1361,24 @@ def test_sharded_grouped_gemm_refuses_cpu_tensors_under_a_card_topology(cuda_dev
     gs = torch.tensor([3, 5, 0, 0], dtype=torch.int32)
     with pytest.raises(ValueError, match="rank's card"):
         sharded_grouped_gemm(lhs, rhs, gs, topo)
+
+
+@pytest.mark.cuda
+def test_data_collectives_on_card_match_the_cpu(cuda_device, tmp_path):
+    """Two gloo ranks on the one card: each data-axis collective on CUDA
+    tensors gives the bits the same call gives on CPU tensors."""
+    from tests import torch_dp_ranks, torch_tp_ranks
+    card = torch_tp_ranks.spawn(torch_dp_ranks.data_collectives_on_card,
+                                tmp_path=tmp_path / "card")
+    cpu = torch_tp_ranks.spawn(torch_dp_ranks.data_collectives, tmp_path=tmp_path / "cpu")
+    for got, want in zip(card, cpu):
+        assert got.keys() == want.keys()
+        for key, value in want.items():
+            if key.startswith("gather_into"):
+                assert got[key][0] and value[0]
+                torch.testing.assert_close(got[key][1], value[1], rtol=0, atol=0)
+            elif isinstance(value, torch.Tensor):
+                assert got[key].dtype == value.dtype, key
+                torch.testing.assert_close(got[key], value, rtol=0, atol=0, msg=key)
+            elif key != "stats":
+                assert got[key] == value, key

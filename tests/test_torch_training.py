@@ -4,6 +4,10 @@ Losses, lr schedules, the fused Adam update, the loss scaler, gradient
 norms and clipping, the dataloader and the config's batch triangulation get
 the same numpy inputs in both packages and must agree to 1e-6 (the JAX side
 computes in f32; the port's schedules and scaler run in Python floats).
+The ZeRO pieces in one process: the norm over whole leaves and a rank's
+pieces (every collective the identity) against the JAX norm of the whole
+tree, the flat layout of `ZeroUnit` (pieces, padding, the reduce-scatter
+input and the gather's output) at dp = 2 and 3, and the ZeRO config keys.
 """
 
 import jax.numpy as jnp
@@ -241,3 +245,57 @@ def test_dataloader_matches_jax(drop_last):
     it = RepeatingLoader(DeepSpeedDataLoader(rows, batch_size=2, shuffle=False))
     got = [next(it) for _ in range(3)]
     np.testing.assert_array_equal(got[2], got[0])
+
+
+def test_grad_norm_over_pieces_matches_jax():
+    """In one process the pieces' all-reduce is the identity: whole leaves
+    and every piece of the sharded ones give the whole tree's norm."""
+    rng = np.random.default_rng(4)
+    grads = {"a": rng.standard_normal((4, 6)).astype(np.float32),
+             "b": rng.standard_normal(9).astype(np.float32)}
+    pieces = list(torch.from_numpy(grads["a"]).reshape(-1).chunk(3))
+    norm = precision.global_grad_norm([torch.from_numpy(grads["b"])], pieces)
+    ref = jax_precision.global_grad_norm({k: jnp.asarray(v) for k, v in grads.items()})
+    np.testing.assert_allclose(float(norm), float(ref), rtol=TOL)
+    grads_inf = [torch.ones(2), torch.tensor([float("inf")])]
+    assert precision.LossScaler.check_overflow(grads_inf, group="data")
+    assert not precision.LossScaler.check_overflow(grads_inf[:1], group="data")
+
+
+@pytest.mark.parametrize("dp", [2, 3])
+def test_zero_unit_flat_layout(dp):
+    """Leaf i's piece r is elements [r * p_i, (r + 1) * p_i) of the
+    flattened leaf (p_i = ceil(n_i / dp), zero-padded): each rank's
+    `piece_of` is tile r of `pack`, and `unpack` of the tiles in rank
+    order gives the leaves back."""
+    from deepspeed_tpu_torch.runtime.zero.partition import ZeroUnit
+    rng = np.random.default_rng(5)
+    leaves = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in ((4, 6), (7,), (1,), (3, 5))]
+    units = [ZeroUnit(["a", "b", "c", "d"], [t.shape for t in leaves], dp, r)
+             for r in range(dp)]
+    u = units[0]
+    assert u.pieces == [-(-t.numel() // dp) for t in leaves] and u.size == sum(u.pieces)
+    packed = u.pack(leaves, torch.float32, "cpu").view(dp, u.size)
+    tiles = [units[r].piece_of(leaves) for r in range(dp)]
+    for r in range(dp):
+        torch.testing.assert_close(tiles[r], packed[r], rtol=0, atol=0)
+        views = units[r].views(tiles[r])
+        for name, t, p in zip("abcd", leaves, u.pieces):
+            flat = torch.cat([t.reshape(-1), t.new_zeros(p * dp - t.numel())])
+            torch.testing.assert_close(views[name], flat[r * p:(r + 1) * p], rtol=0, atol=0)
+    for got, t in zip(u.unpack(torch.cat(tiles)), leaves):
+        torch.testing.assert_close(got, t, rtol=0, atol=0)
+    assert u.pack([None] * 4, torch.bfloat16, "cpu").abs().sum() == 0
+
+
+def test_zero_config_keys_match_jax():
+    from deepspeed_tpu.runtime.zero.config import DeepSpeedZeroConfig as JaxZeroConfig
+    from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+    for block in ({"stage": 3}, {"stage": 3, "stage3_param_persistence_threshold": 500},
+                  {"stage": 1, "stage3_param_persistence_threshold": 0}):
+        got, ref = DeepSpeedZeroConfig.from_dict(block), JaxZeroConfig(**block)
+        assert (got.stage, got.param_persistence_threshold) == \
+            (ref.stage, ref.param_persistence_threshold)
+    with pytest.raises(DeepSpeedConfigError):
+        DeepSpeedZeroConfig.from_dict({"stage": 3, "stage3_param_persistence_threshold": -1})
