@@ -137,16 +137,48 @@
    taking its half of 9's batch (micro-batch 2 a rank, GAS 2: the same
    global batch), through `initialize` → `train_batch` under ZeRO stages
    0, 1, 2 and 3 in turn (bf16, clipping 1.0, FusedAdam, remat on), two
-   steps each: after every step both ranks' parameters (stage 3: gathered)
-   have the same SHA-256; the first step's loss and pre-clip grad norm
-   match 9's first `train_batch` within TRAIN_REF_LOSS_RTOL and
+   steps each: after every step both ranks' parameters (stage 3:
+   gathered) have the same digest (`param_digest`, summed on the card); the
+   first step's loss and pre-clip grad norm match 9's first `train_batch`
+   within TRAIN_REF_LOSS_RTOL and
    TRAIN_REF_NORM_RTOL, and a control (one rank on rank 0's rows alone)
    must miss the norm bound; the loss falls; each rank's K1 launches
    equal 9's per step and no other kernel launches; the peak memory per
    rank orders stage 3 < stage 1 <= stage 0 and stage 3 <= 0.6 x stage 0.
    Step seconds, tokens/s, and gloo's seconds and bytes a step by
-   collective kind are reported;
-10. prints one JSON line of kernels, then the result line.
+   collective kind are reported. After stage 3's first step each rank
+   saves its part of a checkpoint (`save_checkpoint`; the bytes each rank
+   wrote and the seconds reported); a fresh engine on each rank, from
+   other weights, loads it and takes the second step again, bitwise the
+   uninterrupted one (loss, grad norm, digest); this process loads the
+   save at dp = 1 and takes that step on the whole batch, within
+   TRAIN_REF_LOSS_RTOL and TRAIN_REF_NORM_RTOL of the ranks';
+9f. checkpoints llama-1b on one rank (`train_checkpoint`, right after 9,
+   on 9's engine after its steps): `save_checkpoint` (~15.4 GB), CKPT_STEPS
+   more steps; `zero_to_fp32` of the save equals the master at the save
+   (digest); a fresh engine from other weights loads it and takes the same
+   steps, losses, grad norms and parameter digest bitwise equal, with K1's
+   launches of 9's steps; the control, a step of the fresh engine before
+   the load, must differ. Save and load seconds and GB/s are reported (the
+   load reads files written a moment before: warm). The free disk space is
+   checked first against the engine's state bytes, and the files are
+   deleted afterwards;
+9g. trains Qwen1.5-MoE-A2.7B at full width and MOE_DP_LAYERS layer
+   data-parallel over dp = 2 (`train_moe_zero`, after 9b): two ranks on
+   the one card over gloo, as 9e, each on its half of a global batch of
+   4 x 2048 tokens (micro-batch 2, GAS 1), one step under each of ZeRO
+   0-3 with `dispatch_impl="gmm"` (K6, dlhs, drhs and K1 counted on each
+   rank) and one at stage 2 with `auto` (the ragged buffer); the gate routes
+   the global batch (its capacity, places and aux loss from both ranks'
+   counts). Both ranks' parameter digests equal; the loss and the aux loss
+   within TRAIN_REF_LOSS_RTOL and the grad norm within TRAIN_REF_NORM_RTOL
+   of the one-rank step on the same global batch, beside the routing-flip
+   share; the global count of dropped assignments equal to the one-rank
+   step's (or within 2k per flipped token); the control, one rank on rank
+   0's rows alone, must miss the norm bound. Peak memory, step seconds,
+   launches and gloo's seconds and bytes a step by kind, per rank;
+10. prints one JSON line of kernels (with each training path's launches a
+   `train_batch` beside K1's and K6's rows), then the result line.
 
 Any failure raises and exits non-zero. Without a CUDA device it exits
 non-zero before printing a result. Details go to chiprun_out/chip_smoke.json.
@@ -231,6 +263,9 @@ K3_NAME = ("paged_decode_attention", "::paged_decode_kernel<")
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+# checkpoints of the training phases, written here (gitignored) and
+# deleted after each phase; a phase checks the free space first
+CKPT_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_checkpoints"
 # v2 serving: the JAX package's on-chip fastgen row (bench.py), paged cache
 # of 96 blocks x 256 tokens (3.2 GB at Llama-3-8B), 64 sequence rows
 BS, T, NB = 256, 4, 96
@@ -295,6 +330,28 @@ MOE_TRAIN_CONFIG = {"train_micro_batch_size_per_gpu": MOE_MBS,
                     "gradient_clipping": 1.0,
                     "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}},
                     "zero_optimization": {"stage": 3}}
+# checkpoints (`train_checkpoint`): `train`'s engine saves (bf16 params 2.2
+# GB, f32 master 4.4 GB, moments 8.8 GB) and trains CKPT_STEPS more; a fresh
+# engine from other weights loads the save and takes the same steps bit for
+# bit. `train_zero` saves after ZERO_SAVE_STAGE's first step and resumes it
+# at dp = 2 (bitwise) and at dp = 1 in this process (TRAIN_REF_* bounds)
+CKPT_STEPS = 2
+ZERO_SAVE_STAGE = 3
+# MoE training across data ranks (`train_moe_zero`): Qwen1.5-MoE at full
+# width and 1 of its 24 layers (1.19e9 parameters: 311M embedding, 311M
+# head, ~570M in the layer; ~21.5 GB of engine state a rank at stage 0, so
+# that two ranks' whole states fit on the card; two layers, ~32 GB a rank,
+# would not with their activations), dp = 2 ranks on the one card over gloo,
+# micro-batch 2 a rank, GAS 1, sequence 2048: one step each of ZeRO 0-3 under
+# gmm and of stage 2 under auto, held against the one-rank step on the same
+# global batch (TRAIN_REF_LOSS_RTOL for the loss and the aux loss,
+# TRAIN_REF_NORM_RTOL for the norm), beside the routing-flip share; a control
+# (one rank on rank 0's rows alone) must miss
+MOE_DP_LAYERS = 1
+MOE_DP_MBS = 2
+MOE_DP_RUNS = ((0, "gmm"), (1, "gmm"), (2, "gmm"), (3, "gmm"), (2, "auto"))
+MOE_DP_CONFIG = dict(MOE_TRAIN_CONFIG, train_micro_batch_size_per_gpu=MOE_DP_MBS,
+                     gradient_accumulation_steps=1)
 # 2-layer full-width Qwen1.5-MoE in bf16 on the card, gradients of one GAS
 # window through the grouped GEMM (K6 and its backward) against the ragged
 # buffer (cuBLAS batched products) on the same weights and tokens: both
@@ -2922,7 +2979,8 @@ def reference_bloom(report):
 def train(report):
     """The training main path: llama-1b at full width and depth, random
     bf16 weights, one warm-up and TRAIN_STEPS timed `train_batch` calls on
-    one fixed batch; launches counted over the timed calls."""
+    one fixed batch; launches counted over the timed calls. Returns them
+    and the engine, which `train_checkpoint` saves."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
     cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
@@ -2966,8 +3024,7 @@ def train(report):
     peak_tflops = acc.peak_tflops("bfloat16")
     mfu = tokens / step_s * flops_per_token / (peak_tflops * 1e12)
     report["train_profile"] = profile_train(engine, batch)
-    del engine, model, batch
-    torch.cuda.empty_cache()
+    del model
     report["train"] = dict(
         card=report["card"], model="llama-1b (TinyLlama-1.1B shapes, random bf16 weights, "
                                    f"seed {SEED + 30})",
@@ -2977,7 +3034,7 @@ def train(report):
         peak_tflops_datasheet=peak_tflops, mfu=mfu, peak_memory_bytes=peak,
         allocated_before_bytes=allocated_before,
         launches=launches, launches_per_train_batch=per_step)
-    return launches
+    return launches, engine
 
 
 def train_rows(cfg):
@@ -2997,21 +3054,23 @@ def rank_rows(rows, rank):
 def train_zero(report):
     """llama-1b at full width and depth trained over dp = 2 under ZeRO
     stages 0-3: two ranks (spawned processes) on the one card, joined by
-    gloo (module docstring, 9e). Then the control, in this process: one
-    rank on rank 0's rows alone, whose first-step grad norm must miss
+    gloo (module docstring, 9e). Then, in this process, the stage-3 save
+    resumed at dp = 1 (`zero_checkpoint`) and the control: one rank on rank
+    0's rows alone, whose first-step grad norm must miss
     TRAIN_REF_NORM_RTOL."""
     import tempfile
 
     import torch.multiprocessing as mp
     gc.collect()
     torch.cuda.empty_cache()
+    cfg = zero_model_config()
+    checkpoint_dir(f"train_zero_s{ZERO_SAVE_STAGE}", model_state_bytes(cfg))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         mp.start_processes(zero_rank, args=(free_port(), tmp), nprocs=DP, start_method="spawn")
         wall_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP)]
-    from deepspeed_tpu_torch.models.llama import llama_config
-    L = llama_config("llama-1b").num_hidden_layers
+    L = cfg.num_hidden_layers
     per_step = {"flash_attention_fwd": 2 * L * GAS,     # remat runs each forward again
                 "flash_attention_bwd_dq": L * GAS, "flash_attention_bwd_dkv": L * GAS}
     ref_loss, ref_norm = TRAIN_REFS["loss"], TRAIN_REFS["grad_norm"]
@@ -3033,6 +3092,7 @@ def train_zero(report):
                              first_step_grad_norm_rel_err=norm_err)
     for r in ranks:
         assert r["kernel_fallbacks"] == [], r["kernel_fallbacks"]
+    checkpoint = zero_checkpoint(ranks)
     peak = {s: max(r["stages"][s]["peak_memory_bytes"] for r in ranks) for s in ZERO_STAGES}
     assert peak[3] <= ZERO_PEAK_RATIO * peak[0] and peak[3] < peak[1] <= peak[0], peak
     control = zero_control()
@@ -3062,12 +3122,57 @@ def train_zero(report):
         control=dict(control, grad_norm_rel_err=control_err,
                      what="one rank trained on rank 0's rows alone"),
         launches_per_rank_per_train_batch=per_step,
+        checkpoint=dict(checkpoint, stage=ZERO_SAVE_STAGE),
         ranks=[dict(rank=r["rank"], device=r["device"], backend=r["backend"]) for r in ranks])
     log(f"train_zero: {DP} ranks sharing one card over gloo ({report['card']}): " + "; ".join(
         f"stage {s}: peak {peak[s] / 2**30:.2f} GiB a rank, step "
         f"{stages[s]['last_step_s']:.1f} s, gloo "
         f"{sum(v['seconds'] for v in stages[s]['gloo_per_step'].values()):.1f} s a step"
-        for s in ZERO_STAGES) + f"; control norm err {control_err:.3f}")
+        for s in ZERO_STAGES) + f"; control norm err {control_err:.3f}; stage "
+        f"{ZERO_SAVE_STAGE} save {checkpoint['save_s']:.1f} s, "
+        f"{[b / 1e9 for b in checkpoint['bytes_written']]} GB a rank, resumed at dp = 2 "
+        f"bitwise, loaded at dp = 1 in {checkpoint['resumed_at_dp1']['load_s']:.1f} s")
+
+
+def zero_checkpoint(ranks):
+    """ZERO_SAVE_STAGE's save: resumed at dp = 2 on each rank, bitwise the
+    uninterrupted step; resumed at dp = 1 here, on the whole batch, against
+    the ranks' step (TRAIN_REF_* bounds). Removes the save."""
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    cfg = zero_model_config()
+    per_rank = [r["stages"][ZERO_SAVE_STAGE] for r in ranks]
+    for r in per_rank:
+        c = r["checkpoint"]
+        want = {k: r["steps"][1][k] for k in ("loss", "grad_norm")}
+        assert c["resumed_step"] == want and c["resumed_digest"] == r["digests"][1], (c, want)
+    model = llama(cfg, SEED + 33)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
+                                                loss_fn=llama_loss_fn(model))
+    del model
+    root = CKPT_DIR / f"train_zero_s{ZERO_SAVE_STAGE}"
+    t0 = time.perf_counter()
+    engine.load_checkpoint(root)
+    load_s = time.perf_counter() - t0
+    loss = float(engine.train_batch(batch={"input_ids": train_rows(cfg)}))
+    norm = engine.get_global_grad_norm()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    ref = per_rank[0]["steps"][1]
+    loss_err = abs(loss - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(norm - ref["grad_norm"]) / abs(ref["grad_norm"])
+    assert loss_err <= TRAIN_REF_LOSS_RTOL and norm_err <= TRAIN_REF_NORM_RTOL, \
+        (loss_err, norm_err)
+    return dict(save_s=max(r["checkpoint"]["save_s"] for r in per_rank),
+                bytes_written=[r["checkpoint"]["bytes_written"] for r in per_rank],
+                resumed_at_dp2=dict(bitwise=True,
+                                    load_s=max(r["checkpoint"]["load_s"] for r in per_rank)),
+                resumed_at_dp1=dict(loss=loss, grad_norm=norm, loss_rel_err=loss_err,
+                                    grad_norm_rel_err=norm_err, load_s=load_s))
 
 
 def zero_rank(rank, port, tmp):
@@ -3103,24 +3208,43 @@ def zero_rank(rank, port, tmp):
 
 
 def param_digest(params) -> str:
-    """SHA-256 of the parameters' names and bytes, in order."""
+    """A digest of the parameters' names and bits, in order: SHA-256 of the
+    names and each tensor's `word_sum`, which the card computes (hashing
+    the bytes on the host took ~1.5 s a GB on the H100's machine)."""
     import hashlib
     h = hashlib.sha256()
     for name, p in params.items():
         h.update(name.encode())
-        h.update(p.detach().contiguous().cpu().view(torch.uint8).numpy())
+        h.update(str(word_sum(p)).encode())
     return h.hexdigest()
+
+
+def word_sum(t, chunk: int = 1 << 26) -> int:
+    """The sum, mod 2^64, of a tensor's 16- or 32-bit words times odd
+    multipliers that depend on each word's position, on the card. Integer
+    sums are exact in any order, and a change of one word always changes
+    the sum (its difference, under 2^33, times an odd number is not 0 mod
+    2^64)."""
+    words = t.detach().to("cuda").contiguous().view(-1)
+    words = words.view(torch.int16 if words.element_size() == 2 else torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=words.device)
+    for start in range(0, words.numel(), chunk):
+        w = words[start:start + chunk].to(torch.int64)
+        pos = torch.arange(start, start + w.numel(), dtype=torch.int64, device=w.device)
+        total += (w * ((pos * -7046029254386353131 + 1442695040888963407) | 1)).sum()
+    return int(total)
 
 
 def zero_stage(rank, stage):
     """ZERO_STEPS `train_batch` calls of llama-1b under one ZeRO stage on
     this rank's rows: losses, grad norms, step seconds, the parameters'
     digest after each step, the peak memory inside the steps, launches,
-    gloo's calls, bytes and seconds, and the elements of the rank's state."""
+    gloo's calls, bytes and seconds, and the elements of the rank's state;
+    at ZERO_SAVE_STAGE the save after the first step and its resumption."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm
-    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
-    cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    cfg = zero_model_config()
     config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS,
                   zero_optimization={"stage": stage})
     model = llama(cfg, SEED + 30)
@@ -3132,9 +3256,11 @@ def zero_stage(rank, stage):
     state_elements = {k: sum(t.numel() for t in tree.values()) for k, tree in (
         ("params", st.params), ("master", st.master), ("exp_avg", st.opt_state.exp_avg),
         ("grad_acc", st.grad_acc))}
-    steps, digests, peak, gloo = [], [], 0, {}
+    steps, digests, peak, gloo, saved = [], [], 0, {}, None
     zero_launches()
-    for _ in range(ZERO_STEPS):
+    for i in range(ZERO_STEPS):
+        if i == 1 and stage == ZERO_SAVE_STAGE:
+            saved = zero_save(engine, rank, stage)
         comm.reset_comm_stats()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3150,9 +3276,56 @@ def zero_stage(rank, stage):
                 acc[f] += v[f]
         digests.append(param_digest(engine.gathered_params()))
     launches = read_launches()
-    del engine, batch
-    return dict(steps=steps, digests=digests, peak_memory_bytes=peak, launches=launches,
-                comm=gloo, state_elements=state_elements)
+    del engine
+    out = dict(steps=steps, digests=digests, peak_memory_bytes=peak, launches=launches,
+               comm=gloo, state_elements=state_elements, checkpoint=saved)
+    if stage == ZERO_SAVE_STAGE:
+        out["checkpoint"].update(zero_resume(rank, stage, config, batch))
+    return out
+
+
+def zero_save(engine, rank, stage):
+    """This rank's part of a save after the stage's first step: seconds
+    and the bytes of the files this rank wrote."""
+    from deepspeed_tpu_torch.runtime.checkpointing import WHOLE_FILE, rank_file
+    root = CKPT_DIR / f"train_zero_s{stage}"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = engine.save_checkpoint(root)
+    save_s = time.perf_counter() - t0
+    mine = {rank_file(rank)} | ({WHOLE_FILE} if rank == 0 else set())
+    return dict(path=path, save_s=save_s, bytes_written=dir_bytes(path, mine))
+
+
+def zero_resume(rank, stage, config, batch):
+    """A fresh engine from other weights loads the stage's save and takes
+    its second step again: loss, grad norm, digest, load seconds."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = llama(zero_model_config(), SEED + 33)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                loss_fn=llama_loss_fn(model))
+    del model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.load_checkpoint(CKPT_DIR / f"train_zero_s{stage}")
+    load_s = time.perf_counter() - t0
+    loss = float(engine.train_batch(batch=batch))
+    out = dict(load_s=load_s, resumed_step=dict(loss=loss, grad_norm=engine.get_global_grad_norm()),
+               resumed_digest=param_digest(engine.gathered_params()))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    comm.barrier()
+    return out
+
+
+def zero_model_config():
+    from deepspeed_tpu_torch.models.llama import llama_config
+    return llama_config("llama-1b", remat=True, remat_policy="nothing")
 
 
 def zero_control():
@@ -3160,8 +3333,8 @@ def zero_control():
     on rank 0's rows alone, with the same config and weights; its first
     step's loss and pre-clip grad norm."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
-    cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    cfg = zero_model_config()
     model = llama(cfg, SEED + 30)
     engine, *_ = deepspeed_tpu_torch.initialize(
         model=model, loss_fn=llama_loss_fn(model),
@@ -3256,6 +3429,120 @@ def train_reference(report):
         remat_off_loss=gpu_off[0], remat_off_grad_norm=gpu_off[1],
         remat_loss_rel_err=remat_loss_err, remat_grad_norm_rel_err=remat_norm_err,
         launches_remat_on=remat_launches, launches_remat_off=off_launches)
+
+
+def checkpoint_dir(name, need_bytes):
+    """A fresh directory under CKPT_DIR for one phase's checkpoints; fails
+    with the free and the needed bytes when the disk holds too little."""
+    import shutil
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / name
+    shutil.rmtree(path, ignore_errors=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    if free < 1.2 * need_bytes:
+        raise RuntimeError(f"{name}: {free / 1e9:.1f} GB free under {CKPT_DIR}, the phase "
+                           f"writes {need_bytes / 1e9:.1f} GB")
+    return path
+
+
+def dir_bytes(path, names=None) -> int:
+    """Bytes of the files under `path` (only those named `names`)."""
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file() and (names is None or f.name in names))
+
+
+def tree_bytes(*trees) -> int:
+    return sum(t.numel() * t.element_size() for tree in trees if tree is not None
+               for t in tree.values())
+
+
+def model_state_bytes(cfg) -> int:
+    """The bytes of a bf16 llama engine's saved state at `cfg`: per
+    parameter its bf16 value, f32 master and two f32 Adam moments, with
+    the parameters counted on the meta device."""
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    return (2 + 4 + 4 + 4) * sum(p.numel() for p in
+                                 LlamaForCausalLM(cfg, device="meta").parameters())
+
+
+def train_checkpoint(report, first):
+    """llama-1b at full width and depth on one rank: `train`'s engine
+    (`first`, after its steps) saves, then takes CKPT_STEPS more steps on
+    `train`'s batch; a fresh engine from other weights loads the save and
+    takes the same steps, whose losses, grad norms and parameter digest
+    must equal the first engine's, with K1's launches of `train`'s steps;
+    the control, a step of the fresh engine before the load, must differ
+    (and the load must undo it). `zero_to_fp32` of the save must equal the
+    master at the save, bit for bit. Releases `first`."""
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
+    from deepspeed_tpu_torch.runtime.checkpointing import zero_to_fp32
+    cfg = llama_config("llama-1b", remat=True, remat_policy="nothing")
+    st = first.state
+    need = tree_bytes(st.params, st.master, st.opt_state.exp_avg, st.opt_state.exp_avg_sq)
+    root = checkpoint_dir("train_checkpoint", need + tree_bytes(st.master))   # + fp32.pt
+    batch = {"input_ids": train_rows(cfg)}
+
+    def steps(e, n):
+        return [(float(e.train_batch(batch=batch)), e.get_global_grad_norm()) for _ in range(n)]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    steps_before = first.global_steps
+    master = param_digest(first.state.master)
+    path, save_s = timed(lambda: first.save_checkpoint(root))
+    saved = dir_bytes(path)
+    want = steps(first, CKPT_STEPS)
+    want_digest = param_digest(first.state.params)
+    del first, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, fp32_s = timed(lambda: zero_to_fp32(root, root / "fp32.pt"))
+    fp32_digest = param_digest(torch.load(root / "fp32.pt", mmap=True, weights_only=True))
+    assert fp32_digest == master, "zero_to_fp32 is not the master at the save"
+    model = llama(cfg, SEED + 33)
+    resumed, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
+                                                 loss_fn=llama_loss_fn(model))
+    del model
+    missed = steps(resumed, 1)          # the control: the fresh engine before the load
+    _, load_s = timed(lambda: resumed.load_checkpoint(root))
+    zero_launches()
+    got = steps(resumed, CKPT_STEPS)
+    launches = read_launches()
+    got_digest = param_digest(resumed.state.params)
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)
+    L = cfg.num_hidden_layers
+    per_step = {"flash_attention_fwd": 2 * L * GAS, "flash_attention_bwd_dq": L * GAS,
+                "flash_attention_bwd_dkv": L * GAS}
+    assert got == want and got_digest == want_digest, (got, want)
+    assert launches == only(**{k: n * CKPT_STEPS for k, n in per_step.items()}), launches
+    assert missed[0] != want[0], (missed, want)
+    report["train_checkpoint"] = dict(
+        card=report["card"], model=f"llama-1b (`train`'s engine, random bf16 weights, seed "
+                                   f"{SEED + 30}; the resuming engine built from seed "
+                                   f"{SEED + 33})",
+        config=TRAIN_CONFIG, seq=SEQ, steps_before=steps_before, steps_after=want,
+        resumed_steps=got, bitwise=True, control_first_step=missed[0],
+        saved_bytes=saved, save_s=save_s, save_gb_per_s=saved / save_s / 1e9,
+        load_s=load_s, load_gb_per_s=saved / load_s / 1e9,
+        load_read="warm: the files were written by this process a moment before",
+        zero_to_fp32_s=fp32_s, zero_to_fp32_equals_master=True,
+        launches=launches, launches_per_train_batch=per_step)
+    log(f"train_checkpoint ({report['card']}): saved {saved / 1e9:.2f} GB in {save_s:.1f} s "
+        f"({saved / save_s / 1e9:.2f} GB/s), loaded in {load_s:.1f} s "
+        f"({saved / load_s / 1e9:.2f} GB/s, warm), zero_to_fp32 {fp32_s:.1f} s; resumed "
+        f"steps bitwise equal")
+    return launches
 
 
 def sparse_layout(kind, h, s, block):
@@ -3635,12 +3922,192 @@ def train_moe_reference(report):
         launches=launches)
 
 
+def moe_dp_model_config(dispatch):
+    from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config
+    return qwen2_moe_config(QWEN_MOE, num_hidden_layers=MOE_DP_LAYERS, dispatch_impl=dispatch,
+                            remat=True, remat_policy="nothing")
+
+
+def moe_dp_rows(rank=None):
+    """`train_moe_zero`'s global batch, DP x MOE_DP_MBS rows of MOE_SEQ
+    tokens, or rank `rank`'s rows of it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    rows = torch.randint(0, moe_dp_model_config("gmm").vocab_size, (DP * MOE_DP_MBS, MOE_SEQ),
+                         generator=gen, device="cuda")
+    return rows if rank is None else rows[rank * MOE_DP_MBS:(rank + 1) * MOE_DP_MBS]
+
+
+def moe_dp_step(config, dispatch, rows):
+    """One `train_batch` of the MOE_DP_LAYERS-layer Qwen1.5-MoE (random bf16
+    weights, seed SEED + 80) on `rows`: loss, aux loss, the global count of
+    dropped (token, slot) assignments, grad norm, step seconds, the peak
+    memory, launches, gloo's calls, bytes and seconds, the parameters'
+    digest and each router's top-k experts of this process's tokens."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM, qwen2_moe_loss_fn
+    cfg = moe_dp_model_config(dispatch)
+    model = moe_model(Qwen2MoeForCausalLM, cfg, SEED + 80)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                loss_fn=qwen2_moe_loss_fn(model))
+    del model
+    recorder = RoutingRecorder(engine.module)
+    seen, loss_fn = [], engine.loss_fn
+    tokens = engine.dp * rows.numel() * cfg.num_experts_per_tok   # the global assignments
+
+    def recording(module, batch, rng=None):
+        loss, aux = loss_fn(module, batch, rng)
+        seen.append((float(aux["moe_aux_loss"].detach()), float(aux["router_drop"].sum()) * tokens,
+                     [t.cpu() for t in recorder.take()]))
+        return loss, aux
+
+    engine.loss_fn = recording
+    comm.reset_comm_stats()
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(engine.train_batch(batch={"input_ids": rows}))
+    torch.cuda.synchronize()
+    out = dict(loss=loss, aux_loss=float(np.mean([a for a, _, _ in seen])),
+               dropped=round(sum(d for _, d, _ in seen)), grad_norm=engine.get_global_grad_norm(),
+               step_s=time.perf_counter() - t0, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches=read_launches(), comm=comm.comm_stats(),
+               digest=param_digest(engine.gathered_params()),
+               routing=[r for _, _, r in seen])
+    recorder.remove()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_moe_zero(report):
+    """Qwen1.5-MoE at full width and MOE_DP_LAYERS layer trained over dp = 2
+    (`moe_zero_rank`, two spawned ranks on the one card over gloo), one
+    step of each of MOE_DP_RUNS, against the one-rank step on the same
+    global batch (module docstring, 9g), and the control: one rank on rank
+    0's rows alone."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = dict(MOE_DP_CONFIG, train_micro_batch_size_per_gpu=DP * MOE_DP_MBS,
+               zero_optimization={"stage": 0})
+    ref = moe_dp_step(one, "gmm", moe_dp_rows())
+    control = moe_dp_step(dict(one, train_micro_batch_size_per_gpu=MOE_DP_MBS), "gmm",
+                          moe_dp_rows(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(moe_zero_rank, args=(free_port(), tmp), nprocs=DP,
+                           start_method="spawn")
+        wall_s = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP)]
+    L, k = MOE_DP_LAYERS, moe_dp_model_config("gmm").num_experts_per_tok
+    # remat runs each block's forward again in backward: K6 and K1-fwd twice
+    gmm = {"grouped_gemm": 2 * 3 * L, "grouped_gemm_dlhs": 3 * L, "grouped_gemm_drhs": 3 * L,
+           "flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+           "flash_attention_bwd_dkv": L}
+    ragged = {n: c for n, c in gmm.items() if n.startswith("flash")}
+    assert ref["launches"] == only(**gmm), ref["launches"]
+    runs = {}
+    for (stage, dispatch), r0, r1 in zip(MOE_DP_RUNS, *(r["runs"] for r in ranks)):
+        assert r0["digest"] == r1["digest"], (stage, dispatch)
+        assert r0["loss"] == r1["loss"] and r0["dropped"] == r1["dropped"], (stage, dispatch)
+        routing = [torch.cat([a, b]) for a, b in zip(r0["routing"][0], r1["routing"][0])]
+        flips = flip_share(routing, ref["routing"][0])
+        flipped = round(flips * ref["routing"][0][0].shape[0] * L)
+        errs = dict(loss=abs(r0["loss"] - ref["loss"]) / abs(ref["loss"]),
+                    aux_loss=abs(r0["aux_loss"] - ref["aux_loss"]) / abs(ref["aux_loss"]),
+                    grad_norm=abs(r0["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"]))
+        assert errs["loss"] <= TRAIN_REF_LOSS_RTOL and errs["aux_loss"] <= TRAIN_REF_LOSS_RTOL \
+            and errs["grad_norm"] <= TRAIN_REF_NORM_RTOL, (stage, dispatch, errs, flips)
+        # a flipped token moves at most its k assignments between experts
+        assert abs(r0["dropped"] - ref["dropped"]) <= 2 * k * flipped, \
+            (stage, dispatch, r0["dropped"], ref["dropped"], flips)
+        want = gmm if dispatch == "gmm" else ragged
+        for r in (r0, r1):
+            assert r["launches"] == only(**want), (stage, dispatch, r["launches"])
+        runs[f"stage{stage}_{dispatch}"] = dict(
+            rel_err=errs, routing_flip_share=flips, dropped=r0["dropped"],
+            dropped_one_rank=ref["dropped"], loss=r0["loss"], aux_loss=r0["aux_loss"],
+            grad_norm=r0["grad_norm"], step_s=max(r0["step_s"], r1["step_s"]),
+            peak_memory_bytes_per_rank=[r0["peak_memory_bytes"], r1["peak_memory_bytes"]],
+            launches_per_rank=[r0["launches"], r1["launches"]],
+            gloo_per_step={kind: {f: v[f] for f in ("calls", "bytes", "seconds")}
+                           for kind, v in r0["comm"].items()})
+    for r in ranks:
+        assert r["kernel_fallbacks"] == [], r["kernel_fallbacks"]
+    control_err = abs(control["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    assert control_err > TRAIN_REF_NORM_RTOL, (control_err, control["grad_norm"])
+    drop = lambda r: {x: r[x] for x in ("loss", "aux_loss", "dropped", "grad_norm", "step_s",
+                                        "peak_memory_bytes", "launches")}
+    report["train_moe_zero"] = dict(
+        card=report["card"], model=f"{QWEN_MOE} at {L} of 24 layers (random bf16 weights, "
+                                   f"seed {SEED + 80}) over dp={DP}",
+        setup=f"{DP} ranks, one process each, sharing one card over gloo: the collectives "
+              "stage through the host and the ranks share the card's compute, so these "
+              "times are not a data-parallel speed",
+        config=MOE_DP_CONFIG, seq=MOE_SEQ, global_rows=DP * MOE_DP_MBS, wall_s=wall_s,
+        one_rank=drop(ref), runs=runs,
+        control=dict(drop(control), grad_norm_rel_err=control_err,
+                     what="one rank trained on rank 0's rows alone"),
+        launches_per_rank_per_train_batch=dict(gmm=gmm, auto=ragged))
+    log(f"train_moe_zero: {DP} ranks sharing one card over gloo ({report['card']}): " +
+        "; ".join(f"{name}: step {v['step_s']:.1f} s, peak "
+                  f"{max(v['peak_memory_bytes_per_rank']) / 2**30:.2f} GiB a rank, loss err "
+                  f"{v['rel_err']['loss']:.1e}, norm err {v['rel_err']['grad_norm']:.1e}, flips "
+                  f"{v['routing_flip_share']:.4f}, dropped {v['dropped']} "
+                  f"({v['dropped_one_rank']} on one rank)" for name, v in runs.items()) +
+        f"; control norm err {control_err:.3f}")
+    return runs
+
+
+def moe_zero_rank(rank, port, tmp):
+    """One rank of `train_moe_zero`: joins the gloo group and takes one
+    step of each of MOE_DP_RUNS on its rows."""
+    import datetime
+    import logging
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils.logging import logger
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=DP,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    fallbacks = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: fallbacks.append(rec.getMessage()) \
+        if "kernel_fallback" in rec.getMessage() else None
+    logger.addHandler(handler)
+    try:
+        runs = [moe_dp_step(dict(MOE_DP_CONFIG, zero_optimization={"stage": stage}), dispatch,
+                            moe_dp_rows(rank))
+                for stage, dispatch in MOE_DP_RUNS]
+        torch.save(dict(rank=rank, runs=runs, kernel_fallbacks=fallbacks), f"{tmp}/rank{rank}.pt")
+        comm.barrier()
+    finally:
+        logger.removeHandler(handler)
+        comm.destroy_process_group()
+
+
 def kernel_row(name, source, replaces, launches, check):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches,
                 **{k: check[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
                 **{k: check[k] for k in ("device_ms", "library_device_ms") if k in check})
+
+
+def phase(report, fn, *args):
+    """`fn(report, *args)`, its seconds kept in report["phase_s"] and
+    printed."""
+    t0 = time.perf_counter()
+    out = fn(report, *args)
+    seconds = time.perf_counter() - t0
+    report.setdefault("phase_s", {})[fn.__name__] = seconds
+    print(f"phase {fn.__name__}: {seconds:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3746,39 +4213,42 @@ def main() -> int:
                 + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi
                 + list(sharded.values()) + sharded_gmm):
         print(json.dumps(row), flush=True)
-    sparse_launches = sparse_path(report)
+    sparse_launches = phase(report, sparse_path)
 
     from deepspeed_tpu_torch.models.llama import llama_config
     model = llama(llama_config("llama3-8b"), SEED)
-    v1_launches = serve(report, model)
-    v2_launches, _ = serve_v2(report, model)
-    serve_v2_shared(report, model)
-    kv_int8_launches, v2_int8_launches = serve_kv_int8(report, model)
-    int8_launches = serve_int8(report, model)     # releases the model's weights
+    v1_launches = phase(report, serve, model)
+    v2_launches, _ = phase(report, serve_v2, model)
+    phase(report, serve_v2_shared, model)
+    kv_int8_launches, v2_int8_launches = phase(report, serve_kv_int8, model)
+    int8_launches = phase(report, serve_int8, model)     # releases the model's weights
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    tp = serve_tp(report)
-    reference(report)
-    reference_int8(report)
-    bloom_launches = serve_bloom(report)
-    serve_bloom_slot(report)
-    reference_bloom(report)
-    moe_launches = serve_moe(report)
-    reference_moe(report)
-    ep = serve_ep(report)
-    train_launches = train(report)
-    train_reference(report)
-    train_zero(report)
-    moe_train_launches = train_moe(report)
-    train_moe_reference(report)
+    tp = phase(report, serve_tp)
+    phase(report, reference)
+    phase(report, reference_int8)
+    bloom_launches = phase(report, serve_bloom)
+    phase(report, serve_bloom_slot)
+    phase(report, reference_bloom)
+    moe_launches = phase(report, serve_moe)
+    phase(report, reference_moe)
+    ep = phase(report, serve_ep)
+    train_launches, engine = phase(report, train)
+    checkpoint_launches = phase(report, train_checkpoint, engine)
+    del engine
+    phase(report, train_reference)
+    phase(report, train_zero)
+    moe_train_launches = phase(report, train_moe)
+    phase(report, train_moe_reference)
+    moe_zero = phase(report, train_moe_zero)
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
                 "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
-                "serve_ep", "reference_ep", "train_zero"):
+                "serve_ep", "reference_ep", "train_zero", "train_checkpoint", "train_moe_zero"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -3876,6 +4346,27 @@ def main() -> int:
                    "deepspeed_tpu/ops/pallas/grouped_gemm.py:88",
                    ep["launches"]["sharded_grouped_gemm"], sharded_gmm[0]),
     ]
+    # the training paths beyond the main one: per train_batch of
+    # `train_checkpoint`'s resumed engine, and of each rank of
+    # `train_zero` and `train_moe_zero` (rank 0, the stage 0 gmm run)
+    zero_per_step = report["train_zero"]["launches_per_rank_per_train_batch"]
+    moe_zero_runs = moe_zero["stage0_gmm"]["launches_per_rank"][0]
+    for row in kernels:
+        name = row["name"].replace("_training_shape", "")
+        paths = {}
+        if row["name"] in ("flash_attention_fwd_training_shape", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv"):
+            paths = dict(train=train_launches[name] // TRAIN_STEPS,
+                         train_checkpoint=checkpoint_launches[name] // CKPT_STEPS,
+                         train_zero_rank=zero_per_step[name],
+                         train_moe_zero_rank=moe_zero_runs[name])
+        elif row["name"] in ("grouped_gemm", "grouped_gemm_bwd_dlhs", "grouped_gemm_bwd_drhs"):
+            key = {"grouped_gemm_bwd_dlhs": "grouped_gemm_dlhs",
+                   "grouped_gemm_bwd_drhs": "grouped_gemm_drhs"}.get(name, name)
+            paths = dict(train_moe=moe_train_launches[key] // MOE_STEPS,
+                         train_moe_zero_rank=moe_zero_runs[key])
+        if paths:
+            row["launches_per_train_batch_by_path"] = paths
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -10,8 +10,11 @@ serves through both engines; the MoE families (`models/qwen2_moe.py`,
 block-sparse attention. Hand-written kernels: flash attention (forward and
 backward), decode and paged attention (the paged kernels with alibi too),
 the int8 dequant-GEMM, the grouped expert GEMM (forward and backward) and
-block-sparse attention. Llama trains data-parallel over several ranks
-with ZeRO stages 0-3 (`init_distributed`, then `initialize`). Llama
+block-sparse attention. Llama and the MoE families train data-parallel
+over several ranks with ZeRO stages 0-3 (`init_distributed`, then
+`initialize`), and a run saves and resumes at any number of data ranks
+(`engine.save_checkpoint`/`load_checkpoint`, `runtime/checkpointing.py`;
+universal and reference-checkpoint files in `checkpoint/`). Llama
 serves tensor-parallel over several ranks
 (`init_distributed`, `tensor_parallel={"tp_size": N}`), each rank running
 the kernels on its shard, and the MoE families serve expert-parallel

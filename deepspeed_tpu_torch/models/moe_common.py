@@ -22,7 +22,11 @@ hold (the JAX `remat_policy="nothing"`; other policies raise). A block
 returns its MoE layer's aux loss and telemetry as outputs, so the ones the
 loss uses are those of the forward, not of the recompute; and the noisy
 gate's uniforms (`gate_rng`, a `torch.Generator`) are drawn before each
-block, so the recompute routes as the forward did.
+block, so the recompute routes as the forward did. Under ZeRO stage 3 each
+block runs on its gathered parameters inside the checkpoint (so the
+recompute gathers again) and the forward on the root's
+(`runtime/zero/partition.gathered`), as Llama's does; over dp data ranks
+the gate routes the global batch (`moe/sharded_moe.py`).
 
 Expert parallelism (serving only): built with `ep_size` > 1 and `ep_rank`,
 every MoE layer holds that rank's E/ep experts of each stack and the rest
@@ -63,6 +67,14 @@ from deepspeed_tpu_torch.models.llama import (  # noqa: F401 (to_jax_params: for
 )
 from deepspeed_tpu_torch.ops.attention import rope_cos_sin
 from deepspeed_tpu_torch.runtime.config_utils import unported
+from deepspeed_tpu_torch.runtime.zero.partition import gathered
+
+
+def _block(layer, h, cos_sin, noise):
+    """One decoder block's uncached call on its whole parameters
+    (gathered at stage 3)."""
+    with gathered(layer):
+        return layer(h, cos_sin, None, noise)
 
 
 class MoeForCausalLM(nn.Module):
@@ -74,6 +86,8 @@ class MoeForCausalLM(nn.Module):
     `self.layers` from their block, which exposes its MoE layer as
     `moe`; `ep_size`/`ep_rank` build one expert rank's shard (module
     docstring)."""
+
+    zero3_gathers = True    # the forward gathers ZeRO-3 units (`gathered`)
 
     def __init__(self, cfg, block_cls, device=None, dtype=torch.float32,
                  ep_size: int = 1, ep_rank: int = 0):
@@ -100,6 +114,10 @@ class MoeForCausalLM(nn.Module):
     def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None,
                 gate_rng: Optional[torch.Generator] = None):
+        with gathered(self):
+            return self._forward(input_ids, cache, logits_at, labels, gate_rng)
+
+    def _forward(self, input_ids, cache, logits_at, labels, gate_rng):
         cfg = self.cfg
         h = F.embedding(input_ids, self.embed_tokens.to(cfg.dtype))
         if cache is not None:
@@ -127,9 +145,9 @@ class MoeForCausalLM(nn.Module):
         for layer in self.layers:
             noise = layer.moe.draw_gate_noise(b * s, gate_rng)
             if remat:
-                h, aux = checkpoint(layer, h, (cos, sin), None, noise, use_reentrant=False)
+                h, aux = checkpoint(_block, layer, h, (cos, sin), noise, use_reentrant=False)
             else:
-                h, aux = layer(h, (cos, sin), None, noise)
+                h, aux = _block(layer, h, (cos, sin), noise)
             l_aux.append(aux[0])
             loads.append(aux[1])
             drops.append(aux[2])

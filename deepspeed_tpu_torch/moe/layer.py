@@ -33,7 +33,10 @@ capacity cut; after it on the einsum path, as in JAX), and `router_drop`
 right after the call and return them, so that a recomputed block
 (`torch.utils.checkpoint`) cannot replace the ones the loss uses. In
 training, the grouped GEMM is differentiable (`ops/cuda/grouped_gemm.py`,
-K6 and its backward kernels). Not ported: training under expert
+K6 and its backward kernels). Over dp > 1 data ranks each rank runs its
+own rows through the gate's global decisions (`sharded_moe.py`) and any
+dispatch, the grouped GEMM on its rows; `l_aux`, `router_load` and
+`router_drop` are the global batch's. Not ported: training under expert
 parallelism (ROADMAP.md, Queue 1, 'Multi-GPU') and the PR-MoE residual
 expert (`use_residual`, Queue 1, 'MoE: the rest').
 """
@@ -47,12 +50,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch.moe.sharded_moe import (
-    _gating_core,
+    _route,
+    combine_weights,
+    data_ranks,
     dispatch_combine,
     dispatch_combine_gmm,
     dispatch_combine_ragged,
     gate_noise,
-    topkgating,
 )
 from deepspeed_tpu_torch.ops.cuda.grouped_gemm import grouped_gemm, sharded_grouped_gemm
 from deepspeed_tpu_torch.ops.cuda.sharded import kernel_fallback, serving_mesh
@@ -81,13 +85,14 @@ def _installed_topology() -> Optional["groups.MeshTopology"]:
 
 def gmm_mesh(num_experts: int) -> Tuple[Optional["groups.MeshTopology"], int]:
     """Where the grouped GEMM may run under the installed topology (the
-    JAX `_gmm_mesh`): (None, 1) with every axis trivial, the kernel
-    unsharded; (topology, ep) on a pure `expert` topology with E % ep == 0,
-    K8-e; (None, 0) on any other partitioned topology, where `auto` takes
-    the ragged buffer and a forced `gmm` calls `kernel_fallback`."""
+    JAX `_gmm_mesh`): (None, 1) with every axis trivial or only `data`
+    nontrivial, the kernel unsharded on the rank's rows; (topology, ep) on
+    a pure `expert` topology with E % ep == 0, K8-e; (None, 0) on any other
+    partitioned topology, where `auto` takes the ragged buffer and a forced
+    `gmm` calls `kernel_fallback`."""
     topo = _installed_topology()
-    if topo is None or topo.world_size == 1:
-        return None, 1
+    if topo is None or topo.world_size == 1 or serving_mesh("data")[0] is not None:
+        return None, 1      # a data rank runs the kernel on its own rows
     mesh, ep = serving_mesh("expert")
     if mesh is not None and ep > 1 and num_experts % ep == 0:
         return mesh, ep
@@ -203,23 +208,18 @@ class TopKGate(nn.Module):
         nn.init.normal_(self.wg, std=0.02)
 
     def forward(self, x: torch.Tensor, train: bool = True,
-                noise_rng: Optional[torch.Generator] = None, ragged: bool = False,
-                drop_tokens: Optional[bool] = None, noise: Optional[torch.Tensor] = None):
-        """x (T, D). `ragged` gives the index form (l_aux, gate_k, topk_idx,
-        pos_k, kept, cap), else (l_aux, combine, dispatch, cap).
-        `drop_tokens` overrides the gate's own setting for this call;
-        `noise` gives the RSample uniforms (T, E) instead of `noise_rng`."""
+                noise_rng: Optional[torch.Generator] = None, drop_tokens: Optional[bool] = None,
+                noise: Optional[torch.Tensor] = None):
+        """x (T, D) → `sharded_moe._route`'s decisions (l_aux, gate_k,
+        topk_idx, pos_k, kept, masks, cap, load). `drop_tokens` overrides
+        the gate's own setting for this call; `noise` gives the RSample
+        uniforms (T, E) instead of `noise_rng`."""
         logits = x.float() @ self.wg.float()
         cf = self.capacity_factor if train else self.eval_capacity_factor
         policy = self.noisy_gate_policy if train else None
         drop = self.drop_tokens if drop_tokens is None else drop_tokens
-        if ragged:
-            l_aux, gate_k, topk_idx, pos_k, kept, _, cap = _gating_core(
-                logits, self.k, cf, self.min_capacity, drop, noise_rng, policy,
-                self.norm_topk_prob, noise)
-            return l_aux, gate_k, topk_idx, pos_k, kept, cap
-        return topkgating(logits, self.k, cf, self.min_capacity, drop, noise_rng,
-                          policy, self.norm_topk_prob, noise)
+        return _route(logits, self.k, cf, self.min_capacity, drop, noise_rng, policy,
+                      self.norm_topk_prob, noise)
 
 
 class MoE(nn.Module):
@@ -291,28 +291,27 @@ class MoE(nn.Module):
         if impl != choose_dispatch(self.dispatch_impl, train, rows):
             kernel_fallback("grouped_gemm", "auto would pick gmm but the topology is not "
                             "trivial or pure expert-parallel; using ragged dispatch", x.device)
-        assignments = float(b * s * self.k)
+        if gate_noise is None and train and noise_rng is not None:
+            gate_noise = self.draw_gate_noise(b * s, noise_rng)
+        l_aux, gate_k, topk_idx, pos_k, kept, masks, cap, load = self.gate(
+            x, train, drop_tokens=drop_tokens, noise=gate_noise)
+        # the telemetry over the global batch's assignments: an expert keeps
+        # min(load, cap) of its own, since its places run 0, 1, ... in order
+        assignments = float(b * s * self.k * data_ranks()[0])
+        kept_load = torch.clamp(load, max=cap)
+        router_drop = 1.0 - kept_load.sum() / assignments
         if impl == "einsum":
-            l_aux, combine, dispatch, _ = self.gate(x, train, noise_rng,
-                                                    drop_tokens=drop_tokens, noise=gate_noise)
-            out = dispatch_combine(x, combine, dispatch, self.experts)
-            # only the post-capacity dispatch mask is at hand: its load is
-            # post-drop (sums to 1 - drop), as in the JAX layer
-            d32 = dispatch.detach().float()
-            router_load = d32.sum(dim=(0, 2)) / assignments
-            router_drop = 1.0 - d32.sum() / assignments
+            combine = combine_weights(gate_k, masks, pos_k, cap)
+            out = dispatch_combine(x, combine, combine > 0, self.experts)
+            # the JAX layer's load here is post-drop (sums to 1 - drop)
+            router_load = kept_load / assignments
         else:
-            l_aux, gate_k, topk_idx, pos_k, kept, cap = self.gate(
-                x, train, noise_rng, ragged=True, drop_tokens=drop_tokens, noise=gate_noise)
             if impl == "gmm":
                 out = dispatch_combine_gmm(x, gate_k, topk_idx, self.num_experts,
                                            self.experts)
             else:
                 out = dispatch_combine_ragged(x, gate_k, topk_idx, pos_k, kept, cap,
                                               self.num_experts, self.experts)
-            flat = topk_idx.reshape(-1)
-            router_load = torch.zeros(self.num_experts, device=x.device).scatter_add_(
-                0, flat, torch.ones(flat.shape, device=x.device)) / assignments
-            router_drop = 1.0 - kept.detach().float().sum() / assignments
+            router_load = load / assignments
         self.l_aux, self.router_load, self.router_drop = l_aux, router_load, router_drop
         return out.reshape(b, s, d)

@@ -19,6 +19,23 @@ as at ep = 1, on the same bits. Token-sharded dense layers with an
 all-to-all (the reference's `_AllToAll`) are not ported (ROADMAP.md,
 Queue 1, 'Multi-GPU').
 
+Data parallelism: under GSPMD the JAX gate sees the global token axis,
+the data ranks' rows in rank order. Over dp > 1 data ranks (a process
+group up, the installed topology's `data` axis) each rank gates its own
+rows with the global batch's decisions (`_route`): one all-gather over
+`data` of each rank's per-slot, per-expert counts (k, E) and its gate
+probabilities summed over its tokens gives the capacity from the global
+token count, each token's place in its expert's k-major order (the earlier
+slots' global totals, then the lower ranks' counts in its slot, then its
+own rows' cumsum), `me` and `ce` as global means, and the router telemetry
+as global shares. The dispatch buffers stay local. Each rank adds the same
+global `l_aux`, and the engine averages the ranks' gradients, so the
+backward of a rank's probability sum is scaled by dp, as the cross
+entropy's label count is (`models/common.py`). The noisy gate's uniforms
+are drawn for the global batch from the generator every rank holds alike,
+each rank keeping its rows' (`gate_noise`): the ranks' draws differ, and
+dp = 2 draws what dp = 1 draws for the same batch.
+
 Nothing here reads a tensor back to the host: group sizes are built with
 `scatter_add_`, dropped slots go to a trash row, and `argsort` is stable,
 as JAX's is (`order // k` depends on it).
@@ -26,10 +43,12 @@ as JAX's is (`order // k` depends on it).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from deepspeed_tpu_torch import comm
 
 
 def _capacity(num_tokens: int, num_experts: int, capacity_factor: float,
@@ -46,28 +65,53 @@ def _top_k(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
+def data_ranks() -> Tuple[int, int]:
+    """(dp, this rank's `data` coordinate) where a process group is up and
+    the installed topology's `data` axis holds more than one rank, else
+    (1, 0): the ranks whose rows the gate routes together."""
+    from deepspeed_tpu_torch.utils import groups
+    if not comm.is_initialized():
+        return 1, 0
+    try:
+        topo = groups.get_topology(create_default=False)
+    except RuntimeError:
+        return 1, 0
+    dp = topo.axis_size("data")
+    return (dp, topo.coord("data")) if dp > 1 else (1, 0)
+
+
 def gate_noise(shape, generator: torch.Generator) -> torch.Tensor:
     """The uniform draws under `noisy_gate_policy="RSample"`'s Gumbel noise,
-    from `generator`, on its device."""
-    return torch.rand(shape, generator=generator, device=generator.device)
+    from `generator`, on its device: over dp data ranks, this rank's rows
+    of the draws for the global batch (module docstring)."""
+    dp, rank = data_ranks()
+    rows = shape[0]
+    u = torch.rand((rows * dp,) + tuple(shape[1:]), generator=generator,
+                   device=generator.device)
+    return u[rank * rows:(rank + 1) * rows]
 
 
-def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
-                 min_capacity: int, drop_tokens: bool,
-                 noise_rng: Optional[torch.Generator], noisy_gate_policy: Optional[str],
-                 norm_topk_prob: bool = True, noise: Optional[torch.Tensor] = None):
-    """Shared top-k decisions. Returns (l_aux, gate_k (T,k), topk_idx (T,k),
-    pos_k (T,k), kept (T,k), masks (T,k,E), cap). Under
-    `noisy_gate_policy="RSample"` the experts are chosen from the logits
-    plus Gumbel noise, -log(-log(u)), with u drawn from `noise_rng` (a torch
-    generator; its draws are not the JAX package's) or given as `noise`
-    (T, E), drawn beforehand (`gate_noise`); the gate weights and the aux
-    loss take the noiseless softmax, as in the JAX package. The JAX package
-    has no "Jitter" policy, and neither has the port: it is ignored."""
+def _route(logits: torch.Tensor, k: int, capacity_factor: float, min_capacity: int,
+           drop_tokens: bool, noise_rng: Optional[torch.Generator],
+           noisy_gate_policy: Optional[str], norm_topk_prob: bool = True,
+           noise: Optional[torch.Tensor] = None):
+    """The top-k decisions of this rank's tokens (T of the dp ranks' T·dp,
+    module docstring). Returns (l_aux, gate_k (T,k), topk_idx (T,k), pos_k
+    (T,k), kept (T,k), masks (T,k,E), cap, load (E,)), `load` the global
+    count of (token, slot) assignments to each expert before the capacity
+    cut. Under `noisy_gate_policy="RSample"` the experts are chosen from the
+    logits plus Gumbel noise, -log(-log(u)), with u drawn from `noise_rng`
+    (a torch generator; its draws are not the JAX package's) or given as
+    `noise` (T, E), drawn beforehand (`gate_noise`); the gate weights and the
+    aux loss take the noiseless softmax, as in the JAX package. The JAX
+    package has no "Jitter" policy, and neither has the port: it is
+    ignored."""
     t, e = logits.shape
-    cap = _capacity(t, e, capacity_factor, min_capacity, k)
+    dp, rank = data_ranks()
+    tokens = t * dp
+    cap = _capacity(tokens, e, capacity_factor, min_capacity, k)
     if not drop_tokens:
-        cap = t  # every token can fit
+        cap = tokens  # every token can fit
     gates = torch.softmax(logits.float(), dim=-1)
 
     select_from = logits
@@ -79,9 +123,24 @@ def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
     topk_idx = _top_k(select_from, k)                               # (T, k)
     masks = F.one_hot(topk_idx, e).float()                          # (T, k, E)
 
-    # load-balancing aux loss from the top-1 assignment
-    me = gates.mean(dim=0)
-    ce = masks[:, 0, :].mean(dim=0)
+    # load-balancing aux loss from the top-1 assignment, over the dp ranks'
+    # (k, E) counts and probability sums (at dp = 1, this rank's own)
+    mine = gates.sum(dim=0)
+    seen = torch.cat([masks.sum(dim=0), mine.detach()[None]])
+    if dp > 1:
+        seen = comm.all_gather(seen, group="data")
+    seen = seen.view(dp, k + 1, e)
+    counts = seen[:, :k]                                            # (dp, k, E)
+    # the global mean, whose backward is dp times this rank's share
+    me = (seen[:, k].sum(dim=0) + dp * (mine - mine.detach())) / tokens
+    slots = counts.sum(dim=0)                                       # (k, E)
+    ce = slots[0] / tokens
+    # this rank's offset in each (slot, expert) column: the earlier slots'
+    # global totals and the lower ranks' counts, less its own earlier slots
+    # (0 at dp = 1)
+    before = torch.cumsum(slots, dim=0) - slots
+    own = torch.cumsum(counts[rank], dim=0) - counts[rank]
+    offset = before + counts[:rank].sum(dim=0) - own
     l_aux = (me * ce).sum() * e
 
     # position of each token within its expert's capacity, ordered by k-slot
@@ -91,7 +150,7 @@ def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
     # HBM3 at 700 W)
     flat = masks.permute(2, 1, 0).reshape(e, k * t)
     pos_flat = torch.cumsum(flat, dim=1) - flat
-    pos = pos_flat.reshape(e, k, t).permute(2, 1, 0)                # (T, k, E)
+    pos = pos_flat.reshape(e, k, t).permute(2, 1, 0) + offset       # (T, k, E)
     masks = masks * (pos < cap).float()
 
     # combine weights: gate prob per selected expert, renormalized over kept
@@ -103,7 +162,24 @@ def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
         gate_k = gate_k / denom.clamp_min(1e-9)
 
     pos_k = (pos * masks).sum(dim=-1).to(torch.int32)               # (T, k)
-    return l_aux, gate_k, topk_idx, pos_k, kept, masks, cap
+    return l_aux, gate_k, topk_idx, pos_k, kept, masks, cap, slots.sum(dim=0)
+
+
+def _gating_core(logits: torch.Tensor, k: int, capacity_factor: float,
+                 min_capacity: int, drop_tokens: bool,
+                 noise_rng: Optional[torch.Generator], noisy_gate_policy: Optional[str],
+                 norm_topk_prob: bool = True, noise: Optional[torch.Tensor] = None):
+    """Shared top-k decisions (`_route` without the load): (l_aux, gate_k,
+    topk_idx, pos_k, kept, masks, cap)."""
+    return _route(logits, k, capacity_factor, min_capacity, drop_tokens, noise_rng,
+                  noisy_gate_policy, norm_topk_prob, noise)[:7]
+
+
+def combine_weights(gate_k: torch.Tensor, masks: torch.Tensor, pos_k: torch.Tensor,
+                    cap: int) -> torch.Tensor:
+    """The (T, E, C) combine weights of the one-hot path."""
+    loc = F.one_hot(pos_k.long(), cap).float()                      # (T, k, C)
+    return torch.einsum("tk,tke,tkc->tec", gate_k, masks, loc)
 
 
 def topkgating(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
@@ -116,8 +192,7 @@ def topkgating(logits: torch.Tensor, k: int, capacity_factor: float = 1.0,
     l_aux, gate_k, _, pos_k, _, masks, cap = _gating_core(
         logits, k, capacity_factor, min_capacity, drop_tokens, noise_rng,
         noisy_gate_policy, norm_topk_prob, noise)
-    loc = F.one_hot(pos_k.long(), cap).float()                      # (T, k, C)
-    combine = torch.einsum("tk,tke,tkc->tec", gate_k, masks, loc)
+    combine = combine_weights(gate_k, masks, pos_k, cap)
     return l_aux, combine, combine > 0, cap
 
 
@@ -149,7 +224,6 @@ def top2gating(logits, capacity_factor=1.0, min_capacity=8, drop_tokens=True,
 def _expert_outputs(expert_fn: Callable, expert_inputs: torch.Tensor) -> torch.Tensor:
     """`expert_fn` on the (E, C, D) buffer; an expert rank's slice
     (E/ep, C, D) is all-gathered over `expert` into the whole buffer."""
-    from deepspeed_tpu_torch import comm
     num_experts = expert_inputs.shape[0]
     out = expert_fn(expert_inputs)
     if out.shape[0] != num_experts:

@@ -11,6 +11,13 @@ offload and ZeRO++ (`runtime/zero/config.py`), parallel sizes above 1,
 pipeline, curriculum, telemetry, the monitors, the flops profiler, the
 comms logger and elasticity; 1-bit and the other unported optimizers raise
 in `ops/optimizers.build_optimizer`.
+
+The `checkpoint` block (`CheckpointConfig`): `tag_validation` ("Warn",
+"Fail" or "Ignore": what a save does when the data ranks' tags differ) and
+`load_universal` (`load_checkpoint` reads a universal folder,
+`checkpoint/ds_export.py`; also `load_universal_checkpoint`). Each rank
+writes its own files, so the JAX block's `use_node_local_storage` and
+`parallel_write` have nothing to change and are ignored, as there.
 """
 
 from __future__ import annotations
@@ -51,6 +58,12 @@ class BF16Config:
 class OptimizerConfig:
     type: str = "Adam"
     params: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class CheckpointConfig:
+    tag_validation: str = "Warn"
+    load_universal: bool = False
 
 
 @dataclasses.dataclass
@@ -133,6 +146,12 @@ class DeepSpeedConfig:
         self.gradient_clipping = float(pd.get(C.GRADIENT_CLIPPING, 0.0))
         self.seed = int(pd.get(C.SEED, 1234))
         self.dataloader_drop_last = bool(pd.get(C.DATALOADER_DROP_LAST, False))
+        self.checkpoint_config = from_dict(CheckpointConfig, pd.get(C.CHECKPOINT))
+        if self.checkpoint_config.tag_validation.lower() not in ("warn", "fail", "ignore"):
+            raise DeepSpeedConfigError(
+                f"checkpoint.tag_validation {self.checkpoint_config.tag_validation!r} is not "
+                "one of Warn, Fail, Ignore")
+        self.load_universal_checkpoint = bool(self.checkpoint_config.load_universal)
         self._resolve_batch_sizes(world_size)
 
     def _resolve_batch_sizes(self, world_size: Optional[int] = None):

@@ -18,6 +18,9 @@ BFLOAT16_OLD = "bfloat16"
 GRADIENT_CLIPPING = "gradient_clipping"
 ZERO_OPTIMIZATION = "zero_optimization"
 
+CHECKPOINT = "checkpoint"
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+
 SEED = "seed"
 DATALOADER_DROP_LAST = "dataloader_drop_last"
 

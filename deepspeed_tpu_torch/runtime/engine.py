@@ -38,11 +38,24 @@ whole. The causal-LM loss is the global batch's token mean
 `train_batch` returns it on every rank. Over one rank every stage is the
 identity and the engine keeps whole tensors. The state is updated in
 place; where the JAX step selects the old target and optimizer state on
-an overflow, this one does not call the optimizer. MoE models and
-tensor- or expert-parallel topologies do not train across data ranks yet
+an overflow, this one does not call the optimizer. The MoE families train
+across data ranks with their gate over the global batch
+(`moe/sharded_moe.py`), at every stage; stage 3 needs a model whose
+forward gathers its units (`zero3_gathers`: Llama and the MoE families,
+not BLOOM), and tensor- or expert-parallel topologies do not train
 (ROADMAP.md, Queue 1, 'Multi-GPU').
-Checkpointing, the telemetry `MetricsState`, the flops profiler, curriculum
-and offload are not ported; their config keys raise (`runtime/config.py`).
+
+Checkpoints: `save_checkpoint`, `load_checkpoint` and `save_16bit_model`,
+with the JAX engine's signatures (`runtime/checkpointing.py`). Each rank
+writes its own pieces and rank 0 the leaves whole on every rank; a load
+at any dp rebuilds each leaf and cuts this rank's pieces (`adopt_state`),
+and restores the counters (`micro_steps` seeds the per-micro generator),
+the loss scaler and the lr schedule, so a resumed run takes the steps of
+one that never stopped. The files are written through
+`runtime/checkpoint_engine.py`'s `TorchCheckpointEngine`, synced before
+`latest` names them.
+The telemetry `MetricsState`, the flops profiler, curriculum and offload
+are not ported; their config keys raise (`runtime/config.py`).
 """
 
 from __future__ import annotations
@@ -57,6 +70,7 @@ import torch
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.ops.optimizers import GradientTransformation, build_optimizer
+from deepspeed_tpu_torch.runtime import checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.config_utils import unported
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
@@ -68,7 +82,13 @@ from deepspeed_tpu_torch.runtime.precision import (
     clip_factor,
     global_grad_norm,
 )
-from deepspeed_tpu_torch.runtime.zero.partition import ZeroShardingPlan, ZeroUnit, model_units
+from deepspeed_tpu_torch.runtime.zero.partition import (
+    ZeroShardingPlan,
+    ZeroUnit,
+    flat_piece,
+    layout_record,
+    model_units,
+)
 from deepspeed_tpu_torch.utils import groups
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -151,12 +171,8 @@ class DeepSpeedEngine:
             raise ValueError(f"the config's data-parallel size {cfg.data_parallel_size} "
                              f"(world size {cfg.world_size}) is not the topology's "
                              f"data={self.dp}")
-        if self.dp == 1:
-            return
-        from deepspeed_tpu_torch.moe.layer import MoE
-        if any(isinstance(m, MoE) for m in model.modules()):
-            raise unported(f"MoE training under data parallelism (dp={self.dp})", "Multi-GPU")
-        if cfg.zero_config.stage == 3 and not getattr(model, "zero3_gathers", False):
+        if self.dp > 1 and cfg.zero_config.stage == 3 \
+                and not getattr(model, "zero3_gathers", False):
             raise unported(f"ZeRO stage 3 across data ranks with {type(model).__name__}",
                            "Multi-GPU")
 
@@ -175,6 +191,7 @@ class DeepSpeedEngine:
             self.module.load_jax_params(model_parameters)
         self.module.to(device=self.device, dtype=self.model_dtype)
         params = dict(self.module.named_parameters())
+        self.param_shapes = {n: p.shape for n, p in params.items()}
         self.total_params = sum(p.numel() for p in params.values())
         if self.dp > 1:
             return self._initialize_sharded(params)
@@ -272,16 +289,30 @@ class DeepSpeedEngine:
         return tree
 
     @torch.no_grad()
-    def gathered_params(self) -> Tree:
-        """The model-dtype parameters whole, by name, on every rank: stage
-        3's pieces all-gathered (a collective, so every rank calls it), the
-        module's own tensors otherwise."""
+    def whole_param_units(self):
+        """The model-dtype parameters whole, unit by unit ({name: tensor}
+        for each): stage 3's pieces all-gathered (a collective, so every
+        rank runs the generator to its end), the module's own tensors
+        otherwise."""
         if self.units is None:
-            return dict(self.state.params)
-        params = {n: p.detach() for n, p in self._module_params.items()}
-        for g in (u.gathered for u in self.units if u.gathered is not None):
-            params.update(zip(g.names, g.all_gather(g.shard.detach())))
-        return params
+            yield dict(self.state.params)
+            return
+        for u in self.units:
+            part = {n: self._module_params[n].detach() for n in u.whole}
+            if u.sharded is not None:
+                part.update({n: self._module_params[n].detach() for n in u.sharded.names})
+            if u.gathered is not None:
+                g = u.gathered
+                part.update(zip(g.names, g.all_gather(g.shard.detach())))
+            yield part
+
+    def gathered_params(self) -> Tree:
+        """The model-dtype parameters whole, by name, on every rank (a
+        collective: `whole_param_units`)."""
+        params = {}
+        for part in self.whole_param_units():
+            params.update(part)
+        return {n: params[n] for n in self.param_shapes}
 
     @torch.no_grad()
     def materialized_state(self) -> TrainState:
@@ -306,6 +337,76 @@ class DeepSpeedEngine:
                           opt_state=opt,
                           grad_acc=None if st.grad_acc is None else whole(st.grad_acc),
                           scaler=st.scaler)
+
+    # ------------------------------------------------------------ checkpoints
+    def checkpoint_layout(self) -> dict:
+        """The state's layout as a checkpoint's `ds_meta.json` keeps it
+        (`runtime/zero/partition.layout_record`)."""
+        return layout_record(self.units, self.param_shapes, self.dp)
+
+    @torch.no_grad()
+    def adopt_state(self, state: TrainState) -> None:
+        """Install `state`, whose trees hold whole leaves by name (any
+        mapping, read one leaf at a time, on any device and in any dtype):
+        over dp data ranks this rank's pieces are cut from each leaf.
+        `master` None makes the master from the model-dtype parameters, as
+        `initialize_state` does; `opt_state` None starts the moments afresh
+        (count 0). `global_step` and `scaler` are taken as they are, and the
+        gradient accumulation is zeroed."""
+        st, opt = self.state, self.state.opt_state
+        leaves = self.checkpoint_layout()["leaves"]
+        rank = self.topology.coord("data")
+
+        def put(dst, whole, pieces):
+            src = flat_piece(whole, self.dp, rank) if pieces else whole
+            dst.copy_(src.reshape(dst.shape))
+
+        fresh = state.opt_state is None
+        for n in self.param_shapes:
+            params, optim = leaves[n]["params"], leaves[n]["optim"]
+            whole = state.params[n]
+            put(st.params[n], whole, params)
+            if st.master is not None:
+                put(st.master[n], whole.to(self.model_dtype) if state.master is None
+                    else state.master[n], optim)
+            for mine, saved in ((opt.exp_avg, None if fresh else state.opt_state.exp_avg),
+                                (opt.exp_avg_sq, None if fresh else state.opt_state.exp_avg_sq)):
+                if saved is None:
+                    mine[n].zero_()
+                else:
+                    put(mine[n], saved[n], optim)
+        st.opt_state = type(opt)(0 if fresh else int(state.opt_state.count), opt.exp_avg,
+                                 opt.exp_avg_sq)
+        st.global_step = int(state.global_step)
+        st.scaler = dataclasses.replace(state.scaler)
+        if st.grad_acc is not None:
+            torch._foreach_zero_(list(st.grad_acc.values()))
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        exclude_frozen_parameters=False):
+        """Save the state under `save_dir/tag` (by default
+        `global_step{N}`); every rank calls it. `exclude_frozen_parameters`
+        is accepted for the JAX signature: every parameter trains."""
+        return checkpointing.save_checkpoint(self, save_dir, tag=tag, client_state=client_state,
+                                             save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True, load_lr_scheduler_states=True,
+                        load_module_only=False, custom_load_fn=None):
+        """Load `load_dir/tag` (by default the `latest` tag) at this
+        engine's dp; every rank calls it. Returns (path, client_state).
+        `load_module_strict` and `custom_load_fn` are accepted for the JAX
+        signature, which does not use them either."""
+        return checkpointing.load_checkpoint(
+            self, load_dir, tag=tag, load_optimizer_states=load_optimizer_states,
+            load_module_only=load_module_only,
+            load_lr_scheduler_states=load_lr_scheduler_states)
+
+    def save_16bit_model(self, save_dir, save_filename="pytorch_model.bin",
+                         exclude_frozen_parameters=False):
+        """The model-dtype parameters whole in one file by rank 0 (a
+        collective over the data ranks)."""
+        return checkpointing.save_16bit_model(self, save_dir, save_filename)
 
     def _put_batch(self, batch):
         if isinstance(batch, dict):

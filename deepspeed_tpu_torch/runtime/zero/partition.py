@@ -26,6 +26,12 @@ reduce-scatters the gathered weights' gradient, in f32, back to this
 rank's pieces. A model calls it inside each remat block (so the recompute
 in backward gathers again, and the checkpoint keeps only the pieces) and
 around its own forward for the root's leaves.
+
+A checkpoint keeps the pieces as they lie (`runtime/checkpointing.py`).
+Since a piece depends only on the leaf's size, dp and the rank, a leaf is
+whole again from any dp's pieces (`whole_leaf`), and each rank of another
+dp cuts its own (`flat_piece`); `layout_record` is what a checkpoint's
+`ds_meta.json` keeps of the layout.
 """
 
 from __future__ import annotations
@@ -88,6 +94,24 @@ class ZeroShardingPlan:
         return False
 
 
+def flat_piece(whole: torch.Tensor, dp: int, rank: int) -> torch.Tensor:
+    """Rank `rank`'s piece of a whole leaf over `dp` data ranks: elements
+    [rank * p, (rank + 1) * p) of the flattened leaf, p = ceil(numel /
+    dp), zero-padded past its end."""
+    flat = whole.reshape(-1)
+    p = -(-flat.numel() // dp)
+    lo, hi = min(rank * p, flat.numel()), min((rank + 1) * p, flat.numel())
+    if hi - lo == p:
+        return flat[lo:hi]
+    return torch.cat([flat[lo:hi], flat.new_zeros(p - (hi - lo))])
+
+
+def whole_leaf(pieces: Sequence[torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
+    """A leaf of `shape` from every rank's piece, in rank order."""
+    numel = math.prod(shape)
+    return torch.cat([p.reshape(-1) for p in pieces])[:numel].view(tuple(shape))
+
+
 class ZeroUnit:
     """Leaves laid out flat on each rank: leaf i's piece r (ceil(numel_i
     / dp) elements, zero-padded) at `offsets[i]` of rank r's `size`
@@ -119,11 +143,9 @@ class ZeroUnit:
     def piece_of(self, tensors: Sequence[torch.Tensor], dtype=None) -> torch.Tensor:
         """This rank's flat pieces of whole leaves."""
         first = tensors[0]
-        out = torch.zeros(self.size, dtype=dtype or first.dtype, device=first.device)
-        for t, n, o, p in zip(tensors, self.numels, self.offsets, self.pieces):
-            lo = min(self.rank * p, n)
-            hi = min(lo + p, n)
-            out[o:o + hi - lo] = t.reshape(-1)[lo:hi]
+        out = torch.empty(self.size, dtype=dtype or first.dtype, device=first.device)
+        for t, o, p in zip(tensors, self.offsets, self.pieces):
+            out[o:o + p] = flat_piece(t, self.dp, self.rank)
         return out
 
     def pack(self, tensors: Sequence[Optional[torch.Tensor]], dtype: torch.dtype,
@@ -259,3 +281,18 @@ def model_units(module: nn.Module, plan: ZeroShardingPlan, rank: int) -> List[Un
                                 [n for n in names if n.startswith(prefix + ".")], plan,
                                 rank, module))
     return units
+
+
+def layout_record(units: Optional[List[UnitLeaves]], shapes: Dict[str, torch.Size],
+                  dp: int) -> dict:
+    """What a checkpoint keeps of the layout, as JSON: `dp`, and per leaf
+    (`shapes`: the whole leaves' shapes by name, in order) its shape and
+    whether its parameters ("params") and its master and moments ("optim")
+    are kept as the ranks' pieces. Over one rank (`units` None) every leaf
+    is whole."""
+    units = units or []
+    gathered = {n for u in units if u.gathered is not None for n in u.gathered.names}
+    pieces = gathered | {n for u in units if u.sharded is not None for n in u.sharded.names}
+    return {"dp": int(dp),
+            "leaves": {n: {"shape": list(shape), "params": n in gathered,
+                           "optim": n in pieces} for n, shape in shapes.items()}}
