@@ -53,6 +53,20 @@
    every projection, counted): the same greedy `generate`, the last step
    against the same int8 tree served by `dequant`, and profiles of the
    prefill and the decode step with K5's share;
+7a. serves it with its layers streamed from page-locked host memory every
+   pass (`serve_mode="capacity"`, ZeRO-Inference), the module's weights
+   left on the card for 7: the pinned host-to-device rate of one layer's
+   436 MB slice alone (the bound: 32 slices a decode step); batch 1's peak
+   device memory against the plan (≤ 1.10x) and what stays on the card
+   between calls; greedy `generate` of CAP_NEW tokens double-buffered (K2
+   counted), the last step of 4's tokens teacher forced against 4's own
+   under CONSISTENCY_RTOL beside a control (every layer run on its
+   predecessor's weights) that must miss; the synchronous mode (one slab),
+   bit for bit the same; two layers on NVMe through the aio engine (the same
+   tokens) and the engine's read rate (`nvme.sweep`, warm); int8 weights
+   quantized from the module, logits and tokens bit for bit those of the
+   int8 layer scan (K5 and K2 counted); v2 on slot rows in `layer_scan` and
+   `capacity` over the same int8 tree, the same tokens (K5, K2 counted);
 8. holds a 2-layer model of the same width on the card in bf16 against the
    plain versions on the CPU in f32, through v1 and through v2, and with
    int8 weights through the layer scan;
@@ -97,18 +111,20 @@
    of the same width holds the gradients of one GAS window through the
    grouped GEMM against the ragged buffer beside the routing-flip share,
    with a control (drhs fed the sizes rolled by one) that must fail;
-9c. serves Llama-3-8B at full width and depth tensor-parallel over tp = 2
-   (`tensor_parallel={"tp_size": 2}`): two ranks, spawned processes on the
-   one card joined by gloo (NCCL rejects two ranks on one device, so the
-   collectives stage through the host: its times are not a
-   tensor-parallel speed), each building its shard from the seed of the
-   tp = 1 phases: v1 `forward` on 4 x 512 and greedy `generate` of 64 (K1
-   and K2 per shard counted), the last step teacher-forced on the tp = 1
-   tokens against the tp = 1 engine's, with a control (rank 1 serving rank
-   0's o_proj shard) that must miss; a sampled `generate`; v2 traffic A
-   (K3 and K4 per shard counted), four rows against v1 `forward`; int8
-   weights through the layer scan (K5 'n' and 'k' per shard counted, no
-   kernel fallback), the last step against the tp = 1 int8 engine's; both
+9c. serves Llama-3-8B at full width and TP_LAYERS (8) of its 32 layers
+   tensor-parallel over tp = 2 (`tensor_parallel={"tp_size": 2}`): two
+   ranks, spawned processes on the one card joined by gloo (NCCL rejects
+   two ranks on one device, so the collectives stage through the host: its
+   times are not a tensor-parallel speed), each building its shard from
+   the seed of the tp = 1 phases, against tp = 1 references that this
+   process builds at the same depth (`tp_references`): v1 `forward` on 4 x
+   512 and greedy `generate` of 64 (K1 and K2 per shard counted), the last
+   step teacher-forced on the tp = 1 tokens against the tp = 1 engine's,
+   with a control (rank 1 serving rank 0's o_proj shard) that must miss; a
+   sampled `generate`; v2 traffic A (K3 and K4 per shard counted), four
+   rows against v1 `forward`; int8 weights through the layer scan (K5 'n'
+   and 'k' per shard counted, no kernel fallback), the last step against
+   the tp = 1 int8 engine's; both
    ranks' tokens equal; then a 2-layer model at tp = 2 on the card in bf16
    against the CPU in f32 at tp = 1. The kernel phase holds each rank's
    shard of K2, K3, K4 and K5 ('n') bit for bit to the same heads or
@@ -190,6 +206,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import shutil
 import sys
 import time
 import types
@@ -249,7 +266,11 @@ WATCH_SLOT = (0, 1, 2, 15)               # one prompt of each length
 # weights and caches stay on the card. Its times are those of two ranks
 # sharing one H100, not a tensor-parallel speed.
 TP = 2
-TP_REFS = {}                 # the tp = 1 phases' greedy tokens and last-step logits
+# serve_tp runs Llama-3-8B at full width and TP_LAYERS of its 32 layers
+# (gloo's collectives scale with depth), against tp = 1 references built
+# at the same depth (`tp_references`)
+TP_LAYERS = 8
+SERVE_REFS = {}              # `serve`'s greedy tokens and last-step logits (full depth)
 TP_TIMEOUT_S = 600           # a rank waiting longer on a collective fails the run
 # Expert-parallel serving of Qwen1.5-MoE-A2.7B over ep = 2 (`serve_ep`): two
 # ranks on the one card over gloo, as `serve_tp`, each holding the whole
@@ -260,6 +281,17 @@ EP_REFS = {}                 # `serve_moe`'s and `reference_moe`'s ep = 1 result
 # qmm_decode_kernel and K3's paged_decode_kernel out of K2's)
 K2_NAME = ("decode_attention", "::decode_kernel<")
 K3_NAME = ("paged_decode_attention", "::paged_decode_kernel<")
+# ZeRO-Inference (`serve_capacity`): Llama-3-8B's layers streamed from
+# page-locked host memory (and NVMe) every pass, so a decode step costs one
+# sweep of 14 GB (bf16) or 7 GB (int8) over PCIe; the runs are kept short.
+CAP_NEW = 8                  # greedy tokens of the bf16 runs (B x PROMPT prompts)
+CAP_PEAK = (128, 130)        # batch 1: prompt, prompt + new tokens of the peak run
+CAP_PEAK_RATIO = 1.10        # measured peak over the plan's (the JAX check_plan bound)
+CAP_NVME_LAYERS, CAP_NVME_NEW = 2, 4
+CAP_NVME_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_nvme"
+CAP_INT8_NEW = 4
+CAP_V2 = dict(max_batch=2, max_seq_len=256, split_fuse_chunk=256)
+CAP_V2_PROMPTS, CAP_V2_NEW = (100, 60), 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor cores
 OUT_DIR = pathlib.Path(__file__).resolve().parent / "chiprun_out"
@@ -1286,7 +1318,7 @@ def serve(report, model):
         layer.self_attn.cfg = cfg
     assert torch.isfinite(step_logits).all() and consistency <= CONSISTENCY_RTOL, consistency
     assert torch.equal(step_logits.float().argmax(-1), out[:, -1])
-    TP_REFS["v1"] = (out.cpu(), step_logits.float().cpu())
+    SERVE_REFS["v1"] = (out.cpu(), step_logits.float().cpu())
 
     # prefill alone, to split the generate time
     t0 = time.perf_counter()
@@ -1768,7 +1800,6 @@ def serve_int8(report, model):
     assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
     step_logits = seen[-1]
     assert torch.equal(step_logits.float().argmax(-1), out[:, -1])
-    TP_REFS["int8"] = (out.cpu(), step_logits.float().cpu())
     t0 = time.perf_counter()
     engine.generate(ids, max_new_tokens=1)
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -1795,6 +1826,257 @@ def serve_int8(report, model):
         last_step_vs_dequant_forward_rel_rms_err=err,
         decode_profile=profile, prefill_profile=prefill_profile)
     return launches
+
+
+def pinned_h2d_bytes_per_s(nbytes: int, iters: int = 5) -> float:
+    """Host-to-device bytes/s of one copy of `nbytes` from page-locked
+    memory, alone on the card (CUDA events around `iters` copies)."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True), iters=iters, warmup=1)
+    del host, dev
+    return nbytes / (ms / 1e3)
+
+
+def aliased_bytes(engine, model) -> int:
+    """Bytes of the capacity runner's resident tier that are the module's
+    own tensors (counted in the plan, not new on the card)."""
+    ptrs = {p.data_ptr() for p in model.parameters()}
+    return sum(t.numel() * t.element_size() for t in (
+        engine._capacity.resident["embed_tokens"], engine._capacity.resident["norm"]["weight"])
+        if t.data_ptr() in ptrs)
+
+
+def timed_generate(engine, ids, new_tokens):
+    """(tokens, step logits, generate ms) of a greedy `generate`."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, seen = generate_logits(engine, ids, new_tokens)
+    return out, seen, (time.perf_counter() - t0) * 1e3
+
+
+def forced_last_step(engine, out):
+    """The last decode step of `out`, teacher forced: a prefill of all but
+    its last two tokens, then one decode step on the second-to-last."""
+    return generate_logits(engine, out[:, :-2], 2, force=out)[1][-1]
+
+
+def free_capacity(host: bool = False):
+    """After the caller dropped a capacity engine: its device slabs back to
+    the card; with `host`, the page-locked blocks PyTorch's host allocator
+    keeps cached for reuse (the next bf16 engine reuses them unpinned)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    empty = (getattr(torch._C, "_host_emptyCache", None)
+             or getattr(torch._C, "_accelerator_emptyHostCache", None))
+    if host and empty is not None:
+        empty()
+
+
+def pinned_host_bytes():
+    """The byte counts PyTorch's host allocator reports for its page-locked
+    blocks now ({} where this torch reports none)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    return {k: v for k, v in (stats() if stats is not None else {}).items()
+            if "bytes" in k and k.endswith(".current")}
+
+
+def serve_capacity(report, model):
+    """ZeRO-Inference on Llama-3-8B at full width and depth (module
+    docstring, 7a): the layers streamed from page-locked host memory (bf16,
+    double-buffered, then synchronous), from NVMe for CAP_NVME_LAYERS of
+    them, and in int8 (K5), through v1 and v2; every layer's decode through
+    K2. The module's weights stay on the card for `serve_int8`."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import nvme
+    from deepspeed_tpu_torch.inference import capacity_scan
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    out_ref, step_ref = (t.cuda() for t in SERVE_REFS["v1"])   # `serve`'s greedy run
+    ids = out_ref[:, :PROMPT]
+    n = CAP_NEW
+    free_capacity(host=True)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16", serve_mode="capacity")
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    pinned = pinned_host_bytes()
+    runner = engine._capacity
+    slice_bytes = runner.slice_bytes()
+    assert engine.serve_mode == "capacity" and runner.host_resident()
+    h2d = pinned_h2d_bytes_per_s(slice_bytes)
+    bound_step_ms = L * slice_bytes / h2d * 1e3
+
+    # peak device memory of a generate against the plan (the first call:
+    # no earlier transient in the peak)
+    alias = aliased_bytes(engine, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.generate(ids[:1, :CAP_PEAK[0]], max_new_tokens=CAP_PEAK[1] - CAP_PEAK[0])
+    peak = torch.cuda.max_memory_allocated() - base + alias
+    plan = runner.plan_for(1, CAP_PEAK[0], CAP_PEAK[1] - CAP_PEAK[0])
+    assert peak <= CAP_PEAK_RATIO * plan.peak_hbm_bytes, (peak, plan)
+    held = torch.cuda.memory_allocated() - base + alias     # between calls
+    assert held <= plan.resident_bytes + 2 * runner._buf_bytes + (64 << 20), held
+
+    # the main path: greedy generate of n tokens, launches counted
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    out, seen, gen_ms = timed_generate(engine, ids, n)
+    launches = read_launches()
+    assert launches == only(decode_attention=L * (n - 1)), launches
+    stall_ms = engine.serving_stats()["prefetch_stall_ms"]
+    peak_b4 = torch.cuda.max_memory_allocated() - base + alias
+    assert out.shape == (B, PROMPT + n) and torch.equal(out[:, :PROMPT], ids)
+    assert torch.equal(seen[-1].float().argmax(-1), out[:, -1])
+    agree = (out[:, PROMPT:] == out_ref[:, PROMPT:PROMPT + n]).float().mean().item()
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    step_ms = (gen_ms - prefill_ms) / (n - 1)
+
+    # the last decode step of `serve`'s tokens, teacher forced, against its
+    # own; the control runs every layer on its predecessor's weights (an
+    # off-by-one in the staging schedule) and must miss
+    forced = forced_last_step(engine, out_ref)
+    err = rel_err(forced, step_ref)
+    host_slice = capacity_scan.CapacityRunner._host_slice
+    capacity_scan.CapacityRunner._host_slice = lambda self, l: host_slice(self, max(l - 1, 0))
+    try:
+        control = rel_err(forced_last_step(engine, out_ref), step_ref)
+    finally:
+        capacity_scan.CapacityRunner._host_slice = host_slice
+    assert torch.isfinite(forced).all() and err <= CONSISTENCY_RTOL < control, (err, control)
+    del runner, engine
+    free_capacity()
+
+    # the synchronous mode: one slab, no overlap; the same bits
+    sync = deepspeed_tpu_torch.init_inference(model, dtype="bf16", serve_mode="capacity",
+                                              capacity={"double_buffer": False})
+    assert len(sync._capacity._slabs) == 1
+    assert torch.equal(forced_last_step(sync, out_ref), forced)
+    sync_out, _, sync_ms = timed_generate(sync, ids, n)
+    assert torch.equal(sync_out, out)
+    sync_stall = sync.serving_stats()["prefetch_stall_ms"]
+    del sync
+    free_capacity()
+
+    # the NVMe tier: the last CAP_NVME_LAYERS layers read back through the
+    # aio engine each pass; the same tokens
+    nvme_dir = CAP_NVME_DIR
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+    sweep = nvme.sweep(str(nvme_dir / "sweep"), mb=256)
+    t0 = time.perf_counter()
+    disk = deepspeed_tpu_torch.init_inference(
+        model, dtype="bf16", serve_mode="capacity",
+        capacity={"nvme_dir": str(nvme_dir), "nvme_layers": CAP_NVME_LAYERS})
+    nvme_place_s = time.perf_counter() - t0
+    assert disk._capacity.plan.nvme_layers == CAP_NVME_LAYERS
+    disk_out, _, disk_ms = timed_generate(disk, ids, CAP_NVME_NEW)
+    assert torch.equal(disk_out, out[:, :PROMPT + CAP_NVME_NEW])
+    backend = disk._capacity._nvme.counters["backend"]
+    del disk
+    free_capacity(host=True)
+    shutil.rmtree(nvme_dir, ignore_errors=True)
+
+    # int8: the layer scan's tree (built from a copy of the weights, the
+    # module untouched) against capacity int8 quantized from the module
+    quant = {"enabled": True, "group_size": 256}
+    scan = deepspeed_tpu_torch.init_inference(
+        LlamaForCausalLM(cfg, device="meta"), params=model.param_tree(dtype=torch.bfloat16),
+        dtype="bf16", quant=quant, serve_mode="layer_scan")
+    scan_forced = forced_last_step(scan, out_ref)
+    scan_out = scan.generate(ids, max_new_tokens=CAP_INT8_NEW)
+    int8 = deepspeed_tpu_torch.init_inference(model, dtype="bf16", quant=quant,
+                                              serve_mode="capacity")
+    assert int8._capacity.quantized and int8._use_fused_int8()
+    zero_launches()
+    int8_out, _, int8_ms = timed_generate(int8, ids, CAP_INT8_NEW)
+    int8_launches = read_launches()
+    assert int8_launches == only(quantized_matmul=7 * L * CAP_INT8_NEW,
+                                 decode_attention=L * (CAP_INT8_NEW - 1)), int8_launches
+    assert torch.equal(int8_out, scan_out)
+    assert torch.equal(forced_last_step(int8, out_ref), scan_forced)
+    t0 = time.perf_counter()
+    int8.generate(ids, max_new_tokens=1)
+    torch.cuda.synchronize()
+    int8_prefill_ms = (time.perf_counter() - t0) * 1e3
+    int8_slice = int8._capacity.slice_bytes()
+    h2d_int8 = pinned_h2d_bytes_per_s(int8_slice)
+    del int8
+    free_capacity()
+
+    # v2 on slot rows: the layer scan over the int8 tree, then capacity
+    # streaming the same tree; the same tokens
+    rng = np.random.default_rng(SEED + 40)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, p))) for p in CAP_V2_PROMPTS]
+    v2 = {}
+    for mode in ("layer_scan", "capacity"):
+        eng = v2_engine(LlamaForCausalLM(cfg, device="meta"), params=scan.params,
+                        serve_mode=mode, quant=quant, **CAP_V2)
+        assert eng.kv_layout == "slot"
+        calls, _ = instrument(eng)
+        zero_launches()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, max_new_tokens=CAP_V2_NEW)
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        # a chunk call runs each slot row's piece as its own model call
+        pieces = sum(-(-p // CAP_V2["split_fuse_chunk"]) for p in CAP_V2_PROMPTS)
+        model_calls = calls["decode_steps"] + pieces
+        assert got == only(quantized_matmul=7 * L * model_calls,
+                           decode_attention=L * calls["decode_steps"]), (mode, got, calls)
+        v2[mode] = dict(tokens=toks, wall_s=wall, launches=got, calls=dict(calls),
+                        tok_s=len(prompts) * CAP_V2_NEW / wall)
+        del eng
+        free_capacity()
+    assert v2["capacity"]["tokens"] == v2["layer_scan"]["tokens"]
+    del scan
+    free_capacity(host=True)
+
+    report["serve_capacity"] = dict(
+        card=report["card"], model="llama3-8b (random bf16 weights, seed 0)",
+        slice_bytes=slice_bytes, int8_slice_bytes=int8_slice, layers=L,
+        pinned_host_bf16_tier=pinned,
+        pinned_h2d_GBps_one_slice=h2d / 1e9, bound_step_ms=bound_step_ms,
+        pinned_h2d_GBps_one_int8_slice=h2d_int8 / 1e9,
+        int8_bound_step_ms=L * int8_slice / h2d_int8 * 1e3, placement_s=place_s,
+        plan_batch1=dict(dataclasses.asdict(plan), peak_hbm_bytes=plan.peak_hbm_bytes),
+        peak_memory_batch1_bytes=peak, held_between_calls_bytes=held,
+        peak_memory_batch4_bytes=peak_b4, resident_aliased_bytes=alias,
+        bf16=dict(batch=B, prompt=PROMPT, new_tokens=n, generate_ms=gen_ms,
+                  prefill_ms=prefill_ms, step_ms=step_ms,
+                  decode_tok_s=B * (n - 1) / ((gen_ms - prefill_ms) / 1e3),
+                  prefetch_stall_ms=stall_ms, tokens_agree_with_serve=agree,
+                  last_step_vs_serve_rel_rms_err=err, off_by_one_layer_control=control),
+        synchronous=dict(generate_ms=sync_ms, step_ms=(sync_ms - prefill_ms) / (n - 1),
+                         decode_tok_s=B * (n - 1) / ((sync_ms - prefill_ms) / 1e3),
+                         prefetch_stall_ms=sync_stall, bitwise_double_buffered=True),
+        nvme=dict(layers_on_disk=CAP_NVME_LAYERS, new_tokens=CAP_NVME_NEW, placement_s=nvme_place_s,
+                  generate_ms=disk_ms, engine=backend, sweep=sweep,
+                  decode_tok_s=B * (CAP_NVME_NEW - 1) / ((disk_ms - prefill_ms) / 1e3),
+                  tokens_equal=True),
+        int8=dict(new_tokens=CAP_INT8_NEW, generate_ms=int8_ms, prefill_ms=int8_prefill_ms,
+                  decode_tok_s=B * (CAP_INT8_NEW - 1) / ((int8_ms - int8_prefill_ms) / 1e3),
+                  launches=int8_launches, forced_logits_bitwise_layer_scan=True,
+                  tokens_equal_layer_scan=True),
+        v2={mode: {k: v for k, v in r.items() if k != "tokens"} for mode, r in v2.items()},
+        launches=launches)
+    log(f"serve_capacity ({report['card']}): pinned H2D {h2d / 1e9:.2f} GB/s "
+        f"(one {slice_bytes / 1e6:.1f} MB slice), bound {bound_step_ms:.0f} ms a step; "
+        f"bf16 step {step_ms:.0f} ms, decode {B * (n - 1) / ((gen_ms - prefill_ms) / 1e3):.2f} "
+        f"tok/s, prefill {prefill_ms:.0f} ms; synchronous {(sync_ms - prefill_ms) / (n - 1):.0f} "
+        f"ms a step; int8 {(int8_ms - int8_prefill_ms) / (CAP_INT8_NEW - 1):.0f} ms a step "
+        f"(bound {L * int8_slice / h2d_int8 * 1e3:.0f} at {h2d_int8 / 1e9:.2f} GB/s); "
+        f"NVMe ({backend}, read {sweep['read_GBps']:.2f} GB/s) {disk_ms:.0f} ms for "
+        f"{CAP_NVME_NEW} tokens; peak {peak / 1e9:.2f} GB against a plan of "
+        f"{plan.peak_hbm_bytes / 1e9:.2f}; last step {err:.4f} (control {control:.3f})")
+    return launches, int8_launches, v2["capacity"]["launches"]
 
 
 def profile_generate(engine, ids, steps: int = 8, kernels=(("quantized_matmul", "qmm_"),)):
@@ -2501,12 +2783,33 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def tp_references(cfg):
+    """The tp = 1 references of `serve_tp` at `cfg`'s depth, from the seed
+    of the tp = 1 phases: the v1 engine's greedy tokens and last-step logits
+    (as `serve` takes them) and the int8 layer scan's (as `serve_int8`)."""
+    import deepspeed_tpu_torch
+    model = llama(cfg, SEED)
+    ids = tp_prompts(cfg)
+    refs = {}
+    for key, kw in (("v1", {}), ("int8", dict(quant={"enabled": True, "group_size": 256},
+                                              serve_mode="layer_scan"))):
+        engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16", **kw)
+        out, seen = generate_logits(engine, ids, NEW)
+        refs[key] = (out.cpu(), seen[-1].float().cpu())
+        del engine, seen                    # the layer scan released the weights
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
 def serve_tp(report):
-    """Llama-3-8B at full width and depth served tensor-parallel over tp = 2:
-    two ranks (spawned processes) on the one card, joined by gloo, each
-    holding its shard (`tp_rank`). The phase's gates: equal tokens on both
-    ranks; rank 0's last v1 decode step (teacher-forced on the tp = 1
-    engine's tokens) against the tp = 1 engine's, and the same for the
+    """Llama-3-8B at full width and TP_LAYERS of its layers served
+    tensor-parallel over tp = 2: two ranks (spawned processes) on the one
+    card, joined by gloo, each holding its shard (`tp_rank`). The phase's
+    gates: equal tokens on both ranks; rank 0's last v1 decode step
+    (teacher-forced on the tp = 1 engine's tokens) against the tp = 1
+    engine's at the same depth (`tp_references`), and the same for the
     int8 layer scan, within CONSISTENCY_RTOL; a control (rank 1 serving
     rank 0's o_proj shard) that must miss that bound; v2 rows against v1
     `forward` at tp = 2; launch counts of every per-shard route; no
@@ -2522,14 +2825,15 @@ def serve_tp(report):
         assign=True)
     gc.collect()
     torch.cuda.empty_cache()
+    refs = tp_references(llama_config("llama3-8b", num_hidden_layers=TP_LAYERS))
     with tempfile.TemporaryDirectory() as tmp:
-        torch.save(TP_REFS, f"{tmp}/refs.pt")
+        torch.save(refs, f"{tmp}/refs.pt")
         t0 = time.perf_counter()
         mp.start_processes(tp_rank, args=(free_port(), tmp), nprocs=TP, start_method="spawn")
         wall_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(TP)]
     r0, r1 = ranks
-    L = llama_config("llama3-8b").num_hidden_layers
+    L = TP_LAYERS
     for key in ("v1_greedy", "v1_sampled", "v2_outputs", "int8_greedy", "ref_tokens"):
         assert r0[key] == r1[key], key
     assert r0["v1_last_rel_rms_err"] <= CONSISTENCY_RTOL, r0["v1_last_rel_rms_err"]
@@ -2556,7 +2860,8 @@ def serve_tp(report):
     drop = ("v1_greedy", "v1_sampled", "v2_outputs", "int8_greedy", "ref_tokens",
             "ref_logits")
     report["serve_tp"] = dict(
-        card=report["card"], model="llama3-8b (random bf16 weights, seed 0) over tp=2",
+        card=report["card"],
+        model=f"llama3-8b (random bf16 weights, seed 0), {TP_LAYERS} of 32 layers, over tp=2",
         setup=f"{TP} ranks, one process each, sharing one card over gloo: the "
               "collectives stage through the host, so these times are not a "
               "tensor-parallel speed", wall_s=wall_s,
@@ -2570,9 +2875,10 @@ def serve_tp(report):
 
 def tp_rank(rank, port, tmp):
     """One rank of `serve_tp`: joins the gloo group, builds its shard of
-    Llama-3-8B from the seed of the tp = 1 phases (each weight drawn whole,
-    as there, and cut), and serves it through v1, v2 and the int8 layer
-    scan, then the 2-layer reference model."""
+    Llama-3-8B at TP_LAYERS layers from the seed of the tp = 1 phases (each
+    weight drawn whole, as `tp_references`' model draws it, and cut), and
+    serves it through v1, v2 and the int8 layer scan, then the 2-layer
+    reference model."""
     import datetime
     import logging
 
@@ -2593,7 +2899,7 @@ def tp_rank(rank, port, tmp):
         acc = get_accelerator()
         out = dict(rank=rank, device=str(acc.device), backend=comm.get_backend())
         torch.cuda.reset_peak_memory_stats()
-        model = llama_shard(llama_config("llama3-8b"), SEED, rank)
+        model = llama_shard(llama_config("llama3-8b", num_hidden_layers=TP_LAYERS), SEED, rank)
         out.update(tp_v1(model, refs, rank))
         out.update(tp_v2(model))
         out.update(tp_int8(model, refs))       # releases the model's weights
@@ -4221,6 +4527,7 @@ def main() -> int:
     v2_launches, _ = phase(report, serve_v2, model)
     phase(report, serve_v2_shared, model)
     kv_int8_launches, v2_int8_launches = phase(report, serve_kv_int8, model)
+    cap_launches, cap_int8_launches, cap_v2_launches = phase(report, serve_capacity, model)
     int8_launches = phase(report, serve_int8, model)     # releases the model's weights
     del model
     gc.collect()
@@ -4244,7 +4551,7 @@ def main() -> int:
     moe_zero = phase(report, train_moe_zero)
     report["wall_s"] = time.perf_counter() - t_start
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
-                "serve_kv_int8", "serve_int8", "reference", "reference_v2", "reference_int8",
+                "serve_kv_int8", "serve_capacity", "serve_int8", "reference", "reference_v2", "reference_int8",
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
@@ -4367,6 +4674,14 @@ def main() -> int:
                          train_moe_zero_rank=moe_zero_runs[key])
         if paths:
             row["launches_per_train_batch_by_path"] = paths
+    # K2 and K5 on the layer-streamed paths (`serve_capacity`): v1 capacity
+    # (bf16, then int8) and v2 capacity on slot rows (int8)
+    for row in kernels:
+        if row["name"] in ("decode_attention", "quantized_matmul"):
+            row["launches_by_path"] = {
+                "serve_capacity_bf16": cap_launches[row["name"]],
+                "serve_capacity_int8": cap_int8_launches[row["name"]],
+                "serve_capacity_v2": cap_v2_launches[row["name"]]}
     assert all(k["launches"] > 0 for k in kernels), kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

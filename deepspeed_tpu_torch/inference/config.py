@@ -6,6 +6,13 @@ that brings them; unknown keys are accepted and ignored with a warning.
 `tensor_parallel.tp_size` > 1 serves the Llama family over that many ranks
 (`serve_modes.serving_topology`); the engines refuse other models at tp > 1.
 `choose_serve_mode` is the JAX package's `serve_mode="auto"` decision table.
+
+The `capacity` block holds the capacity serve mode's options
+(`inference/capacity_scan.py`): `double_buffer` (default True; False is the
+synchronous A/B mode), `nvme_dir` and `nvme_layers` (the last N layers
+parked in swap files under that directory). The resilience knobs
+(`prefetch_watchdog_s`, `dispatch_deadline_s`, `stage_retries`), in this
+block or in `resilience`, raise: they are not ported.
 """
 
 from __future__ import annotations
@@ -44,11 +51,12 @@ class DeepSpeedInferenceConfig:
     max_batch_size: Optional[int] = None
     quant: Optional[dict] = None  # {"enabled": True, "group_size": N} → int8 weights
     # "dequant" (the whole tree resident; int8 dequantized at use),
-    # "layer_scan" (int8 per-layer stacks through the fused dequant-GEMM) or
-    # "auto" (`choose_serve_mode` on the card's memory); "capacity" raises
+    # "layer_scan" (int8 per-layer stacks through the fused dequant-GEMM),
+    # "capacity" (the layers streamed from host memory and NVMe every pass)
+    # or "auto" (`choose_serve_mode` on the card's memory)
     serve_mode: str = "auto"
     speculative: Optional[dict] = None
-    capacity: Optional[dict] = None
+    capacity: Optional[dict] = None  # {"double_buffer", "nvme_dir", "nvme_layers"}
     kv_cache_dtype: Optional[str] = None  # "int8": the KV cache int8 at rest
     # the layer scan's products: None = the fused dequant-GEMM kernel on
     # CUDA (the naive path on the CPU); False = the naive dequant matmul
@@ -91,15 +99,14 @@ class DeepSpeedInferenceConfig:
         self._check_ported()
 
     def _check_ported(self) -> None:
-        if self.serve_mode == "capacity":
-            raise _unported("serve_mode='capacity'", "The rest")
+        from deepspeed_tpu_torch.inference.capacity_scan import check_options
+        check_options("capacity", self.capacity)
+        check_options("resilience", self.resilience)
         if self.kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got "
                              f"{self.kv_cache_dtype!r}")
         if self.speculative and self.speculative.get("enabled", True):
             raise _unported("speculative", "The rest")
-        if self.capacity is not None:
-            raise _unported("capacity", "The rest")
 
     @property
     def tp_size(self) -> int:

@@ -9,8 +9,14 @@ Serve modes (`serve_modes.py`): `dequant` runs the module, on its own
 weights or, with `quant`, on the int8 tree dequantized whole (once per
 `generate`, once per `forward`); `layer_scan` runs `generate` through
 `quantized_layer_scan` on the per-layer int8 stacks with the fused
-dequant-GEMM. `kv_cache_dtype="int8"` stores the dequant mode's cache int8
-at rest. The serve-mode ladder, telemetry hub, program ledger and recompile
+dequant-GEMM; `capacity` runs `forward` and `generate` through the capacity
+runner (`capacity_scan.CapacityRunner`, `engine._capacity`), which streams
+every layer from host memory or NVMe each pass (K2 and, with `quant`, K5 on
+the streamed slices). `serving_stats()` reports the last `generate`'s
+decode rate and, in the capacity mode, `h2d_bytes_step` and
+`prefetch_stall_ms`. The layer-streamed modes run the LM head on the last
+position only in `generate`. `kv_cache_dtype="int8"` stores the dequant
+mode's cache int8 at rest. The serve-mode ladder, telemetry hub, program ledger and recompile
 detector of the JAX engine are not ported.
 
 Tensor parallelism (`tensor_parallel={"tp_size": N}`, Llama only): one
@@ -44,6 +50,7 @@ from deepspeed_tpu_torch.inference.serve_modes import (
     dense_state,
     place_params,
     serving_topology,
+    use_fused_int8,
 )
 from deepspeed_tpu_torch.ops.sampling import sample_logits
 from deepspeed_tpu_torch.utils.logging import logger
@@ -112,10 +119,7 @@ class InferenceEngine:
         return torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
 
     def _use_fused_int8(self) -> bool:
-        """The fused dequant-GEMM in the layer scan: `fused_int8=None` means
-        the kernel on CUDA; an explicit False is the naive dequant matmul."""
-        fused = self._config.fused_int8
-        return bool(fused) if fused is not None else self.accelerator.is_cuda
+        return use_fused_int8(self)
 
     def _call(self, state, *args, **kwargs):
         """The module on its own weights (`state` None) or on `state`."""
@@ -126,6 +130,8 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, input_ids, *args, **kwargs) -> torch.Tensor:
         """Logits (B, S, V) of `input_ids` (B, S), with no cache."""
+        if self.serve_mode == "capacity":
+            return self._capacity.forward(self._ids(input_ids))
         return self._call(dense_state(self), self._ids(input_ids))
 
     __call__ = forward
@@ -152,6 +158,8 @@ class InferenceEngine:
                                  top_k=top_k, top_p=top_p)
 
         t0 = time.perf_counter()
+        if self._capacity is not None:
+            self._capacity.reset_stats()
         model_call = self._model_call()
         layers, kv_heads, head_dim = _cache_dims(self.model_cfg, self.topology.tp_size)
         cache = KVCache.create(layers, b, max_len, kv_heads, head_dim,
@@ -177,11 +185,27 @@ class InferenceEngine:
         self.last_decode_tok_s = (b * max_new_tokens / dt) if dt > 0 else None
         return out
 
+    def serving_stats(self) -> dict:
+        """The last `generate`: its serve mode and decode tok/s; in the
+        capacity mode also the host-to-device bytes a step streams and the
+        device ms the compute stream waited for copies (the prefetch stall;
+        reading it waits for the last pass)."""
+        stats = {"serve_mode": self.serve_mode, "decode_tok_s": self.last_decode_tok_s}
+        if self._capacity is not None:
+            stats.update(h2d_bytes_step=self._capacity.h2d_bytes_pass(),
+                         prefetch_stall_ms=self._capacity.last_prefetch_stall_ms)
+        return stats
+
     def _model_call(self):
         """`call(ids, cache) → (logits, cache)` with the cursors advanced, for
         one generate: the module (on the int8 tree dequantized once, with
-        `quant`), or in the `layer_scan` mode the layer scan over the
-        per-layer int8 stacks, whose products run the fused dequant-GEMM."""
+        `quant`); in the `layer_scan` mode the layer scan over the per-layer
+        int8 stacks, whose products run the fused dequant-GEMM; in the
+        `capacity` mode the runner's streamed pass. The streamed modes give
+        the last position's logits only."""
+        if self.serve_mode == "capacity":
+            runner = self._capacity
+            return lambda ids, cache: runner.apply(ids, cache, last_only=True)
         if self.serve_mode != "layer_scan":
             state = dense_state(self)
             return lambda ids, cache: self._call(state, ids, cache=cache)
@@ -192,7 +216,7 @@ class InferenceEngine:
         per_layer = layer_slices(self.params["layers"])
 
         def call(ids, cache):
-            logits, cache = apply(self.params, ids, cache, per_layer)
+            logits, cache = apply(self.params, ids, cache, per_layer, last_only=True)
             return logits, cache.replace(index=cache.index + ids.shape[1])
 
         return call

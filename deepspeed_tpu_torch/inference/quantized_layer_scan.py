@@ -303,41 +303,60 @@ def layer_slices(layers: Any) -> List[Any]:
     return [take(i) for i in range(n)]
 
 
-def make_scan_apply(model_cfg: Any, fused: bool = False, mesh=None) -> Callable:
-    """`apply(params, ids, cache, per_layer=None) → (logits, cache)` over a
-    per-layer-stacked llama tree and a dense `KVCache` (written in place;
-    its cursors are left for the caller to advance). `per_layer` is
-    `layer_slices(params["layers"])`, computed once by callers that step
-    many times. With a tensor-parallel `mesh`, `params` is the rank's
-    shard and the logits are gathered whole on every rank."""
+def scan_inputs(model_cfg: Any, params: Any, ids, index, max_len: int, tp: int = 1,
+                rank: int = 0):
+    """(h, aux) for the block body: the embedding of `ids` (B, S) at the
+    per-row cursors `index`, and (cos, sin, index, mask) over a dense cache
+    of `max_len` slots. Shared by the layer scan and the capacity runner."""
     cfg = model_cfg
     dtype = cfg.dtype
-    hd = cfg.head_dim
-    eps = cfg.rms_norm_eps
-    window = getattr(cfg, "sliding_window", None)
-    block = make_block_fn(cfg, fused=fused, mesh=mesh)
+    h = vocab_parallel_embedding(ids, params["embed_tokens"].to(dtype), tp, rank)
+    positions = index[:, None] + torch.arange(ids.shape[1], device=ids.device)[None, :]
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, dtype)
+    mask = decode_mask(positions, max_len, window=getattr(cfg, "sliding_window", None))
+    return h, (cos, sin, index, mask)
+
+
+def scan_logits(model_cfg: Any, params: Any, h, tp: int = 1, logits_at=None,
+                last_only: bool = False):
+    """The final norm and the LM head over `h` (B, S, D): logits (B, S, V);
+    with `last_only` (B, 1, V) at the last position; with `logits_at` (B,)
+    (B, V) at one position a row, as the module's `logits_at` gives. The
+    head runs only on the rows it returns."""
+    cfg = model_cfg
+    dtype = cfg.dtype
+    if logits_at is not None:
+        h = h[torch.arange(h.shape[0], device=h.device), logits_at.long()][:, None]
+    elif last_only:
+        h = h[:, -1:]
+    h = _rmsnorm(h, params["norm"]["weight"], cfg.rms_norm_eps, dtype)
+    head = params.get("lm_head")
+    if head is None:
+        logits = torch.einsum("bsd,vd->bsv", h, params["embed_tokens"].to(dtype))
+    else:
+        logits = h @ head.to(dtype)
+    logits = gather_vocab(logits, tp)
+    return logits[:, 0] if logits_at is not None else logits
+
+
+def make_scan_apply(model_cfg: Any, fused: bool = False, mesh=None) -> Callable:
+    """`apply(params, ids, cache, per_layer=None, logits_at=None,
+    last_only=False) → (logits, cache)` over a per-layer-stacked llama tree
+    and a dense `KVCache` (written in place; its cursors are left for the
+    caller to advance); `logits_at` and `last_only` as in `scan_logits`.
+    `per_layer` is `layer_slices(params["layers"])`, computed once by
+    callers that step many times. With a tensor-parallel `mesh`, `params`
+    is the rank's shard and the logits are gathered whole on every rank."""
+    block = make_block_fn(model_cfg, fused=fused, mesh=mesh)
     tp = mesh.tp_size if mesh is not None else 1
     rank = mesh.coord("model") if mesh is not None else 0
 
-    def apply(params, ids, cache, per_layer=None):
+    def apply(params, ids, cache, per_layer=None, logits_at=None, last_only=False):
         if per_layer is None:
             per_layer = layer_slices(params["layers"])
-        embed = params["embed_tokens"].to(dtype)
-        head = params.get("lm_head")
-        bsz, sl = ids.shape
-        index = cache.index
-        h = vocab_parallel_embedding(ids, embed, tp, rank)
-        positions = index[:, None] + torch.arange(sl, device=ids.device)[None, :]
-        cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta, dtype)
-        mask = decode_mask(positions, cache.max_len, window=window)
-        aux = (cos, sin, index, mask)
+        h, aux = scan_inputs(model_cfg, params, ids, cache.index, cache.max_len, tp, rank)
         for i, lp in enumerate(per_layer):
             h, _ = block(h, lp, aux, (cache.k[i], cache.v[i]))
-        h = _rmsnorm(h, params["norm"]["weight"], eps, dtype)
-        if head is None:
-            logits = torch.einsum("bsd,vd->bsv", h, embed)
-        else:
-            logits = h @ head.to(dtype)
-        return gather_vocab(logits, tp), cache
+        return scan_logits(model_cfg, params, h, tp, logits_at, last_only), cache
 
     return apply

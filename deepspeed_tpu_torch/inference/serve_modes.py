@@ -3,11 +3,16 @@
 Both inference engines place their weights here. `dequant` serves the
 module's own weights, or with `quant` a whole-tree int8 form dequantized at
 use; `layer_scan` serves a per-layer-stacked int8 tree through
-`quantized_layer_scan`; `auto` picks by `config.choose_serve_mode`, fed the
-card's memory. A resolved `capacity` raises: the capacity runner, the OOM
-degradation ladder (`degraded_mode`, `note_degraded`), the telemetry and the
-memory plane are not ported (ROADMAP.md, Queue 1, 'The rest' and 'Weight
-quantization and serve modes').
+`quantized_layer_scan`; `capacity` parks the layers in host memory and NVMe
+and streams them every pass (`capacity_scan.CapacityRunner`, which the
+engine keeps as `_capacity`); `auto` picks by `config.choose_serve_mode`,
+fed the card's memory. Capacity serves a llama-layout tree on one device:
+another tree serves `dequant` with a warning, and a topology of more than
+one rank goes through `kernel_fallback` (raises on CUDA, warns and serves
+`dequant` on the CPU), as in the JAX package. The OOM degradation ladder
+(`degraded_mode`, `note_degraded`), the telemetry and the memory plane are
+not ported (ROADMAP.md, Queue 1, 'The rest' and 'Weight quantization and
+serve modes').
 
 The `engine` argument is duck-typed: the functions read `module`,
 `model_cfg`, `_config`, `accelerator` and `device`, and write
@@ -135,6 +140,15 @@ def resolve_serve_mode(engine, params: Any) -> str:
     sizes = topo.sizes if topo is not None else {}
     multi_device = any(n > 1 for n in sizes.values())
     tp_shardable = multi_device and {a for a, n in sizes.items() if n > 1} == {"model"}
+    if mode == "capacity" and layout_ok and multi_device:
+        from deepspeed_tpu_torch.ops.cuda.sharded import kernel_fallback
+        kernel_fallback("capacity_scan",
+                        f"mesh axes {sorted(a for a, n in sizes.items() if n > 1)} "
+                        "unsupported: the capacity loop streams to one device's memory",
+                        engine.device)
+        logger.warning("serve_mode='capacity' needs a single device; falling back to "
+                       "whole-tree dequant")
+        return "dequant"
     if mode in ("layer_scan", "capacity") and not layout_ok:
         logger.warning(
             f"serve_mode={mode!r} needs a llama-layout param tree (stacked "
@@ -192,12 +206,18 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     tree's weights through `torch.func.functional_call`), and the tree is
     returned.
 
+    Capacity: the runner builds its tiers from `params` or the module's
+    own weights, the module is replaced by a skeleton on the meta device
+    (the engine keeps no reference to the caller's weights), and the
+    runner's `params_view()` is returned.
+
     Under a tensor-parallel topology (`engine.topology`) the placed weights
     are this rank's shard (module docstring), and under an expert-parallel
     one its experts' share; `params` is the whole tree."""
     cfg = engine._config
     model = engine.module
     engine._quantized = bool(cfg.quant and cfg.quant.get("enabled"))
+    engine._capacity = None
     built = {"model": (getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)),
              "expert": (getattr(model, "ep_size", 1), getattr(model, "ep_rank", 0))}
     shard_built = any(n > 1 for n, _ in built.values())
@@ -208,7 +228,13 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
         shapes = whole.param_tree(device="meta")
     engine.serve_mode = resolve_serve_mode(engine, shapes)
     if engine.serve_mode == "capacity":
-        raise _unported("serve_mode='capacity' (resolved by 'auto')", "The rest")
+        from deepspeed_tpu_torch.inference.capacity_scan import CapacityRunner
+        engine._capacity = CapacityRunner(
+            engine.model_cfg, cfg, params if params is not None else model, engine.device,
+            quantized=engine._quantized, group_size=int((cfg.quant or {}).get("group_size", 256)),
+            options=cfg.capacity, fused=use_fused_int8(engine))
+        engine.module = type(model)(model.cfg, device="meta").eval()
+        return engine._capacity.params_view()
     if engine._quantized and not qls.layer_scan_supported(shapes):
         raise _unported(f"quant on {type(model).__name__} (int8 weights outside the "
                         "llama layer-scan layout)", "Weight quantization and serve modes")
@@ -271,6 +297,14 @@ def _check_shard_quantizable(tree, group: int, layer_scan: bool, min_size: int) 
                 f"quant group_size={group} does not tile the {tuple(leaf.shape[1:])} rows of "
                 "a tensor-parallel shard: pass the whole tree as params, which is "
                 "quantized before it is cut")
+
+
+def use_fused_int8(engine) -> bool:
+    """The fused dequant-GEMM (K5) in the streamed modes: `fused_int8=None`
+    means the kernel on CUDA; an explicit False is the naive dequant
+    matmul."""
+    fused = engine._config.fused_int8
+    return bool(fused) if fused is not None else engine.accelerator.is_cuda
 
 
 def dense_state(engine) -> Optional[dict]:

@@ -38,10 +38,18 @@ rank runs this same host scheduler on the same requests, so every rank's
 block tables and cursors are equal, and the pools hold the rank's Hkv/tp
 heads (K3 and K4 per shard).
 
-The serve-mode ladder, v2 `layer_scan`/`capacity` (they serve slot rows),
-speculative rounds, `warmup` and the tracer, program ledger, recompile
-detector and memory plane are not ported (ROADMAP.md, Queue 1, 'v2
-FastGen: the rest').
+The layer-streamed serve modes serve slot rows, as in the JAX engine:
+`serve_mode="layer_scan"` (with `quant`) runs every model call through the
+layer scan over the per-layer int8 stacks (K5 on every projection), and
+`"capacity"` through the capacity runner, which streams every layer from
+host memory or NVMe each call (`capacity_scan.CapacityRunner`); decode steps
+attend through K2 in both. An explicit `kv_layout="paged"` with either
+raises, a paged default warns once and takes slot rows, and an int8 KV
+cache raises.
+
+The serve-mode ladder, speculative rounds, `warmup` and the tracer, program
+ledger, recompile detector and memory plane are not ported (ROADMAP.md,
+Queue 1, 'v2 FastGen: the rest').
 """
 
 from __future__ import annotations
@@ -61,12 +69,14 @@ from deepspeed_tpu_torch.inference.serve_modes import (
     dense_state,
     place_params,
     serving_topology,
+    use_fused_int8,
 )
 from deepspeed_tpu_torch.inference.v2.ragged import DSStateManager
 from deepspeed_tpu_torch.ops.sampling import row_generator, sample_logits
 from deepspeed_tpu_torch.utils.logging import logger
 
 _REST = "v2 FastGen: the rest"
+_WARNED: set = set()
 
 
 def _uid_fold(uid) -> int:
@@ -111,6 +121,7 @@ class InferenceEngineV2:
         config._check_ported()
         if isinstance(model, tuple):
             model, params = model
+        explicit_layout = kv_layout is not None
         if kv_layout is None:
             # the JAX engine's rule: its alibi kernels were validated at
             # head dim and block >= 128, so smaller alibi models keep slot rows
@@ -137,9 +148,7 @@ class InferenceEngineV2:
                 f"layer-streamed serve mode {self.serve_mode!r} keeps dense "
                 "slot rows with no per-row view of a quantized cache — use "
                 "serve_mode='dequant' or drop the int8 cache")
-        if self.serve_mode != "dequant":
-            raise _unported(f"serve_mode={self.serve_mode!r} in v2 (it serves dense "
-                            "slot rows, kv_layout='slot')", _REST)
+        kv_layout = self._streamed_layout(kv_layout, explicit_layout)
         if kv_cache_dtype == "int8" and kv_layout != "paged":
             raise ValueError(
                 "kv_cache_dtype='int8' needs the paged layout (the dense "
@@ -153,6 +162,7 @@ class InferenceEngineV2:
         self._cache_block_size = cache_block_size
         self._num_cache_blocks = num_cache_blocks
         self._prefix_sharing = prefix_sharing
+        self._apply = self._make_apply()
         self._setup_cache()
         self._sample_cfg = None   # (temperature, top_k, top_p) or None
         self._seed = 0
@@ -169,13 +179,58 @@ class InferenceEngineV2:
     def config(self) -> DeepSpeedInferenceConfig:
         return self._config
 
-    def _model(self, *args, **kwargs):
-        """The module on its own weights, or with `quant` on the int8 tree
-        dequantized for this call."""
+    def _streamed_layout(self, kv_layout: str, explicit: bool) -> str:
+        """The layer-streamed modes run the block body over dense slot rows
+        (the paged table indirection lives in the model's cache path, which
+        they bypass): an explicit paged request raises, a paged default
+        warns once and takes slot rows."""
+        if self.serve_mode == "dequant" or kv_layout == "slot":
+            return kv_layout
+        if explicit:
+            raise ValueError(
+                f"kv_layout='paged' is incompatible with serve_mode={self.serve_mode!r}: "
+                "the layer-streamed block body runs over dense slot rows; drop kv_layout "
+                "or serve dequant")
+        key = ("v2_kv_layout", self.serve_mode)
+        if key not in _WARNED:
+            _WARNED.add(key)
+            logger.warning(f"v2: serve_mode={self.serve_mode!r} forces the dense 'slot' KV "
+                           "layout (prefix sharing and fork are paged-only and go inactive)")
+        return "slot"
+
+    def _make_apply(self):
+        """`apply(ids, cache, logits_at=None) → (logits, cache)` with the
+        cursors advanced, as the module's call gives them, for the streamed
+        modes: the layer scan over the placed int8 stacks, or the capacity
+        runner's streamed pass. None in the dequant mode (`_model` calls the
+        module)."""
+        if self.serve_mode == "capacity":
+            return self._capacity.apply
+        if self.serve_mode != "layer_scan":
+            return None
+        from deepspeed_tpu_torch.inference.quantized_layer_scan import (
+            layer_slices, make_scan_apply)
+        scan = make_scan_apply(self.model_cfg, fused=use_fused_int8(self),
+                               mesh=self.topology if self.topology.tp_size > 1 else None)
+        per_layer = layer_slices(self.params["layers"])
+
+        def apply(ids, cache, logits_at=None):
+            logits, cache = scan(self.params, ids, cache, per_layer, logits_at=logits_at)
+            return logits, cache.replace(index=cache.index + ids.shape[1])
+
+        return apply
+
+    def _model(self, ids, cache, logits_at=None):
+        """One model call: the streamed modes' `apply`, else the module on
+        its own weights, or with `quant` on the int8 tree dequantized for
+        this call."""
+        if self._apply is not None:
+            return self._apply(ids, cache, logits_at=logits_at)
+        kwargs = {"cache": cache, "logits_at": logits_at}
         state = dense_state(self)
         if state is None:
-            return self.module(*args, **kwargs)
-        return torch.func.functional_call(self.module, state, args, kwargs)
+            return self.module(ids, **kwargs)
+        return torch.func.functional_call(self.module, state, (ids,), kwargs)
 
     def _setup_cache(self) -> None:
         """The cache and the scheduler state; every row parked (cursor at

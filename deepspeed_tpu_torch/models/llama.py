@@ -500,21 +500,44 @@ def param_taker(dtype: Optional[torch.dtype] = None, device=None, release: bool 
     return take
 
 
+def _slots(layer: nn.Module):
+    """(owner path, attribute, dense) of each parameter of a layer module:
+    `dense` marks an `nn.Linear` weight, whose JAX leaf is its transposed
+    (in, out) `kernel`."""
+    for name, _ in layer.named_parameters():
+        *owner_path, attr = name.split(".")
+        owner = layer.get_submodule(".".join(owner_path))
+        yield owner_path, attr, isinstance(owner, nn.Linear) and attr == "weight"
+
+
+def _put(tree: dict, owner_path, attr: str, dense: bool, value) -> None:
+    node = tree
+    for key in owner_path:
+        node = node.setdefault(key, {})
+    node["kernel" if dense else attr] = value
+
+
 def stack_tree(layers: nn.ModuleList, take) -> dict:
     """The layers' parameters as scan-stacked JAX leaves (the inverse of
     `stack_state`): each stacked on a leading L axis, `nn.Linear` weights
     transposed into flax (in, out) kernels."""
     stack: dict = {}
-    for name in [n for n, _ in layers[0].named_parameters()]:
-        *owner_path, attr = name.split(".")
+    for owner_path, attr, dense in _slots(layers[0]):
         owners = [layer.get_submodule(".".join(owner_path)) for layer in layers]
-        dense = isinstance(owners[0], nn.Linear) and attr == "weight"
-        node = stack
-        for key in owner_path:
-            node = node.setdefault(key, {})
-        node["kernel" if dense else attr] = torch.stack(
-            [take(o, attr).t() if dense else take(o, attr) for o in owners])
+        _put(stack, owner_path, attr, dense, torch.stack(
+            [take(o, attr).t() if dense else take(o, attr) for o in owners]))
     return stack
+
+
+def layer_tree(layer: nn.Module) -> dict:
+    """One layer module's weights as its JAX layer tree, without a stack:
+    `nn.Linear` weights as transposed (in, out) kernel views, other
+    parameters as they are (no copy)."""
+    tree: dict = {}
+    for owner_path, attr, dense in _slots(layer):
+        p = getattr(layer.get_submodule(".".join(owner_path)), attr).detach()
+        _put(tree, owner_path, attr, dense, p.t() if dense else p)
+    return tree
 
 
 @torch.no_grad()

@@ -1,4 +1,6 @@
 from deepspeed_tpu_torch.op_builder.builder import (  # noqa: F401
+    AIO_LIBRARY,
+    HostLibrary,
     KernelLibrary,
     build_all,
     on_current_stream,

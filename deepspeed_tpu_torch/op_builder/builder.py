@@ -9,6 +9,10 @@ and of the flags, so an edited source or header is rebuilt and an
 unchanged one is loaded as it is.
 Libraries go to `build/torch_kernels/` beside the package.
 
+`HostLibrary` builds a host C++ source the same way with `g++`: the
+asynchronous file I/O engine of the NVMe tier (`csrc/aio/ds_aio.cpp`, a copy
+of the JAX package's root `csrc/aio/ds_aio.cpp`; `AIO_LIBRARY`).
+
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `KernelLibrary.check` raises on a non-zero code.
 A kernel written through `ctypes` into a fresh tensor leaves that tensor
@@ -57,6 +61,8 @@ class KernelLibrary:
     exports. `functions` maps each exported name to its `ctypes` argtypes;
     every function returns a `cudaError_t` as an int."""
 
+    FLAGS = NVCC_FLAGS
+
     def __init__(self, source: str, functions: Dict[str, Sequence]):
         self.source = CSRC_DIR / source
         self.functions = dict(functions)
@@ -79,7 +85,7 @@ class KernelLibrary:
             header = (self.source.parent / name.decode()).read_bytes()
             digest.update(header)
             todo += _LOCAL_INCLUDE.findall(header)
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(self.FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def _start_build(self) -> Optional[subprocess.Popen]:
@@ -89,18 +95,21 @@ class KernelLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [*self._compiler(), *self.FLAGS, "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         proc.ds_tmp, proc.ds_out = tmp, out  # type: ignore[attr-defined]
         return proc
+
+    def _compiler(self) -> List[str]:
+        return [_nvcc()]
 
     def _finish_build(self, proc: Optional[subprocess.Popen]) -> None:
         if proc is None:
             return
         self.build_log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {self.source.name} "
+            raise RuntimeError(f"{self._compiler()[0]} failed on {self.source.name} "
                                f"(exit {proc.returncode}):\n{self.build_log}")
         os.replace(proc.ds_tmp, proc.ds_out)  # type: ignore[attr-defined]
 
@@ -126,6 +135,48 @@ class KernelLibrary:
         if code != 0:
             msg = self.lib().ds_cuda_error_string(code).decode()
             raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+class HostLibrary(KernelLibrary):
+    """One host C++ source built by `g++` into a shared library, loaded
+    with `ctypes`. `functions` maps each exported name to `(restype,
+    argtypes)`."""
+
+    FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+    def _compiler(self) -> List[str]:
+        found = shutil.which("g++")
+        if found is None:
+            raise RuntimeError(f"g++ not found: building {self.source.name} needs a C++ "
+                               "compiler")
+        return [found]
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            for fname, (restype, argtypes) in self.functions.items():
+                fn = getattr(lib, fname)
+                fn.restype, fn.argtypes = restype, list(argtypes)
+            self._lib = lib
+        return self._lib
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+# the asynchronous file I/O engine (the JAX package's `AsyncIOBuilder`
+# signatures): io_uring where the kernel allows it, else a thread pool;
+# large requests striped into sub-operations
+AIO_LIBRARY = HostLibrary("aio/ds_aio.cpp", {
+    "ds_aio_create": (_P, (_I, _I)),
+    "ds_aio_create_ex": (_P, (_I, _I, _LL)),
+    "ds_aio_destroy": (None, (_P,)),
+    "ds_aio_using_uring": (_I, (_P,)),
+    "ds_aio_open": (_I, (ctypes.c_char_p, _I)),
+    "ds_aio_close": (None, (_I,)),
+    "ds_aio_pread": (_LL, (_P, _I, _P, _LL, _LL)),
+    "ds_aio_pwrite": (_LL, (_P, _I, _P, _LL, _LL)),
+    "ds_aio_wait": (_LL, (_P,)),
+})
 
 
 def refuse_grad(what: str, *tensors) -> None:

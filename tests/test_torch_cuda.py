@@ -1382,3 +1382,116 @@ def test_data_collectives_on_card_match_the_cpu(cuda_device, tmp_path):
                 torch.testing.assert_close(got[key], value, rtol=0, atol=0, msg=key)
             elif key != "stats":
                 assert got[key] == value, key
+
+
+# The capacity serve mode (ZeRO-Inference): a Llama with every layer's
+# leaves in page-locked host memory, streamed through two device slabs each
+# pass. Hidden 1024, 8 heads of 128 over 2 KV heads, intermediate 2048, 4
+# layers, vocab 32,000: rows of every int8 kernel are whole blocks of 256.
+CAPACITY_SHAPE = dict(hidden_size=1024, num_attention_heads=8, num_key_value_heads=2,
+                      intermediate_size=2048, num_hidden_layers=4, vocab_size=32000)
+
+
+def _capacity_tree(seed=0):
+    """(config, a JAX-layout Llama tree of numpy arrays in f32 with
+    normal(0.02) kernels and embeddings)."""
+    from deepspeed_tpu_torch.models.llama import (
+        LlamaForCausalLM, init_params, llama_config, to_jax_params)
+    cfg = llama_config("llama-tiny", dtype=torch.bfloat16, **CAPACITY_SHAPE)
+    model = init_params(LlamaForCausalLM(cfg), torch.Generator().manual_seed(seed))
+    return cfg, to_jax_params(model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_capacity_generate_on_card(cuda_device, quant):
+    """A meta module served from a numpy tree: the peak memory of a
+    `generate` within 1.10x the plan, no layer leaf on the card between
+    calls, K2 launched once a layer a decode step and (int8) K5 seven times
+    a layer a model call, the synchronous mode's tokens and logits equal to
+    the double-buffered mode's, and the tokens equal to the layer scan's
+    (int8) or the module's own greedy tokens (bf16)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import capacity_scan
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, load_jax_params
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+    cfg, tree = _capacity_tree()
+    L, b, s, new = cfg.num_hidden_layers, 2, 100, 6
+    kw = dict(dtype="bf16", quant={"enabled": True, "group_size": 256} if quant else None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine = deepspeed_tpu_torch.init_inference(LlamaForCausalLM(cfg, device="meta"),
+                                                params=tree, serve_mode="capacity", **kw)
+    runner = engine._capacity
+    assert engine.serve_mode == "capacity" and runner.host_resident()
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator().manual_seed(1))
+    k2, k5 = decode_attention.launches, quantized_matmul.launches
+    out = engine.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    plan = runner.plan_for(b, s, new)
+    assert peak <= 1.10 * plan.peak_hbm_bytes, (peak, plan)
+    assert decode_attention.launches - k2 == L * (new - 1)
+    assert quantized_matmul.launches - k5 == (7 * L * new if quant else 0)
+    held = torch.cuda.memory_allocated() - base
+    assert held <= plan.resident_bytes + 2 * runner._buf_bytes + (8 << 20), held
+    assert runner.host_resident()
+    for layer in engine.params["layers"]:
+        for _, leaf in capacity_scan._flatten(layer):
+            assert leaf.device.type == "cpu" and leaf.is_pinned()
+    assert engine.serving_stats()["prefetch_stall_ms"] >= 0.0
+    logits = engine.forward(out[:, :-1])
+    sync = deepspeed_tpu_torch.init_inference(
+        LlamaForCausalLM(cfg, device="meta"), params=tree, serve_mode="capacity",
+        capacity={"double_buffer": False}, **kw)
+    assert torch.equal(sync.generate(ids, max_new_tokens=new), out)
+    assert torch.equal(sync.forward(out[:, :-1]), logits)
+    if quant:
+        scan = deepspeed_tpu_torch.init_inference(LlamaForCausalLM(cfg, device="meta"),
+                                                  params=tree, serve_mode="layer_scan", **kw)
+        ref = scan.generate(ids, max_new_tokens=new)
+    else:
+        model = load_jax_params(LlamaForCausalLM(cfg), tree)
+        ref = deepspeed_tpu_torch.init_inference(model, dtype="bf16").generate(
+            ids, max_new_tokens=new)
+        # two bf16 paths (cuBLAS on transposed weights, the layer scan's on
+        # its kernels) may part at a near tie: the first tokens agree
+        ref, out = ref[:, :s + 2], out[:, :s + 2]
+    assert torch.equal(out.cpu(), ref.cpu())
+
+
+@pytest.mark.cuda
+def test_capacity_nvme_and_v2_on_card(cuda_device, tmp_path):
+    """Two layers on NVMe give the RAM tier's tokens; v2 `capacity` on slot
+    rows gives v2 `layer_scan`'s tokens over the same int8 tree, with K2 a
+    layer a decode step and K5 seven times a layer a model call."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM
+    from deepspeed_tpu_torch.ops.cuda.quantized_matmul import quantized_matmul
+    cfg, tree = _capacity_tree(3)
+    L = cfg.num_hidden_layers
+    ids = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(4))
+    ram = deepspeed_tpu_torch.init_inference(LlamaForCausalLM(cfg, device="meta"), params=tree,
+                                             dtype="bf16", serve_mode="capacity")
+    disk = deepspeed_tpu_torch.init_inference(
+        LlamaForCausalLM(cfg, device="meta"), params=tree, dtype="bf16", serve_mode="capacity",
+        capacity={"nvme_dir": str(tmp_path), "nvme_layers": 2})
+    assert disk._capacity.plan.nvme_layers == 2 and len(disk._capacity._ram) == L - 2
+    want = ram.generate(ids, max_new_tokens=5)
+    for _ in range(2):
+        assert torch.equal(disk.generate(ids, max_new_tokens=5), want)
+    rng = np.random.default_rng(5)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n))) for n in (37, 20, 9)]
+    quant = {"enabled": True, "group_size": 256}
+    got = {}
+    for mode in ("layer_scan", "capacity"):
+        eng = InferenceEngineV2(LlamaForCausalLM(cfg, device="meta"), params=tree,
+                                serve_mode=mode, quant=quant, max_batch=2, max_seq_len=128,
+                                split_fuse_chunk=16)
+        assert eng.kv_layout == "slot"
+        k2, k5 = decode_attention.launches, quantized_matmul.launches
+        got[mode] = eng.generate(prompts, max_new_tokens=6)
+        assert decode_attention.launches > k2 and (quantized_matmul.launches - k5) % (7 * L) == 0
+    assert got["capacity"] == got["layer_scan"]

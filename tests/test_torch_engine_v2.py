@@ -44,9 +44,9 @@ def _prompts(vocab):
     return [tail[0], tail[1], shared + tail[2], tail[3], shared + tail[4]]
 
 
-def port_engine(tree, **kw):
+def port_engine(tree, config=None, **kw):
     model = LlamaForCausalLM(llama_config("llama-tiny", dtype=torch.float32, **TINY))
-    return InferenceEngineV2(model, config=DeepSpeedInferenceConfig(dtype="fp32"),
+    return InferenceEngineV2(model, config=config or DeepSpeedInferenceConfig(dtype="fp32"),
                              params=tree, device="cpu", **{**ENGINE, **kw})
 
 
@@ -190,7 +190,8 @@ def test_v2_sampled_generate(reference):
 def test_v2_unported_options_raise(reference):
     tree, _, _ = reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_engine(tree, serve_mode="layer_scan", quant={"enabled": True})
+        port_engine(tree, serve_mode="capacity",
+                    config=DeepSpeedInferenceConfig(dtype="fp32", capacity={"stage_retries": 3}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_engine(tree, speculative={"enabled": True, "k": 4})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

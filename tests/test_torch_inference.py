@@ -96,9 +96,11 @@ def test_init_inference_without_cuda_raises():
 
 
 @pytest.mark.parametrize("config", [
-    {"serve_mode": "capacity"},
-    {"speculative": {"enabled": True, "k": 4}}, {"capacity": {}}, {"dtype": "int8"},
-    {"quant": {"enabled": True}, "serve_mode": "capacity"},
+    {"serve_mode": "capacity", "capacity": {"prefetch_watchdog_s": 30.0}},
+    {"speculative": {"enabled": True, "k": 4}}, {"capacity": {"stage_retries": 3}},
+    {"dtype": "int8"},
+    {"quant": {"enabled": True}, "serve_mode": "capacity",
+     "resilience": {"dispatch_deadline_s": 5.0}},
 ])
 def test_unported_config_values_raise(config):
     model = LlamaForCausalLM(llama_config("llama-tiny", dtype=torch.float32))

@@ -165,6 +165,6 @@ def test_slot_refusals(reference):
     eng.put([1], [np.asarray([3, 4, 5], np.int32)])
     with pytest.raises(ValueError, match="fork"):
         eng.fork(1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _port("llama", trees["llama"], kv_layout="slot", serve_mode="layer_scan",
+    with pytest.raises(ValueError, match="paged"):     # the streamed modes serve slot rows
+        _port("llama", trees["llama"], kv_layout="paged", serve_mode="layer_scan",
               quant={"enabled": True})

@@ -178,13 +178,15 @@ def serve_int8(rank, tree, overrides, ids, new, group):
             tiny_model(overrides), params=tree, dtype="fp32", device="cpu",
             tensor_parallel={"tp_size": TP}, quant={"enabled": True, "group_size": group},
             serve_mode="layer_scan", fused_int8=True)
-        call = eng._model_call()
+        # the layer scan over the whole prompt, every position's logits (the
+        # engine's generate asks it for the last position only)
         cfg = eng.model_cfg
+        scan = quantized_layer_scan.make_scan_apply(cfg, fused=True, mesh=eng.topology)
         cache = KVCache.create(cfg.num_hidden_layers, ids.shape[0], 128,
                                cfg.num_key_value_heads // TP, cfg.head_dim,
                                dtype=torch.float32)
         with torch.inference_mode():
-            scan_logits, _ = call(torch.as_tensor(ids), cache)
+            scan_logits, _ = scan(eng.params, torch.as_tensor(ids), cache)
         out = dict(serve_mode=eng.serve_mode, tree=to_jax_params(eng.params),
                    logits=eng.forward(ids).numpy(), scan_logits=scan_logits.numpy(),
                    greedy=eng.generate(ids, max_new_tokens=new).numpy())
