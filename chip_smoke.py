@@ -193,6 +193,41 @@
    step's (or within 2k per flipped token); the control, one rank on rank
    0's rows alone, must miss the norm bound. Peak memory, step seconds,
    launches and gloo's seconds and bytes a step by kind, per rank;
+9h. trains llama-1b with ZeRO++ (`train_zeropp`) in 9e's two ranks after
+   its stages, at full depth: stage 2 with qgZ (int8 gradient reduce-scatter) and stage 3
+   with qwZ and qgZ (int8 parameter gathers too), two steps each, every
+   step's parameters bitwise equal on both ranks; the first step's loss
+   and pre-clip norm held to the same stage's plain step (ZEROPP_LOSS_RTOL,
+   ZEROPP_NORM_RTOL: qgZ leaves the forward alone, so its loss is bitwise
+   the plain one), a control (every block dequantized with its neighbour's
+   scale) that must miss the norm bound; a falling loss; K1's launches as
+   the plain stage's; the wire bytes by kind (the int8 values and f32
+   scales handed to gloo) over the plain run's against the ratio the
+   pieces predict (`zeropp_prediction`, within
+   ZEROPP_BYTES_RTOL: int8 plus an f32 scale a block of 256 against f32
+   or bf16), and qwZ's bytes a micro beside the JAX package's record of
+   them (the recompute gathers a block again); gloo's seconds a step;
+9i. trains llama-1b at full width and MICS_LAYERS layers under MiCS
+   (`train_mics`): four ranks on the one card over gloo, `repl` 2 x `data`
+   2 from the config's `mics_shard_size`, stage 3, micro-batch 1 a rank
+   and GAS 2 (9's global batch), two steps: every rank's gathered
+   parameters bitwise equal, `repl` peers' pieces bitwise equal and the
+   `data` peers' not, the gathers on the `data` pairs only and the
+   gradient mean across `repl`, the first step against a one-rank engine
+   at the same depth (TRAIN_REF_* bounds), a falling loss, K1's launches,
+   the peak memory a rank and gloo's calls, bytes and seconds by group;
+9j. trains llama-1b at full width and ONEBIT_LAYERS layers through 1-bit
+   Adam's compressed wire (`train_onebit`, in 9e's ranks after 9h's
+   runs): dp = 2, stage 0, freeze step
+   ONEBIT_FREEZE, no clipping, beside FusedAdam on the same weights and
+   rows: the warm-up's change of the f32 master within ONEBIT_WARMUP_RTOL
+   of Adam's (relative L2; the first step tighter than the second, whose
+   bf16 parameters already differ a little), the first compressed step's
+   not (the control);
+   both ranks bitwise equal after each step; a falling loss over
+   ONEBIT_STEPS; K1's launches; the bytes a step by kind before the freeze
+   (the momentum's exact mean and the norm's, f32) and after it (int8
+   signs and one f32 scale a JAX leaf, and the norm's mean);
 10. prints one JSON line of kernels (with each training path's launches a
    `train_batch` beside K1's and K6's rows), then the result line.
 
@@ -336,6 +371,36 @@ ZERO_STAGES = (0, 1, 2, 3)
 ZERO_STEPS = 2
 ZERO_PEAK_RATIO = 0.6        # stage 3's peak over stage 0's, at most
 TRAIN_REFS = {}              # `train`'s first train_batch: loss and pre-clip grad norm
+# ZeRO++ over dp = 2 (`train_zeropp`, in `train_zero`'s ranks, after its
+# stages): llama-1b at full depth, stage 2 with qgZ and stage 3 with qwZ and
+# qgZ, each held to the same stage's run without ZeRO++ (its first step:
+# the same weights and rows). qgZ leaves the forward alone, so the first
+# loss is bitwise the plain stage's; the int8 gradient moves the pre-clip
+# norm by a few 1e-4 at most, and qwZ's int8 weights the loss and norm by
+# ~1e-3 (PERF.md's prediction, written before the first card run).
+# The control (stage 2 qgZ) dequantizes every block with its neighbour's
+# scale.
+ZEROPP_RUNS = (("qgz_stage2", 2, True, False), ("qwz_qgz_stage3", 3, True, True))
+ZEROPP_NORM_RTOL = {"qgz_stage2": 2e-3, "qwz_qgz_stage3": 1e-2}
+ZEROPP_LOSS_RTOL = {"qgz_stage2": 0.0, "qwz_qgz_stage3": 2e-3}
+ZEROPP_BYTES_RTOL = 0.01     # counted wire bytes over plain ones against the prediction
+# MiCS (`train_mics`): four ranks on the one card, repl 2 x data 2, stage 3,
+# llama-1b at full width and MICS_LAYERS of its 22 layers (four ranks' gloo
+# time), micro-batch 1 a rank and GAS 2 (`train`'s global batch), held to a
+# one-rank engine at the same depth (TRAIN_REF_* bounds)
+MICS_RANKS, MICS_SHARD, MICS_LAYERS, MICS_STEPS = 4, 2, 2, 2
+# the 1-bit wire (`train_onebit`): dp = 2, stage 0, llama-1b at full width and
+# ONEBIT_LAYERS layers, 1-bit Adam with freeze_step ONEBIT_FREEZE and no
+# clipping, beside FusedAdam on the same rows: the warm-up's cumulative
+# update against Adam's (relative L2 of the master's change) within
+# ONEBIT_WARMUP_RTOL: the first step, from the same parameters, to 1e-5
+# (5.9e-7 read), the second to 1e-3 (3.6e-4 read: the two runs' parameters
+# already differ a little after one step). The first compressed step's
+# must miss the second bound (the control; 6.43 read). This script's
+# readings at 1 layer on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+ONEBIT_LAYERS, ONEBIT_FREEZE, ONEBIT_STEPS = 1, 2, 4
+ONEBIT_WARMUP_RTOL = (1e-5, 1e-3)
+ZERO_RANKS = []              # `train_zero`'s ranks' results
 REMAT_RTOL = 1e-3
 GRAD_KEYS = ("embed_tokens", "layers.0.self_attn.q_proj.weight",
              "layers.0.mlp.down_proj.weight", "lm_head.weight")
@@ -3376,6 +3441,7 @@ def train_zero(report):
         mp.start_processes(zero_rank, args=(free_port(), tmp), nprocs=DP, start_method="spawn")
         wall_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP)]
+    ZERO_RANKS[:] = ranks            # `train_zeropp` reads the ZeRO++ runs
     L = cfg.num_hidden_layers
     per_step = {"flash_attention_fwd": 2 * L * GAS,     # remat runs each forward again
                 "flash_attention_bwd_dq": L * GAS, "flash_attention_bwd_dkv": L * GAS}
@@ -3481,6 +3547,346 @@ def zero_checkpoint(ranks):
                                     grad_norm_rel_err=norm_err, load_s=load_s))
 
 
+def train_zeropp(report):
+    """ZeRO++ over dp = 2, run in `train_zero`'s ranks after its stages
+    (`zero_rank`): stage 2 with qgZ and stage 3 with qwZ and qgZ, each
+    held to the same stage's plain run on the same weights and rows (its
+    first step's loss and pre-clip norm within ZEROPP_LOSS_RTOL and
+    ZEROPP_NORM_RTOL), both ranks' parameters bitwise equal after every
+    step, a falling loss, K1's launches as the plain stage's, and the
+    wire bytes by kind over the plain run's against the prediction
+    (`zeropp_prediction`, within ZEROPP_BYTES_RTOL); the control (blocks
+    dequantized with a neighbour's scale) must miss the norm bound."""
+    ranks = ZERO_RANKS
+    out = {}
+    for name, stage, qg, qw in ZEROPP_RUNS:
+        runs = [r["zeropp"][name] for r in ranks]
+        plain = [r["stages"][stage] for r in ranks]
+        r0, p0 = runs[0], plain[0]
+        assert r0["digests"] == runs[1]["digests"], (name, r0["digests"], runs[1]["digests"])
+        first, ref = r0["steps"][0], p0["steps"][0]
+        loss_err = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_err = abs(first["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        assert loss_err <= ZEROPP_LOSS_RTOL[name] and norm_err <= ZEROPP_NORM_RTOL[name], \
+            (name, loss_err, norm_err)
+        for r, p in zip(runs, plain):
+            losses = [st["loss"] for st in r["steps"]]
+            assert all(np.isfinite(losses)) and losses[-1] < losses[0], (name, losses)
+            assert r["launches"] == p["launches"], (name, r["launches"], p["launches"])
+        wire = {}
+        for kind, plain_kind, fraction in (("quantized_reduce_scatter", "reduce_scatter",
+                                            "reduce_scatter"),
+                                           ("quantized_all_gather", "all_gather", "all_gather")):
+            if r0["predicted"][fraction] is None:
+                assert kind not in r0["comm"], (name, kind)
+                continue
+            got = r0["comm"][kind]["bytes"] / p0["comm"][plain_kind]["bytes"]
+            want = r0["predicted"][fraction]
+            assert abs(got / want - 1) <= ZEROPP_BYTES_RTOL, (name, kind, got, want)
+            # the gradients cross in int8 only (stage 1-2's update still gathers
+            # bf16 parameters, stage 3's the few left whole)
+            assert kind != "quantized_reduce_scatter" or plain_kind not in r0["comm"], \
+                (name, r0["comm"])
+            wire[kind] = dict(ratio=got, predicted=want,
+                              bytes_per_step=r0["comm"][kind]["bytes"] / ZERO_STEPS,
+                              plain_bytes_per_step=p0["comm"][plain_kind]["bytes"] / ZERO_STEPS)
+        if qw:
+            per_micro = r0["predicted"]["all_gather_bytes_per_micro"]
+            jax = r0["predicted"]["all_gather_bytes_per_micro_jax_record"]
+            wire["quantized_all_gather"].update(
+                predicted_bytes_per_micro=per_micro, jax_record_bytes_per_micro=jax,
+                over_jax_record=per_micro / jax)
+        step_s = max(r["steps"][-1]["step_s"] for r in runs)
+        out[name] = dict(
+            stage=stage, qgz=qg, qwz=qw, first_step_loss_rel_err=loss_err,
+            first_step_grad_norm_rel_err=norm_err, steps=r0["steps"], last_step_s=step_s,
+            plain_last_step_s=max(p["steps"][-1]["step_s"] for p in plain),
+            peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in runs],
+            gloo_per_step={k: {f: v[f] / ZERO_STEPS for f in ("calls", "bytes", "seconds")}
+                           for k, v in r0["comm"].items()},
+            plain_gloo_per_step={k: {f: v[f] / ZERO_STEPS for f in ("calls", "bytes",
+                                                                    "seconds")}
+                                 for k, v in p0["comm"].items()},
+            wire=wire, launches_per_rank=r0["launches"])
+    control = ranks[0]["zeropp_control"]
+    ref = ranks[0]["stages"][ZEROPP_RUNS[0][1]]["steps"][0]
+    control_err = abs(control["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    assert control_err > ZEROPP_NORM_RTOL[ZEROPP_RUNS[0][0]], (control_err, control)
+    seconds = max(r["zeropp_s"] for r in ranks)
+    report.setdefault("phase_s", {})["train_zeropp_ranks"] = seconds
+    print(f"phase train_zeropp (in train_zero's ranks): {seconds:.1f} s", flush=True)
+    report["train_zeropp"] = dict(
+        card=report["card"], model="llama-1b (random bf16 weights, seed 30) over dp=2, "
+                                   "full depth, beside train_zero's plain stages",
+        runs=out, control=dict(control, grad_norm_rel_err=control_err,
+                               what="stage 2 qgZ, every block dequantized with its "
+                                    "neighbour's scale"),
+        norm_rtol=ZEROPP_NORM_RTOL, loss_rtol=ZEROPP_LOSS_RTOL, ranks_s=seconds)
+    log("train_zeropp: " + "; ".join(
+        f"{n}: loss err {o['first_step_loss_rel_err']:.2e}, norm err "
+        f"{o['first_step_grad_norm_rel_err']:.2e}, step {o['last_step_s']:.1f} s (plain "
+        f"{o['plain_last_step_s']:.1f}), wire "
+        + ", ".join(f"{k} {v['ratio']:.4f} (pred {v['predicted']:.4f})"
+                    for k, v in o['wire'].items()) for n, o in out.items())
+        + f"; control norm err {control_err:.3f}")
+
+
+def spawn_ranks(fn, world):
+    """`fn(rank, port, tmp)` in `world` spawned processes on the one card;
+    each saves its result to `tmp/rank{r}.pt`. Returns the results and
+    the wall seconds."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(fn, args=(free_port(), tmp), nprocs=world, start_method="spawn")
+        wall_s = time.perf_counter() - t0
+        return [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                for r in range(world)], wall_s
+
+
+def join_ranks(rank, world, port):
+    import datetime
+
+    from deepspeed_tpu_torch import comm
+    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://localhost:{port}",
+                          rank=rank, world_size=world,
+                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+
+
+def cut_llama_config(layers):
+    from deepspeed_tpu_torch.models.llama import llama_config
+    return llama_config("llama-1b", num_hidden_layers=layers, remat=True,
+                        remat_policy="nothing")
+
+
+def train_steps(engine, batch, steps, by_group=False):
+    """`steps` `train_batch` calls on `batch`: per step the loss, pre-clip
+    norm, seconds and gloo's calls, bytes and seconds by kind (and group),
+    the gathered parameters' digest after it, and the peak memory."""
+    from deepspeed_tpu_torch import comm
+    out, peak = [], 0
+    for _ in range(steps):
+        comm.reset_comm_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(batch=batch))
+        torch.cuda.synchronize()
+        out.append(dict(loss=loss, grad_norm=engine.get_global_grad_norm(),
+                        step_s=time.perf_counter() - t0, comm=comm.comm_stats(by_group)))
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        out[-1]["digest"] = param_digest(engine.gathered_params())
+    return out, peak
+
+
+MICS_CONFIG = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=MBS // MICS_RANKS,
+                   zero_optimization={"stage": 3, "mics_shard_size": MICS_SHARD})
+
+
+def mics_rank(rank, port, tmp):
+    """One rank of `train_mics`: the engine builds `repl` x `data` from
+    the config's `mics_shard_size`; MICS_STEPS steps on this rank's rows."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    from deepspeed_tpu_torch.utils.groups import BATCH_AXES
+    join_ranks(rank, MICS_RANKS, port)
+    try:
+        cfg = cut_llama_config(MICS_LAYERS)
+        model = llama(cfg, SEED + 30)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=MICS_CONFIG,
+                                                    loss_fn=llama_loss_fn(model))
+        del model
+        topo = engine.topology
+        where = topo.coord(BATCH_AXES)
+        rows = train_rows(cfg).reshape(GAS, MICS_RANKS, -1, SEQ)[:, where].reshape(-1, SEQ)
+        zero_launches()
+        steps, peak = train_steps(engine, {"input_ids": rows}, MICS_STEPS, by_group=True)
+        out = dict(rank=rank, coords=topo.coords, steps=steps, peak_memory_bytes=peak,
+                   launches=read_launches(),
+                   pieces_digest=param_digest(engine.state.params))
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        comm.barrier()
+    finally:
+        comm.destroy_process_group()
+
+
+def train_mics(report):
+    """MiCS over four ranks on the one card (`repl` 2 x `data` 2, stage 3,
+    llama-1b at MICS_LAYERS layers, `train`'s global batch): every rank's
+    gathered parameters bitwise equal after each step, `repl` peers'
+    pieces bitwise equal and `data` peers' not, the gathers on the `data`
+    pairs only and the gradient mean across `repl`, the first step
+    against a one-rank engine at the same depth (TRAIN_REF_* bounds), a
+    falling loss, K1's launches, the peak memory a rank."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, wall_s = spawn_ranks(mics_rank, MICS_RANKS)
+    cfg = cut_llama_config(MICS_LAYERS)
+    L = cfg.num_hidden_layers
+    per_step = {"flash_attention_fwd": 2 * L * GAS, "flash_attention_bwd_dq": L * GAS,
+                "flash_attention_bwd_dkv": L * GAS}
+    for i in range(MICS_STEPS):
+        assert len({r["steps"][i]["digest"] for r in ranks}) == 1, i
+    by_data = {}
+    for r in ranks:
+        by_data.setdefault(r["coords"]["data"], set()).add(r["pieces_digest"])
+        assert r["coords"]["repl"] * MICS_SHARD + r["coords"]["data"] == r["rank"], r["coords"]
+        losses = [s["loss"] for s in r["steps"]]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        assert r["launches"] == only(**{k: n * MICS_STEPS for k, n in per_step.items()}), \
+            r["launches"]
+        for s in r["steps"]:
+            assert set(s["comm"]["all_gather"]) == {"data"}, s["comm"]["all_gather"]
+            assert "repl" in s["comm"]["all_reduce"], s["comm"]["all_reduce"]
+    assert all(len(d) == 1 for d in by_data.values()) and len(by_data) == MICS_SHARD and \
+        len(set.union(*by_data.values())) == MICS_SHARD, by_data
+    model = llama(cfg, SEED + 30)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG,
+                                                loss_fn=llama_loss_fn(model))
+    del model
+    loss = float(engine.train_batch(batch={"input_ids": train_rows(cfg)}))
+    ref = dict(loss=loss, grad_norm=engine.get_global_grad_norm())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = ranks[0]["steps"][0]
+    loss_err = abs(first["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(first["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+    assert loss_err <= TRAIN_REF_LOSS_RTOL and norm_err <= TRAIN_REF_NORM_RTOL, \
+        (loss_err, norm_err, ref)
+    steps = ranks[0]["steps"]
+    report["train_mics"] = dict(
+        card=report["card"], model=f"llama-1b at {L} of 22 layers (random bf16 weights, "
+                                   f"seed {SEED + 30}), repl {MICS_RANKS // MICS_SHARD} x "
+                                   f"data {MICS_SHARD}, ZeRO stage 3",
+        setup=f"{MICS_RANKS} ranks, one process each, sharing one card over gloo",
+        config=MICS_CONFIG, seq=SEQ, wall_s=wall_s, one_rank_first_step=ref,
+        first_step_loss_rel_err=loss_err, first_step_grad_norm_rel_err=norm_err,
+        steps=[{k: v for k, v in s.items() if k != "comm"} for s in steps],
+        gloo_per_step_by_group=steps[-1]["comm"],
+        peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in ranks],
+        launches_per_rank_per_train_batch=per_step,
+        coords=[r["coords"] for r in ranks])
+    log(f"train_mics: {MICS_RANKS} ranks, peak "
+        f"{max(r['peak_memory_bytes'] for r in ranks) / 2**30:.2f} GiB a rank, step "
+        f"{steps[-1]['step_s']:.1f} s, loss err {loss_err:.2e}, norm err {norm_err:.2e}")
+
+
+ONEBIT_BASE = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS, gradient_clipping=0.0,
+                   zero_optimization={"stage": 0})
+ONEBIT_CONFIG = dict(ONEBIT_BASE, optimizer={
+    "type": "OneBitAdam", "params": {"lr": 1e-4, "freeze_step": ONEBIT_FREEZE,
+                                     "comm_backend_name": "gloo"}})
+
+
+def flat_master(engine):
+    """The f32 master, flat, in the module's parameter order."""
+    return torch.cat([engine.state.master[n].reshape(-1) for n in engine.param_shapes])
+
+
+def onebit_run(rank):
+    """This rank's part of `train_onebit`, in `train_zero`'s ranks after
+    the ZeRO++ runs: FusedAdam for ONEBIT_FREEZE + 1 steps, then 1-bit Adam
+    for ONEBIT_STEPS, on the same weights and rows; the 1-bit run's master
+    against Adam's after each of its first ONEBIT_FREEZE + 1 steps (the
+    relative L2 distance of the changes from the start)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    from deepspeed_tpu_torch.ops.optimizers import jax_leaves
+    cfg = cut_llama_config(ONEBIT_LAYERS)
+    batch = {"input_ids": rank_rows(train_rows(cfg), rank)}
+
+    def engine(config):
+        model = llama(cfg, SEED + 30)
+        eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                 loss_fn=llama_loss_fn(model))
+        return eng
+    adam = engine(ONEBIT_BASE)
+    start = flat_master(adam)
+    adam_moves = []
+    for _ in range(ONEBIT_FREEZE + 1):
+        adam.train_batch(batch=batch)
+        adam_moves.append(flat_master(adam) - start)
+    del adam
+    gc.collect()
+    wire = engine(ONEBIT_CONFIG)
+    zero_launches()
+    steps, gaps, peak = [], [], 0
+    for i in range(ONEBIT_STEPS):
+        got, step_peak = train_steps(wire, batch, 1)
+        steps += got
+        peak = max(peak, step_peak)
+        if i <= ONEBIT_FREEZE:
+            move = flat_master(wire) - start
+            gaps.append(float((move - adam_moves[i]).norm() / adam_moves[i].norm()))
+    out = dict(rank=rank, steps=steps, gaps=gaps, peak_memory_bytes=peak,
+               launches=read_launches(), n_params=int(start.numel()),
+               n_leaves=len(jax_leaves(wire.state.params)))
+    del wire
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_onebit(report):
+    """1-bit Adam's wire over dp = 2 (stage 0, llama-1b at ONEBIT_LAYERS
+    layers, freeze_step ONEBIT_FREEZE, no clipping), run in `train_zero`'s
+    ranks after the ZeRO++ runs (`onebit_run`): both ranks' parameters
+    bitwise equal after each step; the warm-up's steps within
+    ONEBIT_WARMUP_RTOL of FusedAdam's on the same rows, the first
+    compressed step not (the control); a falling loss; K1's launches; the
+    wire's bytes a step before the freeze (the exact momentum mean and the
+    norm's mean, f32) and after it (int8 signs and one f32 scale a JAX
+    leaf, and the norm's mean)."""
+    ranks = [r["onebit"] for r in ZERO_RANKS]
+    wall_s = max(r["onebit_s"] for r in ZERO_RANKS)
+    report.setdefault("phase_s", {})["train_onebit_ranks"] = wall_s
+    print(f"phase train_onebit (in train_zero's ranks): {wall_s:.1f} s", flush=True)
+    cfg = cut_llama_config(ONEBIT_LAYERS)
+    L = cfg.num_hidden_layers
+    per_step = {"flash_attention_fwd": 2 * L * GAS, "flash_attention_bwd_dq": L * GAS,
+                "flash_attention_bwd_dkv": L * GAS}
+    r0 = ranks[0]
+    assert [s["digest"] for s in r0["steps"]] == [s["digest"] for s in ranks[1]["steps"]]
+    for r in ranks:
+        gaps = r["gaps"]
+        first, later = ONEBIT_WARMUP_RTOL
+        assert gaps[0] <= first and max(gaps[1:ONEBIT_FREEZE]) <= later < gaps[ONEBIT_FREEZE], \
+            gaps
+        losses = [s["loss"] for s in r["steps"]]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+        assert r["launches"] == only(**{k: n * ONEBIT_STEPS for k, n in per_step.items()}), \
+            r["launches"]
+    n, leaves = r0["n_params"], r0["n_leaves"]
+    for i, s in enumerate(r0["steps"]):
+        kinds = s["comm"]
+        if i < ONEBIT_FREEZE:
+            assert "compressed_allreduce" not in kinds, kinds
+            assert kinds["all_reduce"]["bytes"] >= 8 * n, kinds
+        else:
+            assert kinds["compressed_allreduce"]["bytes"] == n + 4 * leaves, kinds
+            assert 4 * n <= kinds["all_reduce"]["bytes"] < 5 * n, kinds
+    report["train_onebit"] = dict(
+        card=report["card"], model=f"llama-1b at {L} of 22 layers (random bf16 weights, "
+                                   f"seed {SEED + 30}) over dp={DP}, ZeRO stage 0",
+        setup=f"{DP} ranks sharing one card over gloo (train_zero's)", config=ONEBIT_CONFIG,
+        seq=SEQ,
+        wall_s=wall_s, params=n, jax_leaves=leaves, warmup_rel_gaps=r0["gaps"],
+        steps=[{k: v for k, v in s.items() if k != "comm"} for s in r0["steps"]],
+        gloo_per_step=[s["comm"] for s in r0["steps"]],
+        peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in ranks],
+        launches_per_rank_per_train_batch=per_step)
+    log(f"train_onebit: gaps to Adam {['%.2e' % g for g in r0['gaps']]}, bytes a step "
+        + ", ".join(f"step {i + 1}: " + ", ".join(f"{k} {v['bytes'] / 1e9:.3f} GB"
+                                                  for k, v in s["comm"].items())
+                    for i, s in enumerate(r0["steps"])))
+
+
 def zero_rank(rank, port, tmp):
     """One rank of `train_zero`: joins the gloo group and trains under each
     ZeRO stage in turn (`zero_stage`)."""
@@ -3505,6 +3911,17 @@ def zero_rank(rank, port, tmp):
             out["stages"][stage] = zero_stage(rank, stage)
             gc.collect()
             torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["zeropp"] = {}
+        for name, stage, qg, qw in ZEROPP_RUNS:
+            out["zeropp"][name] = zero_stage(rank, stage, (qg, qw))
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["zeropp_control"] = zeropp_control(rank)
+        out["zeropp_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["onebit"] = onebit_run(rank)
+        out["onebit_s"] = time.perf_counter() - t0
         out["kernel_fallbacks"] = fallbacks
         torch.save(out, f"{tmp}/rank{rank}.pt")
         comm.barrier()
@@ -3541,18 +3958,23 @@ def word_sum(t, chunk: int = 1 << 26) -> int:
     return int(total)
 
 
-def zero_stage(rank, stage):
+def zero_stage(rank, stage, zeropp=None):
     """ZERO_STEPS `train_batch` calls of llama-1b under one ZeRO stage on
     this rank's rows: losses, grad norms, step seconds, the parameters'
     digest after each step, the peak memory inside the steps, launches,
     gloo's calls, bytes and seconds, and the elements of the rank's state;
-    at ZERO_SAVE_STAGE the save after the first step and its resumption."""
+    at ZERO_SAVE_STAGE the save after the first step and its resumption.
+    With `zeropp` (qgZ, qwZ) the stage runs ZeRO++ instead, and reports
+    the predicted ratios of its wire bytes (`zeropp_prediction`)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models.llama import llama_loss_fn
     cfg = zero_model_config()
+    zero = {"stage": stage}
+    if zeropp is not None:
+        zero.update(zero_quantized_gradients=zeropp[0], zero_quantized_weights=zeropp[1])
     config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS,
-                  zero_optimization={"stage": stage})
+                  zero_optimization=zero)
     model = llama(cfg, SEED + 30)
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
                                                 loss_fn=llama_loss_fn(model))
@@ -3563,9 +3985,10 @@ def zero_stage(rank, stage):
         ("params", st.params), ("master", st.master), ("exp_avg", st.opt_state.exp_avg),
         ("grad_acc", st.grad_acc))}
     steps, digests, peak, gloo, saved = [], [], 0, {}, None
+    predicted = None if zeropp is None else zeropp_prediction(engine)
     zero_launches()
     for i in range(ZERO_STEPS):
-        if i == 1 and stage == ZERO_SAVE_STAGE:
+        if i == 1 and stage == ZERO_SAVE_STAGE and zeropp is None:
             saved = zero_save(engine, rank, stage)
         comm.reset_comm_stats()
         torch.cuda.synchronize()
@@ -3584,9 +4007,81 @@ def zero_stage(rank, stage):
     launches = read_launches()
     del engine
     out = dict(steps=steps, digests=digests, peak_memory_bytes=peak, launches=launches,
-               comm=gloo, state_elements=state_elements, checkpoint=saved)
-    if stage == ZERO_SAVE_STAGE:
+               comm=gloo, state_elements=state_elements, checkpoint=saved,
+               predicted=predicted)
+    if stage == ZERO_SAVE_STAGE and zeropp is None:
         out["checkpoint"].update(zero_resume(rank, stage, config, batch))
+    return out
+
+
+def zeropp_prediction(engine):
+    """The wire bytes ZeRO++ sends over the plain collectives' bytes, from
+    the engine's pieces and the JAX package's block rule: the gradient
+    reduce-scatter (int8 plus an f32 scale a block against f32; a stacked
+    leaf's chunk is its layers' pieces together) and stage 3's gathers
+    (against bf16), each gather counted as often as a micro runs it (twice
+    for a decoder block under remat: the recompute gathers again, where the
+    JAX step gathers once), beside the plain step's, which also gathers
+    the leaves left whole in bf16 after its update. Also the gathers'
+    bytes a micro as the JAX package records them (each leaf once)."""
+    from deepspeed_tpu_torch.runtime.comm.coalesced_collectives import wire_bytes
+    from deepspeed_tpu_torch.runtime.zero.partition import jax_leaf_key
+    dp, gas = engine.dp, engine.gradient_accumulation_steps()
+    z = engine.config.zero_config
+    rs_q = rs_plain = ag_q = ag_plain = ag_jax = 0
+    stacked = {}
+    for u in engine.units:
+        g, s = u.gathered, u.sharded
+        times = 1 if u.module is engine.module else 2     # remat gathers a block again
+        if g is not None:
+            for p in g.pieces:
+                rs_q += wire_bytes(dp * p, 256, dp)
+                rs_plain += 4 * dp * p
+                if z.zero_quantized_weights:
+                    ag_q += gas * times * wire_bytes(p)
+                    ag_plain += gas * times * 2 * p
+                    ag_jax += wire_bytes(p)
+        if s is not None and z.zero_quantized_weights:
+            ag_plain += 2 * s.size      # the plain step's bf16 gather after its update
+        if s is not None:
+            for n, p in zip(s.names, s.pieces):
+                stacked[jax_leaf_key(n)] = stacked.get(jax_leaf_key(n), 0) + p
+    for p in stacked.values():
+        rs_q += wire_bytes(dp * p, 256, dp)
+        rs_plain += 4 * dp * p
+    return dict(reduce_scatter=rs_q / rs_plain,
+                all_gather=ag_q / ag_plain if ag_plain else None,
+                all_gather_bytes_per_micro=ag_q / gas,
+                all_gather_bytes_per_micro_jax_record=ag_jax)
+
+
+def zeropp_control(rank):
+    """The control of `train_zeropp`: the stage-2 qgZ run's first step
+    with every block dequantized with its neighbour's scale (the scales
+    rolled by one block), on the same weights and rows: its loss and
+    pre-clip norm, which must miss the run's norm bound."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import llama_loss_fn
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+    cfg = zero_model_config()
+    _, stage, qg, qw = ZEROPP_RUNS[0]
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS,
+                  zero_optimization={"stage": stage, "zero_quantized_gradients": qg,
+                                     "zero_quantized_weights": qw})
+    model = llama(cfg, SEED + 30)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                loss_fn=llama_loss_fn(model))
+    del model
+    dequantize = cc.dequantize_rows
+    cc.dequantize_rows = lambda q, scales: dequantize(q, scales.roll(1, dims=1))
+    try:
+        loss = float(engine.train_batch(batch={"input_ids": rank_rows(train_rows(cfg), rank)}))
+    finally:
+        cc.dequantize_rows = dequantize
+    out = dict(loss=loss, grad_norm=engine.get_global_grad_norm())
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4546,6 +5041,9 @@ def main() -> int:
     del engine
     phase(report, train_reference)
     phase(report, train_zero)
+    phase(report, train_zeropp)
+    phase(report, train_mics)
+    phase(report, train_onebit)
     moe_train_launches = phase(report, train_moe)
     phase(report, train_moe_reference)
     moe_zero = phase(report, train_moe_zero)
@@ -4555,7 +5053,8 @@ def main() -> int:
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
-                "serve_ep", "reference_ep", "train_zero", "train_checkpoint", "train_moe_zero"):
+                "serve_ep", "reference_ep", "train_zero", "train_checkpoint", "train_moe_zero",
+                "train_zeropp", "train_mics", "train_onebit"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -4663,10 +5162,17 @@ def main() -> int:
         paths = {}
         if row["name"] in ("flash_attention_fwd_training_shape", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv"):
+            zeropp = report["train_zeropp"]["runs"]
             paths = dict(train=train_launches[name] // TRAIN_STEPS,
                          train_checkpoint=checkpoint_launches[name] // CKPT_STEPS,
                          train_zero_rank=zero_per_step[name],
-                         train_moe_zero_rank=moe_zero_runs[name])
+                         train_moe_zero_rank=moe_zero_runs[name],
+                         **{f"train_zeropp_{run}_rank": zeropp[run]["launches_per_rank"][name]
+                            // ZERO_STEPS for run in zeropp},
+                         train_mics_rank=report["train_mics"][
+                             "launches_per_rank_per_train_batch"][name],
+                         train_onebit_rank=report["train_onebit"][
+                             "launches_per_rank_per_train_batch"][name])
         elif row["name"] in ("grouped_gemm", "grouped_gemm_bwd_dlhs", "grouped_gemm_bwd_drhs"):
             key = {"grouped_gemm_bwd_dlhs": "grouped_gemm_dlhs",
                    "grouped_gemm_bwd_drhs": "grouped_gemm_drhs"}.get(name, name)

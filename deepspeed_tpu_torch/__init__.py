@@ -12,7 +12,10 @@ backward), decode and paged attention (the paged kernels with alibi too),
 the int8 dequant-GEMM, the grouped expert GEMM (forward and backward) and
 block-sparse attention. Llama and the MoE families train data-parallel
 over several ranks with ZeRO stages 0-3 (`init_distributed`, then
-`initialize`), and a run saves and resumes at any number of data ranks
+`initialize`); Llama also with ZeRO++ (int8 gradient reduce-scatters and
+weight gathers, MiCS/hpZ groups over a `repl` axis) and with the 1-bit
+optimizers' compressed wire (OneBitAdam, ZeroOneAdam, OneBitLamb with
+`comm_backend_name`); and a run saves and resumes at any number of data ranks
 (`engine.save_checkpoint`/`load_checkpoint`, `runtime/checkpointing.py`;
 universal and reference-checkpoint files in `checkpoint/`). Llama
 serves tensor-parallel over several ranks
@@ -39,11 +42,16 @@ def initialize(model: Any = None, model_parameters: Any = None, config: Any = No
     """Build a training engine (counterpart of `deepspeed_tpu.initialize`):
     returns `(engine, optimizer, dataloader, lr_scheduler)`.
 
-    The topology is the installed one, or else the process group's: every
-    rank on the `data` axis (`MeshTopology()`, dp = the world size), one
-    process a rank (`torchrun`, or `init_distributed` in each), each on its
-    local rank's card. ZeRO (`zero_optimization.stage` 0-3) then shards
-    the state over the data ranks (`runtime/zero/partition.py`).
+    The topology is the installed one, or else the process group's, which
+    this call installs: every rank on the `data` axis (`MeshTopology()`, dp
+    = the world size), or, where the config's `zero_optimization` sets
+    `mics_shard_size` > 0 (else `zero_hpz_partition_size` > 1), groups of
+    that many data ranks repeated across `repl` (the JAX `initialize`'s
+    mapping); one process a rank (`torchrun`, or `init_distributed` in
+    each), each on its local rank's card. An installed topology whose
+    `data` axis is not that group size raises. ZeRO
+    (`zero_optimization.stage` 0-3) then shards the state over the data
+    ranks (`runtime/zero/partition.py`).
 
     `model` is an `nn.Module`; `model_parameters` is a JAX parameter tree of
     numpy arrays copied into it by the module's own `load_jax_params(tree)`,
@@ -56,8 +64,26 @@ def initialize(model: Any = None, model_parameters: Any = None, config: Any = No
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.utils import groups
+    from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+    if isinstance(config, DeepSpeedConfig):
+        shard = config.zero_config.shard_group_size
+    else:
+        raw = config
+        if isinstance(config, str):
+            import json
+            with open(config) as f:
+                raw = json.load(f)
+        shard = DeepSpeedZeroConfig.from_dict((raw or {}).get("zero_optimization")) \
+            .shard_group_size
+    try:
+        topology = groups.get_topology(create_default=False)
+    except RuntimeError:
+        topology = groups.initialize(groups.MeshTopology(mics_shard_size=shard))
+    if shard and topology.dp_size != shard:
+        raise ValueError(f"the config's MiCS/hpZ group of {shard} data ranks is not the "
+                         f"installed {topology!r}'s data axis")
     if not isinstance(config, DeepSpeedConfig):
-        config = DeepSpeedConfig(config, world_size=groups.get_topology().world_size)
+        config = DeepSpeedConfig(config, world_size=topology.world_size)
     engine = DeepSpeedEngine(model=model, loss_fn=loss_fn, config=config,
                              model_parameters=model_parameters,
                              training_data=training_data, collate_fn=collate_fn,

@@ -1,23 +1,28 @@
 """Collectives over `torch.distributed` (counterpart of ``deepspeed_tpu/comm/comm.py``).
 
 A group is named by its mesh axis (`"model"` or `"tp"`, `"expert"` or
-`"ep"`, `"data"` or `"dp"`), as in the JAX package; its size and this
-rank's index on it come from the installed topology (`utils/groups.py`),
-whose only nontrivial axis spans every rank, so its process group is the
-default one and a trivial axis's collectives are the identity. None means
-every rank. Where the JAX package's collectives are traced inside a
-`shard_map` region, these run eagerly, one call per collective, on the
-rank's own tensors. In one process (no process group) every collective is
-the identity.
+`"ep"`, `"data"` or `"dp"`, `"repl"`), or by a tuple of axes, as in the
+JAX package; its size and this rank's index on it come from the installed
+topology (`utils/groups.py`). A group that spans every rank runs on the
+default process group; an axis that spans fewer (`data` and `repl` under
+MiCS, where both exceed 1) runs on a process group of its own, which
+`build_axis_groups` makes when the topology is installed: every rank
+calls `dist.new_group` for every group of every such axis, in one order,
+and keeps its own. A trivial axis's collectives are the identity, and
+None means every rank. Where the JAX package's collectives are traced
+inside a `shard_map` region, these run eagerly, one call per collective,
+on the rank's own tensors. In one process (no process group) every
+collective is the identity.
 
 The ops: `all_reduce` (`ReduceOp` SUM, AVG, MAX, MIN), `all_gather`
 (concatenated along an axis), `all_gather_into` (a shard into one
-preallocated tensor), `reduce_scatter` (tiled), `broadcast`, `barrier`.
-Each calls the backend's own op on the rank's tensor, CUDA or not: NCCL
-runs it on the card; gloo takes CUDA tensors for every one of these ops
-and stages them through the host itself (torch 2.11 on an H100; the
-`cuda` tests hold each against the CPU), so there is one route per op and
-backend and no copy here.
+preallocated tensor), `reduce_scatter` (tiled), `all_to_all_single`
+(tiled), `broadcast`, `barrier`. Each calls the backend's own op on the
+rank's tensor, CUDA or not: NCCL runs it on the card; gloo takes CUDA
+tensors for every one of these ops, all-to-all included, and stages them
+through the host itself (torch 2.11 on an H100; the `cuda` tests hold each
+against the CPU), so there is one route per op and backend and no copy
+here.
 
 `init_distributed` brings the process group up from its arguments or from
 the variables `torchrun` sets (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
@@ -29,11 +34,19 @@ deployment pays.
 
 `comm_stats()` counts, by kind, the calls that moved data, their bytes
 (the rank's input) and the host seconds spent inside them: on gloo the
-whole collective, on NCCL only its launch.
+whole collective, on NCCL only its launch. The quantized and compressed
+collectives (`runtime/comm/`) count under their own kinds,
+`quantized_reduce_scatter`, `quantized_all_gather` and
+`compressed_allreduce` (`wire`): one call each, the bytes of the tensors
+their collectives were handed (the int8 values and the f32 scales, as the
+JAX package records them) and those collectives' seconds; the collectives
+inside count nothing under their own kinds.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import os
 import time
 from collections import defaultdict
@@ -47,6 +60,9 @@ from deepspeed_tpu_torch.utils.logging import logger
 
 _LOCAL_RANK: Optional[int] = None  # set by init_distributed when no LOCAL_RANK is set
 _STATS = defaultdict(lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
+_GROUP_STATS = defaultdict(lambda: {"calls": 0, "bytes": 0, "seconds": 0.0})
+_AXIS_GROUPS = {}       # axis -> this rank's process group along it
+_WIRE: Optional[list] = None   # inside `wire`: [bytes, calls] its collectives were handed
 
 
 class ReduceOp:
@@ -113,6 +129,48 @@ def get_backend() -> Optional[str]:
     return dist.get_backend() if is_initialized() else None
 
 
+def build_axis_groups(topology) -> None:
+    """The process groups of the topology's axes that span more than one
+    rank and fewer than all: every rank calls `dist.new_group` for every
+    group of each such axis, in `MESH_AXES` order, and keeps its own. A
+    no-op without a process group."""
+    from deepspeed_tpu_torch.utils.groups import MESH_AXES
+    _AXIS_GROUPS.clear()
+    if not is_initialized():
+        return
+    world = dist.get_world_size()
+    for axis in MESH_AXES:
+        if not 1 < topology.axis_size(axis) < world:
+            continue
+        for ranks in topology.axis_groups(axis):
+            pg = dist.new_group(ranks)
+            if topology.rank in ranks:
+                _AXIS_GROUPS[axis] = pg
+
+
+def _axes(group):
+    return tuple(group) if isinstance(group, (tuple, list)) else (group,)
+
+
+def _pg(group):
+    """The process group of `group` (None: the default one)."""
+    if group is None:
+        return None
+    from deepspeed_tpu_torch.utils import groups
+    topo = groups.get_topology()
+    axes = [a for a in _axes(group) if topo.axis_size(a) > 1]
+    if math.prod(topo.axis_size(a) for a in axes) == dist.get_world_size():
+        return None
+    if len(axes) != 1:
+        raise ValueError(f"no process group spans the axes {group!r} of {topo!r}")
+    from deepspeed_tpu_torch.utils.groups import _canonical
+    axis = _canonical(axes[0])
+    if axis not in _AXIS_GROUPS:
+        raise RuntimeError(f"no process group for axis {axis!r}: install the topology "
+                           "with groups.initialize after init_distributed")
+    return _AXIS_GROUPS[axis]
+
+
 def get_rank(group: Optional[str] = None) -> int:
     """This rank's index in the world, or its coordinate along an axis."""
     if not is_initialized():
@@ -143,23 +201,70 @@ def _trivial(group) -> bool:
     return not is_initialized() or get_world_size(group) == 1
 
 
-def _timed(kind: str, tensor: torch.Tensor, fn):
+def _group_name(group) -> str:
+    """The stats' name of a group: its nontrivial axes joined by "+", or
+    "world"."""
+    if group is None:
+        return "world"
+    from deepspeed_tpu_torch.utils import groups
+    topo = groups.get_topology()
+    axes = [groups._canonical(a) for a in _axes(group) if topo.axis_size(a) > 1]
+    return "+".join(a for a in groups.MESH_AXES if a in axes) or "world"
+
+
+def _record(kind: str, nbytes: int, seconds: float, group) -> None:
+    for entry in (_STATS[kind], _GROUP_STATS[(kind, _group_name(group))]):
+        entry["calls"] += 1
+        entry["bytes"] += int(nbytes)
+        entry["seconds"] += seconds
+
+
+def _timed(kind: str, tensor: torch.Tensor, fn, group=None):
     t0 = time.perf_counter()
     out = fn()
-    entry = _STATS[kind]
-    entry["calls"] += 1
-    entry["bytes"] += tensor.numel() * tensor.element_size()
-    entry["seconds"] += time.perf_counter() - t0
+    nbytes = tensor.numel() * tensor.element_size()
+    if _WIRE is None:
+        _record(kind, nbytes, time.perf_counter() - t0, group)
+    else:
+        _WIRE[0] += nbytes
+        _WIRE[1] += 1
     return out
 
 
-def comm_stats() -> dict:
-    """{kind: {"calls", "bytes", "seconds"}} since the last reset."""
-    return {k: dict(v) for k, v in _STATS.items()}
+@contextlib.contextmanager
+def wire(kind: str, group=None):
+    """Count the collectives inside as one call of `kind` over `group`:
+    the bytes of the tensors they were handed and their seconds (nothing
+    where none moved data); they count nothing under their own kinds."""
+    global _WIRE
+    outer, _WIRE = _WIRE, [0, 0]
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        (nbytes, calls), _WIRE = _WIRE, outer
+        if outer is not None:
+            outer[0] += nbytes
+            outer[1] += calls
+        elif calls:
+            _record(kind, nbytes, time.perf_counter() - t0, group)
+
+
+def comm_stats(by_group: bool = False) -> dict:
+    """{kind: {"calls", "bytes", "seconds"}} since the last reset; with
+    `by_group`, {kind: {group: {...}}}, a group named by its nontrivial
+    axes ("data", "repl", "repl+data") or "world"."""
+    if not by_group:
+        return {k: dict(v) for k, v in _STATS.items()}
+    out = {}
+    for (kind, group), v in _GROUP_STATS.items():
+        out.setdefault(kind, {})[group] = dict(v)
+    return out
 
 
 def reset_comm_stats() -> None:
     _STATS.clear()
+    _GROUP_STATS.clear()
 
 
 def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
@@ -170,7 +275,8 @@ def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM,
         raise ValueError(f"unsupported reduce op {op!r}; expected one of {sorted(_DIST_OPS)}")
     if not _trivial(group):
         _timed("all_reduce", tensor,
-               lambda: dist.all_reduce(tensor, op=getattr(dist.ReduceOp, _DIST_OPS[op])))
+               lambda: dist.all_reduce(tensor, op=getattr(dist.ReduceOp, _DIST_OPS[op]),
+                                       group=_pg(group)), group)
     return tensor
 
 
@@ -180,7 +286,8 @@ def all_gather(tensor: torch.Tensor, group: Optional[str] = "data",
     if _trivial(group):
         return tensor
     parts = [torch.empty_like(tensor) for _ in range(get_world_size(group))]
-    _timed("all_gather", tensor, lambda: dist.all_gather(parts, tensor.contiguous()))
+    _timed("all_gather", tensor,
+           lambda: dist.all_gather(parts, tensor.contiguous(), group=_pg(group)), group)
     return torch.cat(parts, dim=axis)
 
 
@@ -190,8 +297,11 @@ def all_gather_into(out: torch.Tensor, shard: torch.Tensor,
     preallocated `out` (n times the shard's rows); returns `out`."""
     if _trivial(group):
         return out.copy_(shard.reshape(out.shape))
+    shard = shard.contiguous()
+    # the backends take the output as the shards stacked along dim 0
+    dst = out.view((-1,) + tuple(shard.shape[1:])) if shard.dim() else out.view(-1)
     _timed("all_gather", shard,
-           lambda: dist.all_gather_into_tensor(out, shard.contiguous()))
+           lambda: dist.all_gather_into_tensor(dst, shard, group=_pg(group)), group)
     return out
 
 
@@ -207,21 +317,40 @@ def reduce_scatter(tensor: torch.Tensor, group: Optional[str] = "data",
                          f"not divisible by the group's {n} ranks")
     moved = tensor.movedim(scatter_dim, 0).contiguous()
     out = moved.new_empty((moved.shape[0] // n,) + tuple(moved.shape[1:]))
-    _timed("reduce_scatter", tensor, lambda: dist.reduce_scatter_tensor(out, moved))
+    _timed("reduce_scatter", tensor,
+           lambda: dist.reduce_scatter_tensor(out, moved, group=_pg(group)), group)
     return out.movedim(0, scatter_dim)
+
+
+def all_to_all_single(tensor: torch.Tensor, group: Optional[str] = "data") -> torch.Tensor:
+    """Dim 0 of `tensor` cut into n tiles: tile j goes to the group's rank
+    j, and tile i of the result came from its rank i
+    (`lax.all_to_all(split_axis=0, concat_axis=0)`)."""
+    if _trivial(group):
+        return tensor
+    n = get_world_size(group)
+    if tensor.shape[0] % n:
+        raise ValueError(f"all_to_all_single: dim 0 of {tuple(tensor.shape)} is not "
+                         f"divisible by the group's {n} ranks")
+    src = tensor.contiguous()
+    out = torch.empty_like(src)
+    _timed("all_to_all", src,
+           lambda: dist.all_to_all_single(out, src, group=_pg(group)), group)
+    return out
 
 
 def broadcast(tensor: torch.Tensor, src: int = 0,
               group: Optional[str] = None) -> torch.Tensor:
     """`tensor` from global rank `src` to every rank of the group, in place."""
     if not _trivial(group):
-        _timed("broadcast", tensor, lambda: dist.broadcast(tensor, src=src))
+        _timed("broadcast", tensor,
+               lambda: dist.broadcast(tensor, src=src, group=_pg(group)), group)
     return tensor
 
 
 def barrier(group: Optional[str] = None) -> None:
     if not _trivial(group):
-        dist.barrier()
+        dist.barrier(group=_pg(group))
 
 
 def destroy_process_group() -> None:
@@ -230,3 +359,4 @@ def destroy_process_group() -> None:
     if is_initialized():
         dist.destroy_process_group()
     _LOCAL_RANK = None
+    _AXIS_GROUPS.clear()

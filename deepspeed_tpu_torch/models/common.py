@@ -7,16 +7,20 @@ shard was cut for: with fewer, its collective would be the identity and the
 result a partial sum.
 
 The loss is computed in f32, with `IGNORE_INDEX` labels left out of the
-mean, as in the JAX package. Over dp > 1 data ranks the mean is the
-global batch's: each rank divides its own tokens' sum by the ranks'
-count of labels (one all-reduce) and multiplies by dp, so the ranks'
-losses and gradients average to the global ones even when the ranks hold
-different numbers of labels. A loss function for the engine has the
+mean, as in the JAX package. Over dp > 1 data ranks (the `repl` x `data`
+ranks a batch's rows are split over) the mean is the global batch's: each
+rank divides its own tokens' sum by the ranks' count of labels (one
+all-reduce) and multiplies by dp, so the ranks' losses and gradients
+average to the global ones even when the ranks hold different numbers of
+labels. Inside `rank_local_loss()` each rank's loss is the mean over its
+own labels instead, as the JAX engine's manual regions (ZeRO++'s
+quantized collectives, the 1-bit wire) compute it. A loss function for the engine has the
 signature `loss_fn(module, batch)` and returns the loss or `(loss, aux)`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -26,6 +30,18 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch import comm
 
 IGNORE_INDEX = -100
+_RANK_LOCAL = False
+
+
+@contextlib.contextmanager
+def rank_local_loss():
+    """Inside, `cross_entropy_loss` is the mean over this rank's labels."""
+    global _RANK_LOCAL
+    before, _RANK_LOCAL = _RANK_LOCAL, True
+    try:
+        yield
+    finally:
+        _RANK_LOCAL = before
 
 
 class Dense(nn.Linear):
@@ -126,9 +142,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         token_loss = token_loss + z_loss * lse.square()
     mask = (labels != ignore_index).float()
     count = mask.sum()
-    dp = comm.get_world_size("data") if comm.is_initialized() else 1
+    from deepspeed_tpu_torch.utils.groups import BATCH_AXES
+    dp = comm.get_world_size(BATCH_AXES) if comm.is_initialized() and not _RANK_LOCAL else 1
     if dp > 1:
-        count = comm.all_reduce(count.detach().clone(), group="data") / dp
+        count = comm.all_reduce(count.detach().clone(), group=BATCH_AXES) / dp
     return (token_loss * mask).sum() / count.clamp(min=1.0 / dp)
 
 

@@ -37,8 +37,10 @@ def quantize_int8_blockwise(x: torch.Tensor, block: int = 256,
         b -= 1
     blocks = flat.reshape(n // b, b)
     amax = blocks.abs().amax(dim=1, keepdim=True)
-    scale = torch.where(amax == 0.0, torch.ones_like(amax),
-                        amax * _RECIPROCAL_127 if reciprocal else amax / 127.0)
+    # divided by a tensor on amax's device: a CUDA kernel turns a division
+    # by a Python number into a product with its reciprocal
+    scale = amax * _RECIPROCAL_127 if reciprocal else amax / amax.new_tensor(127.0)
+    scale = torch.where(amax == 0.0, torch.ones_like(amax), scale)
     q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
     return q.reshape(shape), scale[:, 0]
 

@@ -17,9 +17,15 @@ files are orbax, which needs `jax`):
 A leaf whole on every rank (stage 0, the leaves no dimension of which dp
 divides, the parameters at stages 1-2, those under the persistence
 threshold at stage 3) is written once, by rank 0; a sharded leaf's pieces
-(`runtime/zero/partition.py`) by each rank into its own file, so no byte is
-written twice. `ds_meta.json` keeps the layout (`layout_record`): the saved
-dp, and which leaves are pieces. A load rebuilds each leaf whole from the
+(`runtime/zero/partition.py`) by each rank into its own file, named by its
+`data` coordinate, so no byte is written twice: under MiCS/hpZ the pieces
+repeat across `repl`, and only the ranks at `repl` index 0 write them.
+The 1-bit wire's optimizer state (`ops/optimizers.py`) is saved as it
+lies: its shared fields and counters whole by rank 0 (`wire`), each
+rank's own fields (`local_fields`) in its own file (`wire_local`, named by
+its batch rank); it loads at the same number of ranks only.
+`ds_meta.json` keeps the layout (`layout_record`): the saved dp, which
+leaves are pieces and in what order. A load rebuilds each leaf whole from the
 saved pieces (`whole_leaf`) and the engine cuts its own rank's (`adopt_state`),
 so a save at dp = a loads at any dp = b. Files are read through
 `torch.load(weights_only=True, mmap=True)`, one leaf at a time.
@@ -44,7 +50,8 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.runtime.checkpoint_engine import TorchCheckpointEngine
-from deepspeed_tpu_torch.runtime.zero.partition import whole_leaf
+from deepspeed_tpu_torch.runtime.zero.partition import record_order, whole_leaf
+from deepspeed_tpu_torch.utils.groups import BATCH_AXES
 from deepspeed_tpu_torch.utils.logging import logger
 
 LATEST_FILE = "latest"
@@ -81,18 +88,24 @@ def _validate_tag(engine, tag: str) -> None:
     """The ranks save under one tag (`checkpoint.tag_validation`: Warn,
     Fail or Ignore), checked with two scalar all-reduces."""
     mode = engine.config.checkpoint_config.tag_validation.lower()
-    if mode == "ignore" or engine.dp == 1:
+    if mode == "ignore" or engine.batch_dp == 1:
         return
     h = int(hashlib.sha256(tag.encode()).hexdigest()[:15], 16)
     lo = torch.tensor([h], dtype=torch.int64, device=engine.device)
     hi = lo.clone()
-    comm.all_reduce(lo, op=comm.ReduceOp.MIN, group="data")
-    comm.all_reduce(hi, op=comm.ReduceOp.MAX, group="data")
+    comm.all_reduce(lo, op=comm.ReduceOp.MIN, group=BATCH_AXES)
+    comm.all_reduce(hi, op=comm.ReduceOp.MAX, group=BATCH_AXES)
     if int(lo) != int(hi):
         msg = f"checkpoint tag {tag!r} is not the same on every data rank"
         if mode == "fail":
             raise ValueError(msg)
         logger.warning(msg)
+
+
+def _detached(value):
+    if isinstance(value, dict):
+        return {k: v.detach() for k, v in value.items()}
+    return value
 
 
 def save_checkpoint(engine, save_dir, tag=None, client_state: Optional[Dict] = None,
@@ -103,12 +116,15 @@ def save_checkpoint(engine, save_dir, tag=None, client_state: Optional[Dict] = N
     tag = _tag_name(tag, st.global_step)
     _validate_tag(engine, tag)
     ckpt_dir = os.path.abspath(os.path.join(save_dir, tag))
-    rank = engine.topology.coord("data")
+    topo = engine.topology
+    rank, first = topo.coord("data"), topo.coord(BATCH_AXES) == 0
+    writes_pieces = topo.coord("repl") == 0       # MiCS: the pieces repeat across repl
     layout = engine.checkpoint_layout()
     leaves = layout["leaves"]
-    opt = st.opt_state
-    trees = {"params": st.params, "master": st.master, "exp_avg": opt.exp_avg,
-             "exp_avg_sq": opt.exp_avg_sq}
+    opt, wire = st.opt_state, engine._wire_opt
+    trees = {"params": st.params, "master": st.master}
+    if wire is None:
+        trees.update(exp_avg=opt.exp_avg, exp_avg_sq=opt.exp_avg_sq)
 
     def split(pieces: bool) -> Dict[str, Dict[str, torch.Tensor]]:
         return {kind: {n: t.detach() for n, t in tree.items()
@@ -118,24 +134,32 @@ def save_checkpoint(engine, save_dir, tag=None, client_state: Optional[Dict] = N
     whole, pieces = split(False), split(True)
     ce = TorchCheckpointEngine()
     model_dir, optim_dir = os.path.join(ckpt_dir, MODEL_STATES), os.path.join(ckpt_dir, OPTIM_STATES)
-    if rank == 0:
+    if first:
         ce.save({"params": whole["params"]}, os.path.join(model_dir, WHOLE_FILE))
+        extra = {} if wire is None else {"wire": {
+            f: _detached(getattr(opt, f)) for f in opt._fields if f not in wire.local_fields}}
         ce.save({**{k: whole[k] for k in OPTIM_KINDS if k in whole}, "count": int(opt.count),
-                 "scaler": dataclasses.asdict(st.scaler), "global_step": int(st.global_step)},
+                 "scaler": dataclasses.asdict(st.scaler), "global_step": int(st.global_step),
+                 **extra},
                 os.path.join(optim_dir, WHOLE_FILE))
-    if pieces["params"]:
+    if pieces["params"] and writes_pieces:
         ce.save({"params": pieces["params"]}, os.path.join(model_dir, rank_file(rank)))
-    if any(pieces.get(k) for k in OPTIM_KINDS):
+    if any(pieces.get(k) for k in OPTIM_KINDS) and writes_pieces:
         ce.save({k: pieces[k] for k in OPTIM_KINDS if k in pieces},
                 os.path.join(optim_dir, rank_file(rank)))
-    comm.barrier(group="data")       # every rank's files are down before `latest` names them
-    if rank == 0:
+    if wire is not None:
+        ce.save({"wire_local": {f: _detached(getattr(opt, f)) for f in wire.local_fields}},
+                os.path.join(optim_dir, rank_file(topo.coord(BATCH_AXES))))
+    comm.barrier(group=BATCH_AXES)   # every rank's files are down before `latest` names them
+    if first:
         meta = {"global_steps": engine.global_steps, "global_samples": engine.global_samples,
                 "micro_steps": engine.micro_steps, "skipped_steps": engine.skipped_steps,
                 "zero_stage": engine.zero_optimization_stage(),
                 "dtype": str(engine.model_dtype).split(".")[-1],
                 "world_size": engine.topology.world_size, "mesh": engine.topology.sizes,
-                "data_parallel_size": engine.dp, "zero_layout": layout,
+                "data_parallel_size": engine.dp, "batch_ranks": engine.batch_dp,
+                "wire": None if wire is None else type(wire).__name__,
+                "zero_layout": layout,
                 "client_state": client_state or {}}
         with open(os.path.join(ckpt_dir, META_FILE), "w") as f:
             json.dump(meta, f, indent=1, default=str)
@@ -144,7 +168,7 @@ def save_checkpoint(engine, save_dir, tag=None, client_state: Optional[Dict] = N
         if save_latest:
             with open(os.path.join(save_dir, LATEST_FILE), "w") as f:
                 f.write(tag)
-    comm.barrier(group="data")
+    comm.barrier(group=BATCH_AXES)
     logger.info(f"saved checkpoint {tag} to {save_dir}")
     return ckpt_dir
 
@@ -200,7 +224,8 @@ class CheckpointReader:
         info = self.leaves[name]
         folder = MODEL_STATES if kind == "params" else OPTIM_STATES
         if info["params" if kind == "params" else "optim"]:
-            return whole_leaf([r[kind][name] for r in self._ranks[folder]], info["shape"])
+            return whole_leaf([r[kind][name] for r in self._ranks[folder]], info["shape"],
+                              record_order(info))
         return self._whole[folder][kind][name]
 
     def tree(self, kind: str) -> Mapping:
@@ -229,16 +254,19 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states: bool = Tr
         raise FileNotFoundError(f"checkpoint dir {ckpt_dir} not found")
     reader = CheckpointReader(ckpt_dir)
     optim = load_optimizer_states and not load_module_only
+    wire = engine._wire_opt
     st = engine.state
     engine.adopt_state(TrainState(
         global_step=int(reader.global_step) if optim else st.global_step,
         params=reader.tree("params"),
         master=reader.tree("master") if optim and reader.has_master else None,
         opt_state=AdamState(int(reader.count), reader.tree("exp_avg"),
-                            reader.tree("exp_avg_sq")) if optim else None,
+                            reader.tree("exp_avg_sq")) if optim and wire is None else None,
         grad_acc=None,
         scaler=LossScaleState(**reader.scaler) if optim else st.scaler))
     meta = reader.meta
+    if optim and wire is not None:
+        engine.state.opt_state = _load_wire_state(engine, ckpt_dir, reader)
     if not load_module_only:
         engine.global_steps = meta.get("global_steps", 0)
         engine.global_samples = meta.get("global_samples", 0)
@@ -249,6 +277,32 @@ def load_checkpoint(engine, load_dir, tag=None, load_optimizer_states: bool = Tr
             engine.lr_scheduler.load_state_dict(json.load(f))
     logger.info(f"loaded checkpoint {tag} from {load_dir}")
     return ckpt_dir, meta.get("client_state", {})
+
+
+def _load_wire_state(engine, ckpt_dir: str, reader: CheckpointReader):
+    """The 1-bit wire's optimizer state as saved: its shared fields from
+    rank 0's file, this rank's own from its file; the same optimizer and
+    the same number of ranks as the save."""
+    wire, topo = engine._wire_opt, engine.topology
+    if reader.meta.get("wire") != type(wire).__name__ \
+            or int(reader.meta.get("batch_ranks", 1)) != engine.batch_dp:
+        raise ValueError(f"{ckpt_dir} holds the wire state of {reader.meta.get('wire')} over "
+                         f"{reader.meta.get('batch_ranks')} ranks; this engine runs "
+                         f"{type(wire).__name__} over {engine.batch_dp}")
+    shared = reader._whole[OPTIM_STATES]["wire"]
+    local = TorchCheckpointEngine().load(
+        os.path.join(ckpt_dir, OPTIM_STATES, rank_file(topo.coord(BATCH_AXES))))["wire_local"]
+    mine = engine.state.opt_state
+    fields = {}
+    for f in mine._fields:
+        saved = local[f] if f in wire.local_fields else shared[f]
+        if isinstance(saved, dict):
+            for k, t in getattr(mine, f).items():
+                t.copy_(saved[k])
+            fields[f] = getattr(mine, f)
+        else:
+            fields[f] = saved
+    return type(mine)(**fields)
 
 
 def _load_universal(engine, load_dir, tag, load_optimizer_states, load_module_only):
@@ -318,7 +372,7 @@ def save_16bit_model(engine, save_dir, save_filename="pytorch_model.bin") -> str
     """The model-dtype parameters whole, by name, in one `torch.save` file
     written by rank 0. Every rank calls it (stage 3 gathers unit by unit);
     only rank 0 keeps the whole tree, in host memory."""
-    keep = engine.topology.coord("data") == 0
+    keep = engine.topology.coord(BATCH_AXES) == 0
     params = {}
     for unit in engine.whole_param_units():
         if keep:
@@ -327,6 +381,6 @@ def save_16bit_model(engine, save_dir, save_filename="pytorch_model.bin") -> str
     if keep:
         os.makedirs(save_dir, exist_ok=True)
         torch.save({n: params[n] for n in engine.param_shapes}, path)
-    comm.barrier(group="data")
+    comm.barrier(group=BATCH_AXES)
     logger.info(f"saved 16bit model to {path}")
     return path

@@ -7,10 +7,10 @@ where the data-parallel size dp is the world size (one process a rank)
 over the tensor, pipeline and sequence degrees, as in the JAX package.
 Any enabled block the port
 does not run raises `NotImplementedError` naming its ROADMAP.md item:
-offload and ZeRO++ (`runtime/zero/config.py`), parallel sizes above 1,
-pipeline, curriculum, telemetry, the monitors, the flops profiler, the
-comms logger and elasticity; 1-bit and the other unported optimizers raise
-in `ops/optimizers.build_optimizer`.
+offload and ZeRO++'s LoCo (`runtime/zero/config.py`), parallel sizes above
+1, pipeline, curriculum, telemetry, the monitors, the flops profiler, the
+comms logger and elasticity; LAMB, Lion, Adagrad and SGD raise in
+`ops/optimizers.build_optimizer`.
 
 The `checkpoint` block (`CheckpointConfig`): `tag_validation` ("Warn",
 "Fail" or "Ignore": what a save does when the data ranks' tags differ) and

@@ -10,6 +10,16 @@ GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
 
 OPTIMIZER = "optimizer"
 SCHEDULER = "scheduler"
+# optimizer types `ops/optimizers.build_optimizer` takes (lower case); the
+# 1-bit ones run the engine's wire with `comm_backend_name` in their params
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+FUSED_ADAM_OPTIMIZER = "fusedadam"
+CPU_ADAM_OPTIMIZER = "cpuadam"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ZERO_ONE_ADAM_OPTIMIZER = "zerooneadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
+COMM_BACKEND_NAME = "comm_backend_name"
 
 FP16 = "fp16"
 BFLOAT16 = "bf16"

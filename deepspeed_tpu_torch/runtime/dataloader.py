@@ -5,8 +5,9 @@ of dicts or arrays; batches are host numpy, and the engine moves them to
 its device. Over dp data ranks the loader walks global batches of
 `batch_size * dp` rows and yields part r of each, cut into dp parts
 (`np.array_split`: `batch_size` rows of a whole batch), the rows the JAX
-engine's `data`-sharded batch gives coordinate r; a rank reads only its
-own rows.
+engine's batch sharded over ("repl", "data") gives the rank at flat index
+r of those axes (the engine passes dp = repl x data and that index); a
+rank reads only its own rows.
 """
 
 from __future__ import annotations

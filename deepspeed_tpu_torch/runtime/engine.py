@@ -22,14 +22,28 @@ stream for each micro-batch (the JAX engine's `_next_rng`; the draws are
 not JAX's). The MoE loss functions route the noisy gate's draws from it.
 
 Over dp > 1 data ranks each rank takes its own rows of the global batch
-(`train_batch(batch=...)` gets the rank's micro x GAS rows), and ZeRO
-partitions the state as `runtime/zero/partition.py` lays it out. At every
-micro the gradients are reduced over `data` in f32 and averaged: stage 0
-all-reduces them whole; stage 1 and up reduce-scatter them into this
-rank's pieces of `grad_acc` (stage 2 is stage 1, as in the JAX package),
-and stage 3 reduce-scatters a gathered unit's gradient in its gather's
-backward. The update runs on the rank's pieces of the master and the
-moments, the pre-clip norm and the fp16 overflow flag are global (one
+(`train_batch(batch=...)` gets the rank's micro x GAS rows; the rows split
+over `repl` x `data`, `utils/groups.BATCH_AXES`), and ZeRO partitions the
+state over `data` as `runtime/zero/partition.py` lays it out. At every
+micro the gradients are reduced in f32 and averaged: stage 0 all-reduces
+them whole over every rank; stage 1 and up reduce-scatter them over
+`data` into this rank's pieces of `grad_acc` (stage 2 is stage 1, as in
+the JAX package), then, under MiCS/hpZ, average the pieces across `repl`;
+stage 3 reduce-scatters a gathered unit's gradient in its gather's
+backward. ZeRO++ (the JAX `_zeropp_fwd_bwd`) quantizes those
+reduce-scatters to int8 from stage 1 up (qgZ) and stage 3's gathers
+(qwZ), with the JAX package's blocks and its compiled step's scale form
+(`reciprocal`), and each rank's loss is the mean over its own labels, as
+in the JAX manual region. The wire mode of the 1-bit optimizers (the JAX
+`_wire_fwd_bwd`/`_wire_step`: OneBitAdam, ZeroOneAdam or OneBitLamb with
+`comm_backend_name`, ZeRO stage 0) reduces nothing in backward: each rank
+keeps its own gradients and its own-label loss, and the optimizer's
+`update_local` makes the step's only exchange, compressed after its
+warm-up; the pre-clip norm is that of the ranks' mean gradient (one
+all-reduce, as the JAX step computes it). The JAX refusals hold: the wire
+with ZeRO stage > 0, with MoE, with `gradient_clipping` or with ZeRO++.
+The update runs on the rank's pieces of the master and the moments, the
+pre-clip norm and the fp16 overflow flag are global (one
 all-reduce each), and stages 1-2 all-gather the updated model-dtype
 parameters. The state keeps the field names, with a sharded leaf's
 tensors as the rank's flat pieces; `materialized_state()` gathers it
@@ -69,10 +83,14 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import get_accelerator
-from deepspeed_tpu_torch.ops.optimizers import GradientTransformation, build_optimizer
+from deepspeed_tpu_torch.ops.optimizers import (
+    GradientTransformation,
+    build_optimizer,
+    wire_optimizer,
+)
 from deepspeed_tpu_torch.runtime import checkpointing
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
-from deepspeed_tpu_torch.runtime.config_utils import unported
+from deepspeed_tpu_torch.runtime.config_utils import DeepSpeedConfigError, unported
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import LRScheduler, build_lr_schedule
 from deepspeed_tpu_torch.runtime.precision import (
@@ -88,8 +106,11 @@ from deepspeed_tpu_torch.runtime.zero.partition import (
     flat_piece,
     layout_record,
     model_units,
+    record_order,
+    stacked_reduce_scatter,
 )
 from deepspeed_tpu_torch.utils import groups
+from deepspeed_tpu_torch.utils.groups import BATCH_AXES
 from deepspeed_tpu_torch.utils.logging import logger
 
 Tree = Dict[str, torch.Tensor]
@@ -106,6 +127,11 @@ class TrainState:
     opt_state: Any
     grad_acc: Optional[Tree]          # f32 accumulation buffers
     scaler: LossScaleState
+
+
+def _has_moe(model) -> bool:
+    from deepspeed_tpu_torch.moe.layer import MoE
+    return any(isinstance(m, MoE) for m in model.modules())
 
 
 def _split_loss(out):
@@ -126,7 +152,8 @@ class DeepSpeedEngine:
         self.device = self.accelerator.device
         self.module = model
         self.topology = groups.get_topology()
-        self.dp = self.topology.dp_size
+        self.dp = self.topology.dp_size                  # the `data` axis ZeRO shards over
+        self.batch_dp = self.topology.axis_size(BATCH_AXES)   # the ranks a batch splits over
         self._check_data_parallel(model)
         self.model_dtype = config.model_dtype
         self.mixed_precision = self.model_dtype != torch.float32
@@ -139,6 +166,18 @@ class DeepSpeedEngine:
             opt_cfg = config.optimizer
             self.opt, self.base_lr = build_optimizer(opt_cfg.type if opt_cfg else "adam",
                                                      opt_cfg.params if opt_cfg else {})
+        self._wire_opt = None
+        if optimizer is None and config.optimizer is not None \
+                and config.optimizer.params.get("comm_backend_name"):
+            self._wire_opt = wire_optimizer(config.optimizer.type, config.optimizer.params)
+            if self._wire_opt is not None:
+                self._check_wire(model)
+        if optimizer is None and self._wire_opt is None and config.optimizer is not None \
+                and config.optimizer.type.lower() == "onebitadam" and self.batch_dp > 1 \
+                and config.zero_config.stage >= 1:
+            # its compression scale is a whole leaf's mean, and a rank holds pieces
+            raise unported("OneBitAdam without comm_backend_name at ZeRO stage >= 1 across "
+                           "data ranks", "Training: the rest")
         sched = config.scheduler
         self.lr_fn = build_lr_schedule(sched.type if sched else None,
                                        sched.params if sched else {}, self.base_lr)
@@ -157,8 +196,8 @@ class DeepSpeedEngine:
             self.training_dataloader = DeepSpeedDataLoader(
                 training_data, batch_size=config.train_micro_batch_size_per_gpu,
                 collate_fn=collate_fn, drop_last=config.dataloader_drop_last,
-                seed=config.seed, data_parallel_size=self.dp,
-                data_parallel_rank=self.topology.coord("data"))
+                seed=config.seed, data_parallel_size=self.batch_dp,
+                data_parallel_rank=self.topology.coord(BATCH_AXES))
         self.state: Optional[TrainState] = None
         self.units = None            # the ZeRO units over dp > 1 data ranks
         self.initialize_state(model_parameters)
@@ -167,14 +206,40 @@ class DeepSpeedEngine:
         topo, cfg = self.topology, self.config
         if topo.tp_size > 1 or topo.ep_size > 1:
             raise unported(f"training under a {topo!r}", "Multi-GPU")
-        if cfg.data_parallel_size != self.dp:
+        if cfg.data_parallel_size != self.batch_dp:
             raise ValueError(f"the config's data-parallel size {cfg.data_parallel_size} "
                              f"(world size {cfg.world_size}) is not the topology's "
-                             f"data={self.dp}")
-        if self.dp > 1 and cfg.zero_config.stage == 3 \
+                             f"data={self.batch_dp}")
+        if self.batch_dp > 1 and cfg.zero_config.stage == 3 \
                 and not getattr(model, "zero3_gathers", False):
             raise unported(f"ZeRO stage 3 across data ranks with {type(model).__name__}",
                            "Multi-GPU")
+        z = cfg.zero_config
+        if (z.quantized or topo.repl_size > 1) and _has_moe(model):
+            raise unported(f"ZeRO++/MiCS with the MoE family {type(model).__name__}",
+                           "Multi-GPU")
+
+    def _check_wire(self, model) -> None:
+        """The JAX engine's refusals of the 1-bit wire, with its messages."""
+        cfg = self.config
+        if cfg.zero_config.stage > 0:
+            raise DeepSpeedConfigError(
+                "1-bit Adam wire compression requires ZeRO stage 0: the compressed momentum "
+                "exchange keeps momenta replicated, so stage-1 sharding of optimizer state "
+                "would silently degrade to stage-0 memory (the reference's own limit is "
+                "stage <= 1, onebit/adam.py)")
+        if _has_moe(model):
+            raise DeepSpeedConfigError(
+                "1-bit Adam wire compression is incompatible with pipeline parallelism / "
+                "MoE expert params")
+        if cfg.gradient_clipping > 0.0:
+            raise DeepSpeedConfigError(
+                "gradient_clipping needs globally-averaged gradients; 1-bit wire mode never "
+                "materializes them — disable one")
+        if cfg.zero_config.quantized:
+            raise DeepSpeedConfigError(
+                "zeropp quantized collectives and 1-bit wire mode are mutually exclusive "
+                "gradient-sync paths")
 
     # ------------------------------------------------------------------ state
     @torch.no_grad()
@@ -193,22 +258,22 @@ class DeepSpeedEngine:
         params = dict(self.module.named_parameters())
         self.param_shapes = {n: p.shape for n, p in params.items()}
         self.total_params = sum(p.numel() for p in params.values())
-        if self.dp > 1:
+        if self.batch_dp > 1 and self._wire_opt is None:
             return self._initialize_sharded(params)
         master = cast_tree({k: p.detach() for k, p in params.items()}, torch.float32) \
             if self.mixed_precision else None
         grad_acc = None if self._elide_grad_acc else \
             {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
+        opt = self._wire_opt or self.opt
         self.state = TrainState(global_step=0, params=params, master=master,
-                                opt_state=self.opt.init(master if self.mixed_precision
-                                                        else params),
+                                opt_state=opt.init(master if self.mixed_precision else params),
                                 grad_acc=grad_acc, scaler=self.loss_scaler.init_state())
         self._log_initialized()
         return self.state
 
     def _log_initialized(self):
         logger.info(f"engine initialized: {self.total_params / 1e6:.1f}M params on "
-                    f"{self.accelerator.device_name()}, data={self.dp}, "
+                    f"{self.accelerator.device_name()}, {self.topology!r}, "
                     f"zero_stage={self.zero_optimization_stage()}, dtype={self.model_dtype}")
 
     def _flat_units(self):
@@ -220,8 +285,13 @@ class DeepSpeedEngine:
     def _initialize_sharded(self, params: Tree) -> TrainState:
         """The state over dp data ranks: this rank's pieces of each
         sharded leaf, whole tensors of the rest (module docstring)."""
-        plan = ZeroShardingPlan(self.dp, self.config.zero_config)
+        z = self.config.zero_config
+        plan = ZeroShardingPlan(self.dp, z)
         self.units = model_units(self.module, plan, self.topology.coord("data"))
+        zeropp = dict(grads=z.zero_quantized_gradients, weights=z.zero_quantized_weights,
+                      reciprocal=True) if z.quantized else None
+        for f in self._flat_units():
+            f.zeropp, f.repl = zeropp, self.topology.repl_size > 1
         self._module_params = params
         mixed = self.mixed_precision
         state_params, master = {}, {}
@@ -357,26 +427,30 @@ class DeepSpeedEngine:
         leaves = self.checkpoint_layout()["leaves"]
         rank = self.topology.coord("data")
 
-        def put(dst, whole, pieces):
-            src = flat_piece(whole, self.dp, rank) if pieces else whole
+        def put(dst, whole, pieces, order):
+            src = flat_piece(whole, self.dp, rank, order) if pieces else whole
             dst.copy_(src.reshape(dst.shape))
 
         fresh = state.opt_state is None
         for n in self.param_shapes:
             params, optim = leaves[n]["params"], leaves[n]["optim"]
+            order = record_order(leaves[n])
             whole = state.params[n]
-            put(st.params[n], whole, params)
+            put(st.params[n], whole, params, order)
             if st.master is not None:
                 put(st.master[n], whole.to(self.model_dtype) if state.master is None
-                    else state.master[n], optim)
+                    else state.master[n], optim, order)
             for mine, saved in ((opt.exp_avg, None if fresh else state.opt_state.exp_avg),
                                 (opt.exp_avg_sq, None if fresh else state.opt_state.exp_avg_sq)):
                 if saved is None:
                     mine[n].zero_()
                 else:
-                    put(mine[n], saved[n], optim)
-        st.opt_state = type(opt)(0 if fresh else int(state.opt_state.count), opt.exp_avg,
-                                 opt.exp_avg_sq)
+                    put(mine[n], saved[n], optim, order)
+        if fresh and self._wire_opt is not None:     # every field of the wire state afresh
+            st.opt_state = self._wire_opt.init(st.master if st.master is not None
+                                               else st.params)
+        else:
+            st.opt_state = opt._replace(count=0 if fresh else int(state.opt_state.count))
         st.global_step = int(state.global_step)
         st.scaler = dataclasses.replace(state.scaler)
         if st.grad_acc is not None:
@@ -425,8 +499,8 @@ class DeepSpeedEngine:
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for k, p in st.params.items()}
         ovf = False
-        if self.loss_scaler.enabled:
-            ovf = self.loss_scaler.check_overflow(grads.values())
+        if self.loss_scaler.enabled:      # the wire's gradients are this rank's own
+            ovf = self.loss_scaler.check_overflow(grads.values(), self._sync_group())
             st.scaler = self.loss_scaler.track_micro(st.scaler, ovf)
         with torch.no_grad():
             if st.grad_acc is None:
@@ -439,14 +513,26 @@ class DeepSpeedEngine:
             p.grad = None
         return ovf
 
+    def _sync_group(self):
+        """The ranks a micro's gradient flags are reduced over: every batch
+        rank, or this rank alone (one rank)."""
+        return BATCH_AXES if self.batch_dp > 1 else None
+
     @torch.no_grad()
     def _accumulate_sharded(self) -> bool:
         """`_accumulate` over dp data ranks: the micro's gradients reduced
-        over `data` in f32 and averaged (stage 3's gathered units already
-        reduced theirs in backward), checked for an overflow on every
-        rank at once, then added to this rank's `grad_acc`."""
+        in f32 and averaged (stage 3's gathered units already reduced
+        theirs in backward; under qgZ the sharded leaves in one stacked
+        quantized exchange), checked for an overflow on every rank at once,
+        then added to this rank's `grad_acc`."""
         st, params = self.state, self._module_params
         micro = []          # (ZeroUnit or leaf name, the micro's mean gradient)
+        sharded = [u.sharded for u in self.units if u.sharded is not None]
+        stacked = None
+        if sharded and sharded[0].zeropp and sharded[0].zeropp["grads"]:
+            stacked = stacked_reduce_scatter(
+                sharded, {n: params[n].grad for s in sharded for n in s.names},
+                reciprocal=sharded[0].zeropp["reciprocal"], device=self.device)
         for u in self.units:
             g, s = u.gathered, u.sharded
             if g is not None and g.stash:
@@ -456,18 +542,18 @@ class DeepSpeedEngine:
             elif g is not None and g.grad_acc is None:   # a unit the loss did not use
                 g.grad_acc = torch.zeros(g.size, dtype=torch.float32, device=self.device)
             if s is not None:
-                micro.append((s, s.reduce_scatter([params[n].grad for n in s.names],
-                                                  self.device)))
+                micro.append((s, stacked[s] if stacked is not None else s.reduce_scatter(
+                    [params[n].grad for n in s.names], self.device)))
             if u.whole:
                 flat = torch.cat([(params[n].grad if params[n].grad is not None
                                    else torch.zeros_like(params[n])).float().reshape(-1)
                                   for n in u.whole])
-                comm.all_reduce(flat, group="data").mul_(1.0 / self.dp)
+                comm.all_reduce(flat, group=BATCH_AXES).mul_(1.0 / self.batch_dp)
                 micro += [(n, t.view_as(params[n])) for n, t in
                           zip(u.whole, flat.split([params[n].numel() for n in u.whole]))]
         ovf = False
         if self.loss_scaler.enabled:
-            ovf = self.loss_scaler.check_overflow([t for _, t in micro], group="data")
+            ovf = self.loss_scaler.check_overflow([t for _, t in micro], group=BATCH_AXES)
             st.scaler = self.loss_scaler.track_micro(st.scaler, ovf)
         if self._whole_acc is None:
             self._whole_acc = {}
@@ -521,7 +607,7 @@ class DeepSpeedEngine:
             raise RuntimeError("step() before any forward(): no accumulated gradients")
         whole, sharded = self._grad_lists()
         grads = whole + sharded
-        group = None if self.units is None else "data"
+        group = self._sync_group()
         overflow = scale_overflow = False
         if self.loss_scaler.enabled:
             # bad micros were zeroed on arrival; the boundary check guards
@@ -537,11 +623,20 @@ class DeepSpeedEngine:
                 overflow = scale_overflow = window_ovf or boundary_ovf
                 renorm = 1.0
             torch._foreach_mul_(grads, renorm / st.scaler.scale)
-        grad_norm = global_grad_norm(whole, sharded)
+        grad_norm = self._wire_grad_norm() if self._wire_opt is not None else \
+            global_grad_norm(whole, sharded)
         if cfg.gradient_clipping > 0.0:
             torch._foreach_mul_(grads, clip_factor(grad_norm, cfg.gradient_clipping))
         lr = self.lr_fn(st.global_step)
-        if not overflow and self.units is not None:
+        if not overflow and self._wire_opt is not None:
+            target = st.master if self.mixed_precision else st.params
+            _, st.opt_state = self._wire_opt.update_local(st.grad_acc, st.opt_state, target,
+                                                          lr, self._sync_group())
+            if self.mixed_precision:
+                for k, p in st.params.items():
+                    p.copy_(st.master[k])
+            st.global_step += 1
+        elif not overflow and self.units is not None:
             self._sharded_update(lr)
             st.global_step += 1
         elif not overflow:
@@ -564,6 +659,19 @@ class DeepSpeedEngine:
         self._grad_norm = grad_norm
         return grad_norm
 
+    def _wire_grad_norm(self) -> torch.Tensor:
+        """The norm of the ranks' mean gradient (the JAX step's norm of the
+        worker mean): the gradients averaged a run of leaves at a time in
+        one all-reduce each, then squared and summed."""
+        from deepspeed_tpu_torch.ops.optimizers import _chunks
+        grads, total = self.state.grad_acc, torch.zeros((), device=self.device)
+        for names in _chunks(grads):
+            flat = torch.cat([grads[k].reshape(-1) for k in names])
+            if self.batch_dp > 1:
+                comm.all_reduce(flat, op=comm.ReduceOp.AVG, group=BATCH_AXES)
+            total += flat.square().sum()
+        return total.sqrt()
+
     # ------------------------------------------------------------ user surface
     def __call__(self, batch):
         return self.forward(batch)
@@ -577,6 +685,10 @@ class DeepSpeedEngine:
         args = (self.module, self._put_batch(batch))
         if self._loss_takes_rng:
             args += (self._next_rng(),)
+        if self._wire_opt is not None or self.config.zero_config.quantized:
+            from deepspeed_tpu_torch.models.common import rank_local_loss
+            with rank_local_loss():     # the JAX manual regions' loss
+                return _split_loss(self.loss_fn(*args))
         return _split_loss(self.loss_fn(*args))
 
     def forward(self, batch) -> torch.Tensor:
@@ -594,7 +706,7 @@ class DeepSpeedEngine:
             retain_graph=retain_graph)
         ovf = self._accumulate()
         self.micro_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu() * self.dp
+        self.global_samples += self.train_micro_batch_size_per_gpu() * self.batch_dp
         return ovf
 
     def is_gradient_accumulation_boundary(self) -> bool:
@@ -619,7 +731,7 @@ class DeepSpeedEngine:
                  for k, v in batch.items()}
         leaf0 = next(iter(batch.values()))
         lead = leaf0.shape[0]
-        local_rows = self.config.train_batch_size // self.dp   # this rank's rows
+        local_rows = self.config.train_batch_size // self.batch_dp   # this rank's rows
         micro_rows = max(1, local_rows // gas)
         fold = True
         if lead == gas:
@@ -653,8 +765,8 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self.lr_scheduler.step()
         losses = torch.stack(losses)
-        if self.dp > 1:     # each rank's share of the global loss
-            comm.all_reduce(losses, op=comm.ReduceOp.AVG, group="data")
+        if self.batch_dp > 1:     # each rank's share of the global loss
+            comm.all_reduce(losses, op=comm.ReduceOp.AVG, group=BATCH_AXES)
         if self.loss_scaler.enabled and self.config.fp16.per_micro_overflow_skip:
             good = torch.isfinite(losses) & ~torch.tensor(ovfs, device=losses.device)
             loss = torch.where(good, losses, 0.0).sum() / good.float().sum().clamp(min=1.0)
@@ -667,8 +779,8 @@ class DeepSpeedEngine:
         """The loss of this rank's rows of one batch, over dp data ranks
         averaged into the global batch's."""
         loss = self._loss(batch)[0]
-        if self.dp > 1:
-            comm.all_reduce(loss, op=comm.ReduceOp.AVG, group="data")
+        if self.batch_dp > 1:
+            comm.all_reduce(loss, op=comm.ReduceOp.AVG, group=BATCH_AXES)
         return loss
 
     # ---------------------------------------------------------------- accessors

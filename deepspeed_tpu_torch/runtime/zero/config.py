@@ -35,6 +35,7 @@ class DeepSpeedZeroConfig:
     zero_quantized_gradients: bool = False
     zero_hpz_partition_size: int = 1
     mics_shard_size: int = -1
+    zeropp_loco_param: Optional[dict] = None
 
     @classmethod
     def from_dict(cls, values: Optional[dict]) -> "DeepSpeedZeroConfig":
@@ -50,8 +51,26 @@ class DeepSpeedZeroConfig:
             block = getattr(cfg, name) or {}
             if block.get("device", "none") not in (None, "none"):
                 raise unported(f"zero_optimization.{name}", "Training: the rest")
-        if cfg.zero_quantized_weights or cfg.zero_quantized_nontrainable_weights \
-                or cfg.zero_quantized_gradients or cfg.zero_hpz_partition_size > 1 \
-                or cfg.mics_shard_size > 0:
-            raise unported("ZeRO++ (quantized collectives, hpZ, MiCS)", "Multi-GPU")
+        if cfg.zeropp_loco_param:
+            # the JAX config takes the key and no code reads it: refused, not ignored
+            raise unported("ZeRO++ LoCo error feedback (zeropp_loco_param)", "Multi-GPU")
+        if int(cfg.zero_hpz_partition_size) < 0:
+            raise DeepSpeedConfigError("zero_optimization.zero_hpz_partition_size must be "
+                                       f">= 0, got {cfg.zero_hpz_partition_size}")
         return cfg
+
+    @property
+    def shard_group_size(self) -> int:
+        """The data ranks a MiCS/hpZ group holds (`mics_shard_size`, else
+        `zero_hpz_partition_size` above 1), or 0: the JAX `initialize`'s
+        mapping onto `MeshTopology(mics_shard_size=...)`."""
+        mics = int(self.mics_shard_size or 0)
+        if mics <= 0:
+            hpz = int(self.zero_hpz_partition_size or 0)
+            mics = hpz if hpz > 1 else 0
+        return max(mics, 0)
+
+    @property
+    def quantized(self) -> bool:
+        """qgZ or qwZ: the collectives of the ZeRO++ region."""
+        return bool(self.zero_quantized_gradients or self.zero_quantized_weights)

@@ -97,7 +97,9 @@ def test_one_process_collectives_are_the_identity():
 
 
 @pytest.mark.parametrize("kw,n", [(dict(tp=2), 2), (dict(tp=1), 1), (dict(tp=4), 4),
-                                  (dict(dp=2), 2), (dict(tp=1), 2)])
+                                  (dict(dp=2), 2), (dict(tp=1), 2),
+                                  (dict(mics_shard_size=2), 4), (dict(repl=2, dp=2), 4),
+                                  (dict(mics_shard_size=4), 8)])
 def test_topology_matches_jax(kw, n):
     jax_topo = JaxTopology(devices=jax.devices()[:n], **kw)
     devices = list(jax.devices()[:n])

@@ -54,7 +54,8 @@ ranks' sum equals K6's output bit for bit, and each is held to 2e-2 of its
 largest output against its plain version. The data axis's collectives
 (`reduce_scatter`, `all_gather_into`, `all_reduce` with SUM, AVG, MAX and
 MIN) on CUDA tensors, from two gloo ranks sharing the card, equal the same
-calls on CPU tensors.
+calls on CPU tensors, and so do ZeRO++'s quantized reduce-scatter and
+all-gather and the 1-bit wire's compressed all-reduce.
 """
 
 import numpy as np
@@ -1382,6 +1383,23 @@ def test_data_collectives_on_card_match_the_cpu(cuda_device, tmp_path):
                 torch.testing.assert_close(got[key], value, rtol=0, atol=0, msg=key)
             elif key != "stats":
                 assert got[key] == value, key
+
+
+@pytest.mark.cuda
+def test_wire_collectives_on_card_match_the_cpu(cuda_device, tmp_path):
+    """Two gloo ranks on the one card: ZeRO++'s quantized reduce-scatter
+    (over either dim, both scale forms) and all-gather, and the 1-bit
+    wire's compressed all-reduce, on CUDA tensors give the bits the same
+    calls give on CPU tensors (gloo takes CUDA tensors for its all-to-all
+    too)."""
+    from tests import torch_dp_ranks, torch_tp_ranks
+    card = torch_tp_ranks.spawn(torch_dp_ranks.wire_collectives_on_card,
+                                tmp_path=tmp_path / "card")
+    cpu = torch_tp_ranks.spawn(torch_dp_ranks.wire_collectives, tmp_path=tmp_path / "cpu")
+    for got, want in zip(card, cpu):
+        assert got.keys() == want.keys()
+        for key, value in want.items():
+            torch.testing.assert_close(got[key], value, rtol=0, atol=0, msg=key)
 
 
 # The capacity serve mode (ZeRO-Inference): a Llama with every layer's

@@ -271,7 +271,8 @@ def test_train_batch_fold_rules_and_dataloader(tree):
 @pytest.mark.parametrize("key,value,item", [
     ("zero_optimization", {"stage": 2, "offload_optimizer": {"device": "cpu"}},
      "Training: the rest"),
-    ("zero_optimization", {"stage": 3, "zero_quantized_gradients": True}, "Multi-GPU"),
+    ("zero_optimization", {"stage": 3, "zero_quantized_gradients": True,
+                           "zeropp_loco_param": {"err_beta": 0.8}}, "Multi-GPU"),
     ("tensor_parallel", {"tp_size": 2}, "Multi-GPU"),
     ("pipeline", {"pipeline_parallel_size": 2}, "Multi-GPU"),
     ("sequence_parallel_size", 2, "Multi-GPU"),
@@ -279,8 +280,7 @@ def test_train_batch_fold_rules_and_dataloader(tree):
     ("curriculum_learning", {"enabled": True}, "Training: the rest"),
     ("flops_profiler", {"enabled": True}, "The rest"),
     ("tensorboard", {"enabled": True}, "The rest"),
-    ("optimizer", {"type": "OneBitAdam", "params": {"comm_backend_name": "nccl"}},
-     "Training: the rest"),
+    ("optimizer", {"type": "OneBitLamb"}, "Training: the rest"),
     ("optimizer", {"type": "Lamb"}, "Training: the rest"),
 ])
 def test_unported_config_raises(tree, key, value, item):

@@ -112,7 +112,17 @@ def test_build_optimizer_names_match_jax():
     for name in ("adam", "FusedAdam", "adamw", "cpuadam"):
         _, lr = optimizers.build_optimizer(name, {"lr": 3e-4})
         assert lr == jax_opt.build_optimizer(name, {"lr": 3e-4})[1] == 3e-4
-    for name in ("lamb", "lion", "adagrad", "sgd", "onebitadam", "zerooneadam", "onebitlamb"):
+    for name, params in (("onebitadam", {}), ("zerooneadam", {"comm_backend_name": "gloo"}),
+                         ("onebitlamb", {"comm_backend_name": "gloo"})):
+        _, lr = optimizers.build_optimizer(name, dict(params, lr=3e-4))
+        assert lr == jax_opt.build_optimizer(name, dict(params, lr=3e-4))[1] == 3e-4
+    for name in ("zerooneadam",):   # 0/1 Adam is its wire: both packages refuse it without
+        with pytest.raises(ValueError, match="comm_backend_name"):
+            optimizers.build_optimizer(name, {})
+        with pytest.raises(ValueError, match="comm_backend_name"):
+            jax_opt.build_optimizer(name, {})
+    # plain OneBitLamb is LAMB in the JAX package, which the port has not
+    for name in ("lamb", "lion", "adagrad", "sgd", "onebitlamb"):
         with pytest.raises(NotImplementedError, match="Training: the rest"):
             optimizers.build_optimizer(name, {})
     with pytest.raises(ValueError):
@@ -264,29 +274,44 @@ def test_grad_norm_over_pieces_matches_jax():
 
 @pytest.mark.parametrize("dp", [2, 3])
 def test_zero_unit_flat_layout(dp):
-    """Leaf i's piece r is elements [r * p_i, (r + 1) * p_i) of the
-    flattened leaf (p_i = ceil(n_i / dp), zero-padded): each rank's
-    `piece_of` is tile r of `pack`, and `unpack` of the tiles in rank
-    order gives the leaves back."""
-    from deepspeed_tpu_torch.runtime.zero.partition import ZeroUnit
+    """Leaf i's piece r is its JAX chunk r: the leaf cut along the dim the
+    JAX plan shards (`add_axes_to_spec`), that dim moved to the front and
+    flattened row-major. Each rank's `piece_of` is tile r of `pack`, its
+    `views` are its chunks, `unpack` of the tiles in rank order gives the
+    leaves back, and `whole_leaf` rebuilds a leaf from the flat,
+    zero-padded pieces of a checkpoint written before the chunk layout."""
+    from deepspeed_tpu.runtime.zero.partition import add_axes_to_spec
+    from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+    from deepspeed_tpu_torch.runtime.zero.partition import (ZeroShardingPlan, ZeroUnit,
+                                                             whole_leaf)
     rng = np.random.default_rng(5)
     leaves = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-              for s in ((4, 6), (7,), (1,), (3, 5))]
-    units = [ZeroUnit(["a", "b", "c", "d"], [t.shape for t in leaves], dp, r)
+              for s in ((4, 6), (6,), (3, 12, 5), (2, 3))]
+    plan = ZeroShardingPlan(dp, DeepSpeedZeroConfig.from_dict({"stage": 1}))
+    orders = [(tuple(range(t.dim())), plan.chunk_dim(t.shape)) for t in leaves]
+    units = [ZeroUnit(["a", "b", "c", "d"], [t.shape for t in leaves], dp, r, orders)
              for r in range(dp)]
     u = units[0]
-    assert u.pieces == [-(-t.numel() // dp) for t in leaves] and u.size == sum(u.pieces)
+    assert u.pieces == [t.numel() // dp for t in leaves] and u.size == sum(u.pieces)
     packed = u.pack(leaves, torch.float32, "cpu").view(dp, u.size)
     tiles = [units[r].piece_of(leaves) for r in range(dp)]
     for r in range(dp):
         torch.testing.assert_close(tiles[r], packed[r], rtol=0, atol=0)
         views = units[r].views(tiles[r])
-        for name, t, p in zip("abcd", leaves, u.pieces):
-            flat = torch.cat([t.reshape(-1), t.new_zeros(p * dp - t.numel())])
-            torch.testing.assert_close(views[name], flat[r * p:(r + 1) * p], rtol=0, atol=0)
+        for name, t in zip("abcd", leaves):
+            spec = add_axes_to_spec(None, tuple(t.shape), ("data",), {"data": dp})
+            d = next(i for i, e in enumerate(spec) if e is not None)
+            np.testing.assert_array_equal(views[name].numpy(),
+                                          np.moveaxis(t.numpy(), d, 0).reshape(dp, -1)[r])
     for got, t in zip(u.unpack(torch.cat(tiles)), leaves):
         torch.testing.assert_close(got, t, rtol=0, atol=0)
+        assert got.is_contiguous()          # the card's kernels take no strided operand
     assert u.pack([None] * 4, torch.bfloat16, "cpu").abs().sum() == 0
+    for t in leaves + [torch.arange(7.0), torch.ones(1)]:
+        p = -(-t.numel() // dp)
+        flat = torch.cat([t.reshape(-1), t.new_zeros(p * dp - t.numel())])
+        torch.testing.assert_close(whole_leaf(list(flat.view(dp, p)), t.shape, None), t,
+                                   rtol=0, atol=0)
 
 
 def test_zero_config_keys_match_jax():

@@ -1,9 +1,12 @@
 """Rank processes for the port's data-parallel tests on the CPU.
 
-Started by `tests/torch_tp_ranks.py:spawn` (two processes, or three, a
-`gloo` group), each rank installs `MeshTopology()` (every rank on `data`)
-and runs one of the scenarios below: the ZeRO stages, checkpoints saved
-and resumed across data ranks, and the MoE families' training. Like that
+Started by `tests/torch_tp_ranks.py:spawn` (two processes, three or four,
+a `gloo` group), each rank installs `MeshTopology()` (every rank on
+`data`) and runs one of the scenarios below: the ZeRO stages, checkpoints
+saved and resumed across data ranks, and the MoE families' training; or,
+through `zeropp_scenarios`, leaves the topology to `initialize` (MiCS and
+hpZ build `repl` x `data` from the config) and runs ZeRO++, MiCS and the
+1-bit wire. Like that
 module, this one imports no JAX: the test process runs the JAX side and
 hands the ranks numpy weights and batches.
 """
@@ -51,6 +54,37 @@ def _collectives(rank, device):
     return out
 
 
+def wire_collectives(rank):
+    """The quantized reduce-scatter and all-gather (both scale forms) and
+    the compressed all-reduce on this rank's CPU tensors."""
+    return _wire(rank, "cpu")
+
+
+def wire_collectives_on_card(rank):
+    """The same on CUDA tensors of the one card (gloo)."""
+    return _wire(rank, "cuda")
+
+
+def _wire(rank, device):
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+    from deepspeed_tpu_torch.runtime.comm import compressed as cp
+    _install()
+    gen = torch.Generator().manual_seed(11 + rank)
+    x = torch.randn((6, 1000), generator=gen).to(device)
+    e = 0.1 * torch.randn((6, 1000), generator=gen).to(device)
+    out = {}
+    for reciprocal in (False, True):
+        out[f"rs_{reciprocal}"] = cc.quantized_reduce_scatter(x, "data", 0,
+                                                              reciprocal=reciprocal).cpu()
+        out[f"rs1_{reciprocal}"] = cc.quantized_reduce_scatter(x, "data", 1,
+                                                               reciprocal=reciprocal).cpu()
+        out[f"ag_{reciprocal}"] = cc.quantized_all_gather(x, "data", 0,
+                                                          reciprocal=reciprocal).cpu()
+    avg, err = cp.compressed_allreduce(x, e, "data")
+    out.update(cr_avg=avg.cpu(), cr_err=err.cpu())
+    return out
+
+
 # ------------------------------------------------------------ the engine
 
 def _engine(tree, config, dtype, remat, loss_fn=None, **overrides):
@@ -73,12 +107,14 @@ def rank_rows(x, rank, gas, dp=DP):
     return micros[:, rank].reshape((-1,) + x.shape[1:])
 
 
-def _whole_tree(engine):
-    """`materialized_state()`'s params as a JAX tree of numpy arrays."""
+def _whole_tree(engine, tensors=None):
+    """`materialized_state()`'s params (or `tensors`, whole leaves by name)
+    as a JAX tree of numpy arrays."""
     from deepspeed_tpu_torch.models.llama import to_jax_params
-    params = engine.materialized_state().params
+    params = engine.materialized_state().params if tensors is None else tensors
     model = type(engine.module)(engine.module.cfg, device="meta")
-    model.load_state_dict({k: v.float() for k, v in params.items()}, assign=True)
+    model.load_state_dict({k: v.detach().float().clone() for k, v in params.items()},
+                          assign=True)
     return to_jax_params(model)
 
 
@@ -224,3 +260,142 @@ def scenarios(rank, tree, runs):
     fns = {"train": train, "fp16": train_fp16, "resume": resume, "moe": train_moe,
            "noise": gate_noise}
     return {name: fns[kind](rank, tree, *args) for name, (kind, args) in runs.items()}
+
+
+# ------------------------------------------------- ZeRO++, MiCS, the 1-bit wire
+
+def quantized_collectives(rank, _tree, cases):
+    """The quantized reduce-scatter and all-gather (the reciprocal scale
+    form) on this rank's part of each case ((p, *shape) numpy, scatter
+    dim), with the bytes counted."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.comm import coalesced_collectives as cc
+    _install()
+    out = []
+    for x, dim in cases:
+        mine = torch.from_numpy(np.asarray(x[rank]))
+        comm.reset_comm_stats()
+        rs = cc.quantized_reduce_scatter(mine, "data", dim, reciprocal=True)
+        ag = cc.quantized_all_gather(mine, "data", dim, reciprocal=True)
+        out.append(dict(rs=rs, ag=ag, stats=comm.comm_stats()))
+    return out
+
+
+def compressed(rank, _tree, xs, errors):
+    """`compressed_allreduce` and `compressed_allreduce_many` on this rank's
+    tensors and errors."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.comm import compressed as cp
+    _install()
+    x = [torch.from_numpy(np.asarray(a[rank])) for a in xs]
+    e = [torch.from_numpy(np.asarray(a[rank])) for a in errors]
+    comm.reset_comm_stats()
+    one = [cp.compressed_allreduce(a, b, "data") for a, b in zip(x, e)]
+    stats = comm.comm_stats()
+    many = cp.compressed_allreduce_many(x, e, "data")
+    return dict(one=one, many=many, stats=stats)
+
+
+def _wide_engine(tree, config, overrides, dtype=torch.float32):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config, llama_loss_fn
+    model = LlamaForCausalLM(llama_config("llama-tiny", dtype=dtype, **overrides))
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, model_parameters=tree,
+                                                config=config, loss_fn=llama_loss_fn(model),
+                                                device="cpu")
+    return engine
+
+
+def _pieces(engine):
+    """This rank's tensors of each state field (pieces where sharded)."""
+    st = engine.state
+    out = {"params": {k: v.detach().clone() for k, v in st.params.items()}}
+    if isinstance(getattr(st.opt_state, "exp_avg", None), dict):
+        out["exp_avg"] = {k: v.clone() for k, v in st.opt_state.exp_avg.items()}
+    return out
+
+
+def zeropp_train(rank, tree, config, batches, overrides, save_dir=None, save_after=None,
+                 first_grads=False):
+    """`train_batch` on this rank's rows of each global batch (the ranks of
+    `repl` x `data`): per step (loss, pre-clip norm), the whole parameters
+    after the first step and at the end, this rank's pieces, the wire's
+    bytes by kind over the run, the first step's accumulated gradient whole
+    (`first_grads`), and a save after step `save_after` into `save_dir`."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.utils.groups import BATCH_AXES
+    engine = _wide_engine(tree, config, overrides)
+    topo = engine.topology
+    gas, dp = engine.gradient_accumulation_steps(), engine.batch_dp
+    where = topo.coord(BATCH_AXES)
+    out = dict(coords=topo.coords, steps=[], grads=None)
+    if first_grads:
+        take = engine._take_model_step
+
+        def snapshot():
+            if out["grads"] is None:
+                out["grads"] = _whole_tree(engine, engine.materialized_state().grad_acc)
+            return take()
+        engine._take_model_step = snapshot
+    comm.reset_comm_stats()
+    for i, batch in enumerate(batches):
+        loss = engine.train_batch(batch={k: rank_rows(v, where, gas, dp)
+                                         for k, v in batch.items()})
+        out["steps"].append((float(loss), engine.get_global_grad_norm()))
+        if i == 0:
+            out["tree1"] = _whole_tree(engine)
+        if save_dir is not None and i == save_after:
+            engine.save_checkpoint(save_dir)
+    out["stats"] = comm.comm_stats()
+    out["tree"] = _whole_tree(engine)
+    out["pieces"] = _pieces(engine)
+    if engine._wire_opt is not None:
+        st = engine.state.opt_state
+        out["wire"] = {f: ({k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x)
+                       for f, x in zip(st._fields, st)}
+    return out
+
+
+def zeropp_resume(rank, tree, config, batches, overrides, load_dir, wait_s=0.0):
+    """A fresh engine (from `tree`) loads `load_dir` and trains on this
+    rank's rows: its steps, whole parameters and the wire state. With
+    `wait_s`, the save may still be under way in other processes: the load
+    waits up to that long for its `latest` file."""
+    import time
+
+    from deepspeed_tpu_torch.runtime.checkpointing import read_latest
+    from deepspeed_tpu_torch.utils.groups import BATCH_AXES
+    deadline = time.monotonic() + wait_s
+    while wait_s and not read_latest(load_dir):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no checkpoint in {load_dir} after {wait_s} s")
+        time.sleep(0.2)
+    engine = _wide_engine(tree, config, overrides)
+    engine.load_checkpoint(load_dir)
+    gas, dp = engine.gradient_accumulation_steps(), engine.batch_dp
+    where = engine.topology.coord(BATCH_AXES)
+    steps = []
+    for batch in batches:
+        loss = engine.train_batch(batch={k: rank_rows(v, where, gas, dp)
+                                         for k, v in batch.items()})
+        steps.append((float(loss), engine.get_global_grad_norm()))
+    out = dict(steps=steps, tree=_whole_tree(engine))
+    if engine._wire_opt is not None:
+        st = engine.state.opt_state
+        out["wire"] = {f: ({k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x)
+                       for f, x in zip(st._fields, st)}
+    return out
+
+
+def zeropp_scenarios(rank, tree, runs):
+    """Every run of `runs` ({name: (kind, args)}) in turn, each under the
+    topology `initialize` builds from its config (installed afresh), or
+    the flat one (`kind` "collectives", "compressed")."""
+    from deepspeed_tpu_torch.utils import groups
+    fns = {"train": zeropp_train, "resume": zeropp_resume,
+           "collectives": quantized_collectives, "compressed": compressed}
+    out = {}
+    for name, (kind, args) in runs.items():
+        groups.reset_topology()
+        out[name] = fns[kind](rank, tree, *args)
+    return out

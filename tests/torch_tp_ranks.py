@@ -1,13 +1,15 @@
 """Rank processes for the port's tensor-parallel tests on the CPU.
 
-`spawn(fn, *args, tmp_path=...)` starts two processes with the spawn
-context, joins them in a `gloo` process group through a `file://`
+`spawn(fn, *args, tmp_path=...)` starts two processes (`world`) with the
+spawn context, joins them in a `gloo` process group through a `file://`
 rendezvous under `tmp_path` (so parallel test workers never share a port),
 runs `fn(rank, *args)` in each, and returns each rank's result in rank
 order (results travel through `torch.save` files). A rank that raises
 fails the call with its traceback. This module imports no JAX, so a rank
 starts in about two seconds; `fn` must be a module-level function of an
-importable module that imports none either.
+importable module that imports none either. `start` takes the same
+arguments and returns at once, with a function that waits for the
+results.
 """
 
 from __future__ import annotations
@@ -39,14 +41,29 @@ def _entry(rank: int, world: int, root: str, fn, args) -> None:
 
 
 def spawn(fn, *args, tmp_path, world: int = TP) -> list:
+    return start(fn, *args, tmp_path=tmp_path, world=world)()
+
+
+def start(fn, *args, tmp_path, world: int = TP):
+    """`spawn` without waiting: starts the ranks and returns a function that
+    waits for them and returns their results, as `spawn` does."""
     root = pathlib.Path(tmp_path) / f"ranks_{fn.__name__}"
     root.mkdir(parents=True, exist_ok=True)
-    errors = None
-    try:
-        mp.start_processes(_entry, args=(world, str(root), fn, args), nprocs=world,
-                           start_method="spawn")
-    except Exception as e:  # a rank's own traceback is in its file
-        errors = e
+    context = mp.start_processes(_entry, args=(world, str(root), fn, args), nprocs=world,
+                                 start_method="spawn", join=False)
+
+    def wait() -> list:
+        errors = None
+        try:
+            while not context.join():
+                pass
+        except Exception as e:  # a rank's own traceback is in its file
+            errors = e
+        return _results(root, world, errors)
+    return wait
+
+
+def _results(root: pathlib.Path, world: int, errors) -> list:
     results = []
     for rank in range(world):
         path = root / f"rank{rank}.pt"
