@@ -1,6 +1,6 @@
 """One family of kernels of two or more trees, in turns, on one card.
 
-    python3 chip_ab.py {gmm,decode,sparse} [ROOT ...]
+    python3 chip_ab.py {gmm,decode,sparse,build} [ROOT ...]
 
 `gmm`: the grouped expert GEMM (K6, K6-bwd dlhs and drhs, K8-e) through
 each tree's `check_gmm`, `check_gmm_bwd` and `check_sharded_gmm`, beside
@@ -16,6 +16,10 @@ table width.
 `sparse`: the block-sparse attention kernel (K7) through each tree's
 `check_sparse` over this checkout's `SPARSE_SHAPES` and `sparse_layout`
 (so every tree sees the same layouts), beside its SDPA yardstick.
+`build`: every kernel library of each tree built from nothing (its build
+directory emptied first), all at once as `chip_smoke.py` builds them: the
+wall seconds, and each source's compiler seconds where the tree records
+them (`KernelLibrary.build_seconds`).
 
 Each ROOT is a checkout of this repository (default: this one). In the
 order given, each runs in a process of its own that imports that tree's
@@ -197,7 +201,30 @@ def sparse_cases(cs, torch):
     return [(shape[0], run(shape)) for shape in own.SPARSE_SHAPES]
 
 
-FAMILIES = {"gmm": gmm_cases, "decode": decode_cases, "sparse": sparse_cases}
+def build_one(root: str) -> None:
+    """`build` on the tree at `root`: one JSON line."""
+    import shutil
+    import time
+    from deepspeed_tpu_torch.op_builder import build_all, builder
+    from deepspeed_tpu_torch.ops.cuda import (block_sparse_attention, decode_attention,
+                                              flash_attention, grouped_gemm, paged_attention,
+                                              quantized_matmul)
+    libs = {}
+    for module in (flash_attention, decode_attention, paged_attention, quantized_matmul,
+                   grouped_gemm, block_sparse_attention):
+        for value in vars(module).values():
+            if isinstance(value, builder.KernelLibrary):
+                libs[value.source] = value
+    shutil.rmtree(builder.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    build_all(libs.values())
+    wall = time.perf_counter() - t0
+    print(json.dumps({"tree": root, "case": "build", "build": {
+        "wall_s": wall, "by_source": {lib.source.name: getattr(lib, "build_seconds", None)
+                                      for lib in libs.values()}}}), flush=True)
+
+
+FAMILIES = {"gmm": gmm_cases, "decode": decode_cases, "sparse": sparse_cases, "build": None}
 # families whose checks free their inputs before they return: each call
 # timed with the default count (the kernel's and the library's, not the
 # slow plain versions') is read by `device_ms` as it is timed
@@ -208,6 +235,8 @@ def one(family: str, root: str) -> None:
     """Run every case of `family` on the tree at `root`; one JSON line a case."""
     sys.path.insert(0, root)
     os.chdir(root)
+    if family == "build":
+        return build_one(root)
     import numpy as np
     import torch
     import chip_smoke as cs
@@ -265,6 +294,9 @@ def main() -> int:
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps({"card": smi.strip(), "rows": rows}, indent=1))
     for row in rows:
+        if "build" in row:
+            print(f"{row['turn']} {pathlib.Path(row['tree']).name:>12} build "
+                  f"{row['build']['wall_s']:.1f} s {json.dumps(row['build']['by_source'])}")
         for kind, r in row.items():
             if not (isinstance(r, dict) and "ms" in r):
                 continue

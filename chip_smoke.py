@@ -11,7 +11,7 @@
    backward at the training shapes, run twice and bitwise equal; the fused
    dequant-GEMM K5 at the four Llama-3-8B projections at M = 4 and 2048
    and two odd layouts, two calls bitwise equal (the decode path's split K);
-   the paged prefill K4, bf16 and int8, two calls bitwise equal; the decode
+   the paged prefill K4, bf16 and int8, and K1-fwd, two calls bitwise equal; the decode
    kernels K2 and K3 in every form, two calls bitwise equal, each with its
    device time from torch.profiler beside SDPA's; the int8
    attention kernels on int8 caches, and with unit scales bitwise against
@@ -29,7 +29,10 @@
    attention (H = Hkv = 32, D = 128; staged and unstaged, over int8 pools)
    and bloom-560m's (H = 16, D = 64), each beside a control, the kernel
    run without the slopes, that must miss (SDPA's yardstick carries the
-   bias in a bf16 float mask); then runs the sparse path,
+   bias in a bf16 float mask); K1-fwd, K2, K2-int8, K3 and K3-int8 (staged
+   and not), K4 and K4-int8 (with and without a window) at the zoo's head
+   widths, phi-2's (H = Hkv = 32, D = 80) and pythia-1b's (H = Hkv = 8,
+   D = 256); then runs the sparse path,
    `SparseSelfAttention` forward (K7, counted) and backward (the gather
    path's gradient) against autograd of the gather path;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
@@ -81,6 +84,18 @@
    v1 `forward` and the two layouts' teacher-forced logits against each
    other; holds a 2-layer bloom-7b1-width model on the card in bf16
    against the CPU in f32 through v1 and v2 paged;
+8c. serves the zoo's first two families (`serve_zoo`) at full width and
+   depth with random bf16 weights: phi-2 (32 layers, 32 heads of 80) and
+   pythia-1b (16 layers, 8 heads of 256), each through v1 (`forward` on 4 x
+   512 and greedy `generate` of 64: K1-fwd and K2 counted, the last decode
+   step against `forward` beside a control, another row's `forward`, that
+   must miss), v2 traffic A on the paged pool (K4 and K3 counted, four
+   rows' last step against v1 `forward` beside the same control), an int8
+   KV cache (v1 greedy `generate` of ZOO_INT8_NEW: K2-int8 counted, the
+   last step against the bf16-KV engine forced through the same tokens
+   beside the doubled-scales control; v2 over int8 pools: K4-int8 and
+   K3-int8 counted), and a 2-layer model of the same width on the card in
+   bf16 against the CPU in f32 through v1 and v2;
 8b. serves Qwen1.5-MoE-A2.7B at full width and depth with random bf16
    weights through v1: `forward` on 4 x 512 (the ragged path, which drops
    tokens over capacity), greedy `generate` of 64 tokens (the MoE main
@@ -130,15 +145,17 @@
    shard of K2, K3, K4 and K5 ('n') bit for bit to the same heads or
    columns of the unsharded kernel, and K5 'k''s two partial products
    summed to the unsharded product;
-9d. serves Qwen1.5-MoE-A2.7B at full width and depth expert-parallel over
+9d. serves Qwen1.5-MoE-A2.7B at full width and EP_LAYERS (8) of its 24
+   layers expert-parallel over
    ep = 2 (`groups.initialize(MeshTopology(ep=2))`, then `init_inference`):
    two ranks on the one card over gloo, as 9c, each building its shard (the
    dense model whole, 30 of the 60 experts of every layer) from the seed of
    8b: v1 `forward` on 4 x 512 (the ragged path: the rank's slice of the
    expert buffer, all-gathered) and greedy `generate` of 64 (K8-e three
    times a layer in the prefill, one all-reduce a layer; the ragged buffer
-   and K2 at decode), counted; the last step teacher-forced on 8b's tokens
-   against 8b's, beside the routing-flip share, with a control (rank 1
+   and K2 at decode), counted; the last step teacher-forced on the tokens
+   of ep = 1 references that this process builds at the same depth
+   (`ep_references`) against theirs, beside the routing-flip share, with a control (rank 1
    running its experts at rank 0's group offset) that must miss; a sampled
    `generate`; the gloo all-reduce and all-gather at the prefill and decode
    operand sizes and K8-e alone and with its all-reduce; decode with the
@@ -311,7 +328,17 @@ TP_TIMEOUT_S = 600           # a rank waiting longer on a collective fails the r
 # ranks on the one card over gloo, as `serve_tp`, each holding the whole
 # dense model and 30 of the 60 experts of every layer.
 EP = 2
-EP_REFS = {}                 # `serve_moe`'s and `reference_moe`'s ep = 1 results
+EP_REFS = {}                 # ep = 1 results: `ep_references`' and `reference_moe`'s
+# EP_LAYERS of Qwen1.5-MoE's 24 layers in `serve_ep` (the script's time),
+# against ep = 1 references built at the same depth (`ep_references`)
+EP_LAYERS = 8
+# The zoo's first two families (`serve_zoo`), at the published
+# microsoft/phi-2 and EleutherAI/pythia-1b shapes: (module, preset, seed),
+# and each one's attention for the kernel phase's rows at its head width
+ZOO = (("phi", "phi-2", SEED + 80, 80), ("gptneox", "pythia-1b", SEED + 90, 256))
+ZOO_WIDTHS = {80: dict(h=32, hkv=32, d=80), 256: dict(h=8, hkv=8, d=256)}
+ZOO_INT8_NEW = 8             # greedy tokens of the int8-KV runs
+ZOO_INT8_PROMPTS = 8         # v2 prompts of 256 tokens over int8 pools
 # K2's and K3's report names and CUDA names in a profile ("::" keeps K5's
 # qmm_decode_kernel and K3's paged_decode_kernel out of K2's)
 K2_NAME = ("decode_attention", "::decode_kernel<")
@@ -545,12 +572,15 @@ def check_flash(gen, causal, sq, sk, h=H, hkv=HKV, b=B, d=D):
     q, k = randn((b, sq, h, d), gen), randn((b, sk, hkv, d), gen)
     v = randn((b, sk, hkv, d), gen)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    again = fa.flash_attention_fwd(q, k, v, causal=causal)
     ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
     assert torch.isfinite(out).all() and err <= KERNEL_TOL and lse_err <= 1e-3, \
         (causal, sq, sk, err, lse_err)
+    bitwise = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert bitwise, ("K1-fwd is not bitwise repeatable", b, sq, sk, h, hkv, d, causal)
     pairs = sum(min(i + sk - sq + 1, sk) for i in range(sq)) if causal else sq * sk
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 + lse.numel() * 4
     bound_ms, bound_by = bound(nbytes, 4.0 * d * pairs * b * h)
@@ -560,7 +590,7 @@ def check_flash(gen, causal, sq, sk, h=H, hkv=HKV, b=B, d=D):
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True))
     return dict(shape=f"B={b} Sq={sq} Sk={sk} H={h} Hkv={hkv} D={d} causal={causal}",
-                max_abs_err=err, lse_max_abs_err=lse_err,
+                max_abs_err=err, lse_max_abs_err=lse_err, calls_bitwise_equal=bitwise,
                 ms=cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal=causal)),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library)
@@ -648,9 +678,10 @@ def unit_scale_pair(x):
     return ints, torch.ones(ints.shape[:-1], device=ints.device), ints.to(torch.bfloat16)
 
 
-def check_decode(gen, int8=False, h=H, hkv=HKV):
+def check_decode(gen, int8=False, h=H, hkv=HKV, d=D):
     """K2 at the v1 decode shape; with `int8`, K2-int8 on the same cache
     quantized, and unit scales held bitwise to the bf16 kernel."""
+    D = d  # noqa: N806 (the shape of this call)
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.quantization import dequantize_kv
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
@@ -2330,8 +2361,6 @@ def serve_moe(report):
     assert torch.isfinite(step_logits).all()
     gate("serve_moe last step vs cached prefill", consistency, MOE_CONSISTENCY_RTOL, control,
          flips)
-    EP_REFS[QWEN_MOE] = dict(tokens=out.cpu(), last=step_logits.float().cpu(),
-                             routing=[r.cpu() for r in decode_routing])
 
     t0 = time.perf_counter()
     engine.generate(ids, max_new_tokens=1)
@@ -2375,7 +2404,6 @@ def serve_moe(report):
     for layer in module.layers:
         layer.mlp.dispatch_impl = cfg.dispatch_impl
     assert gmm_launches["grouped_gemm"] == 3 * L * NEW, gmm_launches
-    EP_REFS[QWEN_MOE]["gmm_tokens"] = gmm_out.cpu()
     del engine, module, recorder, full, seen
     gc.collect()
     torch.cuda.empty_cache()
@@ -2449,14 +2477,43 @@ def reference_moe(report):
     report["reference_moe"] = rows
 
 
+def ep_references(cfg):
+    """The ep = 1 references of `serve_ep` at `cfg`'s depth, from
+    `serve_moe`'s seed and prompts: greedy `generate`'s tokens, its last
+    decode step's logits and routing (as `serve_moe` takes them), and the
+    tokens of decode with the grouped GEMM forced."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM
+    engine = deepspeed_tpu_torch.init_inference(moe_model(Qwen2MoeForCausalLM, cfg, SEED + 40),
+                                                dtype="bf16")
+    module = engine.module
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.generate(ids, max_new_tokens=2)                # warm-up
+    recorder = RoutingRecorder(module)
+    out, seen = generate_logits(engine, ids, NEW)
+    refs = dict(tokens=out.cpu(), last=seen[-1].float().cpu(),
+                routing=[r.cpu() for r in recorder.take()])
+    recorder.remove()
+    for layer in module.layers:
+        layer.mlp.dispatch_impl = "gmm"
+    refs["gmm_tokens"] = engine.generate(ids, max_new_tokens=NEW).cpu()
+    del engine, module, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
 def serve_ep(report):
-    """Qwen1.5-MoE-A2.7B at full width and depth served expert-parallel over
+    """Qwen1.5-MoE-A2.7B at full width and EP_LAYERS of its 24 layers served
+    expert-parallel over
     ep = 2: two ranks (spawned processes) on the one card, joined by gloo,
     each holding the whole dense model and 30 of the 60 experts of every
     layer (`MeshTopology(ep=2)`, a module built with `ep_rank`). The phase's
     gates: equal greedy, sampled and gmm-decode tokens on both ranks; rank
-    0's last decode step, teacher-forced on `serve_moe`'s tokens, within
-    MOE_CONSISTENCY_RTOL of `serve_moe`'s, beside the routing-flip share,
+    0's last decode step, teacher-forced on the ep = 1 references' tokens
+    (`ep_references`, at the same depth), within
+    MOE_CONSISTENCY_RTOL of theirs, beside the routing-flip share,
     and a control (rank 1 running its experts at rank 0's group offset)
     that must miss that bound; the launch counts of the main path (`forward`
     on B x 512 and greedy `generate` of 64: K8-e three times a layer in the
@@ -2469,8 +2526,9 @@ def serve_ep(report):
     import torch.multiprocessing as mp
     from deepspeed_tpu_torch.models.qwen2_moe import qwen2_moe_config
     cpu_logits = {k: v.pop("cpu_logits") for k, v in EP_REFS.items() if "cpu_logits" in v}
-    gc.collect()
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    EP_REFS[QWEN_MOE] = ep_references(qwen2_moe_config(QWEN_MOE, num_hidden_layers=EP_LAYERS))
+    references_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(EP_REFS, f"{tmp}/refs.pt")
         t0 = time.perf_counter()
@@ -2478,7 +2536,7 @@ def serve_ep(report):
         wall_s = time.perf_counter() - t0
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(EP)]
     r0, r1 = ranks
-    L = qwen2_moe_config(QWEN_MOE).num_hidden_layers
+    L = EP_LAYERS
     for key in ("greedy", "sampled", "gmm_greedy", "reference_tokens"):
         assert r0[key] == r1[key], key
     gate("serve_ep last step vs ep = 1", r0["last_rel_rms_err"], MOE_CONSISTENCY_RTOL,
@@ -2506,7 +2564,8 @@ def serve_ep(report):
         model=f"{QWEN_MOE} (random bf16 weights, seed {SEED + 40}) over ep={EP}",
         setup=f"{EP} ranks, one process each, sharing one card over gloo: the "
               "collectives stage through the host, so these times are not an "
-              "expert-parallel speed", wall_s=wall_s,
+              "expert-parallel speed", layers=EP_LAYERS, wall_s=wall_s,
+        ep1_references_s=references_s,
         ranks=[{k: v for k, v in r.items() if k not in drop} for r in ranks])
     log(f"serve_ep: {EP} ranks sharing one card over gloo: " + "; ".join(
         f"rank {r['rank']}: decode {r['decode_tok_s']:.1f} tok/s, prefill "
@@ -2517,8 +2576,9 @@ def serve_ep(report):
 
 def ep_rank(rank, port, tmp):
     """One rank of `serve_ep`: joins the gloo group, installs the ep = 2
-    topology, builds its shard of Qwen1.5-MoE-A2.7B from `serve_moe`'s seed
-    (each expert stack drawn whole, as there, and cut) and serves it, then
+    topology, builds its shard of Qwen1.5-MoE-A2.7B at EP_LAYERS layers from
+    `serve_moe`'s seed (each expert stack drawn whole, as there, and cut)
+    and serves it, then
     the 2-layer reference models' shards."""
     import datetime
     import logging
@@ -2565,14 +2625,14 @@ def moe_shard(cls, cfg, seed, rank):
 
 def ep_v1(rank, refs):
     """v1 at ep = 2: the main path (`forward` on B x 512, greedy `generate`
-    of 64; counted), the last step teacher-forced on `serve_moe`'s tokens
-    with its routing-flip share, the wrong-offset control, a sampled run,
+    of 64; counted), the last step teacher-forced on the ep = 1 references'
+    tokens with its routing-flip share, the wrong-offset control, a sampled run,
     the collectives' and K8-e's times, and decode with the grouped GEMM
     forced (counted)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.qwen2_moe import Qwen2MoeForCausalLM, qwen2_moe_config
     from deepspeed_tpu_torch.ops.cuda import grouped_gemm as gg
-    cfg = qwen2_moe_config(QWEN_MOE)
+    cfg = qwen2_moe_config(QWEN_MOE, num_hidden_layers=EP_LAYERS)
     t0 = time.perf_counter()
     engine = deepspeed_tpu_torch.init_inference(
         moe_shard(Qwen2MoeForCausalLM, cfg, SEED + 40, rank), dtype="bf16")
@@ -3345,6 +3405,200 @@ def reference_bloom(report):
     del gpu, cpu
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def zoo_model(family, name, seed, dtype=torch.bfloat16, device="cuda", **overrides):
+    """A zoo preset (`models/phi.py`, `models/gptneox.py`) with random
+    weights from `seed`, built on `device` in `dtype`."""
+    import importlib
+    mod = importlib.import_module(f"deepspeed_tpu_torch.models.{family}")
+    cfg = getattr(mod, f"{family}_config")(name, **overrides)
+    return getattr(mod, f"init_{family}")(
+        cfg, torch.Generator(device=device).manual_seed(seed), device=device, dtype=dtype)
+
+
+def serve_zoo(report):
+    """phi-2 and pythia-1b at full width and depth (`ZOO`), random bf16
+    weights, through v1, v2 on the paged pool and an int8 KV cache
+    (`zoo_serve`), then a 2-layer model of each width against the CPU in
+    f32 (`zoo_reference`). Returns each model's launches by run."""
+    rows, launches = {}, {}
+    for family, name, seed, _ in ZOO:
+        rows[name], launches[name] = zoo_serve(report, family, name, seed)
+        rows[name]["reference"] = zoo_reference(family, name, seed + 5)
+    report["serve_zoo"] = rows
+    return launches
+
+
+def zoo_serve(report, family, name, seed):
+    """One zoo model. v1: `forward` on B x PROMPT and greedy `generate` of
+    NEW (K1-fwd at `forward`, K2 at every decode step; counted), the last
+    decode step against `forward` on the generated sequence within
+    CONSISTENCY_RTOL, beside a control (another row's `forward`) that must
+    miss. v2 with the automatic layout (paged): traffic A (K4 and K3
+    counted), four rows' last step against v1 `forward`, beside the same
+    control. An int8 KV cache (`zoo_int8`)."""
+    import deepspeed_tpu_torch
+    model = zoo_model(family, name, seed)
+    cfg = model.cfg
+    L = cfg.num_hidden_layers
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ids = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")
+    engine.forward(ids[:, :64])                          # warm-up
+    engine.generate(ids[:1, :16], max_new_tokens=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    logits = engine.forward(ids)
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    out, seen = generate_logits(engine, ids, NEW)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    v1_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # `forward` runs K1-fwd; the cached prefill takes the masked path, and
+    # every decode step K2
+    assert v1_launches == only(flash_attention_fwd=L, decode_attention=L * (NEW - 1)), \
+        v1_launches
+    assert logits.shape == (B, PROMPT, cfg.vocab_size) and torch.isfinite(logits).all()
+    assert out.shape == (B, PROMPT + NEW) and torch.equal(out[:, :PROMPT], ids)
+    del logits
+    step = seen[-1]
+    full = engine.forward(out[:, :-1])[:, -1]
+    consistency = rel_err(step, full)
+    control = rel_err(step, full.roll(1, 0))
+    assert torch.isfinite(step).all() and consistency <= CONSISTENCY_RTOL < control, \
+        (name, consistency, control)
+    assert torch.equal(step.float().argmax(-1), out[:, -1])
+    t0 = time.perf_counter()
+    engine.generate(ids, max_new_tokens=1)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del full, seen, step
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 2)
+    v2 = v2_engine(model)
+    assert v2.kv_layout == "paged", v2.kv_layout
+    out2, stats, v2_launches, calls, last = traffic_a(v2, rng)
+    assert v2_launches == only(paged_decode_attention=L * calls["decode_steps"],
+                               paged_prefill_attention=L * calls["chunk_calls"]), \
+        (v2_launches, calls)
+    full = engine.forward([out2[u][:-1] for u in WATCH])[:, -1]
+    errs = [rel_err(last[u], full[i]) for i, u in enumerate(WATCH)]
+    controls = [rel_err(last[u], full[(i + 1) % len(WATCH)]) for i, u in enumerate(WATCH)]
+    assert all(int(last[u].float().argmax()) == out2[u][-1] for u in WATCH)
+    assert max(errs) <= CONSISTENCY_RTOL < min(controls), (name, errs, controls)
+    del v2, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8, int8_launches = zoo_int8(engine, model, ids, rng)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = dict(
+        card=report["card"], model=f"{name} (random bf16 weights, seed {seed})",
+        layers=L, heads=cfg.num_attention_heads, head_dim=cfg.head_dim,
+        rotary_dim=cfg.rotary_dim, weights_bytes=weights,
+        v1=dict(batch=B, prompt=PROMPT, new_tokens=NEW, forward_ms=forward_ms,
+                generate_ms=generate_ms, generate_prefill_ms=prefill_ms,
+                decode_tok_s=B * (NEW - 1) / ((generate_ms - prefill_ms) / 1e3),
+                peak_memory_bytes=peak, launches=v1_launches,
+                last_step_vs_forward_rel_rms_err=consistency,
+                other_row_control_rel_rms_err=control),
+        v2=dict(engine=dict(V2), kv_layout="paged", **stats,
+                last_step_vs_v1_forward_rel_rms_err=errs,
+                other_row_control_rel_rms_err=controls),
+        kv_int8=int8)
+    return row, dict(v1=v1_launches, v2=v2_launches, **int8_launches)
+
+
+def zoo_int8(bf16_engine, model, ids, rng):
+    """The zoo model with its KV cache int8 at rest. v1: greedy `generate`
+    of ZOO_INT8_NEW (K2-int8 counted), the last step against the bf16-KV
+    engine's `generate` forced through the same tokens within INT8_KV_RTOL,
+    beside a control whose int8 writes carry doubled scales; v2 over int8
+    pools: ZOO_INT8_PROMPTS prompts of traffic A's length and ZOO_INT8_NEW greedy
+    tokens (K4-int8 and K3-int8 counted)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import kv_cache
+    cfg = model.cfg
+    L, new = cfg.num_hidden_layers, ZOO_INT8_NEW
+    engine = deepspeed_tpu_torch.init_inference(model, dtype="bf16", kv_cache_dtype="int8")
+    engine.generate(ids[:1, :16], max_new_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    out, seen = generate_logits(engine, ids, new)
+    v1_launches = read_launches()
+    assert v1_launches == only(decode_attention_int8=L * (new - 1)), v1_launches
+    bf16_kv = generate_logits(bf16_engine, ids, new, force=out)[1][-1]
+    err = rel_err(seen[-1], bf16_kv)
+    assert torch.isfinite(seen[-1]).all() and err <= INT8_KV_RTOL, err
+    quantize = kv_cache.quantize_kv_tokens
+    kv_cache.quantize_kv_tokens = lambda x: (lambda q, s: (q, 2.0 * s))(*quantize(x))
+    try:
+        control = rel_err(generate_logits(engine, ids, new, force=out)[1][-1], bf16_kv)
+    finally:
+        kv_cache.quantize_kv_tokens = quantize
+    assert control > INT8_KV_RTOL, control
+    del engine, seen, bf16_kv
+    v2 = v2_engine(model, kv_cache_dtype="int8")
+    calls, _ = instrument(v2)
+    plen = TRAFFIC_A[1]
+    prompts = rng.integers(0, cfg.vocab_size, (ZOO_INT8_PROMPTS, plen)).tolist()
+    v2.generate(prompts[:1], max_new_tokens=2)           # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    calls.update(decode_steps=0, chunk_calls=0)
+    out2 = v2.generate(prompts, max_new_tokens=new)
+    v2_launches = read_launches()
+    assert all(len(o) == plen + new and o[:plen] == p for o, p in zip(out2, prompts))
+    assert v2_launches == only(paged_decode_attention_int8=L * calls["decode_steps"],
+                               paged_prefill_attention_int8=L * calls["chunk_calls"]), \
+        (v2_launches, calls)
+    del v2
+    return (dict(new_tokens=new, v1_last_step_vs_bf16_kv_rel_rms_err=err,
+                 doubled_scales_control_rel_rms_err=control, v1_launches=v1_launches,
+                 v2_prompts=ZOO_INT8_PROMPTS, v2_calls=dict(calls), v2_launches=v2_launches),
+            dict(v1_int8=v1_launches, v2_int8=v2_launches))
+
+
+def zoo_reference(family, name, seed):
+    """Two layers at the model's width: the card in bf16 (K1-fwd, K2, and
+    K4 and K3 through v2) against the plain versions on the CPU in f32, on
+    the same weights: `forward`, the prefill and last decode step of a
+    greedy `generate`, and v2 paged (`reference_v2`)."""
+    import deepspeed_tpu_torch
+    gpu = deepspeed_tpu_torch.init_inference(zoo_model(family, name, seed, num_hidden_layers=2),
+                                             dtype="bf16")
+    cpu_model = type(gpu.module)(dataclasses.replace(gpu.model_cfg, dtype=torch.float32),
+                                 device="meta")
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in
+                               gpu.module.state_dict().items()}, assign=True)
+    cpu = deepspeed_tpu_torch.init_inference(cpu_model, dtype="fp32", device="cpu")
+    ids = torch.randint(0, gpu.model_cfg.vocab_size, (2, 64),
+                        generator=torch.Generator().manual_seed(seed + 1))
+    err_fwd = rel_err(gpu.forward(ids), cpu.forward(ids))
+    out, steps = generate_logits(gpu, ids.cuda(), 8)
+    ref = cpu.forward(out[:, :-1].cpu())
+    err_prefill = rel_err(steps[0], ref[:, ids.shape[1] - 1])
+    err_step = rel_err(steps[-1], ref[:, -1])
+    assert max(err_fwd, err_prefill, err_step) <= REFERENCE_RTOL, \
+        (name, err_fwd, err_prefill, err_step)
+    zero_launches()
+    v2 = reference_v2(gpu.module, cpu.module, ids.numpy())
+    launches = read_launches()
+    assert v2["kv_layout"] == "paged" and launches["paged_decode_attention"] > 0 \
+        and launches["paged_prefill_attention"] > 0, (v2, launches)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=2, forward_rel_rms_err=err_fwd, prefill_rel_rms_err=err_prefill,
+                last_decode_step_rel_rms_err=err_step, v2=v2)
 
 
 def train(report):
@@ -4937,16 +5191,19 @@ def main() -> int:
     from deepspeed_tpu_torch.ops.cuda import paged_attention as pa
     from deepspeed_tpu_torch.ops.cuda import quantized_matmul as qm
     libraries = [fa.LIBRARY, fa.BWD_LIBRARY, da.LIBRARY, pa.DECODE_LIBRARY,
-                 pa.PREFILL_LIBRARY, qm.LIBRARY, gg.LIBRARY, bs.LIBRARY]
+                 pa.ALIBI_DECODE_LIBRARY, pa.PREFILL_LIBRARY, qm.LIBRARY, gg.LIBRARY, bs.LIBRARY]
     t0 = time.perf_counter()
     build_all(libraries)
     report["build_s"] = time.perf_counter() - t0
-    print(f"built kernels in {report['build_s']:.1f} s", flush=True)
+    report["build_s_by_source"] = {lib.source.name: lib.build_seconds for lib in libraries}
+    print(f"built kernels in {report['build_s']:.1f} s "
+          f"({json.dumps(report['build_s_by_source'])})", flush=True)
     for lib in libraries:
         log(lib.build_log)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
     # K1-fwd: the v1 prefill first (the v1 path's), the causal offset, no
     # mask, then the llama-1b training call (BWD_SHAPES' shape (a))
     tb, ts, _, th, thkv, td, _ = BWD_SHAPES[0]
@@ -4990,6 +5247,21 @@ def main() -> int:
     paged_prefill_alibi = [check_paged_prefill(gen, rng, **bloom_w),
                            check_paged_prefill(gen, rng, int8=True, **bloom_w),
                            check_paged_prefill(gen, rng, **small_w)]
+    # K1-fwd, K2, K3 and K4 at the zoo's widths, phi-2's attention (D = 80)
+    # and pythia-1b's (D = 256), each at a GQA group of one: the main paths'
+    # calls first (the v1 prefill, K3 staged, K4 without a window)
+    zoo_kernels = {d: dict(
+        flash=check_flash(gen, True, PROMPT, PROMPT, **w),
+        decode=check_decode(gen, **w), decode_int8=check_decode(gen, int8=True, **w),
+        paged_decode=[check_paged_decode(gen, rng, staged=True, **w),
+                      check_paged_decode(gen, rng, staged=False, **w)],
+        paged_decode_int8=[check_paged_decode(gen, rng, staged=True, int8=True, **w),
+                           check_paged_decode(gen, rng, staged=False, int8=True, **w)],
+        paged_prefill=[check_paged_prefill(gen, rng, **w),
+                       check_paged_prefill(gen, rng, window=300, **w)],
+        paged_prefill_int8=[check_paged_prefill(gen, rng, int8=True, **w),
+                            check_paged_prefill(gen, rng, window=300, int8=True, **w)])
+        for d, w in ZOO_WIDTHS.items()}
     # K8-a..d: each rank's shard of K2, K3, K4 and K5 at Llama-3-8B's serving
     # shapes over tp = 2, against the unsharded kernels' outputs
     sharded = dict(sharded_decode_attention=check_sharded_decode(gen),
@@ -5008,12 +5280,17 @@ def main() -> int:
                   attention_group_one=group_one, grouped_gemm_bwd=gmm_bwd,
                   block_sparse_attention=sparse, paged_decode_attention_alibi=paged_decode_alibi,
                   paged_prefill_attention_alibi=paged_prefill_alibi, **sharded,
-                  sharded_grouped_gemm=sharded_gmm)
+                  sharded_grouped_gemm=sharded_gmm,
+                  zoo_widths={f"d{d}": rows for d, rows in zoo_kernels.items()})
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
                 + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one
                 + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi
-                + list(sharded.values()) + sharded_gmm):
+                + list(sharded.values()) + sharded_gmm
+                + [r for rows in zoo_kernels.values() for v in rows.values()
+                   for r in (v if isinstance(v, list) else [v])]):
         print(json.dumps(row), flush=True)
+    report["kernel_checks_s"] = time.perf_counter() - t0
+    print(f"kernel checks: {report['kernel_checks_s']:.1f} s", flush=True)
     sparse_launches = phase(report, sparse_path)
 
     from deepspeed_tpu_torch.models.llama import llama_config
@@ -5033,6 +5310,7 @@ def main() -> int:
     bloom_launches = phase(report, serve_bloom)
     phase(report, serve_bloom_slot)
     phase(report, reference_bloom)
+    zoo_launches = phase(report, serve_zoo)
     moe_launches = phase(report, serve_moe)
     phase(report, reference_moe)
     ep = phase(report, serve_ep)
@@ -5051,6 +5329,7 @@ def main() -> int:
     for key in ("serve", "decode_profile", "serve_v2", "v2_decode_profile", "serve_v2_shared",
                 "serve_kv_int8", "serve_capacity", "serve_int8", "reference", "reference_v2", "reference_int8",
                 "serve_bloom", "bloom_v2_decode_profile", "serve_bloom_slot", "reference_bloom",
+                "serve_zoo",
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
                 "serve_ep", "reference_ep", "train_zero", "train_checkpoint", "train_moe_zero",
@@ -5152,6 +5431,29 @@ def main() -> int:
                    "deepspeed_tpu/ops/pallas/grouped_gemm.py:88",
                    ep["launches"]["sharded_grouped_gemm"], sharded_gmm[0]),
     ]
+    # the zoo's widths: each kernel's main-path call at phi-2's (D = 80) and
+    # pythia-1b's (D = 256) attention, launches from that model's `serve_zoo`
+    # runs (v1, v2 traffic A, and the int8-KV v1 and v2 runs)
+    for _, name, _, d in ZOO:
+        zk, zl = zoo_kernels[d], zoo_launches[name]
+        for kernel, source, replaces, run, check in (
+                ("flash_attention_fwd", "flash_attention_fwd.cu", "flash_attention.py:593",
+                 "v1", zk["flash"]),
+                ("decode_attention", "decode_attention.cu", "decode_attention.py:103", "v1",
+                 zk["decode"]),
+                ("decode_attention_int8", "decode_attention.cu", "decode_attention.py:97",
+                 "v1_int8", zk["decode_int8"]),
+                ("paged_decode_attention", "paged_decode_attention.cu", "paged_attention.py:159",
+                 "v2", zk["paged_decode"][0]),
+                ("paged_decode_attention_int8", "paged_decode_attention.cu",
+                 "paged_attention.py:159", "v2_int8", zk["paged_decode_int8"][0]),
+                ("paged_prefill_attention", "paged_prefill_attention.cu",
+                 "paged_attention.py:366", "v2", zk["paged_prefill"][0]),
+                ("paged_prefill_attention_int8", "paged_prefill_attention.cu",
+                 "paged_attention.py:366", "v2_int8", zk["paged_prefill_int8"][0])):
+            kernels.append(kernel_row(f"{kernel}_d{d}", f"deepspeed_tpu_torch/csrc/{source}",
+                                      f"deepspeed_tpu/ops/pallas/{replaces}",
+                                      zl[run][kernel], check))
     # the training paths beyond the main one: per train_batch of
     # `train_checkpoint`'s resumed engine, and of each rank of
     # `train_zero` and `train_moe_zero` (rank 0, the stage 0 gmm run)

@@ -3,8 +3,10 @@
 Trains Llama models through `initialize(...)` → `train_batch` (or
 `forward`/`backward`/`step`) and serves them through `init_inference(...)`
 → `forward`/`generate` and the v2 `InferenceEngineV2` (paged cache or
-dense slot rows), on one CUDA device; BLOOM (`models/bloom.py`, alibi)
-serves through both engines; the MoE families (`models/qwen2_moe.py`,
+dense slot rows), on one CUDA device; BLOOM (`models/bloom.py`, alibi),
+phi (`models/phi.py`) and GPT-NeoX (`models/gptneox.py`, also from HF
+checkpoints through `module_inject.load_hf_checkpoint`) serve through both
+engines; the MoE families (`models/qwen2_moe.py`,
 `models/mixtral.py`) serve through `init_inference` and train through
 `initialize` with their loss functions; `ops/sparse_attention` is
 block-sparse attention. Hand-written kernels: flash attention (forward and
@@ -96,7 +98,8 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     `deepspeed_tpu.init_inference`).
 
     `model` is an `nn.Module` (`models.llama.LlamaForCausalLM`,
-    `models.bloom.BloomForCausalLM`, or an MoE family:
+    `models.bloom.BloomForCausalLM`, `models.phi.PhiForCausalLM`,
+    `models.gptneox.GPTNeoXForCausalLM`, or an MoE family:
     `models.qwen2_moe.Qwen2MoeForCausalLM`, `models.mixtral.MixtralForCausalLM`)
     or a `(module, params)` tuple, where `params` is a JAX parameter tree of
     numpy arrays; `params=` is accepted too. `config` is a dict or a

@@ -9,6 +9,8 @@
 //     served by one pass over that KV head's cache;
 //   * logits s = (q.k)*scale in f32, natural-exp online softmax in f32,
 //     p rounded to bf16 before P.V, l == 0 guarded (an empty row gives 0).
+//   * head dims 64 and 128 at GQA groups of 1, 2, 4 and 8; 80 and 256 at a
+//     group of one (phi-2, pythia-1b), the widths `decode_split.cuh` takes.
 // and, for an int8 cache (K2-int8, `_decode_kernel_quant` :97), what the TPU
 // kernel's int8 path computes:
 //   * k/v cache (B,M,Hkv,D) int8 with k_scales/v_scales (B,M,Hkv) f32, one
@@ -65,11 +67,15 @@ cudaError_t launch_d(int n_rep, const dsplit::Params& p, int B, cudaStream_t s) 
   }
 }
 
+// 80 and 256 (the zoo's phi-2 and pythia-1b) at a group of one only
 template <typename KV>
 cudaError_t launch_kv(int D, const dsplit::Params& p, int B, cudaStream_t s) {
+  const int n_rep = p.H / p.Hkv;
   switch (D) {
-    case 64: return launch_d<64, KV>(p.H / p.Hkv, p, B, s);
-    case 128: return launch_d<128, KV>(p.H / p.Hkv, p, B, s);
+    case 64: return launch_d<64, KV>(n_rep, p, B, s);
+    case 80: return n_rep == 1 ? launch<80, 1, KV>(p, B, s) : cudaErrorInvalidValue;
+    case 128: return launch_d<128, KV>(n_rep, p, B, s);
+    case 256: return n_rep == 1 ? launch<256, 1, KV>(p, B, s) : cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

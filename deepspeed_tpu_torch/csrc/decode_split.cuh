@@ -40,6 +40,13 @@
 //     chunk to arrive (an integer count it leaves at 0) merges every partial
 //     in chunk order, acc*exp(m_i - m), folds in K3's staged column last, as
 //     f32 p*v, and divides by l (l == 0 gives zeros).
+//   * Widths: D = 64, 128, and for a GQA group of one (the zoo's phi-2 and
+//     pythia-1b) 80 and 256. At D = 80, S takes two pairs of k-steps and
+//     one single step (ldmatrix.x2) and P.V ten n8 tiles; its 160-byte rows
+//     keep pieces 8-9 (bf16) or 4 (int8) unswizzled. At D = 256 a warp's
+//     O is 16 x 256 f32, 128 registers a thread beside Q's 32 fragment
+//     registers, and a block's K and V slices fill 128 KB, one block an SM
+//     (ptxas, CUDA 12.8: 146-155 registers, no spill; 63-78 at 80).
 #pragma once
 
 #include "hopper_common.cuh"
@@ -78,14 +85,19 @@ template <int D, typename KV>
 struct Geo {
   static constexpr int ROWB = D * (int)sizeof(KV);  // bytes of a cache row
   static constexpr int PIECES = ROWB / 16;          // its 16-byte pieces
-  static constexpr int SW = PIECES < 8 ? PIECES : 8;
+  // pieces are swizzled within groups of SW (a power of two, at most 8);
+  // a last group shorter than SW (D = 80: pieces 8-9 in bf16, 4 in int8)
+  // stays in place, so no piece leaves its row
+  static constexpr int SW = PIECES >= 8 ? 8 : PIECES >= 4 ? 4 : PIECES >= 2 ? 2 : 1;
+  static constexpr int SWIZZLED = PIECES / SW * SW;
   static constexpr int SLICEB = SLICE * ROWB;       // one warp's K (or V) slice
 };
 
 // shared-memory byte offset of piece `pc` of slice row `key`
 template <int D, typename KV>
 __device__ __forceinline__ int piece_at(int key, int pc) {
-  return key * Geo<D, KV>::ROWB + ((pc ^ (key % Geo<D, KV>::SW)) << 4);
+  using G = Geo<D, KV>;
+  return key * G::ROWB + ((pc < G::SWIZZLED ? pc ^ (key % G::SW) : pc) << 4);
 }
 
 // floats of the block's combine area (it reuses the K/V slices' bytes)
@@ -117,6 +129,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -143,6 +161,22 @@ __device__ __forceinline__ void k_frag(uint32_t (&bk)[4], const unsigned char* s
       bk[2 * h] = i8x2(row[2 * t], row[2 * t + 1]);
       bk[2 * h + 1] = i8x2(row[8 + 2 * t], row[9 + 2 * t]);
     }
+  }
+}
+
+// S's B fragments {b0, b1} for key tile j and the single k-step s (the last
+// of a width that is an odd number of k16 steps, D = 80).
+template <int D, typename KV>
+__device__ __forceinline__ void k_frag1(uint32_t (&bk)[2], const unsigned char* sK, int j, int s,
+                                        int lane) {
+  if constexpr (sizeof(KV) == 2) {
+    const int key = 8 * j + (lane & 7);
+    ldsm_x2(bk, sK + piece_at<D, KV>(key, 2 * s + ((lane >> 3) & 1)));
+  } else {
+    const int key = 8 * j + (lane >> 2), t = lane & 3;
+    const int8_t* row = reinterpret_cast<const int8_t*>(sK + piece_at<D, KV>(key, s));
+    bk[0] = i8x2(row[2 * t], row[2 * t + 1]);
+    bk[1] = i8x2(row[8 + 2 * t], row[9 + 2 * t]);
   }
 }
 
@@ -275,6 +309,15 @@ __device__ __forceinline__ void split_decode(const Params& p) {
         mma(s[j], qa[2 * u][0], qa[2 * u][1], bk[0], bk[1]);
         mma(s[j], qa[2 * u + 1][0], qa[2 * u + 1][1], bk[2], bk[3]);
       }
+    if constexpr (D % 32 == 16) {  // the odd last k-step
+      constexpr int st = D / 16 - 1;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bk[2];
+        k_frag1<D, KV>(bk, sK, j, st, lane);
+        mma(s[j], qa[st][0], qa[st][1], bk[0], bk[1]);
+      }
+    }
 
     // logits of head gr at slice keys 8j + 2t + e, and the slice's max
     float mx = NEG_INF;
@@ -419,16 +462,18 @@ __device__ __forceinline__ void split_decode(const Params& p) {
     if (p.staged) {
       // the row's new token, not in the pool yet: one more column, in f32
       if (warp == 0) {
-        constexpr int PER = D / 32;
+        constexpr int PER = (D + 31) / 32;  // columns a lane takes, the last lanes fewer
         float kf[PER];
 #pragma unroll
-        for (int e = 0; e < PER; ++e) kf[e] = __bfloat162float(p.kn[bg * D + lane * PER + e]);
+        for (int e = 0; e < PER; ++e)
+          kf[e] = lane * PER + e < D ? __bfloat162float(p.kn[bg * D + lane * PER + e]) : 0.f;
 #pragma unroll
         for (int r = 0; r < NREP; ++r) {
           const bf16* qr = p.q + ((size_t)b * p.H + (size_t)g * NREP + r) * D + lane * PER;
           float dot = 0.f;
 #pragma unroll
-          for (int e = 0; e < PER; ++e) dot += __bfloat162float(qr[e]) * kf[e];
+          for (int e = 0; e < PER; ++e)
+            if (lane * PER + e < D) dot += __bfloat162float(qr[e]) * kf[e];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
           if (lane == 0) {

@@ -12,7 +12,8 @@
 //   * causal masking is bottom-right aligned (key j is seen by query i when
 //     j <= i + Sk - Sq), masked logits are NEG_INF = -1e30, l == 0 is guarded;
 //   * GQA reads KV head h / (H/Hkv) directly, with no repeat_kv copy;
-//   * D is 64 or 128; Sq and Sk are any, the ragged edges masked here.
+//   * D is 64, 80, 128 or 256; Sq and Sk are any, the ragged edges masked
+//     here.
 //
 // Bound on an H100: 4*D operations per live (query, key) pair and head
 // against reading q, k, v and writing out and lse once. At the v1 prefill
@@ -20,6 +21,10 @@
 // 989 TFLOP/s bf16) against 42 MB (12.6 us at 3.35 TB/s): bytes bound it.
 // At the llama-1b training call (B=4, S=2048, H=32, Hkv=4, D=64, causal) it
 // is 6.9e10 operations (70 us) against 0.14 GB (41 us): operations bound it.
+// The zoo's v1 prefills (B=4, S=512, causal) are bound by bytes too: phi-2
+// (H = Hkv = 32, D = 80) 5.4 GFLOP (5.4 us) against 42 MB (12.6 us), and
+// pythia-1b (H = Hkv = 8, D = 256) 4.3 GFLOP (4.4 us) against 34 MB
+// (10.0 us).
 //
 // Design (`Cfg`): one block of two warpgroups per (q tile of 128 rows,
 // head, batch); each warpgroup owns 64 query rows from start to end.
@@ -47,6 +52,16 @@
 //   * Blocks are numbered longest first: the q tiles with the most KV tiles
 //     start in the first wave, so the last wave is not the longest.
 //   * The shared-memory opt-in is set once per device, not on every launch.
+// Other widths (`Cfg`):
+//   * D = 80 does not fill whole 64-column swizzle blocks, so its tiles and
+//     O are padded to 128 columns: the copies zero-fill columns 80-127 (no
+//     global read), S = qs.K^T takes only its five real k-steps, P.V runs
+//     at n = 128 (1.6x the products of that half) and only 80 columns are
+//     stored. A 64-column block plus a 16-column 32-byte-swizzle block
+//     would drop the padding.
+//   * D = 256 keeps three stages by taking one warpgroup a block (Q 32 KB,
+//     K and V 192 KB); O is 128 f32 registers a thread beside S's 32:
+//     ptxas (-v, CUDA 12.8) gives 226 registers and no spill (208 at 80).
 // What holds it: the softmax runs on the warpgroups that issue the
 // products, so the tensor cores idle while it does (at the v1 shape each
 // block sees only 1-4 tiles, and its prologue load counts too). TMA loads,
@@ -62,16 +77,28 @@ constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
 // Tiles by head width: NWG warpgroups of 64 query rows each, KV tiles of
-// BK keys, MINB blocks an SM should hold (the register cap follows).
+// BK keys, MINB blocks an SM should hold (the register cap follows), and
+// DP, the width of the shared tiles and of O's accumulator: D rounded up
+// to whole 64-column swizzle blocks (80 -> 128, its columns 80..127 zero).
 template <int D>
 struct Cfg;
 template <>
 struct Cfg<64> {
-  static constexpr int NWG = 2, BK = 64, MINB = 2;
+  static constexpr int NWG = 2, BK = 64, MINB = 2, DP = 64;
+};
+template <>
+struct Cfg<80> {
+  static constexpr int NWG = 2, BK = 128, MINB = 1, DP = 128;
 };
 template <>
 struct Cfg<128> {
-  static constexpr int NWG = 2, BK = 128, MINB = 1;
+  static constexpr int NWG = 2, BK = 128, MINB = 1, DP = 128;
+};
+// one warpgroup: Q (32 KB) and three stages of K and V (192 KB) fill the
+// 227 KB an SM gives a block; O is 128 f32 registers a thread
+template <>
+struct Cfg<256> {
+  static constexpr int NWG = 1, BK = 64, MINB = 1, DP = 256;
 };
 
 // Shared memory in bytes, every tile in the swizzled layout of
@@ -81,7 +108,7 @@ struct Smem {
   using C = Cfg<D>;
   static constexpr int NTHREADS = C::NWG * 128;
   static constexpr int BQ = C::NWG * 64;
-  static constexpr int CB = D / 64;                 // column blocks
+  static constexpr int CB = C::DP / 64;             // column blocks
   static constexpr int QBLK = BQ * 128;             // one column block of Q
   static constexpr int KBLK = C::BK * 128;          // one column block of K or V
   static constexpr int q = 0;
@@ -96,7 +123,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  float* __restrict__ lse, int BH, int Sq, int Sk, int H, int Hkv,
                  int causal, float qscale) {
   using S = Smem<D>;
-  constexpr int BK = Cfg<D>::BK, BQ = S::BQ, NT = S::NTHREADS, CB = S::CB;
+  constexpr int BK = Cfg<D>::BK, DP = Cfg<D>::DP, BQ = S::BQ, NT = S::NTHREADS, CB = S::CB;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem + S::q;
@@ -126,16 +153,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage = [&](int t) { return smem + S::kv + (t % STAGES) * 2 * CB * S::KBLK; };
   auto issue_kv = [&](int t) {
-    cp_rows<BK, D, NT>(stage(t), kb, t * BK, Sk, Hkv * D);
-    cp_rows<BK, D, NT>(stage(t) + CB * S::KBLK, vb, t * BK, Sk, Hkv * D);
+    cp_rows<BK, D, NT, DP>(stage(t), kb, t * BK, Sk, Hkv * D);
+    cp_rows<BK, D, NT, DP>(stage(t) + CB * S::KBLK, vb, t * BK, Sk, Hkv * D);
   };
-  cp_rows<BQ, D, NT>(sQ, qb, q0, Sq, H * D);
+  cp_rows<BQ, D, NT, DP>(sQ, qb, q0, Sq, H * D);
   issue_kv(0);
   cp_async_commit();
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -156,7 +183,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const unsigned char* sV = sK + CB * S::KBLK;
     const int k0 = t * BK;
 
-    // S = qs . K^T for this warpgroup's 64 rows, on the tensor cores
+    // S = qs . K^T for this warpgroup's 64 rows, on the tensor cores (D/16
+    // k-steps: the padding columns are never read)
     float s[BK / 2];
     wg_fence();
     ss_product<D, BK, S::QBLK, S::KBLK>(s, sQ + wg * 64 * 128, sK);
@@ -203,7 +231,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       m_run[i] = mx[i];
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DP / 8; ++n) {
       o[4 * n] *= alpha[0];
       o[4 * n + 1] *= alpha[0];
       o[4 * n + 2] *= alpha[1];
@@ -215,12 +243,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t p[BK / 16][4];
     pack_rows<BK>(p, s);
     wg_fence();
-    rs_product<D, BK, S::KBLK>(o, p, sV);
+    rs_product<DP, BK, S::KBLK>(o, p, sV);
     wg_commit();
   }
   wg_wait_all();
 
-  // out = O / l, lse2 = m + log2(l)
+  // out = O / l over the D real columns, lse2 = m + log2(l)
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
@@ -264,8 +292,12 @@ extern "C" int ds_flash_attention_fwd(const void* q, const void* k, const void* 
   switch (D) {
     case 64:
       return launch<64>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, qscale, s);
+    case 80:
+      return launch<80>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, qscale, s);
     case 128:
       return launch<128>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, qscale, s);
+    case 256:
+      return launch<256>(q, k, v, out, lse, B, Sq, Sk, H, Hkv, causal, qscale, s);
     default:
       return cudaErrorInvalidValue;
   }

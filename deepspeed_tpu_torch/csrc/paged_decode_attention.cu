@@ -16,6 +16,8 @@
 //   * logits (q.k)*scale in f32, natural-exp online softmax in f32, p rounded
 //     to bf16 before P.V; the staged column is folded in last as f32 p*v;
 //     l == 0 is guarded (an empty row gives 0).
+//   * head dims 64 and 128 at GQA groups of 1, 2, 4 and 8; 80 and 256 at a
+//     group of one (phi-2, pythia-1b), the widths `decode_split.cuh` takes.
 //   * Memory safety as on the TPU: pool_len is clamped to T*BS (a parked row
 //     carries a cursor at the capacity) and every table entry to [0, NB-1]
 //     (-1 marks an unowned entry), so a parked row reads block 0 and its
@@ -58,6 +60,14 @@
 
 #include "decode_split.cuh"
 
+// This source builds the kernels without alibi. `paged_decode_attention_alibi.cu`
+// includes it with DS_PAGED_ALIBI set to 1 and builds the alibi forms as a
+// library of its own, so the two compile in parallel; each library's entry
+// point takes the calls of its own form.
+#ifndef DS_PAGED_ALIBI
+#define DS_PAGED_ALIBI 0
+#endif
+
 namespace {
 
 template <int D, int NREP, typename KV, bool ALIBI>
@@ -84,13 +94,21 @@ cudaError_t launch_d(int n_rep, const dsplit::Params& p, int B, cudaStream_t s) 
   }
 }
 
+// 80 and 256 (the zoo's phi-2 and pythia-1b) at a group of one and without
+// alibi only
 template <typename KV, bool ALIBI>
 cudaError_t launch_kv(int D, const dsplit::Params& p, int B, cudaStream_t s) {
+  const int n_rep = p.H / p.Hkv;
   switch (D) {
-    case 64: return launch_d<64, KV, ALIBI>(p.H / p.Hkv, p, B, s);
-    case 128: return launch_d<128, KV, ALIBI>(p.H / p.Hkv, p, B, s);
-    default: return cudaErrorInvalidValue;
+    case 64: return launch_d<64, KV, ALIBI>(n_rep, p, B, s);
+    case 128: return launch_d<128, KV, ALIBI>(n_rep, p, B, s);
+    default: break;
   }
+  if constexpr (!ALIBI) {
+    if (n_rep == 1 && D == 80) return launch<80, 1, KV, false>(p, B, s);
+    if (n_rep == 1 && D == 256) return launch<256, 1, KV, false>(p, B, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -108,17 +126,19 @@ extern "C" int ds_paged_decode_attention_workspace(int B, int H, int Hkv, int D,
 }
 
 // k_scales == v_scales == nullptr: bf16 pools; both given: int8 pools.
-// alibi == nullptr: no bias; else the (H,) f32 slopes. part, counts:
+// alibi: nullptr in this library, the (H,) f32 slopes in the alibi one
+// (DS_PAGED_ALIBI). part, counts:
 // ds_paged_decode_attention_workspace's (null when it gives 0).
 extern "C" int ds_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* k_scales,
     const void* v_scales, const void* tables, const void* lengths, const void* k_new,
     const void* v_new, const void* alibi, void* out, void* part, void* counts, int B, int H,
     int Hkv, int D, int NB, int BS, int T, int staged, int window, float scale, void* stream) {
+  constexpr bool ALIBI = DS_PAGED_ALIBI != 0;
   if (B == 0) return cudaSuccess;
   if (B < 0 || Hkv <= 0 || H % Hkv || NB <= 0 || BS <= 0 || T <= 0 ||
       (long long)T * BS > 0x7fffffff || (staged && (k_new == nullptr || v_new == nullptr)) ||
-      (k_scales == nullptr) != (v_scales == nullptr))
+      (k_scales == nullptr) != (v_scales == nullptr) || (alibi != nullptr) != ALIBI)
     return cudaErrorInvalidValue;
   const int chunks = dsplit::plan_chunks(T * BS);
   if (chunks == 0 || !dsplit::has_workspace(chunks, part, counts)) return cudaErrorInvalidValue;
@@ -146,9 +166,7 @@ extern "C" int ds_paged_decode_attention(
   p.chunks = chunks;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (alibi)
-    return k_scales ? launch_kv<int8_t, true>(D, p, B, s) : launch_kv<bf16, true>(D, p, B, s);
-  return k_scales ? launch_kv<int8_t, false>(D, p, B, s) : launch_kv<bf16, false>(D, p, B, s);
+  return k_scales ? launch_kv<int8_t, ALIBI>(D, p, B, s) : launch_kv<bf16, ALIBI>(D, p, B, s);
 }
 
 extern "C" const char* ds_cuda_error_string(int code) {

@@ -35,7 +35,10 @@
 // tokens at starts 0-768 and a parked row, H = 32, Hkv = 8, D = 128) that
 // is 35.5 GFLOP (0.036 ms) against ~110 MB (0.033 ms): the tensor cores
 // bound it, narrowly; the int8 pools halve the K/V bytes and leave the
-// operations.
+// operations. On the same rows at the zoo's widths the bytes bound it:
+// phi-2 (H = Hkv = 32, D = 80) 22 GFLOP (22 us) against ~150 MB (~45 us),
+// pythia-1b (H = Hkv = 8, D = 256) 18 GFLOP (18 us) against ~120 MB
+// (~36 us).
 //
 // Design: the K1 forward's machinery (`flash_attention_fwd.cu`) behind the
 // block table, with the rows of a tile taken over the GQA group.
@@ -65,6 +68,14 @@
 //     cross the diagonal, the window edge or the capacity. A row with no
 //     visible key so far takes 0 as its reference max, so its masked
 //     columns give p = 0.
+//   * Other widths (`Cfg`): D = 80 pads its tiles and O to 128 columns
+//     (the copies and the int8 conversion write zeros there; S takes its
+//     five real k-steps, P.V runs at n = 128, 80 columns are stored), as
+//     K1-fwd does; D = 256 takes 32-key tiles to keep three bf16 slots
+//     beside its 64 KB Q tile, and O is 128 f32 registers a thread (ptxas,
+//     CUDA 12.8: 202 registers bf16, 208 int8, no spill; 198-208 at 80,
+//     where the int8 form's products are serialised, C7515). alibi is
+//     built at 64 and 128 only.
 //   * Blocks are numbered longest first (the last query tile of every
 //     (row, KV head) in the first wave). The shared-memory opt-in is set
 //     once per device.
@@ -86,16 +97,27 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
-// Keys a K/V tile and blocks an SM by head width (K1's `Cfg`).
+// Keys a K/V tile, blocks an SM and the padded tile width DP by head width
+// (K1's `Cfg`): D = 80 pads its tiles and O to 128 columns, zero-filled;
+// D = 256 takes 32-key tiles, so Q (64 KB) and three bf16 slots (96 KB)
+// fit.
 template <int D>
 struct Cfg;
 template <>
 struct Cfg<64> {
-  static constexpr int BK = 64, MINB = 2;
+  static constexpr int BK = 64, MINB = 2, DP = 64;
+};
+template <>
+struct Cfg<80> {
+  static constexpr int BK = 128, MINB = 1, DP = 128;
 };
 template <>
 struct Cfg<128> {
-  static constexpr int BK = 128, MINB = 1;
+  static constexpr int BK = 128, MINB = 1, DP = 128;
+};
+template <>
+struct Cfg<256> {
+  static constexpr int BK = 32, MINB = 1, DP = 256;
 };
 
 // Shared memory in bytes. bf16 pools: Q, then a ring of three (K, V) slots
@@ -105,7 +127,7 @@ struct Cfg<128> {
 template <int D, bool QUANT>
 struct Smem {
   static constexpr int NT = 256, BQ = 128, BK = Cfg<D>::BK;
-  static constexpr int CB = D / 64;               // column blocks
+  static constexpr int CB = Cfg<D>::DP / 64;      // column blocks
   static constexpr int QBLK = BQ * 128;           // one column block of Q
   static constexpr int KBLK = BK * 128;           // one column block of K or V
   static constexpr int TILE = CB * KBLK;          // a K or V tile
@@ -145,7 +167,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
                      int BS, int T, int window, float scale) {
   constexpr bool QUANT = sizeof(KV) == 1;
   using L = Smem<D, QUANT>;
-  constexpr int BK = L::BK, BQ = L::BQ, NT = L::NT;
+  constexpr int BK = L::BK, BQ = L::BQ, NT = L::NT, DP = Cfg<D>::DP;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem + L::q;
@@ -212,25 +234,27 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
       }
     } else {
       unsigned char* sK = slot(t);
-      constexpr int CH = D / 8;
+      constexpr int CH = DP / 8;  // chunks D/8.. are padding, zero-filled
       for (int i = threadIdx.x; i < BK * CH; i += NT) {
         const int r = i / CH, c = i % CH, p = k0 + r;
-        const bool ok = p < cap;
-        const size_t row = ok ? key_row(p) : 0;
+        const bool ok = p < cap && c < D / 8;
+        const size_t at = ok ? key_row(p) * D + c * 8 : 0;
         const int off = (c / 8) * L::KBLK + r * 128 + (((c % 8) ^ (r % 8)) << 4);
-        cp_async16(sK + off, kp + row * D + c * 8, ok);
-        cp_async16(sK + L::TILE + off, vp + row * D + c * 8, ok);
+        cp_async16(sK + off, kp + at, ok);
+        cp_async16(sK + L::TILE + off, vp + at, ok);
       }
     }
   };
-  // int8: the staging tile into tile t's bf16 slot, its scales beside it
+  // int8: the staging tile into tile t's bf16 slot (padding columns 0),
+  // its scales beside it
   auto convert = [&](int t) {
     unsigned char* sK = slot(t);
-    constexpr int CH = D / 16;
+    constexpr int CH = DP / 16;
     for (int i = threadIdx.x; i < 2 * BK * CH; i += NT) {
       const int kv = i / (BK * CH), r = (i / CH) % BK, c = i % CH;
-      uint32_t w[8];
-      int8_to_bf16(*reinterpret_cast<const uint4*>(stg + kv * BK * D + r * D + c * 16), w);
+      uint32_t w[8] = {};
+      if (c < D / 16)
+        int8_to_bf16(*reinterpret_cast<const uint4*>(stg + kv * BK * D + r * D + c * 16), w);
       // bf16 chunks 2c and 2c + 1 of row r
       unsigned char* row = sK + kv * L::TILE + (c / 4) * L::KBLK + r * 128;
       const int ch = 2 * (c % 4);
@@ -246,10 +270,10 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
   // Q tile: row r is position (row0 + r) / NREP of head g*NREP + member
   {
     const bf16* qb = q + ((size_t)b * S * H + (size_t)g * NREP) * D;
-    constexpr int CH = D / 8;
+    constexpr int CH = DP / 8;
     for (int i = threadIdx.x; i < BQ * CH; i += NT) {
       const int r = i / CH, c = i % CH, fr = row0 + r;
-      const bool ok = fr < nrows;
+      const bool ok = fr < nrows && c < D / 8;
       cp_async16(sQ + (c / 8) * L::QBLK + r * 128 + (((c % 8) ^ (r % 8)) << 4),
                  qb + (ok ? (size_t)(fr / NREP) * H * D + (size_t)(fr % NREP) * D + c * 8 : 0),
                  ok);
@@ -258,9 +282,9 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
   if (n_tiles > 0) issue_kv(0);
   cp_async_commit();
 
-  float o[D / 2];
+  float o[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
   float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
   // P, the register A operand of P.V: its registers stay P's until the
   // product that reads them is waited on, one tile later
@@ -360,7 +384,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
       m_run[i] = mx[i];
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DP / 8; ++n) {
       o[4 * n] *= alpha[0];
       o[4 * n + 1] *= alpha[0];
       o[4 * n + 2] *= alpha[1];
@@ -378,7 +402,7 @@ paged_prefill_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
     pack_rows<BK>(p, s);
     fence_acc(o);
     wg_fence();
-    rs_product<D, BK, L::KBLK>(o, p, sV);
+    rs_product<DP, BK, L::KBLK>(o, p, sV);
     wg_commit();
     fence_acc(o);
   }
@@ -430,13 +454,19 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// alibi only at 64 and 128 (the widths an alibi model has)
 template <typename KV, bool ALIBI>
 cudaError_t launch_kv(int D, const Args& a, cudaStream_t s) {
   switch (D) {
     case 64: return launch<64, KV, ALIBI>(a, s);
     case 128: return launch<128, KV, ALIBI>(a, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (!ALIBI) {
+    if (D == 80) return launch<80, KV, false>(a, s);
+    if (D == 256) return launch<256, KV, false>(a, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -218,6 +218,13 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     model = engine.module
     engine._quantized = bool(cfg.quant and cfg.quant.get("enabled"))
     engine._capacity = None
+    mode = _ALIASES.get(cfg.serve_mode, cfg.serve_mode)
+    if getattr(model, "serving_only", False) and (engine._quantized
+                                                  or mode in ("layer_scan", "capacity")):
+        # the zoo families serve their bf16 weights resident on the card
+        what = "quant" if engine._quantized else f"serve_mode={cfg.serve_mode!r}"
+        raise _unported(f"{what} on {type(model).__name__}",
+                        "Weight quantization and serve modes")
     built = {"model": (getattr(model, "tp_size", 1), getattr(model, "tp_rank", 0)),
              "expert": (getattr(model, "ep_size", 1), getattr(model, "ep_rank", 0))}
     shard_built = any(n > 1 for n, _ in built.values())
@@ -258,6 +265,9 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     whole = size > 1 and params is not None  # cut after quantizing
     if not engine._quantized:
         if params is not None:
+            if next(model.parameters()).is_meta:
+                # a skeleton (`module_inject.load_hf_checkpoint`): the weights are the tree's
+                model = model.to(dtype=cfg.dtype).to_empty(device=engine.device)
             model.load_jax_params(shard_tree(params, size, rank, axis) if whole else params)
         engine.module = model.to(device=engine.device, dtype=cfg.dtype).eval()
         return None

@@ -34,6 +34,8 @@ from deepspeed_tpu_torch.models.common import (
     Dense,
     LayerNorm,
     causal_lm_loss,
+    check_zoo_config,
+    init_zoo,
     make_causal_loss_fn,
 )
 from deepspeed_tpu_torch.models.llama import (
@@ -44,7 +46,6 @@ from deepspeed_tpu_torch.models.llama import (
     to_jax_params,
 )
 from deepspeed_tpu_torch.ops.attention import alibi_slopes, attention, cached_attention
-from deepspeed_tpu_torch.runtime.config_utils import unported
 
 __all__ = ["BloomConfig", "BloomForCausalLM", "PRESETS", "bloom_config", "bloom_loss_fn",
            "init_bloom", "load_jax_params", "to_jax_params"]
@@ -162,10 +163,7 @@ class BloomForCausalLM(nn.Module):
 
     def __init__(self, cfg: BloomConfig, device=None, dtype=torch.float32):
         super().__init__()
-        if cfg.attn_impl == "ring":
-            raise unported("attn_impl='ring'", "Multi-GPU")
-        if cfg.remat and cfg.remat_policy != "nothing":
-            raise unported(f"remat_policy={cfg.remat_policy!r}", "Training: the rest")
+        check_zoo_config(cfg)
         factory = dict(device=device, dtype=dtype)
         eps = cfg.layer_norm_epsilon
         self.cfg = cfg
@@ -257,15 +255,7 @@ def init_bloom(cfg: BloomConfig, generator: torch.Generator, device=None,
     normal(std) for the embedding and every kernel, zeros for the biases,
     ones for the LayerNorm scales. Draws come from `generator`, which must
     live on `device`."""
-    model = BloomForCausalLM(cfg, device=device, dtype=dtype)
-    for name, p in model.named_parameters():
-        if name.endswith(".scale"):
-            p.fill_(1.0)
-        elif name.endswith(".bias"):
-            p.zero_()
-        else:
-            p.normal_(0.0, std, generator=generator)
-    return model
+    return init_zoo(BloomForCausalLM(cfg, device=device, dtype=dtype), generator, std)
 
 
 def bloom_loss_fn(model: Optional[BloomForCausalLM] = None):

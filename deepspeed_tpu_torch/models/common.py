@@ -1,5 +1,6 @@
 """Shared model-zoo pieces (counterpart of ``deepspeed_tpu/models/common.py``):
-the zoo's projection (`Dense`) and `LayerNorm`, the causal-LM loss, and the
+the zoo's projection (`Dense`), `LayerNorm` and `gelu`, its random initialisation
+(`init_zoo`) and refused options (`check_zoo_config`), the causal-LM loss, and the
 tensor-parallel pieces: a row-parallel `Dense` (`reduce_over=tp`), the
 vocab-parallel embedding lookup and the head's logit gather. Each of those
 raises unless the installed topology's `model` group holds the tp ranks the
@@ -65,6 +66,37 @@ class Dense(nn.Linear):
         check_model_group(self.reduce_over, "a row-parallel Dense")
         y = comm.all_reduce(F.linear(x.to(dt), self.weight.to(dt)), group="model")
         return y if bias is None else y + bias
+
+
+def check_zoo_config(cfg) -> None:
+    """The options the zoo's modules (BLOOM, phi, GPT-NeoX) refuse."""
+    from deepspeed_tpu_torch.runtime.config_utils import unported
+    if cfg.attn_impl == "ring":
+        raise unported("attn_impl='ring'", "Multi-GPU")
+    if cfg.remat and cfg.remat_policy != "nothing":
+        raise unported(f"remat_policy={cfg.remat_policy!r}", "Training: the rest")
+
+
+@torch.no_grad()
+def init_zoo(model: nn.Module, generator: torch.Generator, std: float = 0.02) -> nn.Module:
+    """Random weights as the JAX zoo initialises them: normal(std) for the
+    embeddings and every kernel (the heads included), zeros for the biases,
+    ones for the LayerNorm scales. Draws come from `generator`, which must
+    live on the parameters' device."""
+    for name, p in model.named_parameters():
+        if name.endswith(".scale"):
+            p.fill_(1.0)
+        elif name.endswith(".bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, std, generator=generator)
+    return model
+
+
+def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
+    """flax's `nn.gelu`: the tanh form with `approximate` (phi's
+    `gelu_new`), else the exact erf form (GPT-NeoX's `gelu`), in x's dtype."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 def check_model_group(tp: int, what: str) -> None:

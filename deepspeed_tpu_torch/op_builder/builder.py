@@ -31,6 +31,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -68,6 +70,7 @@ class KernelLibrary:
         self.functions = dict(functions)
         self._lib: Optional[ctypes.CDLL] = None
         self.build_log = ""
+        self.build_seconds = 0.0
 
     @property
     def name(self) -> str:
@@ -107,7 +110,9 @@ class KernelLibrary:
     def _finish_build(self, proc: Optional[subprocess.Popen]) -> None:
         if proc is None:
             return
-        self.build_log, _ = proc.communicate()
+        self.build_log = getattr(proc, "ds_log", None)
+        if self.build_log is None:
+            self.build_log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{self._compiler()[0]} failed on {self.source.name} "
                                f"(exit {proc.returncode}):\n{self.build_log}")
@@ -219,9 +224,25 @@ def split_workspace(kind: str, index: int, stream: int, floats: int,
 
 def build_all(libraries: Iterable[KernelLibrary]) -> List[KernelLibrary]:
     """Build every library at once: one `nvcc` per source, all started
-    together, then wait for each. Returns the libraries, loaded."""
+    together, then wait for each; each library's `build_seconds` is its own
+    compiler's wall time (0 when it was built already). Returns the
+    libraries, loaded."""
     libraries = list(libraries)
+    t0 = time.perf_counter()
     procs = [lib._start_build() for lib in libraries]
+
+    def drain(lib, proc):  # read the compiler's output as it comes, then time it
+        proc.ds_log = proc.communicate()[0]
+        lib.build_seconds = time.perf_counter() - t0
+
+    threads = []
+    for lib, proc in zip(libraries, procs):
+        lib.build_seconds = 0.0
+        if proc is not None:
+            threads.append(threading.Thread(target=drain, args=(lib, proc)))
+            threads[-1].start()
+    for thread in threads:
+        thread.join()
     errors = []
     for lib, proc in zip(libraries, procs):
         try:  # wait for every nvcc before raising, so none outlives the call

@@ -33,8 +33,10 @@ from deepspeed_tpu_torch.op_builder import (
 )
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
-GROUP_SIZES = (1, 2, 4, 8)
+# the kernel's GQA group sizes by head width: 80 and 256 (the zoo's phi-2
+# and pythia-1b) are built for a group of one only
+GROUP_SIZES = {64: (1, 2, 4, 8), 80: (1,), 128: (1, 2, 4, 8), 256: (1,)}
+HEAD_DIMS = tuple(GROUP_SIZES)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = KernelLibrary("decode_attention.cu", {
@@ -109,11 +111,11 @@ def _check(q, k_cache, v_cache, lengths, k_scales, v_scales):
                          f"caches {tuple(shape)}/{tuple(v_cache.shape)} "
                          "do not match")
     hkv = shape[2]
-    if h % hkv or h // hkv not in GROUP_SIZES:
-        raise ValueError(f"decode_attention: H/Hkv = {h}/{hkv} is not one of "
-                         f"the group sizes {GROUP_SIZES}")
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: head dim {d} not in {HEAD_DIMS}")
+    if h % hkv or h // hkv not in GROUP_SIZES[d]:
+        raise ValueError(f"decode_attention: H/Hkv = {h}/{hkv} is not one of "
+                         f"the group sizes {GROUP_SIZES[d]} at head dim {d}")
     if lengths.get_device() != index or lengths.dtype != torch.int32 \
             or lengths.shape != (b,) or not lengths.is_contiguous():
         raise ValueError("decode_attention: lengths must be a contiguous int32 "

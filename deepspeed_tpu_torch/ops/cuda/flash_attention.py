@@ -28,7 +28,8 @@ from deepspeed_tpu_torch.op_builder import KernelLibrary
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128, 256)     # the forward kernel's widths
+BWD_HEAD_DIMS = (64, 128)          # the backward kernels' (ROADMAP.md, Queue 2)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary("flash_attention_fwd.cu", {
@@ -145,7 +146,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = True,
     return dq, dk, dv
 
 
-def _check(q, k, v, causal, what: str):
+def _check(q, k, v, causal, what: str, head_dims=HEAD_DIMS):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{what}: {name} is on {t.device}, q on {q.device}")
@@ -160,8 +161,8 @@ def _check(q, k, v, causal, what: str):
                          f"v {tuple(v.shape)} do not match")
     if h % k.shape[2]:
         raise ValueError(f"{what}: H={h} is not a multiple of Hkv={k.shape[2]}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    if d not in head_dims:
+        raise ValueError(f"{what}: head dim {d} not in {head_dims}")
     if causal and sq > k.shape[1]:
         raise ValueError(f"{what}: causal attention needs Sq <= Sk")
 
@@ -216,7 +217,7 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                            softmax_scale: Optional[float] = None) -> torch.Tensor:
     """The dq kernel on CUDA tensors: dq (B,Sq,H,D) in q's dtype."""
-    _check(q, k, v, causal, "flash_attention_bwd_dq")
+    _check(q, k, v, causal, "flash_attention_bwd_dq", BWD_HEAD_DIMS)
     _check_rows(q, do, lse, delta, "flash_attention_bwd_dq")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -240,7 +241,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel on CUDA tensors: (dk, dv) (B,Sk,Hkv,D) in k's dtype,
     each summed over its GQA group inside the kernel."""
-    _check(q, k, v, causal, "flash_attention_bwd_dkv")
+    _check(q, k, v, causal, "flash_attention_bwd_dkv", BWD_HEAD_DIMS)
     _check_rows(q, do, lse, delta, "flash_attention_bwd_dkv")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -268,7 +269,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, softmax_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    _check(q, k, v, causal, "flash_attention_bwd")
+    _check(q, k, v, causal, "flash_attention_bwd", BWD_HEAD_DIMS)
     delta = _delta(out, do).contiguous()
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, softmax_scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, softmax_scale)

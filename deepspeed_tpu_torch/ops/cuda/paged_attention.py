@@ -2,7 +2,8 @@
 
 `paged_decode_attention` (one new query per row, K3) and
 `paged_prefill_attention` (a chunk of S new queries per row, K4) launch the
-hand-written kernels `csrc/paged_decode_attention.cu` and
+hand-written kernels `csrc/paged_decode_attention.cu` (its alibi forms
+built as `csrc/paged_decode_attention_alibi.cu`) and
 `csrc/paged_prefill_attention.cu` for CUDA tensors, and take their plain
 PyTorch versions only for CPU tensors.
 
@@ -52,17 +53,26 @@ from deepspeed_tpu_torch.op_builder import (
 )
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
-GROUP_SIZES = (1, 2, 4, 8)
+HEAD_DIMS = (64, 80, 128, 256)
+# K3's GQA group sizes by head width (80 and 256, the zoo's phi-2 and
+# pythia-1b, are built for a group of one only); K4 takes 1, 2, 4 and 8 at
+# every width; alibi is built at 64 and 128 (the widths of an alibi model)
+DECODE_GROUP_SIZES = {64: (1, 2, 4, 8), 80: (1,), 128: (1, 2, 4, 8), 256: (1,)}
+PREFILL_GROUP_SIZES = (1, 2, 4, 8)
+ALIBI_HEAD_DIMS = (64, 128)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", {
+_DECODE_FUNCTIONS = {
     # q, pools, scales, tables, lengths, staged token, slopes, out, the
     # split's partials and counts
     "ds_paged_decode_attention": [_P] * 13 + [_I] * 9 + [ctypes.c_float, _P],
     "ds_paged_decode_attention_workspace": [_I] * 6 + [ctypes.POINTER(_I)] * 2 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_I)],
-})
+}
+# K3 without alibi, and K3-alibi: one source built twice, so the two compile
+# in parallel
+DECODE_LIBRARY = KernelLibrary("paged_decode_attention.cu", _DECODE_FUNCTIONS)
+ALIBI_DECODE_LIBRARY = KernelLibrary("paged_decode_attention_alibi.cu", _DECODE_FUNCTIONS)
 PREFILL_LIBRARY = KernelLibrary("paged_prefill_attention.cu", {
     "ds_paged_prefill_attention": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
 })
@@ -200,7 +210,7 @@ def _count(fn, quant: bool, alibi) -> None:
 
 
 def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
-           extra=()):
+           alibi, group_sizes, extra=()):
     """Raise unless the kernel takes these CUDA tensors; each attribute is
     read once (the checks run on every step)."""
     quant = k_scales is not None
@@ -227,11 +237,15 @@ def _check(name, q, k_pool, v_pool, tables, per_row, window, k_scales, v_scales,
     if v_pool.shape != pool_shape or dk != d:
         raise ValueError(f"{name}: q {tuple(q.shape)}, pools {tuple(pool_shape)}/"
                          f"{tuple(v_pool.shape)} do not match")
-    if h % hkv or h // hkv not in GROUP_SIZES:
-        raise ValueError(f"{name}: H/Hkv = {h}/{hkv} is not one of the group "
-                         f"sizes {GROUP_SIZES}")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    sizes = group_sizes(d)
+    if h % hkv or h // hkv not in sizes:
+        raise ValueError(f"{name}: H/Hkv = {h}/{hkv} is not one of the group "
+                         f"sizes {sizes} at head dim {d}")
+    if alibi is not None and d not in ALIBI_HEAD_DIMS:
+        raise ValueError(f"{name}: alibi at head dim {d}: the kernel's alibi form is built "
+                         f"at {ALIBI_HEAD_DIMS} (ROADMAP.md, Queue 2)")
     for arg, x, shape in (("tables", tables, (b, tables.shape[-1])),
                           ("lengths/starts", per_row, (b,))):
         if x.get_device() != index or x.dtype != torch.int32 or x.shape != shape \
@@ -281,7 +295,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
     quant = k_scales is not None
     extra = (("k_new", k_new), ("v_new", v_new)) if staged else ()
     _check("paged_decode_attention", q, k_pool, v_pool, tables, lengths, window,
-           k_scales, v_scales, extra)
+           k_scales, v_scales, alibi, DECODE_GROUP_SIZES.__getitem__, extra)
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     if s != 1:
@@ -299,15 +313,17 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths,
             alibi.data_ptr() if alibi is not None else None, out.data_ptr())
     index = q.get_device()
 
+    library = DECODE_LIBRARY if alibi is None else ALIBI_DECODE_LIBRARY
+
     def launch(stream):
         work = split_workspace("paged_decode_attention", index, stream, floats, counts) \
             if floats else (None, None)
-        return DECODE_LIBRARY.lib().ds_paged_decode_attention(
+        return library.lib().ds_paged_decode_attention(
             *ptrs, *work, b, h, hkv, d, nb, bs, t, int(staged), window or 0,
             _scale(d, softmax_scale), stream)
 
     code = on_current_stream(index, launch)
-    DECODE_LIBRARY.check(code, "paged_decode_attention")
+    library.check(code, "paged_decode_attention")
     _count(paged_decode_attention, quant, alibi)
     return out
 
@@ -339,7 +355,7 @@ def paged_prefill_attention(q, k_pool, v_pool, tables, starts,
     refuse_grad("paged_prefill_attention", q, k_pool, v_pool, k_scales, v_scales, alibi)
     quant = k_scales is not None
     _check("paged_prefill_attention", q, k_pool, v_pool, tables, starts, window,
-           k_scales, v_scales)
+           k_scales, v_scales, alibi, lambda d: PREFILL_GROUP_SIZES)
     b, s, h, d = q.shape
     hkv, nb, bs, _ = k_pool.shape
     out = torch.empty_like(q)

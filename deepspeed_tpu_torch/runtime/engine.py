@@ -146,6 +146,10 @@ class DeepSpeedEngine:
                  config: Optional[DeepSpeedConfig] = None, model_parameters: Any = None,
                  training_data=None, collate_fn=None, lr_scheduler=None,
                  optimizer: Optional[GradientTransformation] = None, device=None):
+        if getattr(model, "serving_only", False):
+            # the zoo families' head widths (80, 256) have no K1-bwd yet
+            raise unported(f"training {type(model).__name__} (the flash backward at head "
+                           f"dim {model.cfg.head_dim})", "Training: the rest")
         self.config = config if config is not None else DeepSpeedConfig(None)
         config = self.config
         self.accelerator = get_accelerator(device)

@@ -55,8 +55,17 @@ largest output against its plain version. The data axis's collectives
 (`reduce_scatter`, `all_gather_into`, `all_reduce` with SUM, AVG, MAX and
 MIN) on CUDA tensors, from two gloo ranks sharing the card, equal the same
 calls on CPU tensors, and so do ZeRO++'s quantized reduce-scatter and
-all-gather and the 1-bit wire's compressed all-reduce.
+all-gather and the 1-bit wire's compressed all-reduce. At the zoo's head
+widths, 80 (phi-2) and 256 (pythia-1b): K1-fwd over every K1 shape at GQA
+groups 1 and 4, K2, K3 (staged, windowed, long rows) and K4 (ragged tiles)
+in bf16 and int8 at a group of one (K4 also at 4), each to 2e-2 and two
+calls bitwise equal, the int8 forms with unit scales bitwise the bf16
+kernels; what is not built at those widths raises (groups above one on K2
+and K3, alibi, the flash backward); and a 2-layer phi and GPT-NeoX serve
+through v1 and v2 with every kernel launch counted, against the CPU in f32.
 """
+
+from dataclasses import replace as dataclasses_replace
 
 import numpy as np
 import pytest
@@ -1513,3 +1522,225 @@ def test_capacity_nvme_and_v2_on_card(cuda_device, tmp_path):
         got[mode] = eng.generate(prompts, max_new_tokens=6)
         assert decode_attention.launches > k2 and (quantized_matmul.launches - k5) % (7 * L) == 0
     assert got["capacity"] == got["layer_scan"]
+
+
+# The zoo's head widths: 80 (phi-2) and 256 (pythia-1b), each served at a
+# GQA group of one; K1-fwd and K4 also take larger groups there
+ZOO_WIDTHS = [80, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ZOO_WIDTHS)
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("b,causal,sq,sk", FLASH_SHAPES)
+def test_flash_kernel_at_zoo_widths_matches_plain_on_card(cuda_device, b, causal, sq, sk,
+                                                          n_rep, d):
+    """K1-fwd at D = 80 (tiles padded to 128 columns) and D = 256 (one
+    warpgroup a block) over `FLASH_SHAPES`; two calls give the same bits."""
+    hkv = 2
+    rng = np.random.default_rng([b, sq, sk, n_rep, d])
+    q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, b, sq, sk, hkv * n_rep, hkv, d))
+    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+    again, _ = flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "chunk_edges", "long"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", ZOO_WIDTHS)
+def test_decode_kernel_at_zoo_widths_matches_plain_on_card(cuda_device, d, int8, case):
+    """K2 and K2-int8 at H = Hkv over `_dense_case`'s rows; two calls give
+    the same bits."""
+    b, h = 4, 2
+    m, lens = _dense_case(case)
+    rng = np.random.default_rng(200 + d + int8)
+    q = _bf16(rng.standard_normal((b, 1, h, d)).astype(np.float32), cuda_device)
+    if int8:
+        k, ks, v, vs = _int8_pools(rng, cuda_device, b, m, h, d)
+        kw = dict(k_scales=ks, v_scales=vs)
+    else:
+        k, v = (_bf16(rng.standard_normal((b, m, h, d)).astype(np.float32), cuda_device)
+                for _ in range(2))
+        kw = {}
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    out = decode_attention(q, k, v, lengths, **kw)
+    again = decode_attention(q, k, v, lengths, **kw)
+    ref = decode_attention_plain(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "chunk_edges", "long"])
+@pytest.mark.parametrize("window", [None, 20])
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", ZOO_WIDTHS)
+def test_paged_decode_kernel_at_zoo_widths_matches_plain_on_card(cuda_device, d, int8, staged,
+                                                                 window, case):
+    """K3 and K3-int8 at H = Hkv over `_paged_case`'s tables, staged and
+    not, with and without a window; two calls give the same bits."""
+    b, h = 4, 2
+    bs, t, nb, blocks, lens = _paged_case(case, staged)
+    rng = np.random.default_rng(300 + d + 2 * int8 + staged)
+    k, v, tables = _paged(rng, cuda_device, blocks, h, d, nb=nb, bs=bs, t=t)
+    kw = {}
+    if int8:
+        k, ks, v, vs = _int8_pools(rng, cuda_device, h, nb, bs, d)
+        kw = dict(k_scales=ks, v_scales=vs)
+    q = _bf16(rng.standard_normal((b, 1, h, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    if staged:
+        kw.update(k_new=_bf16(rng.standard_normal((b, h, d)).astype(np.float32), cuda_device),
+                  v_new=_bf16(rng.standard_normal((b, h, d)).astype(np.float32), cuda_device))
+    out = paged_decode_attention(q, k, v, tables, lengths, window=window, **kw)
+    again = paged_decode_attention(q, k, v, tables, lengths, window=window, **kw)
+    ref = paged_decode_attention_plain(q, k, v, tables, lengths, window=window, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 200])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d", ZOO_WIDTHS)
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_paged_prefill_kernel_at_zoo_widths_matches_plain_on_card(cuda_device, n_rep, d, int8,
+                                                                  window):
+    """K4 and K4-int8 at D = 80 and 256 over `_prefill_ragged_inputs` (S =
+    300 over blocks of 16: 128-key tiles at 80, 32-key tiles at 256); two
+    calls give the same bits."""
+    rng = np.random.default_rng(400 + 10 * n_rep + d + int8)
+    q, k, v, tables, starts, scales = _prefill_ragged_inputs(rng, cuda_device, n_rep, d, int8)
+    out = paged_prefill_attention(q, k, v, tables, starts, window=window, **scales)
+    again = paged_prefill_attention(q, k, v, tables, starts, window=window, **scales)
+    ref = paged_prefill_attention_plain(q, k, v, tables, starts, window=window, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=BF16_TOL, atol=BF16_TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ZOO_WIDTHS)
+def test_int8_kernels_at_zoo_widths_with_unit_scales_equal_bf16_on_card(cuda_device, d):
+    """Integer-valued caches at D = 80 and 256: K2-int8, K3-int8 (staged)
+    and K4-int8 with unit scales give their bf16 kernels' outputs bit for
+    bit."""
+    b, h, bs, t, nb = 4, 2, 16, 4, 20
+    rng = np.random.default_rng(500 + d)
+    k, ks, v, vs = _int8_pools(rng, cuda_device, h, nb, bs, d, unit=True)
+    kb, vb = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    _, _, tables = _paged(rng, cuda_device, [3, 4, 4, 0], h, d, nb=nb, bs=bs, t=t)
+    q = _bf16(rng.standard_normal((b, 1, h, d)).astype(np.float32), cuda_device)
+    lengths = torch.tensor([1, 17, 40, t * bs + 1], dtype=torch.int32, device=cuda_device)
+    kn, vn = (_bf16(rng.standard_normal((b, h, d)).astype(np.float32), cuda_device)
+              for _ in range(2))
+    for window in (None, 20):
+        assert torch.equal(
+            paged_decode_attention(q, k, v, tables, lengths, k_new=kn, v_new=vn,
+                                   window=window, k_scales=ks, v_scales=vs),
+            paged_decode_attention(q, kb, vb, tables, lengths, k_new=kn, v_new=vn,
+                                   window=window))
+        qs = _bf16(rng.standard_normal((b, 37, h, d)).astype(np.float32), cuda_device)
+        starts = torch.tensor([0, 16, 21, t * bs], dtype=torch.int32, device=cuda_device)
+        assert torch.equal(
+            paged_prefill_attention(qs, k, v, tables, starts, window=window,
+                                    k_scales=ks, v_scales=vs),
+            paged_prefill_attention(qs, kb, vb, tables, starts, window=window))
+    kd, sd, vd, _ = _int8_pools(rng, cuda_device, b, 300, h, d, unit=True)
+    lengths = torch.tensor([0, 1, 129, 300], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(decode_attention(q, kd, vd, lengths, k_scales=sd, v_scales=sd),
+                       decode_attention(q, kd.to(torch.bfloat16), vd.to(torch.bfloat16),
+                                        lengths))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ZOO_WIDTHS)
+def test_zoo_widths_refuse_what_is_not_built_on_card(cuda_device, d):
+    """At D = 80 and 256: K2 and K3 at a GQA group of 4, alibi on K3 and
+    K4, and the flash backward raise before a launch; nothing falls back."""
+    from deepspeed_tpu_torch.ops.attention import alibi_slopes
+    rng = np.random.default_rng(600 + d)
+    k, v, tables = _paged(rng, cuda_device, [1, 1], 2, d)
+    lengths = torch.tensor([3, 5], dtype=torch.int32, device=cuda_device)
+    q4 = torch.zeros((2, 1, 8, d), dtype=torch.bfloat16, device=cuda_device)
+    q1 = torch.zeros((2, 1, 2, d), dtype=torch.bfloat16, device=cuda_device)
+    counts = lambda: (decode_attention.launches, paged_decode_attention.launches,  # noqa: E731
+                      paged_prefill_attention.launches, paged_decode_attention.launches_alibi,
+                      paged_prefill_attention.launches_alibi,
+                      flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    before = counts()
+    dense = torch.zeros((2, 16, 2, d), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="group sizes"):
+        decode_attention(q4, dense, dense, lengths)
+    with pytest.raises(ValueError, match="group sizes"):
+        paged_decode_attention(q4, k, v, tables, lengths)
+    slopes = alibi_slopes(2, cuda_device)
+    with pytest.raises(ValueError, match="alibi"):
+        paged_decode_attention(q1, k, v, tables, lengths, alibi=slopes)
+    with pytest.raises(ValueError, match="alibi"):
+        paged_prefill_attention(q1.expand(2, 4, -1, -1).contiguous(), k, v, tables, lengths,
+                                alibi=slopes)
+    q, kk, vv = (_bf16(x, cuda_device) for x in _qkv(rng, 2, 16, 16, 2, 2, d))
+    out, lse = flash_attention_fwd(q, kk, vv)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(q, kk, vv, out, lse, torch.ones_like(q))
+    assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["phi", "gptneox"])
+def test_zoo_model_serves_through_the_kernels_on_card(cuda_device, family):
+    """A 2-layer phi (heads of 80) and GPT-NeoX (heads of 256) in bf16 on
+    the card: v1 `forward` (K1-fwd) and greedy `generate` (K2) and v2 paged
+    traffic (K4, K3), each launch counted, against the same weights in f32 on the CPU
+    (relative RMS error of the logits <= 0.04, as `chip_smoke.py`'s
+    `reference`)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.v2 import InferenceEngineV2
+    if family == "phi":
+        from deepspeed_tpu_torch.models.phi import init_phi as init, phi_config as config
+        cfg = config("phi-2", num_hidden_layers=2, hidden_size=320, intermediate_size=1280,
+                     num_attention_heads=4, num_key_value_heads=4, vocab_size=512)
+    else:
+        from deepspeed_tpu_torch.models.gptneox import gptneox_config as config
+        from deepspeed_tpu_torch.models.gptneox import init_gptneox as init
+        cfg = config("pythia-1b", num_hidden_layers=2, hidden_size=512,
+                     intermediate_size=2048, num_attention_heads=2, vocab_size=512)
+    gpu_model = init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device,
+                     dtype=torch.bfloat16)
+    cpu_model = init(dataclasses_replace(cfg, dtype=torch.float32), torch.Generator(),
+                     device="cpu")
+    cpu_model.load_state_dict({k: v.float().cpu() for k, v in gpu_model.state_dict().items()})
+    gpu = deepspeed_tpu_torch.init_inference(gpu_model, dtype="bf16")
+    cpu = deepspeed_tpu_torch.init_inference(cpu_model, dtype="fp32", device="cpu")
+    ids = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    counts = lambda: (flash_attention_fwd.launches, decode_attention.launches,  # noqa: E731
+                      paged_prefill_attention.launches, paged_decode_attention.launches)
+    before = counts()
+    out = gpu.generate(ids, max_new_tokens=6)
+    torch.cuda.synchronize()
+    # the cached prefill takes the masked path; each of the 5 decode steps K2
+    assert counts() == (before[0], before[1] + 2 * 5, before[2], before[3])
+    assert gpu.forward(ids).shape == (2, 40, cfg.vocab_size)
+    assert flash_attention_fwd.launches == before[0] + 2
+    ref = cpu.forward(out[:, :-1].cpu())
+    err = ((gpu.forward(out[:, :-1]).float().cpu() - ref).norm() / ref.norm()).item()
+    assert err <= 0.04, err
+    v2 = InferenceEngineV2(gpu_model, max_batch=4, max_seq_len=128, cache_block_size=16,
+                           num_cache_blocks=32)
+    assert v2.kv_layout == "paged"
+    before = counts()
+    got = v2.generate([ids[0].tolist(), ids[1, :25].tolist()], max_new_tokens=4)
+    torch.cuda.synchronize()
+    after = counts()
+    assert after[0] == before[0] and after[1] == before[1]
+    assert after[2] > before[2] and after[3] > before[3]
+    assert [len(g) for g in got] == [44, 29]
