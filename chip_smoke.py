@@ -32,7 +32,9 @@
    bias in a bf16 float mask); K1-fwd, K2, K2-int8, K3 and K3-int8 (staged
    and not), K4 and K4-int8 (with and without a window) at the zoo's head
    widths, phi-2's (H = Hkv = 32, D = 80) and pythia-1b's (H = Hkv = 8,
-   D = 256); then runs the sparse path,
+   D = 256); K1-fwd and K1-bwd at those models' training calls (S = 2048,
+   causal, `train_zoo`'s micro-batch: 2 for phi-2, 4 for pythia-1b; the
+   backward run twice and bitwise equal); then runs the sparse path,
    `SparseSelfAttention` forward (K7, counted) and backward (the gather
    path's gradient) against autograd of the gather path;
 4. serves Llama-3-8B at full width and depth with random bf16 weights
@@ -197,8 +199,8 @@
    checked first against the engine's state bytes, and the files are
    deleted afterwards;
 9g. trains Qwen1.5-MoE-A2.7B at full width and MOE_DP_LAYERS layer
-   data-parallel over dp = 2 (`train_moe_zero`, after 9b): two ranks on
-   the one card over gloo, as 9e, each on its half of a global batch of
+   data-parallel over dp = 2 (`train_moe_zero`, after 9b; its runs take
+   place in 9e's two ranks, after 9l), each on its half of a global batch of
    4 x 2048 tokens (micro-batch 2, GAS 1), one step under each of ZeRO
    0-3 with `dispatch_impl="gmm"` (K6, dlhs, drhs and K1 counted on each
    rank) and one at stage 2 with `auto` (the ragged buffer); the gate routes
@@ -245,6 +247,24 @@
    ONEBIT_STEPS; K1's launches; the bytes a step by kind before the freeze
    (the momentum's exact mean and the norm's, f32) and after it (int8
    signs and one f32 scale a JAX leaf, and the norm's mean);
+9k. trains the zoo (`train_zoo`, after 9's reference): phi-2 (32 layers of
+   32 heads of 80), pythia-1b (16 layers of 8 heads of 256) and bloom-560m
+   (24 layers of 16 heads of 64) at full width and depth with random bf16
+   weights through `initialize` → `train_batch` (`train`'s config at
+   micro-batch 2, 4 and 4: ZOO_TRAIN): one warm-up and ZOO_TRAIN_STEPS
+   timed steps on one batch (K1-fwd 2·L·GAS and K1-bwd dq and dk/dv L·GAS
+   launches a `train_batch` at D = 80 and 256, counted; none for BLOOM,
+   whose alibi takes the masked path), a falling loss, step time, tokens/s,
+   MFU and peak memory; a 2-layer model of each width on the card in bf16
+   against the CPU in f32 over one GAS window (9's gates) and remat on
+   against off;
+9l. trains the same three at full width and ZOO_DP_LAYERS layers over dp =
+   2 in 9e's ranks after 9j (`train_zoo_zero`): one step at each of
+   ZOO_DP_STAGES (stage 3 gathers the blocks inside their checkpoints and
+   the root around the forward), both ranks' parameters bitwise equal, the
+   step against one rank on the same global batch (TRAIN_REF_* bounds)
+   beside a control (one rank on rank 0's rows alone) that must miss, K1's
+   launches a rank;
 10. prints one JSON line of kernels (with each training path's launches a
    `train_batch` beside K1's and K6's rows), then the result line.
 
@@ -337,6 +357,39 @@ EP_LAYERS = 8
 # and each one's attention for the kernel phase's rows at its head width
 ZOO = (("phi", "phi-2", SEED + 80, 80), ("gptneox", "pythia-1b", SEED + 90, 256))
 ZOO_WIDTHS = {80: dict(h=32, hkv=32, d=80), 256: dict(h=8, hkv=8, d=256)}
+# Training the zoo (`train_zoo`): phi-2, pythia-1b and bloom-560m (the
+# published bigscience/bloom-560m shapes: 24 layers of 16 heads of 64, vocab
+# 250,880) at full width and depth, random bf16 weights, `train`'s config at
+# each model's micro-batch: (module, preset, seed, micro-batch). The engine
+# keeps ~20 bytes a parameter (bf16 parameter and gradient, f32 master, two
+# Adam moments, f32 accumulation at GAS 2): phi-2's 2.78e9 parameters take
+# ~56 GB, so it trains at micro-batch 2; pythia-1b (1.01e9) and bloom-560m
+# (5.6e8) at `train`'s 4.
+ZOO_TRAIN = (("phi", "phi-2", SEED + 100, 2), ("gptneox", "pythia-1b", SEED + 110, 4),
+             ("bloom", "bloom-560m", SEED + 120, 4))
+ZOO_TRAIN_STEPS = 3
+# the gradients each family's 2-layer reference holds against the CPU (as
+# GRAD_KEYS: the embedding, layer 0's q projection and MLP output, and the
+# head or, for BLOOM's tied head, a layer-1 projection)
+ZOO_GRAD_KEYS = {
+    "phi": ("embed_tokens", "layers.0.self_attn.q_proj.weight", "layers.0.mlp.fc2.weight",
+            "lm_head.weight"),
+    "gptneox": ("embed_in", "layers.0.attention.q_proj.weight",
+                "layers.0.mlp.dense_4h_to_h.weight", "embed_out.weight"),
+    "bloom": ("word_embeddings", "h.0.self_attention.q_proj.weight",
+              "h.0.mlp.dense_4h_to_h.weight", "h.1.self_attention.dense.weight")}
+# the zoo across data ranks (in `train_zero`'s ranks, after its runs): each
+# family at full width and ZOO_DP_LAYERS layers, one step at each of
+# ZOO_DP_STAGES over dp = 2, `train_zero`'s rows a rank, held to one rank
+# on the same global batch (TRAIN_REF_* bounds) beside a control (one rank
+# on rank 0's rows alone) that must miss. Its norm bound is tighter than
+# TRAIN_REF_NORM_RTOL: at two layers the step read within 2.2e-6 of one
+# rank's and the loss within 8.4e-8, while BLOOM's control read only 0.0407
+# (its norm is mostly the tied head's softmax term, which half the batch
+# barely moves; phi-2's and pythia-1b's ~0.41), this script on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md)
+ZOO_DP_LAYERS, ZOO_DP_STAGES = 2, (1, 3)
+ZOO_DP_NORM_RTOL = 1e-3
 ZOO_INT8_NEW = 8             # greedy tokens of the int8-KV runs
 ZOO_INT8_PROMPTS = 8         # v2 prompts of 256 tokens over int8 pools
 # K2's and K3's report names and CUDA names in a profile ("::" keeps K5's
@@ -3408,8 +3461,8 @@ def reference_bloom(report):
 
 
 def zoo_model(family, name, seed, dtype=torch.bfloat16, device="cuda", **overrides):
-    """A zoo preset (`models/phi.py`, `models/gptneox.py`) with random
-    weights from `seed`, built on `device` in `dtype`."""
+    """A zoo preset (`models/phi.py`, `models/gptneox.py`, `models/bloom.py`)
+    with random weights from `seed`, built on `device` in `dtype`."""
     import importlib
     mod = importlib.import_module(f"deepspeed_tpu_torch.models.{family}")
     cfg = getattr(mod, f"{family}_config")(name, **overrides)
@@ -4176,6 +4229,16 @@ def zero_rank(rank, port, tmp):
         t0 = time.perf_counter()
         out["onebit"] = onebit_run(rank)
         out["onebit_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["zoo"] = {name: {stage: zoo_dp_run(rank, family, name, seed, stage)
+                             for stage in ZOO_DP_STAGES}
+                      for family, name, seed, _ in ZOO_TRAIN}
+        out["zoo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["moe_zero"] = [moe_dp_step(dict(MOE_DP_CONFIG, zero_optimization={"stage": stage}),
+                                       dispatch, moe_dp_rows(rank))
+                           for stage, dispatch in MOE_DP_RUNS]
+        out["moe_zero_s"] = time.perf_counter() - t0
         out["kernel_fallbacks"] = fallbacks
         torch.save(out, f"{tmp}/rank{rank}.pt")
         comm.barrier()
@@ -4425,36 +4488,46 @@ def profile_train(engine, batch):
 
 
 def train_reference(report):
-    """Two layers at the llama-1b width: one GAS window of forward/backward
-    (micro-batch 2, sequence 512) on the card in bf16 against the plain
-    versions on the CPU in f32, on the same weights; and on the card, remat
-    on against remat off."""
+    """Two layers at the llama-1b width (`two_layer_reference`): one GAS
+    window of micro-batch 2 at sequence 512."""
+    from deepspeed_tpu_torch.models.llama import llama_config, llama_loss_fn
+    ids = torch.randint(0, 32000, (4, 512), generator=torch.Generator().manual_seed(SEED + 32))
+    report["train_reference"] = two_layer_reference(
+        llama(llama_config("llama-1b", num_hidden_layers=2), SEED + 30), llama_loss_fn,
+        GRAD_KEYS, ids, k1_per_step(2))
+
+
+def two_layer_reference(gpu_model, loss_fn, keys, ids, per_window):
+    """A 2-layer model at a full width (`gpu_model`, on the card in bf16):
+    one GAS window of forward/backward over `ids` in two micros against the
+    plain versions on the CPU in f32 on the same weights (loss within
+    TRAIN_REF_LOSS_RTOL, grad norm within TRAIN_REF_NORM_RTOL, the
+    gradients of `keys` within TRAIN_REF_GRAD_RTOL, relative RMS); and on
+    the card remat on against remat off (REMAT_RTOL), each window launching
+    `per_window` with remat and K1-fwd half as often without."""
     import deepspeed_tpu_torch
-    from deepspeed_tpu_torch.models.llama import LlamaForCausalLM, llama_config, llama_loss_fn
-    config = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+    config = {"train_micro_batch_size_per_gpu": ids.shape[0] // 2,
+              "gradient_accumulation_steps": 2,
               "optimizer": {"type": "FusedAdam", "params": {"lr": 1e-4}}}
-    gpu_model = llama(llama_config("llama-1b", num_hidden_layers=2), SEED + 30)
-    card = gpu_model.embed_tokens.device
+    cls, cfg = type(gpu_model), gpu_model.cfg
+    card = next(gpu_model.parameters()).device
     weights = {k: v.float().cpu() for k, v in gpu_model.state_dict().items()}
 
     def port_model(device, dtype, remat=True):
-        model = LlamaForCausalLM(llama_config("llama-1b", num_hidden_layers=2, dtype=dtype,
-                                              remat=remat), device="meta")
+        model = cls(dataclasses.replace(cfg, dtype=dtype, remat=remat), device="meta")
         model.load_state_dict({k: v.to(device=device, dtype=dtype) for k, v in weights.items()},
                               assign=True)
         return model
 
-    ids = torch.randint(0, 32000, (4, 512), generator=torch.Generator().manual_seed(SEED + 32))
-
     def window(model, config, device=None):
         engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
-                                                    loss_fn=llama_loss_fn(model), device=device)
+                                                    loss_fn=loss_fn(model), device=device)
         losses = []
-        for micro in (ids[:2], ids[2:]):
+        for micro in ids.chunk(2):
             loss = engine({"input_ids": micro})
             engine.backward(loss)
             losses.append(float(loss.detach()))
-        grads = {k: engine.state.grad_acc[k].float().cpu() for k in GRAD_KEYS}
+        grads = {k: engine.state.grad_acc[k].float().cpu() for k in keys}
         return float(np.mean(losses)), engine.get_global_grad_norm(), grads
 
     bf16 = dict(config, bf16={"enabled": True})
@@ -4466,24 +4539,215 @@ def train_reference(report):
     gpu_off = window(port_model(card, torch.bfloat16, remat=False), bf16)
     off_launches = read_launches()
     cpu = window(port_model("cpu", torch.float32), config, device="cpu")
+    gc.collect()
     torch.cuda.empty_cache()
     loss_err = abs(gpu[0] - cpu[0]) / abs(cpu[0])
     norm_err = abs(gpu[1] - cpu[1]) / abs(cpu[1])
-    grad_errs = {k: rel_err(gpu[2][k], cpu[2][k]) for k in GRAD_KEYS}
+    grad_errs = {k: rel_err(gpu[2][k], cpu[2][k]) for k in keys}
     remat_loss_err = abs(gpu[0] - gpu_off[0]) / abs(gpu_off[0])
     remat_norm_err = abs(gpu[1] - gpu_off[1]) / abs(gpu_off[1])
     assert loss_err <= TRAIN_REF_LOSS_RTOL and norm_err <= TRAIN_REF_NORM_RTOL \
         and max(grad_errs.values()) <= TRAIN_REF_GRAD_RTOL, (loss_err, norm_err, grad_errs)
     assert remat_loss_err <= REMAT_RTOL and remat_norm_err <= REMAT_RTOL, \
         (remat_loss_err, remat_norm_err)
-    assert remat_launches["flash_attention_fwd"] == 2 * off_launches["flash_attention_fwd"] \
-        and remat_launches["flash_attention_bwd_dq"] == off_launches["flash_attention_bwd_dq"] > 0
-    report["train_reference"] = dict(
+    off = {k: n // 2 if k == "flash_attention_fwd" else n for k, n in per_window.items()}
+    assert remat_launches == only(**per_window) and off_launches == only(**off), \
+        (remat_launches, off_launches)
+    return dict(
         loss_card=gpu[0], loss_cpu=cpu[0], loss_rel_err=loss_err, grad_norm_card=gpu[1],
         grad_norm_cpu=cpu[1], grad_norm_rel_err=norm_err, grad_acc_rel_rms_err=grad_errs,
         remat_off_loss=gpu_off[0], remat_off_grad_norm=gpu_off[1],
         remat_loss_rel_err=remat_loss_err, remat_grad_norm_rel_err=remat_norm_err,
         launches_remat_on=remat_launches, launches_remat_off=off_launches)
+
+
+def zoo_loss_fn(family):
+    import importlib
+    return getattr(importlib.import_module(f"deepspeed_tpu_torch.models.{family}"),
+                   f"{family}_loss_fn")
+
+
+def k1_per_step(layers, alibi=False):
+    """K1's launches a `train_batch` of GAS micros under remat (which runs
+    each forward again); none with alibi, which takes the masked path."""
+    if alibi:
+        return {}
+    return {"flash_attention_fwd": 2 * layers * GAS, "flash_attention_bwd_dq": layers * GAS,
+            "flash_attention_bwd_dkv": layers * GAS}
+
+
+def train_zoo(report):
+    """The zoo's training main paths (`ZOO_TRAIN`): each model at full width
+    and depth with random bf16 weights through `initialize` →
+    `train_batch`, one warm-up and ZOO_TRAIN_STEPS timed steps on one fixed
+    batch, launches counted over the timed steps (`k1_per_step` a
+    `train_batch`, nothing else); the loss must fall; step seconds,
+    tokens/s, MFU and peak memory. Then a 2-layer model of each width
+    against the CPU in f32 over micro-batch 2 at sequence 256, and remat on
+    against off (`two_layer_reference`). Returns each model's launches."""
+    import deepspeed_tpu_torch
+    rows, launches = {}, {}
+    for family, name, seed, mbs in ZOO_TRAIN:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = zoo_model(family, name, seed, remat=True, remat_policy="nothing")
+        cfg = model.cfg
+        config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=mbs)
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                    loss_fn=zoo_loss_fn(family)(model))
+        del model
+        acc = engine.accelerator
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        batch = {"input_ids": torch.randint(0, cfg.vocab_size, (GAS * mbs, SEQ), generator=gen,
+                                            device="cuda")}
+        t0 = time.perf_counter()
+        engine.train_batch(batch=batch)                 # warm-up
+        acc.synchronize()
+        warmup_s = time.perf_counter() - t0
+        acc.reset_peak_memory_stats()
+        zero_launches()
+        steps = []
+        t0 = time.perf_counter()
+        for _ in range(ZOO_TRAIN_STEPS):
+            ts = time.perf_counter()
+            loss = float(engine.train_batch(batch=batch))
+            steps.append(dict(loss=loss, grad_norm=engine.get_global_grad_norm(),
+                              step_s=time.perf_counter() - ts))
+        wall_s = time.perf_counter() - t0
+        got = read_launches()
+        peak = acc.max_memory_allocated()
+        L = cfg.num_hidden_layers
+        per_step = k1_per_step(L, family == "bloom")
+        assert got == only(**{k: n * ZOO_TRAIN_STEPS for k, n in per_step.items()}), (name, got)
+        losses = [st["loss"] for st in steps]
+        assert all(np.isfinite(losses)) and losses[-1] < losses[0], (name, losses)
+        tokens = GAS * mbs * SEQ
+        step_s = wall_s / ZOO_TRAIN_STEPS
+        n_params = engine.total_params
+        flops_per_token = 6.0 * n_params + 6.0 * L * cfg.hidden_size * SEQ
+        peak_tflops = acc.peak_tflops("bfloat16")
+        mfu = tokens / step_s * flops_per_token / (peak_tflops * 1e12)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[name] = dict(
+            card=report["card"], model=f"{name} (published shapes, random bf16 weights, "
+                                       f"seed {seed}), full depth",
+            params=n_params, config=config, seq=SEQ, tokens_per_step=tokens,
+            warmup_s=warmup_s, steps=steps, step_s=step_s, tokens_per_s=tokens / step_s,
+            flops_per_token=flops_per_token, peak_tflops_datasheet=peak_tflops, mfu=mfu,
+            peak_memory_bytes=peak, launches=got, launches_per_train_batch=per_step,
+            reference=two_layer_reference(
+                zoo_model(family, name, seed + 5, num_hidden_layers=2, remat=True),
+                zoo_loss_fn(family), ZOO_GRAD_KEYS[family],
+                torch.randint(0, cfg.vocab_size, (4, 256),
+                              generator=torch.Generator().manual_seed(seed + 6)),
+                k1_per_step(2, family == "bloom")))
+        launches[name] = got
+        log(f"train_zoo {name}: {n_params / 1e9:.3f}e9 params, step {step_s:.3f} s, "
+            f"{tokens / step_s:.0f} tokens/s, MFU {mfu:.3f}, peak {peak / 2**30:.1f} GiB, "
+            f"losses {losses}")
+    report["train_zoo"] = rows
+    return launches
+
+
+def zoo_dp_engine(family, name, seed, mbs, stage):
+    """A zoo model at full width and ZOO_DP_LAYERS layers (random bf16
+    weights from `seed`, the same on every rank) under `train`'s config at
+    micro-batch `mbs` and ZeRO `stage`: (engine, model config)."""
+    import deepspeed_tpu_torch
+    model = zoo_model(family, name, seed + 7, num_hidden_layers=ZOO_DP_LAYERS, remat=True)
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=mbs,
+                  zero_optimization={"stage": stage})
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config,
+                                                loss_fn=zoo_loss_fn(family)(model))
+    return engine, model.cfg
+
+
+def zoo_dp_rows(cfg, seed, rank=None):
+    """The zoo's global batch across data ranks (GAS x ZERO_MBS x DP rows
+    of SEQ tokens, `train_zero`'s shape), or rank `rank`'s rows of it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    rows = torch.randint(0, cfg.vocab_size, (GAS * ZERO_MBS * DP, SEQ), generator=gen,
+                         device="cuda")
+    return rows if rank is None else rank_rows(rows, rank)
+
+
+def zoo_dp_run(rank, family, name, seed, stage):
+    """One `train_batch` of a zoo model (`zoo_dp_engine`) on this rank's
+    rows at ZeRO `stage`: `train_steps`' record, the peak memory and the
+    launches."""
+    engine, cfg = zoo_dp_engine(family, name, seed, ZERO_MBS, stage)
+    zero_launches()
+    steps, peak = train_steps(engine, {"input_ids": zoo_dp_rows(cfg, seed, rank)}, 1)
+    launches = read_launches()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, peak_memory_bytes=peak, launches=launches)
+
+
+def train_zoo_zero(report):
+    """The zoo across data ranks, run in `train_zero`'s ranks after its
+    other runs (`zero_rank`): each family at ZOO_DP_LAYERS layers of full
+    width, one step at each of ZOO_DP_STAGES over dp = 2 (stage 3 gathers
+    its units: `zero3_gathers`). Both ranks' parameters bitwise equal after
+    the step; the step's loss and pre-clip norm within TRAIN_REF_LOSS_RTOL
+    and ZOO_DP_NORM_RTOL of one rank's on the same global batch (here);
+    each rank's launches `k1_per_step` at that depth; the control, one
+    rank on rank 0's rows alone, must miss the norm bound."""
+    ranks = ZERO_RANKS
+    out = {}
+    for family, name, seed, _ in ZOO_TRAIN:
+        refs = {}
+        for what, mbs, rank in (("reference", ZERO_MBS * DP, None), ("control", ZERO_MBS, 0)):
+            engine, cfg = zoo_dp_engine(family, name, seed, mbs, 0)
+            loss = float(engine.train_batch(batch={"input_ids": zoo_dp_rows(cfg, seed, rank)}))
+            refs[what] = dict(loss=loss, grad_norm=engine.get_global_grad_norm())
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref, control = refs["reference"], refs["control"]
+        stages = {}
+        for stage in ZOO_DP_STAGES:
+            r0, r1 = (r["zoo"][name][stage] for r in ranks)
+            first = r0["steps"][0]
+            stages[stage] = dict(
+                loss=first["loss"], grad_norm=first["grad_norm"],
+                loss_rel_err=abs(first["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad_norm_rel_err=abs(first["grad_norm"] - ref["grad_norm"])
+                / abs(ref["grad_norm"]),
+                ranks_bitwise_equal=first["digest"] == r1["steps"][0]["digest"],
+                launches_per_rank=[r["launches"] for r in (r0, r1)],
+                step_s=max(r["steps"][0]["step_s"] for r in (r0, r1)),
+                peak_memory_bytes_per_rank=[r["peak_memory_bytes"] for r in (r0, r1)],
+                gloo={k: {f: v[f] for f in ("calls", "bytes", "seconds")}
+                      for k, v in first["comm"].items()})
+        out[name] = dict(stages=stages, one_rank=ref, control=dict(
+            control, grad_norm_rel_err=abs(control["grad_norm"] - ref["grad_norm"])
+            / abs(ref["grad_norm"]), what="one rank trained on rank 0's rows alone"),
+            launches_per_rank_per_train_batch=k1_per_step(ZOO_DP_LAYERS, family == "bloom"))
+    seconds = max(r["zoo_s"] for r in ranks)
+    report.setdefault("phase_s", {})["train_zoo_zero_ranks"] = seconds
+    print(f"phase train_zoo_zero (in train_zero's ranks): {seconds:.1f} s", flush=True)
+    report["train_zoo_zero"] = dict(
+        card=report["card"], setup=f"{DP} ranks sharing one card over gloo, as train_zero",
+        layers=ZOO_DP_LAYERS, stages=list(ZOO_DP_STAGES), seq=SEQ,
+        config=dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=ZERO_MBS), models=out,
+        loss_rtol=TRAIN_REF_LOSS_RTOL, norm_rtol=ZOO_DP_NORM_RTOL, ranks_s=seconds)
+    log("train_zoo_zero: " + "; ".join(
+        f"{n}: " + ", ".join(f"stage {s} loss err {v['loss_rel_err']:.2e} norm err "
+                             f"{v['grad_norm_rel_err']:.2e} step {v['step_s']:.1f} s"
+                             for s, v in o["stages"].items())
+        + f", control {o['control']['grad_norm_rel_err']:.3e}" for n, o in out.items()))
+    for name, o in out.items():
+        per_step = only(**o["launches_per_rank_per_train_batch"])
+        for stage, v in o["stages"].items():
+            assert v["ranks_bitwise_equal"], (name, stage)
+            assert v["loss_rel_err"] <= TRAIN_REF_LOSS_RTOL \
+                and v["grad_norm_rel_err"] <= ZOO_DP_NORM_RTOL, (name, stage, v)
+            assert all(got == per_step for got in v["launches_per_rank"]), (name, stage, v)
+        assert o["control"]["grad_norm_rel_err"] > ZOO_DP_NORM_RTOL, (name, o["control"])
 
 
 def checkpoint_dir(name, need_bytes):
@@ -5038,14 +5302,11 @@ def moe_dp_step(config, dispatch, rows):
 
 
 def train_moe_zero(report):
-    """Qwen1.5-MoE at full width and MOE_DP_LAYERS layer trained over dp = 2
-    (`moe_zero_rank`, two spawned ranks on the one card over gloo), one
-    step of each of MOE_DP_RUNS, against the one-rank step on the same
-    global batch (module docstring, 9g), and the control: one rank on rank
-    0's rows alone."""
-    import tempfile
-
-    import torch.multiprocessing as mp
+    """Qwen1.5-MoE at full width and MOE_DP_LAYERS layer trained over dp = 2,
+    one step of each of MOE_DP_RUNS in `train_zero`'s ranks after their
+    other runs (`zero_rank`), against the one-rank step on the same global
+    batch (module docstring, 9g), and the control: one rank on rank 0's
+    rows alone."""
     gc.collect()
     torch.cuda.empty_cache()
     one = dict(MOE_DP_CONFIG, train_micro_batch_size_per_gpu=DP * MOE_DP_MBS,
@@ -5053,12 +5314,10 @@ def train_moe_zero(report):
     ref = moe_dp_step(one, "gmm", moe_dp_rows())
     control = moe_dp_step(dict(one, train_micro_batch_size_per_gpu=MOE_DP_MBS), "gmm",
                           moe_dp_rows(0))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        mp.start_processes(moe_zero_rank, args=(free_port(), tmp), nprocs=DP,
-                           start_method="spawn")
-        wall_s = time.perf_counter() - t0
-        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP)]
+    ranks = ZERO_RANKS
+    ranks_s = max(r["moe_zero_s"] for r in ranks)
+    report.setdefault("phase_s", {})["train_moe_zero_ranks"] = ranks_s
+    print(f"phase train_moe_zero (in train_zero's ranks): {ranks_s:.1f} s", flush=True)
     L, k = MOE_DP_LAYERS, moe_dp_model_config("gmm").num_experts_per_tok
     # remat runs each block's forward again in backward: K6 and K1-fwd twice
     gmm = {"grouped_gemm": 2 * 3 * L, "grouped_gemm_dlhs": 3 * L, "grouped_gemm_drhs": 3 * L,
@@ -5067,7 +5326,7 @@ def train_moe_zero(report):
     ragged = {n: c for n, c in gmm.items() if n.startswith("flash")}
     assert ref["launches"] == only(**gmm), ref["launches"]
     runs = {}
-    for (stage, dispatch), r0, r1 in zip(MOE_DP_RUNS, *(r["runs"] for r in ranks)):
+    for (stage, dispatch), r0, r1 in zip(MOE_DP_RUNS, *(r["moe_zero"] for r in ranks)):
         assert r0["digest"] == r1["digest"], (stage, dispatch)
         assert r0["loss"] == r1["loss"] and r0["dropped"] == r1["dropped"], (stage, dispatch)
         routing = [torch.cat([a, b]) for a, b in zip(r0["routing"][0], r1["routing"][0])]
@@ -5092,8 +5351,6 @@ def train_moe_zero(report):
             launches_per_rank=[r0["launches"], r1["launches"]],
             gloo_per_step={kind: {f: v[f] for f in ("calls", "bytes", "seconds")}
                            for kind, v in r0["comm"].items()})
-    for r in ranks:
-        assert r["kernel_fallbacks"] == [], r["kernel_fallbacks"]
     control_err = abs(control["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
     assert control_err > TRAIN_REF_NORM_RTOL, (control_err, control["grad_norm"])
     drop = lambda r: {x: r[x] for x in ("loss", "aux_loss", "dropped", "grad_norm", "step_s",
@@ -5104,7 +5361,7 @@ def train_moe_zero(report):
         setup=f"{DP} ranks, one process each, sharing one card over gloo: the collectives "
               "stage through the host and the ranks share the card's compute, so these "
               "times are not a data-parallel speed",
-        config=MOE_DP_CONFIG, seq=MOE_SEQ, global_rows=DP * MOE_DP_MBS, wall_s=wall_s,
+        config=MOE_DP_CONFIG, seq=MOE_SEQ, global_rows=DP * MOE_DP_MBS, ranks_s=ranks_s,
         one_rank=drop(ref), runs=runs,
         control=dict(drop(control), grad_norm_rel_err=control_err,
                      what="one rank trained on rank 0's rows alone"),
@@ -5117,33 +5374,6 @@ def train_moe_zero(report):
                   f"({v['dropped_one_rank']} on one rank)" for name, v in runs.items()) +
         f"; control norm err {control_err:.3f}")
     return runs
-
-
-def moe_zero_rank(rank, port, tmp):
-    """One rank of `train_moe_zero`: joins the gloo group and takes one
-    step of each of MOE_DP_RUNS on its rows."""
-    import datetime
-    import logging
-
-    from deepspeed_tpu_torch import comm
-    from deepspeed_tpu_torch.utils.logging import logger
-    comm.init_distributed(dist_backend="gloo", init_method=f"tcp://localhost:{port}",
-                          rank=rank, world_size=DP,
-                          timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
-    fallbacks = []
-    handler = logging.Handler()
-    handler.emit = lambda rec: fallbacks.append(rec.getMessage()) \
-        if "kernel_fallback" in rec.getMessage() else None
-    logger.addHandler(handler)
-    try:
-        runs = [moe_dp_step(dict(MOE_DP_CONFIG, zero_optimization={"stage": stage}), dispatch,
-                            moe_dp_rows(rank))
-                for stage, dispatch in MOE_DP_RUNS]
-        torch.save(dict(rank=rank, runs=runs, kernel_fallbacks=fallbacks), f"{tmp}/rank{rank}.pt")
-        comm.barrier()
-    finally:
-        logger.removeHandler(handler)
-        comm.destroy_process_group()
 
 
 def kernel_row(name, source, replaces, launches, check):
@@ -5262,6 +5492,14 @@ def main() -> int:
         paged_prefill_int8=[check_paged_prefill(gen, rng, int8=True, **w),
                             check_paged_prefill(gen, rng, window=300, int8=True, **w)])
         for d, w in ZOO_WIDTHS.items()}
+    # K1-fwd and K1-bwd at the zoo's training calls: phi-2's and pythia-1b's
+    # attention at their `train_zoo` micro-batch, S = SEQ, causal
+    zoo_train_kernels = {}
+    for _, name, _, d in ZOO:
+        mbs, w = dict((n, m) for _, n, _, m in ZOO_TRAIN)[name], ZOO_WIDTHS[d]
+        zoo_train_kernels[d] = dict(
+            flash=check_flash(gen, True, SEQ, SEQ, b=mbs, **w),
+            bwd=check_flash_bwd(gen, mbs, SEQ, SEQ, w["h"], w["hkv"], d, True))
     # K8-a..d: each rank's shard of K2, K3, K4 and K5 at Llama-3-8B's serving
     # shapes over tp = 2, against the unsharded kernels' outputs
     sharded = dict(sharded_decode_attention=check_sharded_decode(gen),
@@ -5281,13 +5519,15 @@ def main() -> int:
                   block_sparse_attention=sparse, paged_decode_attention_alibi=paged_decode_alibi,
                   paged_prefill_attention_alibi=paged_prefill_alibi, **sharded,
                   sharded_grouped_gemm=sharded_gmm,
-                  zoo_widths={f"d{d}": rows for d, rows in zoo_kernels.items()})
+                  zoo_widths={f"d{d}": rows for d, rows in zoo_kernels.items()},
+                  zoo_training_shapes={f"d{d}": rows for d, rows in zoo_train_kernels.items()})
     for row in (flash + [decode] + paged_decode + paged_prefill + flash_bwd + qmm
                 + [decode_int8] + paged_decode_int8 + paged_prefill_int8 + gmm + group_one
                 + gmm_bwd + sparse + paged_decode_alibi + paged_prefill_alibi
                 + list(sharded.values()) + sharded_gmm
                 + [r for rows in zoo_kernels.values() for v in rows.values()
-                   for r in (v if isinstance(v, list) else [v])]):
+                   for r in (v if isinstance(v, list) else [v])]
+                + [r for rows in zoo_train_kernels.values() for r in rows.values()]):
         print(json.dumps(row), flush=True)
     report["kernel_checks_s"] = time.perf_counter() - t0
     print(f"kernel checks: {report['kernel_checks_s']:.1f} s", flush=True)
@@ -5318,8 +5558,10 @@ def main() -> int:
     checkpoint_launches = phase(report, train_checkpoint, engine)
     del engine
     phase(report, train_reference)
+    zoo_train_launches = phase(report, train_zoo)
     phase(report, train_zero)
     phase(report, train_zeropp)
+    phase(report, train_zoo_zero)
     phase(report, train_mics)
     phase(report, train_onebit)
     moe_train_launches = phase(report, train_moe)
@@ -5333,7 +5575,7 @@ def main() -> int:
                 "serve_moe", "reference_moe", "train", "train_profile", "train_reference",
                 "sparse_path", "train_moe", "train_moe_reference", "serve_tp", "reference_tp",
                 "serve_ep", "reference_ep", "train_zero", "train_checkpoint", "train_moe_zero",
-                "train_zeropp", "train_mics", "train_onebit"):
+                "train_zeropp", "train_mics", "train_onebit", "train_zoo", "train_zoo_zero"):
         print(json.dumps({key: report[key]}), flush=True)
 
     kernels = [
@@ -5454,6 +5696,24 @@ def main() -> int:
             kernels.append(kernel_row(f"{kernel}_d{d}", f"deepspeed_tpu_torch/csrc/{source}",
                                       f"deepspeed_tpu/ops/pallas/{replaces}",
                                       zl[run][kernel], check))
+    # the zoo's training calls: K1-fwd and K1-bwd at phi-2's (D = 80) and
+    # pythia-1b's (D = 256) attention, launches from that model's `train_zoo`
+    # steps; a `train_batch`'s there and on each rank of `train_zoo_zero`
+    for _, name, _, d in ZOO:
+        zk, zl = zoo_train_kernels[d], zoo_train_launches[name]
+        dp_step = report["train_zoo_zero"]["models"][name]["launches_per_rank_per_train_batch"]
+        for kernel, check in (("flash_attention_fwd", zk["flash"]),
+                              ("flash_attention_bwd_dq", zk["bwd"]["flash_attention_bwd_dq"]),
+                              ("flash_attention_bwd_dkv", zk["bwd"]["flash_attention_bwd_dkv"])):
+            source = "fwd" if kernel == "flash_attention_fwd" else "bwd"
+            row = kernel_row(
+                f"{kernel}{'_training_shape' if source == 'fwd' else ''}_d{d}",
+                f"deepspeed_tpu_torch/csrc/flash_attention_{source}.cu",
+                "deepspeed_tpu/ops/pallas/flash_attention.py:"
+                + ("593" if source == "fwd" else "425"), zl[kernel], check)
+            row["launches_per_train_batch_by_path"] = dict(
+                train_zoo=zl[kernel] // ZOO_TRAIN_STEPS, train_zoo_zero_rank=dp_step[kernel])
+            kernels.append(row)
     # the training paths beyond the main one: per train_batch of
     # `train_checkpoint`'s resumed engine, and of each rank of
     # `train_zero` and `train_moe_zero` (rank 0, the stage 0 gmm run)

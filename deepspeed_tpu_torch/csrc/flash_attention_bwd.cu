@@ -21,14 +21,18 @@
 //     (:267); here p is rounded to bf16 for the tensor cores, which moves dv
 //     by about 2^-9 relative, well inside the 2e-2 bf16 tolerance against
 //     the plain version;
-//   * D is 64 or 128; Sq and Sk are any, the ragged edges masked here.
+//   * D is 64, 80, 128 or 256; Sq and Sk are any, the ragged edges masked
+//     here.
 //
 // Bound on an H100: five products of 2*D operations each per live
 // (query, key) pair and head, 10*D in all (S and dP are computed in both
 // kernels, so the kernels do 14*D), against reading q, k, v, o, dO, lse and
 // delta and writing dq, dk and dv once. At B=4, S=2048, H=32, Hkv=4, D=64
 // causal that is 1.72e11 operations (0.174 ms at 989 TFLOP/s bf16) against
-// ~0.2 GB (0.06 ms at 3.35 TB/s): the tensor cores bound it.
+// ~0.2 GB (0.06 ms at 3.35 TB/s): the tensor cores bound it. The zoo's
+// training calls are bound the same way: phi-2 (B=2, H = Hkv = 32, D = 80)
+// and pythia-1b (B=4, H = Hkv = 8, D = 256), S=2048 causal, give dq 0.065
+// and 0.104 ms, dk/dv 0.087 and 0.139 ms (6*D and 8*D operations a pair).
 //
 // Design. Nothing is carried between blocks, so each kernel owns its
 // outputs outright: no f32 intermediate in device memory, no atomic, and
@@ -42,8 +46,8 @@
 //     registers, and whose B operand (K, qs, dO) is read MN-major,
 //     transposed by the descriptor. Every tile is stored in wgmma's
 //     canonical 128-byte-swizzled layout, so one copy serves both uses.
-//   * dq (`DqCfg`): one block of two warpgroups per (q tile of 128 rows,
-//     head, batch). K and V tiles of 64 keys arrive by cp.async into a ring
+//   * dq (`DqCfg`): one block of NWG warpgroups per (q tile of 64*NWG rows,
+//     head, batch). K and V tiles of BK keys arrive by cp.async into a ring
 //     of three stages, the next tile's copy issued right after the barrier
 //     that opens the current one, and the wait on each tile's dq product
 //     deferred to the next tile. The block walks the KV tiles up to the
@@ -60,12 +64,32 @@
 //     tile when causal).
 //   * The mask is evaluated only on tiles that cross the diagonal or the
 //     sequence ends; the shared-memory opt-in is set once per device.
+// Other widths (`DP` of the configs: D rounded up to whole 64-column
+// swizzle blocks):
+//   * D = 80 fills no whole swizzle block, so every tile and the dq, dk and
+//     dv accumulators are padded to 128 columns, as in K1-fwd: the copies
+//     zero-fill columns 80-127 (no global read), S and dP take only their
+//     five real k-steps, the padded columns of dq, dk and dv come out zero
+//     (their K, qs and dO columns are) and only 80 columns are stored. The
+//     tiles are the D = 128 ones.
+//   * D = 256, dq: q and dO take 64 KB, so one warpgroup a block and K/V
+//     tiles of 32 keys keep the three-stage ring (96 KB, 161 KB in all);
+//     dq is 128 f32 registers a thread beside S's and dP's 16 each.
+//   * D = 256, dk/dv: dk and dv of 64 keys at 256 columns would be 256 f32
+//     registers a thread in one warpgroup. So two warpgroups share the
+//     block's 64 keys, each owning 128 of the 256 columns of dk and dv (128
+//     registers). Each forms the whole S^T and dP^T itself from the shared
+//     tiles (the same products on the same operands, so the two agree) and
+//     multiplies its half of qs and dO: no hand-over, no extra barrier, at
+//     the price of S^T and dP^T twice (12*D operations a pair against 8*D).
+//     K and V take 64 KB, a q step (32 rows) 33 KB: 164 KB with three stages.
 // What holds them: S and dP are computed in both kernels (14*D operations
 // a pair against 10*D); p and ds are formed on the warpgroups that issue
 // the products, so the tensor cores idle meanwhile; dk/dv rescales each q
-// tile in shared memory (one barrier more a step). TMA, warp
-// specialisation and one fused kernel (dq reduced in a fixed order) are
-// the next steps.
+// tile in shared memory (one barrier more a step); D = 80 pays the padding
+// on the RS products (1.6x), D = 256 one warpgroup a dq block and the
+// doubled S^T and dP^T. TMA, warp specialisation and one fused kernel (dq
+// reduced in a fixed order) are the next steps.
 
 #include "flash_attention_common.cuh"
 
@@ -75,27 +99,45 @@ constexpr int STAGES = 3;       // ring depth
 constexpr float LN2 = 0.6931471805599453f;
 
 // Tiles by head width. dq: NWG warpgroups of 64 query rows each, walking
-// KV tiles of BK keys. dk/dv: NWG warpgroups of 64 keys each, walking q
-// tiles of BQ rows. MINB is the number of blocks an SM should hold.
+// KV tiles of BK keys. dk/dv: NWG warpgroups in groups of CS that share 64
+// keys, each of a group owning DP/CS columns of dk and dv, walking q tiles
+// of BQ rows. MINB is the number of blocks an SM should hold; DP the width
+// of the shared tiles and the accumulators (header).
 template <int D>
 struct DqCfg;
 template <>
 struct DqCfg<64> {
-  static constexpr int NWG = 2, BK = 64, MINB = 2;
+  static constexpr int NWG = 2, BK = 64, MINB = 2, DP = 64;
+};
+template <>
+struct DqCfg<80> {
+  static constexpr int NWG = 2, BK = 64, MINB = 1, DP = 128;
 };
 template <>
 struct DqCfg<128> {
-  static constexpr int NWG = 2, BK = 64, MINB = 1;
+  static constexpr int NWG = 2, BK = 64, MINB = 1, DP = 128;
+};
+template <>
+struct DqCfg<256> {
+  static constexpr int NWG = 1, BK = 32, MINB = 1, DP = 256;
 };
 template <int D>
 struct DkvCfg;
 template <>
 struct DkvCfg<64> {
-  static constexpr int NWG = 1, BQ = 64, MINB = 2;
+  static constexpr int NWG = 1, BQ = 64, MINB = 2, DP = 64, CS = 1;
+};
+template <>
+struct DkvCfg<80> {
+  static constexpr int NWG = 2, BQ = 32, MINB = 1, DP = 128, CS = 1;
 };
 template <>
 struct DkvCfg<128> {
-  static constexpr int NWG = 2, BQ = 32, MINB = 1;
+  static constexpr int NWG = 2, BQ = 32, MINB = 1, DP = 128, CS = 1;
+};
+template <>
+struct DkvCfg<256> {
+  static constexpr int NWG = 2, BQ = 32, MINB = 1, DP = 256, CS = 2;
 };
 
 // Shared memory in bytes, every bf16 tile in the swizzled layout of
@@ -106,7 +148,7 @@ struct DqSmem {
   using C = DqCfg<D>;
   static constexpr int NTHREADS = C::NWG * 128;
   static constexpr int BQ = C::NWG * 64;          // query rows per block
-  static constexpr int CB = D / 64;
+  static constexpr int CB = C::DP / 64;
   static constexpr int QBLK = BQ * 128;           // one column block of q or dO
   static constexpr int KBLK = C::BK * 128;        // one column block of K or V
   static constexpr int q = 0;
@@ -119,9 +161,10 @@ template <int D>
 struct DkvSmem {
   using C = DkvCfg<D>;
   static constexpr int NTHREADS = C::NWG * 128;
-  static constexpr int BKV = C::NWG * 64;         // keys per block
+  static constexpr int BKV = C::NWG / C::CS * 64; // keys per block
+  static constexpr int DW = C::DP / C::CS;        // dk/dv columns a warpgroup owns
   static constexpr int BQ = C::BQ;
-  static constexpr int CB = D / 64;
+  static constexpr int CB = C::DP / 64;
   static constexpr int KBLK = BKV * 128;          // one column block of K or V
   static constexpr int QBLK = BQ * 128;           // one column block of q or dO
   static constexpr int k = 0;
@@ -153,7 +196,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     bf16* __restrict__ dq, int BH, int Sq, int Sk, int H, int Hkv,
                     int causal, float qscale, float scale) {
   using S = DqSmem<D>;
-  constexpr int BK = DqCfg<D>::BK, BQ = S::BQ, NT = S::NTHREADS, CB = S::CB;
+  constexpr int BK = DqCfg<D>::BK, DP = DqCfg<D>::DP, BQ = S::BQ, NT = S::NTHREADS,
+                CB = S::CB;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   unsigned char* sQ = smem + S::q;
@@ -184,11 +228,11 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto stage = [&](int t) { return smem + S::kv + (t % STAGES) * 2 * CB * S::KBLK; };
   auto issue_kv = [&](int t) {
-    cp_rows<BK, D, NT>(stage(t), kb, t * BK, Sk, Hkv * D);
-    cp_rows<BK, D, NT>(stage(t) + CB * S::KBLK, vb, t * BK, Sk, Hkv * D);
+    cp_rows<BK, D, NT, DP>(stage(t), kb, t * BK, Sk, Hkv * D);
+    cp_rows<BK, D, NT, DP>(stage(t) + CB * S::KBLK, vb, t * BK, Sk, Hkv * D);
   };
-  cp_rows<BQ, D, NT>(sQ, q + qrow * D, q0, Sq, H * D);
-  cp_rows<BQ, D, NT>(sDO, dout + qrow * D, q0, Sq, H * D);
+  cp_rows<BQ, D, NT, DP>(sQ, q + qrow * D, q0, Sq, H * D);
+  cp_rows<BQ, D, NT, DP>(sDO, dout + qrow * D, q0, Sq, H * D);
   issue_kv(0);
   cp_async_commit();
 
@@ -200,9 +244,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     row_lse[i] = lse[at];
     row_delta[i] = delta[at];
   }
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   const unsigned char* sQw = sQ + wg * 64 * 128;
   const unsigned char* sDOw = sDO + wg * 64 * 128;
 
@@ -224,8 +268,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const unsigned char* sV = sK + CB * S::KBLK;
     const int k0 = t * BK;
 
-    // S = qs.K^T and dP = dO.V^T for this warpgroup's 64 rows (the wait
-    // also retires the previous tile's dq product)
+    // S = qs.K^T and dP = dO.V^T for this warpgroup's 64 rows, D/16
+    // k-steps (the padding columns are never read; the wait also retires
+    // the previous tile's dq product)
     float s[BK / 2], dp[BK / 2];
     wg_fence();
     ss_product<D, BK, S::QBLK, S::KBLK>(s, sQw, sK);
@@ -251,12 +296,12 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t ds[BK / 16][4];
     pack_rows<BK>(ds, s);
     wg_fence();
-    rs_product<D, BK, S::KBLK>(acc, ds, sK);
+    rs_product<DP, BK, S::KBLK>(acc, ds, sK);
     wg_commit();
   }
   wg_wait_all();
 
-  // dq = scale * acc, written once
+  // dq = scale * acc over the D real columns, written once
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + i * 8;
@@ -277,7 +322,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int BHkv, int Sq, int Sk,
                      int H, int Hkv, int causal, float qscale) {
   using S = DkvSmem<D>;
-  constexpr int BQ = S::BQ, BKV = S::BKV, NT = S::NTHREADS, CB = S::CB;
+  constexpr int BQ = S::BQ, BKV = S::BKV, NT = S::NTHREADS, CB = S::CB, DP = DkvCfg<D>::DP,
+                CS = DkvCfg<D>::CS, DW = S::DW;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
 
@@ -288,9 +334,12 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_rep = H / Hkv;
   const int offset = Sk - Sq;
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  // this warpgroup's 64 keys (of the block's BKV) and its DW columns of dk
+  // and dv (of DP)
+  const int kgrp = wg / CS, part = wg % CS;
   const int cq = (lane % 4) * 2;
   // this thread's keys: key0 and key0 + 8
-  const int key0 = k0 + wg * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
+  const int key0 = k0 + kgrp * 64 + ((threadIdx.x / 32) % 4) * 16 + lane / 4;
 
   // the first q tile with a row that sees key k0 (`lo` of the TPU kernel)
   int lo = 0;
@@ -304,24 +353,25 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int q0 = (lo + it % per_head) * BQ;
     unsigned char* st = stage(it);
     const size_t qrow = (size_t)b * Sq * H + h;
-    cp_rows<BQ, D, NT>(st + S::s_q, q + qrow * D, q0, Sq, H * D);
-    cp_rows<BQ, D, NT>(st + S::s_dout, dout + qrow * D, q0, Sq, H * D);
+    cp_rows<BQ, D, NT, DP>(st + S::s_q, q + qrow * D, q0, Sq, H * D);
+    cp_rows<BQ, D, NT, DP>(st + S::s_dout, dout + qrow * D, q0, Sq, H * D);
     cp_vec<BQ, NT>(reinterpret_cast<float*>(st + S::s_lse), lse + ((size_t)b * H + h) * Sq, q0,
                    Sq);
     cp_vec<BQ, NT>(reinterpret_cast<float*>(st + S::s_delta), delta + ((size_t)b * H + h) * Sq,
                    q0, Sq);
   };
   const size_t kvrow = (size_t)b * Sk * Hkv + hk;
-  cp_rows<BKV, D, NT>(smem + S::k, k + kvrow * D, k0, Sk, Hkv * D);
-  cp_rows<BKV, D, NT>(smem + S::v, v + kvrow * D, k0, Sk, Hkv * D);
+  cp_rows<BKV, D, NT, DP>(smem + S::k, k + kvrow * D, k0, Sk, Hkv * D);
+  cp_rows<BKV, D, NT, DP>(smem + S::v, v + kvrow * D, k0, Sk, Hkv * D);
   if (n_steps > 0) issue(0);
   cp_async_commit();
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DW / 2], dv_acc[DW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  const unsigned char* sKw = smem + S::k + wg * 64 * 128;
-  const unsigned char* sVw = smem + S::v + wg * 64 * 128;
+  for (int i = 0; i < DW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const unsigned char* sKw = smem + S::k + kgrp * 64 * 128;
+  const unsigned char* sVw = smem + S::v + kgrp * 64 * 128;
+  const int cols = part * (DW / 64) * S::QBLK;  // this warpgroup's column blocks of qs, dO
 
   for (int it = 0; it < n_steps; ++it) {
     // step it has landed, and every warpgroup is done with step it - 2,
@@ -340,7 +390,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const int q0 = (lo + it % per_head) * BQ;
 
-    // S^T = K.qs^T and dP^T = V.dO^T for this warpgroup's 64 keys (the wait
+    // S^T = K.qs^T and dP^T = V.dO^T for this warpgroup's 64 keys over the
+    // D real columns, whole on each warpgroup of a column split (the wait
     // also retires the previous step's dV and dK products)
     float s[BQ / 2], dp[BQ / 2];
     wg_fence();
@@ -368,27 +419,29 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // dV += p^T.dO and dK += ds^T.qs, dO and qs read MN-major; waited at
-    // the next step
+    // dV += p^T.dO and dK += ds^T.qs on this warpgroup's DW columns, dO
+    // and qs read MN-major; waited at the next step
     uint32_t pt[BQ / 16][4], dst[BQ / 16][4];
     pack_rows<BQ>(pt, s);
     pack_rows<BQ>(dst, dp);
     wg_fence();
-    rs_product<D, BQ, S::QBLK>(dv_acc, pt, st + S::s_dout);
-    rs_product<D, BQ, S::QBLK>(dk_acc, dst, st + S::s_q);
+    rs_product<DW, BQ, S::QBLK>(dv_acc, pt, st + S::s_dout + cols);
+    rs_product<DW, BQ, S::QBLK>(dk_acc, dst, st + S::s_q + cols);
     wg_commit();
   }
   wg_wait_all();
   cp_async_wait_all();  // K and V when there was no step
 
-  // dk = ln2 * acc, dv = acc, this thread's keys, once
+  // dk = ln2 * acc, dv = acc, this thread's keys and the real columns of
+  // this warpgroup's DW, once
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int kj = key0 + i * 8;
     if (kj >= Sk) continue;
-    const size_t o = (kvrow + (size_t)kj * Hkv) * D;
+    const size_t o = (kvrow + (size_t)kj * Hkv) * D + part * DW;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DW / 8; ++n) {
+      if (part * DW + n * 8 >= D) break;
       *reinterpret_cast<__nv_bfloat162*>(dk + o + n * 8 + cq) =
           __floats2bfloat162_rn(dk_acc[4 * n + 2 * i] * LN2, dk_acc[4 * n + 2 * i + 1] * LN2);
       *reinterpret_cast<__nv_bfloat162*>(dv + o + n * 8 + cq) =
@@ -445,8 +498,14 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
     case 64:
       return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, qscale,
                            scale, s);
+    case 80:
+      return launch_dq<80>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, qscale,
+                           scale, s);
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, qscale,
+                            scale, s);
+    case 256:
+      return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, Sq, Sk, H, Hkv, causal, qscale,
                             scale, s);
     default:
       return cudaErrorInvalidValue;
@@ -464,8 +523,14 @@ extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const vo
     case 64:
       return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal,
                             qscale, s);
+    case 80:
+      return launch_dkv<80>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal,
+                            qscale, s);
     case 128:
       return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal,
+                             qscale, s);
+    case 256:
+      return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, B, Sq, Sk, H, Hkv, causal,
                              qscale, s);
     default:
       return cudaErrorInvalidValue;

@@ -219,8 +219,8 @@ def place_params(engine, params: Optional[Any] = None) -> Optional[Any]:
     engine._quantized = bool(cfg.quant and cfg.quant.get("enabled"))
     engine._capacity = None
     mode = _ALIASES.get(cfg.serve_mode, cfg.serve_mode)
-    if getattr(model, "serving_only", False) and (engine._quantized
-                                                  or mode in ("layer_scan", "capacity")):
+    if getattr(model, "resident_bf16_only", False) and (engine._quantized
+                                                        or mode in ("layer_scan", "capacity")):
         # the zoo families serve their bf16 weights resident on the card
         what = "quant" if engine._quantized else f"serve_mode={cfg.serve_mode!r}"
         raise _unported(f"{what} on {type(model).__name__}",

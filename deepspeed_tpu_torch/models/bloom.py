@@ -14,7 +14,12 @@ forms (K3-alibi, K4-alibi).
 
 `forward(input_ids, labels=...)` returns `(loss, {})`, with each block under
 `torch.utils.checkpoint` when `remat` is on (the JAX
-`remat_policy="nothing"`; other policies raise). The JAX parameter tree is
+`remat_policy="nothing"`; other policies raise). Under ZeRO stage 3 across
+data ranks a block's parameters are gathered inside its checkpointed
+function and the root's (the embedding, which is also the head, and the
+two LayerNorms outside the blocks) around the whole forward, as in
+`models/llama.py`; the blocks are `h` (`runtime/zero/partition.py`'s
+`BLOCK_LISTS`). The JAX parameter tree is
 `word_embeddings`, `word_embeddings_layernorm`, `h/...` stacked on the layer
 axis and `ln_f`; the tied head is the embedding, one tensor.
 """
@@ -35,6 +40,7 @@ from deepspeed_tpu_torch.models.common import (
     LayerNorm,
     causal_lm_loss,
     check_zoo_config,
+    gathered_block,
     init_zoo,
     make_causal_loss_fn,
 )
@@ -46,6 +52,7 @@ from deepspeed_tpu_torch.models.llama import (
     to_jax_params,
 )
 from deepspeed_tpu_torch.ops.attention import alibi_slopes, attention, cached_attention
+from deepspeed_tpu_torch.runtime.zero.partition import gathered
 
 __all__ = ["BloomConfig", "BloomForCausalLM", "PRESETS", "bloom_config", "bloom_loss_fn",
            "init_bloom", "load_jax_params", "to_jax_params"]
@@ -161,6 +168,8 @@ class BloomForCausalLM(nn.Module):
     cursors advanced. `logits_at` (B,) picks one position per row, and the
     LM head then runs on those rows only: logits (B, V)."""
 
+    zero3_gathers = True    # the forward gathers ZeRO-3 units (`gathered`)
+
     def __init__(self, cfg: BloomConfig, device=None, dtype=torch.float32):
         super().__init__()
         check_zoo_config(cfg)
@@ -187,6 +196,10 @@ class BloomForCausalLM(nn.Module):
 
     def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None):
+        with gathered(self):
+            return self._forward(input_ids, cache, logits_at, labels)
+
+    def _forward(self, input_ids, cache, logits_at, labels):
         cfg = self.cfg
         h = F.embedding(input_ids, self.word_embeddings.to(cfg.dtype))
         h = self.word_embeddings_layernorm(h)
@@ -209,8 +222,8 @@ class BloomForCausalLM(nn.Module):
             return logits, cache.replace(index=index + s)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.h:
-            h = checkpoint(layer, h, slopes, use_reentrant=False) if remat \
-                else layer(h, slopes)
+            h = checkpoint(gathered_block, layer, h, slopes, use_reentrant=False) if remat \
+                else gathered_block(layer, h, slopes)
         logits = self._lm_head(self.ln_f(h))
         if labels is None:
             return logits

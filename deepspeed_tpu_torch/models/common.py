@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.runtime.zero.partition import gathered
 
 IGNORE_INDEX = -100
 _RANK_LOCAL = False
@@ -66,6 +67,15 @@ class Dense(nn.Linear):
         check_model_group(self.reduce_over, "a row-parallel Dense")
         y = comm.all_reduce(F.linear(x.to(dt), self.weight.to(dt)), group="model")
         return y if bias is None else y + bias
+
+
+def gathered_block(layer: nn.Module, h, aux):
+    """One decoder block on its whole parameters: at ZeRO stage 3 across
+    data ranks (`runtime/zero/partition.gathered`) its pieces are gathered
+    here, so under `torch.utils.checkpoint` the recompute in backward
+    gathers them again and the checkpoint keeps only the rank's pieces."""
+    with gathered(layer):
+        return layer(h, aux)
 
 
 def check_zoo_config(cfg) -> None:

@@ -9,12 +9,14 @@ sequential form), partial rotary (`rotary_pct` of the head dim, phi's
 engines cast them to their dtype. Compute runs in `GPTNeoXConfig.dtype`,
 with the LayerNorms' statistics in f32.
 
-pythia-1b's heads are 256 wide: on the card `attention` runs K1-fwd and the
-cached paths K2, K3 and K4 at that width. Like phi, the module serves only
-(`serving_only`: `initialize`, the int8 and layer-streamed serve modes and
-tensor parallelism refuse it). The JAX parameter tree is `embed_in`,
-`layers/...` stacked on the layer axis, `final_layer_norm` and `embed_out`
-(D, V).
+pythia-1b's heads are 256 wide: on the card `attention` runs K1-fwd and
+K1-bwd and the cached paths K2, K3 and K4 at that width. Like phi, it trains
+through `initialize` with remat `"nothing"` and gathers its ZeRO-3 units
+(blocks inside their checkpointed functions, the root around the forward;
+`phi.run_blocks`), and the int8 and layer-streamed serve modes and tensor
+parallelism refuse it (`resident_bf16_only`). The JAX parameter tree is
+`embed_in`, `layers/...` stacked on the layer axis, `final_layer_norm` and
+`embed_out` (D, V).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from deepspeed_tpu_torch.models.llama import (
 from deepspeed_tpu_torch.models.phi import _partial_rope, run_blocks
 from deepspeed_tpu_torch.ops.attention import attention, cached_attention
 from deepspeed_tpu_torch.inference.kv_cache import update_layer
+from deepspeed_tpu_torch.runtime.zero.partition import gathered
 
 __all__ = ["GPTNeoXConfig", "GPTNeoXForCausalLM", "PRESETS", "gptneox_config",
            "gptneox_loss_fn", "init_gptneox", "load_jax_params", "to_jax_params"]
@@ -168,7 +171,8 @@ class GPTNeoXForCausalLM(nn.Module):
     `PagedKVCache`, cursors advanced; `logits_at` (B,) runs the head on
     one position a row: logits (B, V)."""
 
-    serving_only = True     # `initialize` refuses it (module docstring)
+    zero3_gathers = True        # the forward gathers ZeRO-3 units (`gathered`)
+    resident_bf16_only = True   # no int8 or layer-streamed serve mode (module docstring)
 
     def __init__(self, cfg: GPTNeoXConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -185,9 +189,10 @@ class GPTNeoXForCausalLM(nn.Module):
 
     def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None):
-        h = F.embedding(input_ids, self.embed_in.to(self.cfg.dtype))
-        return run_blocks(self, h, input_ids, cache, logits_at, labels, self.final_layer_norm,
-                          self.embed_out)
+        with gathered(self):
+            h = F.embedding(input_ids, self.embed_in.to(self.cfg.dtype))
+            return run_blocks(self, h, input_ids, cache, logits_at, labels,
+                              self.final_layer_norm, self.embed_out)
 
     def module_state(self, tree) -> dict:
         """Parameter names → tensors of a JAX tree (torch leaves)."""
@@ -221,6 +226,6 @@ def init_gptneox(cfg: GPTNeoXConfig, generator: torch.Generator, device=None,
 
 
 def gptneox_loss_fn(model: Optional[GPTNeoXForCausalLM] = None):
-    """The causal-LM loss function of the JAX signature; `initialize`
-    refuses the module itself (module docstring)."""
+    """The engine loss for a GPT-NeoX: `loss_fn(module, batch)` with labels
+    shifted from `input_ids` when the batch carries none."""
     return make_causal_loss_fn(model)

@@ -44,6 +44,7 @@ from deepspeed_tpu_torch.models.common import (
     Dense,
     causal_lm_loss,
     gather_vocab,
+    gathered_block,
     make_causal_loss_fn,
     vocab_parallel_embedding,
 )
@@ -218,12 +219,6 @@ class LlamaBlock(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
-def _block(layer: LlamaBlock, h, cos_sin):
-    """One decoder block on its whole parameters (gathered at stage 3)."""
-    with gathered(layer):
-        return layer(h, cos_sin)
-
-
 class LlamaForCausalLM(nn.Module):
     """`forward(input_ids)` → logits (B, S, V); `forward(input_ids,
     labels=labels)` → (causal-LM loss, {}); `forward(input_ids,
@@ -291,8 +286,8 @@ class LlamaForCausalLM(nn.Module):
         cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = checkpoint(_block, layer, h, (cos, sin), use_reentrant=False) if remat \
-                else _block(layer, h, (cos, sin))
+            h = checkpoint(gathered_block, layer, h, (cos, sin), use_reentrant=False) \
+                if remat else gathered_block(layer, h, (cos, sin))
         logits = self._lm_head(self.norm(h))
         if labels is None:
             return logits

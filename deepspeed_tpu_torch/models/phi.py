@@ -9,16 +9,21 @@ at construction, as the JAX package's `param_dtype`; the engines cast them
 to their dtype. Compute runs in `PhiConfig.dtype`, with the LayerNorms'
 statistics in f32.
 
-phi-2's heads are 80 wide: on the card `attention` runs the flash forward
-kernel (K1-fwd) and the cached paths the decode kernels (K2 on a dense
-cache, K3 and K4 on the v2 engine's paged cache) at that width.
+phi-2's heads are 80 wide: on the card `attention` runs the flash kernels
+at that width, K1-fwd forward and K1-bwd (dq, dk/dv) backward, and the
+cached paths the decode kernels (K2 on a dense cache, K3 and K4 on the v2
+engine's paged cache).
 
-The module serves only: `initialize` refuses it (`serving_only`; the
-flash backward is built at head dims 64 and 128), and so do the int8 and
-layer-streamed serve modes and tensor parallelism. `forward(input_ids,
-labels=...)` still gives the causal-LM loss. The JAX parameter tree is
-`embed_tokens`, `layers/...` stacked on the layer axis, `final_layernorm`,
-`lm_head` (D, V) and `lm_head_bias` (V,).
+`forward(input_ids, labels=...)` returns `(loss, {})` for training through
+`initialize`, with each block under `torch.utils.checkpoint` when `remat`
+is on (the JAX `remat_policy="nothing"`; other policies raise). Under ZeRO
+stage 3 across data ranks a block's parameters are gathered inside its
+checkpointed function and the root's (embedding, final LayerNorm, head and
+its bias) around the whole forward, as in `models/llama.py`. The int8 and
+layer-streamed serve modes and tensor parallelism refuse the module
+(`resident_bf16_only`). The JAX parameter tree is `embed_tokens`,
+`layers/...` stacked on the layer axis, `final_layernorm`, `lm_head` (D, V)
+and `lm_head_bias` (V,).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from deepspeed_tpu_torch.models.common import (
     LayerNorm,
     causal_lm_loss,
     check_zoo_config,
+    gathered_block,
     gelu,
     init_zoo,
     make_causal_loss_fn,
@@ -54,6 +60,7 @@ from deepspeed_tpu_torch.ops.attention import (
     cached_attention,
     rope_cos_sin,
 )
+from deepspeed_tpu_torch.runtime.zero.partition import gathered
 
 __all__ = ["PhiConfig", "PhiForCausalLM", "PRESETS", "phi_config", "phi_loss_fn", "init_phi",
            "load_jax_params", "to_jax_params"]
@@ -183,7 +190,8 @@ def run_blocks(model, h, input_ids, cache, logits_at, labels, final_norm, lm_hea
     with a cache, cursors and mask): with a dense `KVCache` or a
     `PagedKVCache`, (logits, cache) with the cursors advanced (`logits_at`
     picks one position a row and the head runs on it alone); without,
-    logits, or the causal-LM loss with `labels`."""
+    logits, or the causal-LM loss with `labels`, each block on its gathered
+    parameters (`gathered_block`), under remat when it is on."""
     cfg = model.cfg
     if cache is not None:
         b, s = input_ids.shape
@@ -204,8 +212,8 @@ def run_blocks(model, h, input_ids, cache, logits_at, labels, final_norm, lm_hea
     cos, sin, _ = rope_tables(cfg, input_ids, device=h.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in model.layers:
-        h = checkpoint(layer, h, (cos, sin), use_reentrant=False) if remat \
-            else layer(h, (cos, sin))
+        h = checkpoint(gathered_block, layer, h, (cos, sin), use_reentrant=False) if remat \
+            else gathered_block(layer, h, (cos, sin))
     logits = lm_head(final_norm(h))
     if labels is None:
         return logits
@@ -220,7 +228,8 @@ class PhiForCausalLM(nn.Module):
     cursors advanced. `logits_at` (B,) picks one position per row, and the
     LM head then runs on those rows only: logits (B, V)."""
 
-    serving_only = True     # `initialize` refuses it (module docstring)
+    zero3_gathers = True        # the forward gathers ZeRO-3 units (`gathered`)
+    resident_bf16_only = True   # no int8 or layer-streamed serve mode (module docstring)
 
     def __init__(self, cfg: PhiConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -238,9 +247,10 @@ class PhiForCausalLM(nn.Module):
 
     def forward(self, input_ids, cache=None, logits_at: Optional[torch.Tensor] = None,
                 labels: Optional[torch.Tensor] = None):
-        h = F.embedding(input_ids, self.embed_tokens.to(self.cfg.dtype))
-        return run_blocks(self, h, input_ids, cache, logits_at, labels, self.final_layernorm,
-                          self.lm_head)
+        with gathered(self):
+            h = F.embedding(input_ids, self.embed_tokens.to(self.cfg.dtype))
+            return run_blocks(self, h, input_ids, cache, logits_at, labels,
+                              self.final_layernorm, self.lm_head)
 
     def module_state(self, tree) -> dict:
         """Parameter names → tensors of a JAX tree (torch leaves)."""
@@ -276,6 +286,6 @@ def init_phi(cfg: PhiConfig, generator: torch.Generator, device=None,
 
 
 def phi_loss_fn(model: Optional[PhiForCausalLM] = None):
-    """The causal-LM loss function of the JAX signature; `initialize`
-    refuses the module itself (module docstring)."""
+    """The engine loss for a phi: `loss_fn(module, batch)` with labels
+    shifted from `input_ids` when the batch carries none."""
     return make_causal_loss_fn(model)

@@ -7,10 +7,18 @@ TPU kernel's function: base-2 softmax over a query pre-scaled by
 softmax_scale*log2(e) and rounded to its dtype, bottom-right aligned causal
 masking with NEG_INF, GQA by KV head h // n_rep, and a base-2 lse.
 
-The backward (`flash_attention_bwd`) is the TPU `_bwd`: delta = rowsum(dO*O)
-in f32 as a plain reduction, then the dq kernel and the dk/dv kernel of
+The backward (`flash_attention_bwd`) is the TPU `_bwd` (:425, its
+`pallas_call`s at :449, :474, :506 and :537): delta = rowsum(dO*O) in f32 as
+a plain reduction, then the dq kernel and the dk/dv kernel of
 `csrc/flash_attention_bwd.cu` on CUDA, or `flash_attention_bwd_plain` on the
-CPU. `FlashAttention` is the autograd Function that joins the two, as
+CPU. Both kernels are built at the forward's head dims, 64, 80, 128 and
+256 (`HEAD_DIMS`). On an H100 the tensor cores bound them: dq does 6*D
+operations a live (query, key) pair and head, dk/dv 8*D (phi-2's training
+call, B=2, S=2048, H = Hkv = 32, D = 80 causal: 0.065 and 0.087 ms;
+pythia-1b's, B=4, H = Hkv = 8, D = 256: 0.104 and 0.139 ms). D = 80 runs on
+tiles padded to 128 columns; D = 256 takes one warpgroup a dq block and
+splits dk/dv's columns over two warpgroups that share 64 keys (the source's
+header). `FlashAttention` is the autograd Function that joins the two, as
 `jax.custom_vjp` does in the JAX package; `flash_attention` goes through it
 whenever grad mode is on and an input requires grad.
 """
@@ -28,8 +36,7 @@ from deepspeed_tpu_torch.op_builder import KernelLibrary
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
-HEAD_DIMS = (64, 80, 128, 256)     # the forward kernel's widths
-BWD_HEAD_DIMS = (64, 128)          # the backward kernels' (ROADMAP.md, Queue 2)
+HEAD_DIMS = (64, 80, 128, 256)     # the widths every K1 kernel is built at
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = KernelLibrary("flash_attention_fwd.cu", {
@@ -146,7 +153,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool = True,
     return dq, dk, dv
 
 
-def _check(q, k, v, causal, what: str, head_dims=HEAD_DIMS):
+def _check(q, k, v, causal, what: str):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{what}: {name} is on {t.device}, q on {q.device}")
@@ -161,8 +168,8 @@ def _check(q, k, v, causal, what: str, head_dims=HEAD_DIMS):
                          f"v {tuple(v.shape)} do not match")
     if h % k.shape[2]:
         raise ValueError(f"{what}: H={h} is not a multiple of Hkv={k.shape[2]}")
-    if d not in head_dims:
-        raise ValueError(f"{what}: head dim {d} not in {head_dims}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
     if causal and sq > k.shape[1]:
         raise ValueError(f"{what}: causal attention needs Sq <= Sk")
 
@@ -217,7 +224,7 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
                            softmax_scale: Optional[float] = None) -> torch.Tensor:
     """The dq kernel on CUDA tensors: dq (B,Sq,H,D) in q's dtype."""
-    _check(q, k, v, causal, "flash_attention_bwd_dq", BWD_HEAD_DIMS)
+    _check(q, k, v, causal, "flash_attention_bwd_dq")
     _check_rows(q, do, lse, delta, "flash_attention_bwd_dq")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -241,7 +248,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dk/dv kernel on CUDA tensors: (dk, dv) (B,Sk,Hkv,D) in k's dtype,
     each summed over its GQA group inside the kernel."""
-    _check(q, k, v, causal, "flash_attention_bwd_dkv", BWD_HEAD_DIMS)
+    _check(q, k, v, causal, "flash_attention_bwd_dkv")
     _check_rows(q, do, lse, delta, "flash_attention_bwd_dkv")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -269,7 +276,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal, softmax_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    _check(q, k, v, causal, "flash_attention_bwd", BWD_HEAD_DIMS)
+    _check(q, k, v, causal, "flash_attention_bwd")
     delta = _delta(out, do).contiguous()
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, softmax_scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, softmax_scale)

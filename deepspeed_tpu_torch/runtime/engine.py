@@ -55,8 +55,8 @@ place; where the JAX step selects the old target and optimizer state on
 an overflow, this one does not call the optimizer. The MoE families train
 across data ranks with their gate over the global batch
 (`moe/sharded_moe.py`), at every stage; stage 3 needs a model whose
-forward gathers its units (`zero3_gathers`: Llama and the MoE families,
-not BLOOM), and tensor- or expert-parallel topologies do not train
+forward gathers its units (`zero3_gathers`: Llama, the MoE families,
+BLOOM, phi and GPT-NeoX), and tensor- or expert-parallel topologies do not train
 (ROADMAP.md, Queue 1, 'Multi-GPU').
 
 Checkpoints: `save_checkpoint`, `load_checkpoint` and `save_16bit_model`,
@@ -146,10 +146,6 @@ class DeepSpeedEngine:
                  config: Optional[DeepSpeedConfig] = None, model_parameters: Any = None,
                  training_data=None, collate_fn=None, lr_scheduler=None,
                  optimizer: Optional[GradientTransformation] = None, device=None):
-        if getattr(model, "serving_only", False):
-            # the zoo families' head widths (80, 256) have no K1-bwd yet
-            raise unported(f"training {type(model).__name__} (the flash backward at head "
-                           f"dim {model.cfg.head_dim})", "Training: the rest")
         self.config = config if config is not None else DeepSpeedConfig(None)
         config = self.config
         self.accelerator = get_accelerator(device)

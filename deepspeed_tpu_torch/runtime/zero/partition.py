@@ -73,29 +73,43 @@ Tree = Dict[str, torch.Tensor]
 Order = Tuple[Tuple[int, ...], int]    # (perm to flax layout, chunk dim)
 _WARNED = set()
 QUANT_BLOCK = 256
+# the `nn.ModuleList` a model keeps its decoder blocks in, which the JAX
+# model scans (its leaves stacked on a leading L axis): `h` is BLOOM's
+BLOCK_LISTS = ("layers", "h")
+
+
+def decoder_blocks(module: nn.Module) -> Tuple[str, List[nn.Module]]:
+    """(the attribute, the blocks) of the module's decoder blocks, or ("", [])."""
+    for attr in BLOCK_LISTS:
+        blocks = getattr(module, attr, None)
+        if isinstance(blocks, nn.ModuleList):
+            return attr, list(blocks)
+    return "", []
 
 
 def jax_leaf_shape(module: nn.Module, name: str) -> Tuple[int, ...]:
     """The shape of parameter `name` as a leaf of the JAX tree: an
     `nn.Linear` weight (out, in) as the flax kernel (in, out), a leaf of
-    decoder layer `layers.i` stacked on a leading L axis."""
+    decoder layer `layers.i` (`h.i`) stacked on a leading L axis."""
     *owner_path, attr = name.split(".")
     owner = module.get_submodule(".".join(owner_path))
     shape = tuple(getattr(owner, attr).shape)
     if isinstance(owner, nn.Linear) and attr == "weight":
         shape = shape[::-1]
-    if owner_path[:1] == ["layers"]:
-        shape = (len(module.layers),) + shape
+    blocks_attr, blocks = decoder_blocks(module)
+    if owner_path[:1] == [blocks_attr]:
+        shape = (len(blocks),) + shape
     return shape
 
 
 def jax_leaf_key(name: str) -> str:
     """The JAX leaf parameter `name` is part of: a decoder layer's
-    `layers.<i>.<rest>` over every i stacked into `layers.*.<rest>` (the
-    JAX models scan their layers), any other name itself."""
+    `layers.<i>.<rest>` (`h.<i>.<rest>`) over every i stacked into
+    `layers.*.<rest>` (the JAX models scan their layers), any other name
+    itself."""
     parts = name.split(".")
-    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
-        return ".".join(["layers", "*"] + parts[2:])
+    if len(parts) > 2 and parts[0] in BLOCK_LISTS and parts[1].isdigit():
+        return ".".join([parts[0], "*"] + parts[2:])
     return name
 
 
@@ -124,7 +138,7 @@ class ZeroShardingPlan:
         stacked leaf, less the layer axis."""
         shape = jax_leaf_shape(root, name)
         dim = self.chunk_dim(shape)
-        if name.startswith("layers."):
+        if jax_leaf_key(name) != name:
             if dim == 0:
                 raise unported(f"ZeRO on {name}, which the JAX plan shards along its "
                                f"layer axis {tuple(shape)}", "Multi-GPU")
@@ -412,15 +426,14 @@ class UnitLeaves:
 
 
 def model_units(module: nn.Module, plan: ZeroShardingPlan, rank: int) -> List[UnitLeaves]:
-    """The root (every parameter outside `module.layers`), then each
-    decoder layer of `module.layers`, as units."""
-    layers = getattr(module, "layers", None)
-    blocks = list(layers) if isinstance(layers, nn.ModuleList) else []
+    """The root (every parameter outside the decoder blocks), then each
+    decoder block (`decoder_blocks`), as units."""
+    blocks_attr, blocks = decoder_blocks(module)
     names = [n for n, _ in module.named_parameters()]
-    inside = lambda n: blocks and n.startswith("layers.")
+    inside = lambda n: blocks and n.startswith(blocks_attr + ".")
     units = [UnitLeaves(module, "", [n for n in names if not inside(n)], plan, rank, module)]
     for i, block in enumerate(blocks):
-        prefix = f"layers.{i}"
+        prefix = f"{blocks_attr}.{i}"
         units.append(UnitLeaves(block, prefix,
                                 [n for n in names if n.startswith(prefix + ".")], plan,
                                 rank, module))

@@ -60,9 +60,12 @@ widths, 80 (phi-2) and 256 (pythia-1b): K1-fwd over every K1 shape at GQA
 groups 1 and 4, K2, K3 (staged, windowed, long rows) and K4 (ragged tiles)
 in bf16 and int8 at a group of one (K4 also at 4), each to 2e-2 and two
 calls bitwise equal, the int8 forms with unit scales bitwise the bf16
-kernels; what is not built at those widths raises (groups above one on K2
-and K3, alibi, the flash backward); and a 2-layer phi and GPT-NeoX serve
-through v1 and v2 with every kernel launch counted, against the CPU in f32.
+kernels; K1-bwd over every K1 shape and group, two calls bitwise equal;
+what is not built at those widths raises (groups above one on K2 and K3,
+alibi); a 2-layer phi and GPT-NeoX serve through v1 and v2 with every
+kernel launch counted, against the CPU in f32; and a 2-layer phi,
+GPT-NeoX and BLOOM train two `train_batch` steps on the card, K1's
+launches counted, against the CPU in f32.
 """
 
 from dataclasses import replace as dataclasses_replace
@@ -404,12 +407,14 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, n_rep, d, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("b,causal,sq,sk", FLASH_SHAPES)
 def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, causal, sq, sk, n_rep, d):
     """K1-bwd: dq and dk/dv against the plain backward, each launching once;
-    dk/dv sum the GQA group inside the kernel."""
+    dk/dv sum the GQA group inside the kernel. At D = 80 the tiles are
+    padded to 128 columns; at D = 256 dq takes one warpgroup a block and
+    dk/dv's columns split over two warpgroups that share the keys."""
     hkv = 2
     rng = np.random.default_rng([b, sq, sk, n_rep, d, 1])
     q, k, v = (_bf16(x, cuda_device) for x in _qkv(rng, b, sq, sk, hkv * n_rep, hkv, d))
@@ -428,7 +433,7 @@ def test_flash_bwd_kernels_match_plain_on_card(cuda_device, b, causal, sq, sk, n
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bwd_is_deterministic_on_card(cuda_device, causal, d):
     """K1-bwd gives the same bits on every call: dq and dk/dv each own their
@@ -464,7 +469,8 @@ def test_flash_function_grads_match_plain_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["head_dim", "dtype"])
 def test_flash_bwd_refuses_other_shapes_on_card(cuda_device, bad):
-    """A CUDA backward outside the kernels' variants raises, with no launch."""
+    """A CUDA backward outside the kernels' variants (D = 96 is not built)
+    raises, with no launch."""
     d, dtype = {"head_dim": (96, torch.bfloat16), "dtype": (64, torch.float16)}[bad]
     q = torch.zeros((1, 16, 4, d), dtype=dtype, device=cuda_device)
     k = torch.zeros((1, 16, 2, d), dtype=dtype, device=cuda_device)
@@ -1664,8 +1670,9 @@ def test_int8_kernels_at_zoo_widths_with_unit_scales_equal_bf16_on_card(cuda_dev
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", ZOO_WIDTHS)
 def test_zoo_widths_refuse_what_is_not_built_on_card(cuda_device, d):
-    """At D = 80 and 256: K2 and K3 at a GQA group of 4, alibi on K3 and
-    K4, and the flash backward raise before a launch; nothing falls back."""
+    """At D = 80 and 256: K2 and K3 at a GQA group of 4, and alibi on K3
+    and K4, raise before a launch; nothing falls back. (The flash backward
+    is built at both widths: `test_flash_bwd_kernels_match_plain_on_card`.)"""
     from deepspeed_tpu_torch.ops.attention import alibi_slopes
     rng = np.random.default_rng(600 + d)
     k, v, tables = _paged(rng, cuda_device, [1, 1], 2, d)
@@ -1674,8 +1681,7 @@ def test_zoo_widths_refuse_what_is_not_built_on_card(cuda_device, d):
     q1 = torch.zeros((2, 1, 2, d), dtype=torch.bfloat16, device=cuda_device)
     counts = lambda: (decode_attention.launches, paged_decode_attention.launches,  # noqa: E731
                       paged_prefill_attention.launches, paged_decode_attention.launches_alibi,
-                      paged_prefill_attention.launches_alibi,
-                      flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+                      paged_prefill_attention.launches_alibi)
     before = counts()
     dense = torch.zeros((2, 16, 2, d), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="group sizes"):
@@ -1688,10 +1694,6 @@ def test_zoo_widths_refuse_what_is_not_built_on_card(cuda_device, d):
     with pytest.raises(ValueError, match="alibi"):
         paged_prefill_attention(q1.expand(2, 4, -1, -1).contiguous(), k, v, tables, lengths,
                                 alibi=slopes)
-    q, kk, vv = (_bf16(x, cuda_device) for x in _qkv(rng, 2, 16, 16, 2, 2, d))
-    out, lse = flash_attention_fwd(q, kk, vv)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention_bwd(q, kk, vv, out, lse, torch.ones_like(q))
     assert counts() == before
 
 
@@ -1744,3 +1746,53 @@ def test_zoo_model_serves_through_the_kernels_on_card(cuda_device, family):
     assert after[0] == before[0] and after[1] == before[1]
     assert after[2] > before[2] and after[3] > before[3]
     assert [len(g) for g in got] == [44, 29]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["phi", "gptneox", "bloom"])
+def test_zoo_model_trains_through_the_kernels_on_card(cuda_device, family):
+    """Two `train_batch` steps of a 2-layer phi (heads of 80), GPT-NeoX
+    (heads of 256) and BLOOM in bf16 on the card, remat on: K1-fwd twice
+    and K1-bwd dq and dk/dv once a layer and micro at the zoo's widths
+    (none for BLOOM, whose alibi takes the masked path), against the same
+    weights in f32 on the CPU (loss 1e-2, grad norm 5e-2 relative, as
+    `test_train_batch_on_card_matches_cpu_f32`)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import bloom, gptneox, phi
+    cls, config_fn, init, loss_fn, preset, shape = {
+        "phi": (phi.PhiForCausalLM, phi.phi_config, phi.init_phi, phi.phi_loss_fn, "phi-2",
+                dict(hidden_size=320, intermediate_size=1280, num_attention_heads=4,
+                     num_key_value_heads=4)),
+        "gptneox": (gptneox.GPTNeoXForCausalLM, gptneox.gptneox_config,
+                    gptneox.init_gptneox, gptneox.gptneox_loss_fn, "pythia-1b",
+                    dict(hidden_size=512, intermediate_size=2048, num_attention_heads=2)),
+        "bloom": (bloom.BloomForCausalLM, bloom.bloom_config, bloom.init_bloom,
+                  bloom.bloom_loss_fn, "bloom-560m", dict(hidden_size=256,
+                                                          num_attention_heads=4)),
+    }[family]
+    shape = dict(shape, num_hidden_layers=2, vocab_size=512, remat=True)
+    config = {"train_micro_batch_size_per_gpu": 2, "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}, "gradient_clipping": 1.0}
+    cpu_model = init(config_fn(preset, dtype=torch.float32, **shape),
+                     torch.Generator().manual_seed(0))
+    card_model = cls(config_fn(preset, dtype=torch.bfloat16, **shape))
+    card_model.load_state_dict(cpu_model.state_dict())
+    ids = np.random.default_rng(1).integers(0, 512, (2, 4, 128))
+    results = []
+    for model, cfg, device in ((card_model, dict(config, bf16={"enabled": True}), None),
+                               (cpu_model, config, "cpu")):
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=cfg,
+                                                    loss_fn=loss_fn(model), device=device)
+        launches = (flash_attention_fwd.launches, flash_attention_bwd_dq.launches,
+                    flash_attention_bwd_dkv.launches)
+        steps = [(float(engine.train_batch(batch={"input_ids": b})),
+                  engine.get_global_grad_norm()) for b in ids]
+        results.append(steps)
+        if device is None:   # 2 layers x 2 micros x 2 steps; remat runs the forward twice
+            want = (0, 0, 0) if family == "bloom" else (16, 8, 8)
+            assert (flash_attention_fwd.launches - launches[0],
+                    flash_attention_bwd_dq.launches - launches[1],
+                    flash_attention_bwd_dkv.launches - launches[2]) == want
+    for (card_loss, card_norm), (cpu_loss, cpu_norm) in zip(*results):
+        assert np.isfinite(card_loss) and abs(card_loss - cpu_loss) <= 1e-2 * abs(cpu_loss)
+        assert abs(card_norm - cpu_norm) <= 5e-2 * abs(cpu_norm)

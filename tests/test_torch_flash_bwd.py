@@ -4,7 +4,8 @@
 the same numpy q, k, v and dO as `jax.vjp` of the JAX `flash_attention`,
 whose backward Pallas kernels run in interpret mode with 16-row tiles, so
 the triangular grid (Sq == Sk) and the rectangular one (Sq < Sk, and no
-mask) both run over several tiles. In fp32 the gradients agree to
+mask) both run over several tiles, at every head dim the kernels are
+built for (64, 80, 128, 256). In fp32 the gradients agree to
 1e-5 x max(1, max |ref|). The `FlashAttention` Function's gradients on the
 CPU are held to autograd through `reference_attention` at 1e-4, and the
 masked attention paths stay differentiable, as in the JAX package.
@@ -48,7 +49,7 @@ def _inputs(seed, sq, sk, h, hkv, d, b=1):
     return [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("n_rep", [1, 2, 4])
 @pytest.mark.parametrize("causal,sq,sk", CASES)
 def test_flash_bwd_plain_matches_jax_vjp(causal, sq, sk, n_rep, d):

@@ -13,8 +13,9 @@ for a model without alibi) must be equal. `load_hf_checkpoint` reads a
 `pytorch_model.bin` that the test writes from a tiny `transformers` Phi and
 GPTNeoX built from a config: its tree equals the JAX loader's bit for bit,
 and the port's logits are held to 1e-4 against the HF model's own. The
-refusals (training, the int8 and layer-streamed serve modes, other
-checkpoint families) name their ROADMAP items.
+refusals (remat policies other than "nothing", the int8 and layer-streamed
+serve modes, other checkpoint families) name their ROADMAP items; training
+is held to the JAX engine in `tests/test_torch_zoo_training.py`.
 """
 
 import jax
@@ -234,9 +235,11 @@ def test_load_hf_checkpoint_matches_jax_and_hf(family, tmp_path):
 
 def test_refusals_name_their_roadmap_items(cases):
     _, _, model, tree = cases["phi-tiny"]
-    with pytest.raises(NotImplementedError, match="Training: the rest"):
-        deepspeed_tpu_torch.initialize(model=model, config={
-            "train_micro_batch_size_per_gpu": 1, "optimizer": {"type": "Adam"}}, device="cpu")
+    for cls, config, preset in ((phi.PhiForCausalLM, phi.phi_config, "phi-tiny"),
+                                (gptneox.GPTNeoXForCausalLM, gptneox.gptneox_config,
+                                 "neox-tiny")):
+        with pytest.raises(NotImplementedError, match="Training: the rest"):
+            cls(config(preset, remat=True, remat_policy="dots"))
     for kw in (dict(serve_mode="layer_scan", quant={"enabled": True}),
                dict(serve_mode="capacity"), dict(quant={"enabled": True})):
         with pytest.raises(NotImplementedError, match="Weight quantization and serve modes"):

@@ -3,7 +3,8 @@
 Started by `tests/torch_tp_ranks.py:spawn` (two processes, three or four,
 a `gloo` group), each rank installs `MeshTopology()` (every rank on
 `data`) and runs one of the scenarios below: the ZeRO stages, checkpoints
-saved and resumed across data ranks, and the MoE families' training; or,
+saved and resumed across data ranks, and the MoE and zoo families'
+training; or,
 through `zeropp_scenarios`, leaves the topology to `initialize` (MiCS and
 hpZ build `repl` x `data` from the config) and runs ZeRO++, MiCS and the
 1-bit wire. Like that
@@ -205,6 +206,49 @@ def resume(rank, trees, start, config, batches, load_dir=None, save_dir=None,
     return out
 
 
+# The zoo's families at the widths of their kernels: family -> (preset,
+# overrides, attn_impl), one config on both sides. phi's heads are 80 wide
+# and GPT-NeoX's 256 (phi-2's and pythia-1b's), both on the flash path;
+# BLOOM's alibi takes the masked path.
+ZOO = {"phi": ("phi-tiny", dict(hidden_size=160, num_attention_heads=2,
+                                num_key_value_heads=2), "pallas"),
+       "neox": ("neox-tiny", dict(hidden_size=512, num_attention_heads=2), "pallas"),
+       "bloom": ("bloom-tiny", {}, "auto")}
+
+
+def zoo_model(family, device=None, remat=True, **overrides):
+    """A zoo family's 2-layer model (`ZOO`) in f32, and its loss function."""
+    from deepspeed_tpu_torch.models import bloom, gptneox, phi
+    cls, config_fn, loss_fn = {
+        "phi": (phi.PhiForCausalLM, phi.phi_config, phi.phi_loss_fn),
+        "neox": (gptneox.GPTNeoXForCausalLM, gptneox.gptneox_config, gptneox.gptneox_loss_fn),
+        "bloom": (bloom.BloomForCausalLM, bloom.bloom_config, bloom.bloom_loss_fn)}[family]
+    preset, base, attn = ZOO[family]
+    model = cls(config_fn(preset, dtype=torch.float32, remat=remat,
+                          **{**base, "attn_impl": attn, **overrides}), device=device)
+    return model, loss_fn(model)
+
+
+def zoo_engine(family, tree, config, remat=True, **overrides):
+    """The port's engine over a zoo family's 2-layer model (`zoo_model`),
+    built from the JAX tree `tree`, remat on unless asked otherwise."""
+    import deepspeed_tpu_torch
+    model, loss_fn = zoo_model(family, remat=remat, **overrides)
+    engine, *_ = deepspeed_tpu_torch.initialize(model=model, model_parameters=tree,
+                                                config=config, loss_fn=loss_fn, device="cpu")
+    return engine
+
+
+def train_zoo(rank, trees, family, config, batches):
+    """A zoo family (`ZOO`) at dp ranks on this rank's rows: per step
+    (loss, pre-clip grad norm, the next lr), the final whole parameters and
+    whether the module's sharded leaves hold nothing (stage 3)."""
+    engine = zoo_engine(family, trees[family], config)
+    steps = _steps(engine, batches, rank)
+    empty = sorted(n for n, p in engine.module.named_parameters() if p.numel() == 0)
+    return dict(steps=steps, tree=_whole_tree(engine), empty=empty)
+
+
 def _moe_engine(family, tree, config, dispatch, overrides):
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import mixtral, qwen2_moe
@@ -258,7 +302,7 @@ def scenarios(rank, tree, runs):
     """Every run of `runs` ({name: (kind, args)}) in turn, in one process."""
     _install()
     fns = {"train": train, "fp16": train_fp16, "resume": resume, "moe": train_moe,
-           "noise": gate_noise}
+           "noise": gate_noise, "zoo": train_zoo}
     return {name: fns[kind](rank, tree, *args) for name, (kind, args) in runs.items()}
 
 
